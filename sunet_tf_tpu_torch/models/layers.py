@@ -1,0 +1,432 @@
+"""SUNet building blocks as torch modules, NHWC at every public call.
+
+Counterparts of ``sunet_tf_tpu/models/layers.py``. Attribute names follow
+the reference checkpoint keys (``tools/export_torch_checkpoint.py``), so a
+reference ``state_dict`` loads with ``load_state_dict``: Linear weights are
+(out, in), 1x1 convs are Conv2d weights (out, in, 1, 1), PReLU slopes are
+``weight``.
+
+Mixed precision as in the JAX package: parameters are stored in float32 and
+cast to the activation dtype at each product; LayerNorm and softmax run in
+float32.
+
+Two routes per block, chosen by ``backend``:
+
+- ``"eager"``: plain PyTorch with the JAX XLA path's semantics. It is the
+  oracle for every kernel and the explicit float32 route.
+- ``"fused"``: the JAX Pallas path's routing (``SwinBlock.__call__``,
+  ``chain_fusable_len``): whole-block kernel at C <= ``ROUTE_BLOCK_MAX_C``,
+  W->SW pair chains at C >= ``ROUTE_PAIR_MIN_C``, and the split LN+W-MSA /
+  LN+MLP kernels above the cap. The SW roll always happens inside the block
+  kernel (load/store addressing), at any map size.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from sunet_tf_tpu_torch.kernels import upsample as up_kernels
+from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.ops.image import bilinear_resize, pixel_shuffle
+from sunet_tf_tpu_torch.ops.window import (
+    effective_window,
+    relative_position_index,
+    roll2d,
+    shift_attn_mask,
+    window_partition,
+    window_reverse,
+)
+
+# Routing thresholds of the fused route (the JAX defaults of
+# SUNET_PAIR_MIN_C and SUNET_INFER_KERNEL_MAX_C).
+ROUTE_PAIR_MIN_C = 192
+ROUTE_BLOCK_MAX_C = wa.BLOCK_KERNEL_MAX_C
+# Longest run of blocks fused into one chain (W->SW pairs).
+ROUTE_CHAIN_MAX = 2
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x @ w.T + b in x's dtype (w in torch (out, in) layout)."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
+    """float32 LayerNorm, result in x's dtype."""
+    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                        norm.bias, norm.eps).to(x.dtype)
+
+
+def kernel_weights(module: nn.Module, dtype, build):
+    """``build()`` cached on ``module`` per dtype until any of its parameters
+    changes (in-place updates such as ``load_state_dict`` bump a tensor's
+    version)."""
+    key = (dtype,) + tuple((p.data_ptr(), p._version)
+                           for p in module.parameters())
+    cached = getattr(module, "_kernel_cache", None)
+    if cached is None or cached[0] != key:
+        cached = (key, build())
+        module._kernel_cache = cached
+    return cached[1]
+
+
+@functools.lru_cache(maxsize=64)
+def _mask_tensor(H: int, W: int, ws: int, shift: int,
+                 device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(shift_attn_mask(H, W, ws, shift), device=device)
+
+
+class PReLU(nn.Module):
+    """Single-slope PReLU, init 0.25 (torch nn.PReLU default)."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((1,), 0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.weight.to(x.dtype)
+        return torch.clamp_min(x, 0) + a * torch.clamp_max(x, 0)
+
+
+class Conv1x1(nn.Conv2d):
+    """1x1 convolution applied as a channel-axis Linear on NHWC input."""
+
+    def __init__(self, in_ch: int, out_ch: int, bias: bool = True):
+        super().__init__(in_ch, out_ch, 1, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight.flatten(1), self.bias)
+
+    def kernel(self) -> torch.Tensor:
+        """(in, out) float32 matrix, the JAX kernel layout."""
+        return self.weight.flatten(1).t()
+
+
+class Conv3x3(nn.Conv2d):
+    """3x3 SAME convolution on NHWC input, in x's dtype."""
+
+    def __init__(self, in_ch: int, out_ch: int, bias: bool = True):
+        super().__init__(in_ch, out_ch, 3, padding=1, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+                     None if self.bias is None else self.bias.to(x.dtype),
+                     padding=1)
+        return y.permute(0, 2, 3, 1)
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact-erf GELU -> fc2."""
+
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(F.gelu(linear(x, self.fc1.weight, self.fc1.bias)),
+                      self.fc2.weight, self.fc2.bias)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with learnable relative-position bias; logits and softmax in
+    float32; the additive 0/-100 SW mask per window."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, *,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+        super().__init__()
+        self.dim = dim
+        self.window_size = window_size
+        self.num_heads = num_heads
+        self.scale = (float(qk_scale) if qk_scale is not None
+                      else (dim // num_heads) ** -0.5)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def bias_matrix(self) -> torch.Tensor:
+        """(num_heads, N, N) float32 relative-position bias."""
+        ws = self.window_size
+        n = ws * ws
+        idx = torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
+                              dtype=torch.long,
+                              device=self.relative_position_bias_table.device)
+        bias = self.relative_position_bias_table[idx].float()
+        return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
+
+    def forward(self, xw: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """xw: (B*nW, N, C) windows; mask: (nW, N, N) or None."""
+        Bn, N, C = xw.shape
+        h, d = self.num_heads, C // self.num_heads
+        dt = xw.dtype
+        qkv = linear(xw, self.qkv.weight, self.qkv.bias)
+        qkv = qkv.reshape(Bn, N, 3, h, d).permute(2, 0, 3, 1, 4)
+        q = qkv[0] * torch.tensor(self.scale, dtype=dt)
+        k, v = qkv[1], qkv[2]
+        attn = wa.mm32(q, k.transpose(-1, -2)) + self.bias_matrix()[None]
+        if mask is not None:
+            nW = mask.shape[0]
+            attn = (attn.reshape(Bn // nW, nW, h, N, N)
+                    + mask[None, :, None]).reshape(Bn, h, N, N)
+        attn = torch.softmax(attn, dim=-1)
+        out = wa.mm32(attn.to(dt), v).to(dt)
+        out = out.permute(0, 2, 1, 3).reshape(Bn, N, C)
+        return linear(out, self.proj.weight, self.proj.bias)
+
+
+class SwinBlock(nn.Module):
+    """LN -> (shift) -> W-MSA -> (unshift) -> residual -> LN -> MLP ->
+    residual. (window, shift) are resolved from the stage's resolution; the
+    SW mask is rebuilt from the actual input shape at call time."""
+
+    def __init__(self, dim: int, input_resolution: tuple, num_heads: int, *,
+                 window_size: int, shift_size: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 backend: str = "eager"):
+        super().__init__()
+        ws, ss = effective_window(input_resolution, window_size, shift_size)
+        self.window_size = ws
+        self.shift_size = ss
+        self.dim = dim
+        self.input_resolution = tuple(input_resolution)
+        self.backend = backend
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, ws, num_heads, qkv_bias=qkv_bias,
+                                    qk_scale=qk_scale)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+
+    def mask(self, H: int, W: int, device) -> Optional[torch.Tensor]:
+        if self.shift_size == 0:
+            return None
+        return _mask_tensor(H, W, self.window_size, self.shift_size,
+                            torch.device(device))
+
+    def kernel_params(self, dtype) -> tuple:
+        """The 12 block operands in the kernels' layout: LN params float32,
+        weight matrices (in, out) in ``dtype``, biases float32."""
+        def build():
+            a, m = self.attn, self.mlp
+            w = lambda lin: lin.weight.detach().t().contiguous().to(dtype)
+            f = lambda t: t.detach().float().contiguous()
+            bqkv = (f(a.qkv.bias) if a.qkv.bias is not None
+                    else torch.zeros(3 * self.dim, device=a.qkv.weight.device))
+            return (f(self.norm1.weight), f(self.norm1.bias), w(a.qkv), bqkv,
+                    w(a.proj), f(a.proj.bias), f(self.norm2.weight),
+                    f(self.norm2.bias), w(m.fc1), f(m.fc1.bias), w(m.fc2),
+                    f(m.fc2.bias), self.attn.bias_matrix().detach().contiguous())
+        return kernel_weights(self, dtype, build)
+
+    def _fused_block(self, x: torch.Tensor) -> torch.Tensor:
+        H, W = x.shape[1], x.shape[2]
+        p = self.kernel_params(x.dtype)
+        a = self.attn
+        return wa.fused_swin_block(
+            x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
+            p[11], p[12], self.mask(H, W, x.device), ws=self.window_size,
+            num_heads=a.num_heads, scale=a.scale, shift=self.shift_size)
+
+    def _fused_split(self, x: torch.Tensor) -> torch.Tensor:
+        """Blocks above the block-kernel cap: LN+W-MSA kernel, residual,
+        LN+MLP kernel (JAX ``_attention_fused`` + ``fused_ln_mlp``)."""
+        B, H, W, C = x.shape
+        ss = self.shift_size
+        p = self.kernel_params(x.dtype)
+        a = self.attn
+        att = wa.fused_ln_window_attention(
+            roll2d(x, -ss), p[0], p[1], p[2], p[3], p[4], p[5], p[12],
+            self.mask(H, W, x.device), ws=self.window_size,
+            num_heads=a.num_heads, scale=a.scale)
+        x = x + roll2d(att, ss)
+        return wa.fused_ln_mlp(x, p[6:8], p[8], p[9], p[10], p[11])
+
+    def _eager(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        ws, ss = self.window_size, self.shift_size
+        h = roll2d(layer_norm(x, self.norm1), -ss)
+        h = self.attn(window_partition(h, ws), self.mask(H, W, x.device))
+        x = x + roll2d(window_reverse(h, ws, H, W), ss)
+        return x + self.mlp(layer_norm(x, self.norm2))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        ws = self.window_size
+        if H % ws or W % ws:
+            raise ValueError(f"resolution ({H},{W}) not divisible by window {ws}")
+        if self.backend == "eager":
+            return self._eager(x)
+        if self.dim <= ROUTE_BLOCK_MAX_C:
+            return self._fused_block(x)
+        return self._fused_split(x)
+
+
+def chain_fusable_len(blocks: list, start: int, x: torch.Tensor) -> int:
+    """Length K >= 2 of the run of consecutive fused blocks from ``start``
+    that runs as one chain, else 0: C within [ROUTE_PAIR_MIN_C,
+    ROUTE_BLOCK_MAX_C], same dim, window, heads and scale, one shift among
+    the SW blocks, K <= ROUTE_CHAIN_MAX."""
+    C = x.shape[-1]
+    if C < ROUTE_PAIR_MIN_C or C > ROUTE_BLOCK_MAX_C:
+        return 0
+    b0 = blocks[start]
+    if b0.backend != "fused" or b0.dim != C:
+        return 0
+    n = 1
+    ss = b0.shift_size or None
+    while start + n < len(blocks) and n < ROUTE_CHAIN_MAX:
+        b = blocks[start + n]
+        if not (b.backend == "fused" and b.dim == C
+                and b.window_size == b0.window_size
+                and b.attn.num_heads == b0.attn.num_heads
+                and b.attn.scale == b0.attn.scale):
+            break
+        if b.shift_size > 0:
+            if ss is None:
+                ss = b.shift_size
+            elif b.shift_size != ss:
+                break
+        n += 1
+    return n if n >= 2 else 0
+
+
+def run_fused_chain(blocks: list, x: torch.Tensor) -> torch.Tensor:
+    """Run consecutive blocks through the chain kernel (gate with
+    :func:`chain_fusable_len`)."""
+    B, H, W, C = x.shape
+    shifts = tuple(b.shift_size for b in blocks)
+    params = [b.kernel_params(x.dtype) for b in blocks]
+    sw = next((b for b in blocks if b.shift_size), None)
+    a = blocks[0].attn
+    return wa.fused_swin_block_chain(
+        x, [p[:12] for p in params], [p[12] for p in params],
+        None if sw is None else sw.mask(H, W, x.device),
+        ws=blocks[0].window_size, num_heads=a.num_heads, scale=a.scale,
+        shifts=shifts)
+
+
+class PatchMerging(nn.Module):
+    """2x2 space-to-depth [ee, oe, eo, oo] -> LN(4C) -> Linear(4C -> 2C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, H, W, C = x.shape
+        if H % 2 or W % 2:
+            raise ValueError(f"({H},{W}) not even")
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        return linear(layer_norm(x, self.norm), self.reduction.weight)
+
+
+class PatchEmbed(nn.Module):
+    """k = s = patch_size conv + LN; SUNet folds its conv into the stem."""
+
+    def __init__(self, in_ch: int, embed_dim: int, patch_size: int, *,
+                 patch_norm: bool = True):
+        super().__init__()
+        self.proj = nn.Conv2d(in_ch, embed_dim, patch_size, stride=patch_size)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+
+
+class DualUpsample(nn.Module):
+    """Dual up-sample: pixel-shuffle branch + bilinear branch, 1x1 mix.
+
+    factor 2: C -> C/2 at 2x; factor 4: C -> C at 4x. Branch p: 1x1 expand
+    (no bias) -> PReLU -> PixelShuffle -> 1x1; branch b: 1x1 (bias) ->
+    PReLU -> bilinear -> 1x1; ``conv`` mixes the concat. Computed with the
+    JAX package's three weight-space folds: branch b runs at low res and
+    resizes last, the concat+mix splits into two projections, and each
+    branch's second 1x1 folds into its mix projection.
+    """
+
+    def __init__(self, in_ch: int, factor: int):
+        super().__init__()
+        if factor not in (2, 4):
+            raise ValueError(f"factor {factor} not in (2, 4)")
+        self.factor = factor
+        out_ch = in_ch // 2 if factor == 2 else in_ch
+        expand = 2 * in_ch if factor == 2 else 16 * in_ch
+        self.up_p = nn.ModuleList([Conv1x1(in_ch, expand, bias=False), PReLU(),
+                                   nn.PixelShuffle(factor),
+                                   Conv1x1(out_ch, out_ch, bias=False)])
+        self.up_b = nn.ModuleList([Conv1x1(in_ch, in_ch, bias=True), PReLU(),
+                                   nn.Identity(),
+                                   Conv1x1(in_ch, out_ch, bias=False)])
+        self.conv = Conv1x1(2 * out_ch, out_ch, bias=False)
+
+    def folded(self) -> tuple:
+        """(wpf, wbf): each branch's second 1x1 times its mix half, (in, out)
+        float32."""
+        out_ch = self.conv.out_channels
+        mix = self.conv.kernel()
+        return (self.up_p[3].kernel() @ mix[:out_ch],
+                self.up_b[3].kernel() @ mix[out_ch:])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        wpf, wbf = self.folded()
+        xp = pixel_shuffle(self.up_p[1](self.up_p[0](x)), self.factor)
+        xb = self.up_b[1](self.up_b[0](x))
+        return (torch.matmul(xp, wpf.to(dt))
+                + bilinear_resize(torch.matmul(xb, wbf.to(dt)), self.factor))
+
+    def fused_conv_head(self, x: torch.Tensor, wconv: torch.Tensor) -> torch.Tensor:
+        """x4 head AND a following 3x3 bias-free conv ``wconv`` (3, 3, C,
+        out) through the phase-space kernel; returns pixel-space (B, 4H, 4W,
+        out) in x's dtype."""
+        if self.factor != 4:
+            raise ValueError("fused_conv_head needs the x4 head")
+        dt = x.dtype
+
+        def build():
+            wpf, wbf = self.folded()
+            w = lambda t: t.detach().contiguous().to(dt)
+            return (w(self.up_p[0].kernel()), self.up_p[1].weight.detach(),
+                    w(self.up_b[0].kernel()), self.up_b[0].bias.detach(),
+                    self.up_b[1].weight.detach(), w(wpf), w(wbf))
+
+        p = kernel_weights(self, dt, build)
+        return up_kernels.phase_to_pixel(
+            up_kernels.fused_dual_upsample4_conv_phase(x, *p, wconv))
+
+
+def torch_default_init_(module: nn.Module, gen: torch.Generator):
+    """The reference initialisation, drawn on the CPU from ``gen``: Linear
+    N(0, 0.02) with zero bias, LayerNorm ones/zeros, rel-pos tables
+    N(0, 0.02), convs kaiming-uniform(a=sqrt(5)) (U(+-1/sqrt(fan_in))),
+    PReLU 0.25."""
+    def put(t: torch.Tensor, src: torch.Tensor):
+        with torch.no_grad():
+            t.copy_(src)
+
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            put(m.weight, torch.empty(m.weight.shape).normal_(0, 0.02, generator=gen))
+            if m.bias is not None:
+                put(m.bias, torch.zeros(m.bias.shape))
+        elif isinstance(m, nn.LayerNorm):
+            put(m.weight, torch.ones(m.weight.shape))
+            put(m.bias, torch.zeros(m.bias.shape))
+        elif isinstance(m, nn.Conv2d):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            put(m.weight, torch.empty(m.weight.shape).uniform_(-bound, bound,
+                                                               generator=gen))
+            if m.bias is not None:
+                put(m.bias, torch.empty(m.bias.shape).uniform_(-bound, bound,
+                                                               generator=gen))
+        elif isinstance(m, WindowAttention):
+            t = m.relative_position_bias_table
+            put(t, torch.empty(t.shape).normal_(0, 0.02, generator=gen))
+        elif isinstance(m, PReLU):
+            put(m.weight, torch.full(m.weight.shape, 0.25))

@@ -3,9 +3,9 @@
 The on-disk format is the reference ``training.yaml`` (sections ``VERBOSE /
 SWINUNET / MODEL / OPTIM / TRAINING``), the same schema the JAX package
 reads (``sunet_tf_tpu/config.py``). Of the JAX package's ``TPU`` section
-only ``COMPUTE_DTYPE`` means anything on a GPU; its other keys (mesh,
-attention backend, donation, optimizer storage dtypes) are read past and
-ignored here.
+only ``COMPUTE_DTYPE`` and the optimizer's moment storage dtypes
+(``OPT_MU_DTYPE``, ``OPT_NU_DTYPE``) mean anything on a GPU; its other keys
+(mesh, attention backend, donation) are read past and ignored here.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from typing import Any, Optional
 import yaml
 
 COMPUTE_DTYPES = ("bfloat16", "float32")
+OPT_MU_DTYPES = ("float32", "bfloat16")
+OPT_NU_DTYPES = ("float32", "bfloat16", "bfloat16_sr")
 
 
 @dataclass(frozen=True)
@@ -93,11 +95,19 @@ class Config:
     compute_dtype: str = "bfloat16"
     mode: str = "Denoising"
     verbose: bool = False
+    # Adam moment storage (train/adam.py): bf16 mu, bf16 nu with stochastic
+    # rounding; float32 for both is the exact reference optimizer.
+    opt_mu_dtype: str = "bfloat16"
+    opt_nu_dtype: str = "bfloat16_sr"
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute dtype must be one of {COMPUTE_DTYPES}, "
                              f"got {self.compute_dtype!r}")
+        if self.opt_mu_dtype not in OPT_MU_DTYPES:
+            raise ValueError(f"OPT_MU_DTYPE must be one of {OPT_MU_DTYPES}")
+        if self.opt_nu_dtype not in OPT_NU_DTYPES:
+            raise ValueError(f"OPT_NU_DTYPE must be one of {OPT_NU_DTYPES}")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -168,6 +178,8 @@ def config_from_dict(raw: dict) -> Config:
         compute_dtype=str(_get(tp, "COMPUTE_DTYPE", "bfloat16")),
         mode=str(_get(model, "MODE", "Denoising")),
         verbose=bool(_get(raw, "VERBOSE", False)),
+        opt_mu_dtype=str(_get(tp, "OPT_MU_DTYPE", "bfloat16")),
+        opt_nu_dtype=str(_get(tp, "OPT_NU_DTYPE", "bfloat16_sr")),
     )
 
 
@@ -222,7 +234,9 @@ def config_to_dict(cfg: Config) -> dict:
             "SAVE_DIR": cfg.training.save_dir,
             "SEED": cfg.training.seed,
         },
-        "TPU": {"COMPUTE_DTYPE": cfg.compute_dtype},
+        "TPU": {"COMPUTE_DTYPE": cfg.compute_dtype,
+                "OPT_MU_DTYPE": cfg.opt_mu_dtype,
+                "OPT_NU_DTYPE": cfg.opt_nu_dtype},
     }
 
 

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels, and count their launches.
 
-All ``csrc/*.cu`` sources compile in ONE ``nvcc`` call into a shared library
-with a plain C interface, loaded with ``ctypes``. The build runs at the
-first CUDA call (never at import: the CPU tests import every module), into
-``kernels/_build/`` (git-ignored), and is cached by a hash of the sources
-and flags. A build error raises with nvcc's output.
+Each ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
+process, all started together, and one more ``nvcc`` call links them into a
+shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at the first CUDA call (never at import: the CPU tests import every
+module), into ``kernels/_build/`` (git-ignored), and is cached by a hash of
+the sources and flags. A build error raises with nvcc's output.
 
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*``, launches on that stream without synchronising, and returns
@@ -28,16 +29,33 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of the entry points in csrc/*.cu (all return cudaError_t).
+c_int = ctypes.c_int
+byref = ctypes.byref
+# C signatures of the entry points in csrc/*.cu (all return cudaError_t,
+# except the *_workspace sizes, which return size_t).
 SIGNATURES = {
     # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
-    # bias, mask, B, H, W, C, hidden, ws, heads, shift, scale, stream
-    "sunet_swin_block": [_P] * 16 + [_I] * 8 + [_F, _P],
+    # bias, mask, dp (B, 2) or NULL, B, H, W, C, hidden, ws, heads, shift,
+    # scale, stream
+    "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F, _P],
+    # x, dout, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
+    # bias, mask, dp, dx, 13 grads (ln1 g/b, wqkv, bqkv, wproj, bproj, ln2
+    # g/b, w1, b1, w2, b2, bias), workspace, B, H, W, C, hidden, ws, heads,
+    # shift, scale, int* launches, stream
+    "sunet_swin_block_bwd": [_P] * 32 + [_I] * 8 + [_F, _P, _P],
+    # B, H, W, C, hidden, ws, heads -> workspace bytes
+    "sunet_swin_block_bwd_workspace": [_I] * 7,
+    # x, dout, w_exp (C, 16C), wb1, bb1, wpf, wbf, wconv, alphas, dx,
+    # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, dwfold, workspace, B, H, W,
+    # C, out, int* launches, stream
+    "sunet_up4_conv_bwd": [_P] * 18 + [_I] * 5 + [_P, _P],
+    # B, H, W, C, out -> workspace bytes
+    "sunet_up4_conv_bwd_workspace": [_I] * 5,
     # x, ctx, ln g/b, wqkv, bqkv, bias, mask, B, H, W, C, ws, heads, scale,
     # stream
     "sunet_ln_wmsa_ctx": [_P] * 8 + [_I] * 6 + [_F, _P],
@@ -109,17 +127,34 @@ def _digest() -> str:
 
 def _compile(target: Path) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, target)  # atomic: a concurrent process never loads half a file
-    return proc.stdout + proc.stderr
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    procs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+               str(work / (cu.stem + ".o")), str(cu)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+               "-o", str(work / "lib.so"), *sorted(str(o) for o in work.glob("*.o"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode != 0:
+            failed.append(f"link failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+        else:
+            # atomic: a concurrent process never loads half a file
+            os.replace(work / "lib.so", target)
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "\n".join(log)
 
 
 def library() -> ctypes.CDLL:
@@ -134,7 +169,8 @@ def library() -> ctypes.CDLL:
             for name, args in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
-                fn.restype = ctypes.c_int
+                fn.restype = (ctypes.c_size_t if name.endswith("_workspace")
+                              else ctypes.c_int)
             _Library.seconds = time.perf_counter() - t0
             _Library.lib = lib
         return _Library.lib

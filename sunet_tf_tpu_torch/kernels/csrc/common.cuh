@@ -327,8 +327,8 @@ __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, 
   __syncthreads();
 }
 
-// MLP over R rows (R % 16 == 0, R <= 16*MR): out = round(y + (gelu(yn @ w1
-// + b1) @ w2 + b2)), the fc1 output rounded to bf16 after an exact-erf GELU
+// MLP over R rows (R % 16 == 0, R <= 16*MR): out = round(y + s2*(gelu(yn @
+// w1 + b1) @ w2 + b2)), s2 the branch's drop-path scale (1 at inference), the fc1 output rounded to bf16 after an exact-erf GELU
 // in fp32. yn, y: R x C bf16 (shared, row stride ldy); hbuf: R x kHC bf16
 // (shared, row stride kHB). The
 // hidden dimension is walked in kHC-column chunks; warp w computes fc1
@@ -339,7 +339,7 @@ template <int MR, int MC, class Store>
 __device__ void mlp_rows(const bf16* yn, const bf16* y, int ldy, bf16* hbuf, int R, int C,
                          int hidden, const bf16* __restrict__ w1,
                          const float* __restrict__ b1, const bf16* __restrict__ w2,
-                         const float* __restrict__ b2, bf16* bt, float* stg,
+                         const float* __restrict__ b2, float s2, bf16* bt, float* stg,
                          int warp, int lane, Store store) {
   const int rt_n = R / 16, nc = owned(C / 16, warp);
   FragC acc[MR * MC];
@@ -375,7 +375,7 @@ __device__ void mlp_rows(const bf16* yn, const bf16* y, int ldy, bf16* hbuf, int
       const int ct = warp + j * kWarps;
       epilogue(acc[i * MC + j], stg, lane, [&](int r, int c, float v) {
         const int row = i * 16 + r, col = ct * 16 + c;
-        store(row, col, tobf(bf(y[row * ldy + col]) + (v + b2[col])));
+        store(row, col, tobf(bf(y[row * ldy + col]) + s2 * (v + b2[col])));
       });
     }
   }

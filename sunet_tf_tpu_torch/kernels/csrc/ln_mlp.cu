@@ -66,7 +66,7 @@ __global__ void __launch_bounds__(kThreads) ln_mlp_kernel(MlpArgs a) {
   __syncthreads();
   layer_norm_rows(ys, yn, ldy, kRows, C, a.g, a.be, warp, lane);
   __syncthreads();
-  mlp_rows<1, MC>(yn, ys, ldy, hbuf, kRows, C, a.hidden, a.w1, a.b1, a.w2, a.b2, bt,
+  mlp_rows<1, MC>(yn, ys, ldy, hbuf, kRows, C, a.hidden, a.w1, a.b1, a.w2, a.b2, 1.f, bt,
                  stg, warp, lane, [&](int t, int c, bf16 v) {
                    if (t < valid) a.out[(r0 + t) * C + c] = v;
                  });

@@ -3,7 +3,10 @@
 // Replaces sunet_tf_tpu/kernels/window_attention.py::fused_swin_block (and,
 // launched K times, fused_swin_block_chain): LN1 -> window partition -> QKV
 // -> per head QK^T*scale + rel-pos bias (+ SW mask) -> row-max softmax -> P@V
-// -> proj -> residual -> LN2 -> fc1 -> erf GELU -> fc2 -> residual.
+// -> proj -> residual -> LN2 -> fc1 -> erf GELU -> fc2 -> residual. In
+// training (swin_block_trainable) each image's two branches are scaled by
+// its stochastic-depth pair dp[b] = (s1, s2) where _block_body applies them:
+// y = round(x + s1*attn), out = round(y + s2*mlp).
 //
 // What bounds it on Hopper: at C=96..384 a 64-token window holds ~16 MFLOP
 // of products against ~0.1-0.3 MB of (L2-resident) weights read per CTA, so
@@ -43,6 +46,7 @@ struct BlockArgs {
   const float* b2;
   const float* bias;
   const float* mask;
+  const float* dp;   // (B, 2) drop-path scales of the two branches, or null (ones)
   int B, H, W, C, hidden, ws, heads, shift;
   float scale;
 };
@@ -79,6 +83,9 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
   carve_warp(p, warp, bt, stg);
 
   const int nwx = a.W / a.ws, win = blockIdx.x, b = blockIdx.y;
+  // scales of the attention and MLP branches (stochastic depth); 1 exactly
+  // leaves every rounding of the inference block unchanged
+  const float s1 = a.dp ? a.dp[2 * b] : 1.f, s2 = a.dp ? a.dp[2 * b + 1] : 1.f;
   const int wy = win / nwx, wx = win % nwx;
   for (int t = threadIdx.x; t < N; t += kThreads) {
     const int gy = (wy * a.ws + t / a.ws + a.shift) % a.H;
@@ -116,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
         const int ct = warp + j * kWarps;
         epilogue(acc[i * MC + j], stg, lane, [&](int r, int c, float v) {
           const int e = (i * 16 + r) * ldx + ct * 16 + c;
-          xs[e] = tobf(bf(xs[e]) + (v + a.bproj[ct * 16 + c]));  // y = x + attn
+          xs[e] = tobf(bf(xs[e]) + s1 * (v + a.bproj[ct * 16 + c]));  // y = x + s1*attn
         });
       }
     }
@@ -126,8 +133,8 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
   // ---- MLP sublayer
   layer_norm_rows(xs, xn, ldx, N, C, a.g2, a.be2, warp, lane);
   __syncthreads();
-  mlp_rows<kMR, MC>(xn, xs, ldx, ctx, N, C, a.hidden, a.w1, a.b1, a.w2, a.b2, bt, stg,
-                 warp, lane, [&](int t, int c, bf16 v) { a.out[tok[t] + c] = v; });
+  mlp_rows<kMR, MC>(xn, xs, ldx, ctx, N, C, a.hidden, a.w1, a.b1, a.w2, a.b2, s2, bt, stg,
+                    warp, lane, [&](int t, int c, bf16 v) { a.out[tok[t] + c] = v; });
 }
 
 }  // namespace sunet
@@ -139,7 +146,7 @@ extern "C" int sunet_swin_block(const void* x, void* out, const void* g1,
                                 const void* wproj, const void* bproj, const void* g2,
                                 const void* be2, const void* w1, const void* b1,
                                 const void* w2, const void* b2, const void* bias,
-                                const void* mask, int B, int H, int W, int C,
+                                const void* mask, const void* dp, int B, int H, int W, int C,
                                 int hidden, int ws, int heads, int shift, float scale,
                                 void* stream) {
   BlockArgs a{(const bf16*)x,     (bf16*)out,         (const float*)g1,
@@ -147,7 +154,8 @@ extern "C" int sunet_swin_block(const void* x, void* out, const void* g1,
               (const bf16*)wproj, (const float*)bproj, (const float*)g2,
               (const float*)be2,  (const bf16*)w1,    (const float*)b1,
               (const bf16*)w2,    (const float*)b2,   (const float*)bias,
-              (const float*)mask, B, H, W, C, hidden, ws, heads, shift, scale};
+              (const float*)mask, (const float*)dp, B, H, W, C, hidden, ws, heads, shift,
+              scale};
   const int N = ws * ws;
   if (N % 16 || N > 64 || C % 16 || C % heads || hidden % 16 || H % ws || W % ws)
     return (int)cudaErrorInvalidValue;

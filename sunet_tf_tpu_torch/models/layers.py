@@ -19,6 +19,15 @@ Two routes per block, chosen by ``backend``:
   W->SW pair chains at C >= ``ROUTE_PAIR_MIN_C``, and the split LN+W-MSA /
   LN+MLP kernels above the cap. The SW roll always happens inside the block
   kernel (load/store addressing), at any map size.
+
+Training (a ``torch.Generator`` passed to ``forward``) draws per-image
+stochastic-depth scales from it. On the fused route a block with C <=
+``ROUTE_TRAIN_BLOCK_MAX_C`` runs ``SwinBlockTrainable`` (block kernel
+forward, ``swin_block_bwd`` backward); wider blocks train through plain
+autograd of the eager block, as the JAX package does with
+``SUNET_TRAIN_KERNEL_MAX_C=384``: a routing rule of this configuration (the
+C=768 training kernels are ROADMAP queue B), never a reaction to a kernel
+failing. Training never takes the chain route.
 """
 
 from __future__ import annotations
@@ -49,6 +58,9 @@ ROUTE_PAIR_MIN_C = 192
 ROUTE_BLOCK_MAX_C = wa.BLOCK_KERNEL_MAX_C
 # Longest run of blocks fused into one chain (W->SW pairs).
 ROUTE_CHAIN_MAX = 2
+# Widest block trained through the block kernels (JAX
+# SUNET_TRAIN_KERNEL_MAX_C=384); wider ones take autograd of the eager block.
+ROUTE_TRAIN_BLOCK_MAX_C = 384
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -76,10 +88,31 @@ def kernel_weights(module: nn.Module, dtype, build):
     return cached[1]
 
 
+def drop_path_scales(batch: int, rate: float,
+                     generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """(batch, 2) float32 per-image stochastic-depth scales of a block's
+    attention and MLP branches: keep/(1 - rate) with keep ~ Bernoulli(1 -
+    rate), drawn from ``generator`` on its device (ones without a generator
+    or at rate 0, as the JAX ``drop_path``)."""
+    if generator is None or rate <= 0.0:
+        return torch.ones(batch, 2, device=device)
+    keep = 1.0 - rate
+    p = torch.full((2, batch), keep, device=generator.device)
+    return (torch.bernoulli(p, generator=generator) / keep).t().contiguous().to(device)
+
+
+def drop_path(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-sample stochastic depth: x scaled by its image's (B,) scale."""
+    return x * scale.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=64)
 def _mask_tensor(H: int, W: int, ws: int, shift: int,
                  device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(shift_attn_mask(H, W, ws, shift), device=device)
+    # a normal tensor even when first built under inference_mode: training
+    # saves it for backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(shift_attn_mask(H, W, ws, shift), device=device)
 
 
 class PReLU(nn.Module):
@@ -190,13 +223,14 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: tuple, num_heads: int, *,
                  window_size: int, shift_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
-                 backend: str = "eager"):
+                 drop_path_rate: float = 0.0, backend: str = "eager"):
         super().__init__()
         ws, ss = effective_window(input_resolution, window_size, shift_size)
         self.window_size = ws
         self.shift_size = ss
         self.dim = dim
         self.input_resolution = tuple(input_resolution)
+        self.drop_path_rate = drop_path_rate
         self.backend = backend
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, ws, num_heads, qkv_bias=qkv_bias,
@@ -248,19 +282,43 @@ class SwinBlock(nn.Module):
         x = x + roll2d(att, ss)
         return wa.fused_ln_mlp(x, p[6:8], p[8], p[9], p[10], p[11])
 
-    def _eager(self, x: torch.Tensor) -> torch.Tensor:
+    def _train_block(self, x: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+        """Training through the block kernels (JAX ``_trainable_block``):
+        autograd reaches the float32 parameters through the (in, out)
+        weight views and the rel-pos bias gather."""
+        a, m = self.attn, self.mlp
+        H, W = x.shape[1], x.shape[2]
+        t = lambda lin: lin.weight.t()
+        return wa.SwinBlockTrainable.apply(
+            x, self.norm1.weight, self.norm1.bias, t(a.qkv), a.qkv.bias,
+            t(a.proj), a.proj.bias, self.norm2.weight, self.norm2.bias,
+            t(m.fc1), m.fc1.bias, t(m.fc2), m.fc2.bias, a.bias_matrix(), dp,
+            self.mask(H, W, x.device), self.window_size, a.num_heads, a.scale,
+            self.shift_size)
+
+    def _eager(self, x: torch.Tensor, dp: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         ws, ss = self.window_size, self.shift_size
         h = roll2d(layer_norm(x, self.norm1), -ss)
         h = self.attn(window_partition(h, ws), self.mask(H, W, x.device))
-        x = x + roll2d(window_reverse(h, ws, H, W), ss)
-        return x + self.mlp(layer_norm(x, self.norm2))
+        h = roll2d(window_reverse(h, ws, H, W), ss)
+        x = x + (h if dp is None else drop_path(h, dp[:, 0]))
+        h = self.mlp(layer_norm(x, self.norm2))
+        return x + (h if dp is None else drop_path(h, dp[:, 1]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Inference without ``generator``; training with it (stochastic
+        depth drawn from it)."""
         B, H, W, C = x.shape
         ws = self.window_size
         if H % ws or W % ws:
             raise ValueError(f"resolution ({H},{W}) not divisible by window {ws}")
+        if generator is not None:
+            dp = drop_path_scales(B, self.drop_path_rate, generator, x.device)
+            if self.backend == "fused" and self.dim <= ROUTE_TRAIN_BLOCK_MAX_C:
+                return self._train_block(x, dp)
+            return self._eager(x, dp)
         if self.backend == "eager":
             return self._eager(x)
         if self.dim <= ROUTE_BLOCK_MAX_C:
@@ -399,6 +457,21 @@ class DualUpsample(nn.Module):
         p = kernel_weights(self, dt, build)
         return up_kernels.phase_to_pixel(
             up_kernels.fused_dual_upsample4_conv_phase(x, *p, wconv))
+
+    def conv_head_trainable(self, x: torch.Tensor,
+                            wconv: torch.Tensor) -> torch.Tensor:
+        """Differentiable x4 head + 3x3 bias-free conv ``wconv`` (3, 3, C,
+        out), float32: the phase-space kernel forward and ``up4_conv_bwd``
+        backward (JAX ``conv_head_trainable``); autograd carries the grads
+        of wpf and wbf back through the weight-space folds. Returns
+        pixel-space (B, 4H, 4W, out) in x's dtype."""
+        if self.factor != 4:
+            raise ValueError("conv_head_trainable needs the x4 head")
+        wpf, wbf = self.folded()
+        phase = up_kernels.DualUpsample4ConvTrainable.apply(
+            x, self.up_p[0].kernel(), self.up_p[1].weight, self.up_b[0].kernel(),
+            self.up_b[0].bias, self.up_b[1].weight, wpf, wbf, wconv)
+        return up_kernels.phase_to_pixel(phase)
 
 
 def torch_default_init_(module: nn.Module, gen: torch.Generator):

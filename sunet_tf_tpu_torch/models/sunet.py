@@ -21,6 +21,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sunet_tf_tpu_torch.config import Config, SwinUNetConfig
+from sunet_tf_tpu_torch.kernels import upsample as up_kernels
+from sunet_tf_tpu_torch.kernels import window_attention as wa
 from sunet_tf_tpu_torch.models import layers
 from sunet_tf_tpu_torch.models.layers import (
     Conv3x3,
@@ -38,6 +40,20 @@ from sunet_tf_tpu_torch.models.layers import (
 
 BACKENDS = ("fused", "eager")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+INFER_WRAPPERS = ("fused_swin_block", "fused_swin_block_chain",
+                  "fused_ln_window_attention", "fused_ln_mlp",
+                  "fused_dual_upsample4_conv_phase")
+TRAIN_WRAPPERS = INFER_WRAPPERS + ("swin_block_bwd", "up4_conv_bwd")
+
+
+def _dpr_schedule(depths: tuple, drop_path_rate: float) -> list:
+    """Stochastic-depth rate of every encoder block, linspace(0, rate,
+    sum(depths)) (reference model/SUNet_detail.py:628); decoder stages reuse
+    the rates of the encoder stage they mirror."""
+    total = sum(depths)
+    if total <= 1:
+        return [0.0] * total
+    return [float(v) for v in np.linspace(0.0, drop_path_rate, total)]
 
 
 class SwinStage(nn.Module):
@@ -48,14 +64,16 @@ class SwinStage(nn.Module):
     def __init__(self, dim: int, input_resolution: tuple, depth: int,
                  num_heads: int, *, window_size: int, mlp_ratio: float,
                  qkv_bias: bool, qk_scale: Optional[float],
-                 resample: Optional[str] = None, backend: str = "eager"):
+                 drop_path_rates: list, resample: Optional[str] = None,
+                 backend: str = "eager"):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock(dim, input_resolution, num_heads,
                       window_size=window_size,
                       shift_size=0 if i % 2 == 0 else window_size // 2,
                       mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                      qk_scale=qk_scale, backend=backend)
+                      qk_scale=qk_scale, drop_path_rate=drop_path_rates[i],
+                      backend=backend)
             for i in range(depth)])
         self.resample = resample
         if resample == "down":
@@ -63,10 +81,15 @@ class SwinStage(nn.Module):
         elif resample == "up":
             self.upsample = DualUpsample(dim, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         blocks = list(self.blocks)
         i = 0
         while i < len(blocks):
+            if generator is not None:   # training: one block at a time
+                x = blocks[i](x, generator)
+                i += 1
+                continue
             k = chain_fusable_len(blocks, i, x)
             if k >= 2:
                 x = run_fused_chain(blocks[i:i + k], x)
@@ -94,6 +117,8 @@ class SUNet(nn.Module):
         n = cfg.num_stages
         pres = cfg.patches_resolution
         depths = cfg.depth_en
+        dpr = _dpr_schedule(depths, cfg.drop_path_rate)
+        rates = lambda i: dpr[sum(depths[:i]):sum(depths[:i + 1])]
         common = dict(window_size=cfg.win_size, mlp_ratio=cfg.mlp_ratio,
                       qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale,
                       backend=backend)
@@ -109,8 +134,8 @@ class SUNet(nn.Module):
             self.absolute_pos_embed = None
         self.layers = nn.ModuleList([
             SwinStage(C * 2**i, (pres[0] // 2**i, pres[1] // 2**i), depths[i],
-                      cfg.head_num[i], resample="down" if i < n - 1 else None,
-                      **common)
+                      cfg.head_num[i], drop_path_rates=rates(i),
+                      resample="down" if i < n - 1 else None, **common)
             for i in range(n)])
         self.norm = nn.LayerNorm(C * 2 ** (n - 1), eps=1e-5)
         # layers_up[0] is the bare x2 up-sample at the bottleneck; decoder
@@ -124,6 +149,7 @@ class SUNet(nn.Module):
             self.concat_back_dim.append(nn.Linear(2 * dim, dim))
             self.layers_up.append(SwinStage(
                 dim, res, depths[enc_i], cfg.head_num[enc_i],
+                drop_path_rates=rates(enc_i),
                 resample="up" if j < n - 2 else None, **common))
         self.norm_up = nn.LayerNorm(C, eps=1e-5)
         self.up = DualUpsample(C, 4)
@@ -148,9 +174,12 @@ class SUNet(nn.Module):
             y = layer_norm(y, self.patch_embed.norm)
         return y
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, H, W, in_chans) in [0, 1] -> (B, H, W, out_chans) float32
-        logits."""
+        logits. With ``generator`` this is the training forward (JAX
+        ``key``): stochastic depth drawn from it, the blocks and the x4 head
+        on their trainable routes; without it, inference."""
         cfg = self.cfg
         if (self.backend == "fused" and x.device.type == "cuda"
                 and self.dtype != torch.bfloat16):
@@ -158,6 +187,10 @@ class SUNet(nn.Module):
                 "backend='fused' on CUDA runs bfloat16 kernels only; float32 "
                 "kernels are ROADMAP queue B 'fp32 kernels'. Use "
                 "backend='eager' for a float32 forward.")
+        if generator is not None and (cfg.drop_rate > 0 or cfg.attn_drop_rate > 0):
+            raise NotImplementedError(
+                "training with DROP_RATE or ATTN_DROP_RATE > 0 is not ported "
+                "(the reference recipe trains with both at 0)")
         if x.shape[-1] == 1 and cfg.in_chans == 3:
             x = x.repeat(1, 1, 1, 3)
         x = x.to(self.dtype)
@@ -173,17 +206,20 @@ class SUNet(nn.Module):
         skips = []
         for layer in self.layers:
             skips.append(feats)
-            feats = layer(feats)
+            feats = layer(feats, generator)
         feats = layer_norm(feats, self.norm)
         feats = self.layers_up[0](feats)
         for j in range(1, n):
             feats = torch.cat([feats, skips[n - 1 - j]], dim=-1)
             lin = self.concat_back_dim[j]
-            feats = self.layers_up[j](linear(feats, lin.weight, lin.bias))
+            feats = self.layers_up[j](linear(feats, lin.weight, lin.bias), generator)
         feats = layer_norm(feats, self.norm_up)
         if self.backend == "fused" and 16 * cfg.out_chans <= 128:
-            wconv = self.output.weight.permute(2, 3, 1, 0).contiguous().to(feats.dtype)
-            return self.up.fused_conv_head(feats, wconv).float()
+            wconv = self.output.weight.permute(2, 3, 1, 0)
+            if generator is not None:
+                return self.up.conv_head_trainable(feats, wconv).float()
+            return self.up.fused_conv_head(
+                feats, wconv.contiguous().to(feats.dtype)).float()
         return self.output(self.up(feats)).float()
 
     def flops(self, resolution: Optional[tuple] = None) -> int:
@@ -238,14 +274,26 @@ class SUNet(nn.Module):
         total += 2 * H * W * 9 * C * cfg.out_chans
         return int(total)
 
-    def expected_launches(self, x_shape: tuple) -> dict:
+    def expected_launches(self, x_shape: tuple, train: bool = False) -> dict:
         """Kernel launches one fused forward of an input of ``x_shape``
         makes, per wrapper, as the router decides them: a chain of K blocks
-        launches the block kernel K times, LN+W-MSA launches two kernels."""
-        counts = {"fused_swin_block": 0, "fused_swin_block_chain": 0,
-                  "fused_ln_window_attention": 0, "fused_ln_mlp": 0,
-                  "fused_dual_upsample4_conv_phase": 0}
+        launches the block kernel K times, LN+W-MSA launches two kernels.
+        ``train=True``: one training step, forward and backward (every block
+        up to ROUTE_TRAIN_BLOCK_MAX_C launches the block kernel once and
+        its backward's fixed sequence; the x4 head its forward kernel and
+        its backward's sequence; wider blocks run plain autograd)."""
+        counts = dict.fromkeys(TRAIN_WRAPPERS if train else INFER_WRAPPERS, 0)
         if self.backend != "fused":
+            return counts
+        if train:
+            for stage in list(self.layers) + list(self.layers_up[1:]):
+                for blk in stage.blocks:
+                    if blk.dim <= layers.ROUTE_TRAIN_BLOCK_MAX_C:
+                        counts["fused_swin_block"] += 1
+                        counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
+            if 16 * self.cfg.out_chans <= 128:
+                counts["fused_dual_upsample4_conv_phase"] += 1
+                counts["up4_conv_bwd"] += up_kernels.UP4_CONV_BWD_LAUNCHES
             return counts
         H = x_shape[1] // self.cfg.patch_size
         W = x_shape[2] // self.cfg.patch_size
@@ -274,16 +322,28 @@ class SUNet(nn.Module):
         return counts
 
 
-def build_model(cfg: Config, *, device="cpu", backend: str = "fused",
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device when CUDA is absent
+    raises (the port runs on the card unless the caller asks for the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
+def build_model(cfg: Config, *, device="cuda", backend: str = "fused",
                 seed: int = 0) -> SUNet:
-    """A SUNet for ``cfg`` on ``device``, compute dtype from
-    ``cfg.compute_dtype``, weights drawn from ``torch.Generator`` seeded
-    with ``seed`` (the same weights on every device). ``device="meta"``
-    builds shapes only."""
-    with torch.device(device):
+    """A SUNet for ``cfg`` on ``device`` (the card unless the caller asks
+    for "cpu" or "meta"), compute dtype from ``cfg.compute_dtype``, weights
+    drawn from ``torch.Generator`` seeded with ``seed`` (the same weights on
+    every device), in eval mode with frozen parameters (the Trainer turns
+    on their grads). ``device="meta"`` builds shapes only."""
+    device = resolve_device(device)
+    with device:
         model = SUNet(cfg.swinunet, dtype=DTYPES[cfg.compute_dtype],
                       backend=backend)
-    if torch.device(device).type != "meta":
+    if device.type != "meta":
         torch_default_init_(model, torch.Generator().manual_seed(seed))
     return model.eval().requires_grad_(False)
 

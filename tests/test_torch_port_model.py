@@ -214,3 +214,15 @@ def test_demo_writes_bmps(tmp_path):
     assert [os.path.basename(p) for p in written] == ["img2.bmp", "img10.bmp"]
     for name, (h, w) in sizes.items():
         assert Image.open(dst / f"{name}.bmp").size == (w, h)
+
+
+def test_build_model_targets_cuda_by_default(monkeypatch):
+    """Without ``device`` the model goes to the card; on a machine without
+    CUDA that raises instead of quietly building on the CPU."""
+    import inspect
+
+    assert inspect.signature(build_model).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(tconfig.tiny_config())
+    assert next(build_model(tconfig.tiny_config(), device="cpu").parameters()).device.type == "cpu"

@@ -56,6 +56,22 @@ SIGNATURES = {
     "sunet_up4_conv_bwd": [_P] * 18 + [_I] * 5 + [_P, _P],
     # B, H, W, C, out -> workspace bytes
     "sunet_up4_conv_bwd_workspace": [_I] * 5,
+    # x, dout, ln g/b, wqkv, bqkv, wproj, bias, mask, dx, 7 grads (ln g/b,
+    # wqkv, bqkv, wproj, bproj, bias), workspace, B, H, W, C, ws, heads,
+    # scale, int* launches, stream
+    "sunet_ln_wmsa_bwd": [_P] * 18 + [_I] * 6 + [_F, _P, _P],
+    # B, H, W, C, ws, heads -> workspace bytes
+    "sunet_ln_wmsa_bwd_workspace": [_I] * 6,
+    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, int* launches,
+    # stream
+    "sunet_ln_mlp_branch": [_P] * 9 + [_I] * 3 + [_P, _P],
+    # M, C, hidden -> workspace bytes
+    "sunet_ln_mlp_branch_workspace": [_I] * 3,
+    # y, dout, ln g/b, w1, b1, w2, dy, 6 grads (ln g/b, w1, b1, w2, b2),
+    # workspace, M, C, hidden, int* launches, stream
+    "sunet_ln_mlp_bwd": [_P] * 15 + [_I] * 3 + [_P, _P],
+    # M, C, hidden -> workspace bytes
+    "sunet_ln_mlp_bwd_workspace": [_I] * 3,
     # x, ctx, ln g/b, wqkv, bqkv, bias, mask, B, H, W, C, ws, heads, scale,
     # stream
     "sunet_ln_wmsa_ctx": [_P] * 8 + [_I] * 6 + [_F, _P],

@@ -1,7 +1,13 @@
-// Shared pieces of the backward (training) kernels: a tiled bf16 GEMM with
-// fp32 accumulation and a per-element epilogue, deterministic token
-// reductions (split partials summed in a fixed order), and the token-index
-// map of a window-major (rolled, partitioned) token order.
+// Shared pieces of the training kernels (the block backward, the LN+W-MSA
+// and LN+MLP sublayers, the x4-head backward): a tiled bf16 GEMM with fp32
+// accumulation and a per-element epilogue, deterministic token reductions
+// (split partials summed in a fixed order), the token-index map of a
+// window-major (rolled, partitioned) token order, and the row kernels
+// (LayerNorm forward and backward for C <= 768, the dout gather). The
+// attention kernels are in attn_train.cuh.
+//
+// Kernels defined here are templates or static, so every source that
+// includes the header gets its own copy and the link sees no duplicates.
 //
 // Weight gradients are dW = A^T dB over every token of the batch. The TPU
 // kernels carry these sums across their sequential grid; here the CTAs run
@@ -236,6 +242,12 @@ __device__ inline size_t token_offset(int t, int H, int W, int C, int ws, int sh
   return (((size_t)b * H + gy) * W + gx) * C;
 }
 
+// Element offset of row r of a token matrix in its NHWC map: window-major
+// order (token_offset) when ws > 0, the map's own row order when ws == 0.
+__device__ inline size_t row_offset(int r, int H, int W, int C, int ws, int shift) {
+  return ws > 0 ? token_offset(r, H, W, C, ws, shift) : (size_t)r * C;
+}
+
 #define SUNET_TRY(expr)               \
   do {                                \
     cudaError_t e_ = (expr);          \
@@ -257,6 +269,235 @@ struct Carve {
     T* r = reinterpret_cast<T*>(p ? p + used : nullptr);
     used += align128(n * sizeof(T));
     return r;
+  }
+};
+
+// ---- row kernels
+
+constexpr int kLnRows = 64;    // rows per CTA of the row kernels (8 per warp)
+constexpr int kLnMaxC = 768;   // widest row of the LN backward (24 columns per lane)
+
+inline int ln_ctas(int T) { return (T + kLnRows - 1) / kLnRows; }
+
+__device__ inline float gelu_f(float v) { return 0.5f * v * (1.f + erff(v * 0.70710678118654752f)); }
+__device__ inline float gelu_grad_f(float v) {
+  return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
+         v * expf(-0.5f * v * v) * 0.3989422804014327f;
+}
+
+// LayerNorm of T rows: src rows (gathered from the NHWC map by
+// token_offset when `gather`, else src's own rows), copy (gather only)
+// keeps the gathered rows, out = round(xhat * g + b), stats = (mean, inv)
+// per row.
+static __global__ void __launch_bounds__(kThreads)
+    ln_fwd_kernel(const bf16* __restrict__ src, bool gather, bf16* __restrict__ copy,
+                  bf16* __restrict__ out, float* __restrict__ stats, const float* __restrict__ g,
+                  const float* __restrict__ b, int T, int C, int H, int W, int ws, int shift) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = 0; i < kLnRows / kWarps; ++i) {
+    const int r = blockIdx.x * kLnRows + warp * (kLnRows / kWarps) + i;
+    if (r >= T) return;
+    const bf16* s = gather ? src + token_offset(r, H, W, C, ws, shift) : src + (size_t)r * C;
+    float sum = 0.f;
+    for (int c = lane; c < C; c += 32) sum += bf(s[c]);
+    const float mean = warp_sum(sum) / C;
+    float sq = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = bf(s[c]) - mean;
+      sq += d * d;
+    }
+    const float inv = rsqrtf(warp_sum(sq) / C + 1e-5f);
+    for (int c = lane; c < C; c += 32) {
+      const bf16 v = s[c];
+      if (copy) copy[(size_t)r * C + c] = v;
+      out[(size_t)r * C + c] = tobf((bf(v) - mean) * inv * g[c] + b[c]);
+    }
+    if (lane == 0) {
+      stats[2 * r] = mean;
+      stats[2 * r + 1] = inv;
+    }
+  }
+}
+
+inline cudaError_t ln_fwd(const bf16* src, bool gather, bf16* copy, bf16* out, float* stats,
+                          const float* g, const float* b, int T, int C, int H, int W, int ws,
+                          int shift, cudaStream_t st, int* launches) {
+  ln_fwd_kernel<<<ln_ctas(T), kThreads, 0, st>>>(src, gather, copy, out, stats, g, b, T, C, H,
+                                                 W, ws, shift);
+  return launched(launches);
+}
+
+// dst = round(s * src), src gathered into window-major rows; s = dp[2b+1]
+// (image b's MLP-branch drop-path scale), or 1 when dp is null.
+static __global__ void gather_kernel(const bf16* __restrict__ src, const float* __restrict__ dp,
+                                     bf16* __restrict__ dst, int T, int C, int H, int W, int ws,
+                                     int shift) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarps + warp;
+  if (r >= T) return;
+  const bf16* s = src + token_offset(r, H, W, C, ws, shift);
+  const float s2 = dp ? dp[2 * (r / (H * W)) + 1] : 1.f;
+  for (int c = lane; c < C; c += 32) dst[(size_t)r * C + c] = tobf(s2 * bf(s[c]));
+}
+
+inline cudaError_t gather_rows(const bf16* src, const float* dp, bf16* dst, int T, int C, int H, int W,
+                          int ws, int shift, cudaStream_t st, int* launches) {
+  gather_kernel<<<(T + kWarps - 1) / kWarps, kThreads, 0, st>>>(src, dp, dst, T, C, H, W, ws,
+                                                               shift);
+  return launched(launches);
+}
+
+// LayerNorm backward over T rows, kCols columns per lane (C <= 32*kCols):
+// xhat from x (the token matrix's rows, bf16) and its stats, dxhat = d *
+// g, t = inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)). kLn2 (the
+// block's LN2): res = dout (gathered) + t, writes dy = res (fp32) and
+// dattn = round(s1[b] * res). Otherwise: dx = round(base + t) at the row's
+// place in the NHWC map (row_offset), base = dy_in, or 0 when dy_in is null
+// (a sublayer's LN, whose residual autograd adds outside). Both write
+// per-CTA partials of dg = sum d*xhat and db = sum d as part[cta][0:C) and
+// part[cta][C:2C).
+template <bool kLn2, int kCols>
+__global__ void __launch_bounds__(kThreads)
+    ln_bwd_kernel(const float* __restrict__ d, const bf16* __restrict__ x,
+                  const float* __restrict__ stats, const float* __restrict__ g,
+                  const bf16* __restrict__ dout, const float* __restrict__ dy_in,
+                  const float* __restrict__ dp, float* __restrict__ dy_out,
+                  bf16* __restrict__ dattn, bf16* __restrict__ dx, float* __restrict__ part,
+                  int T, int C, int H, int W, int ws, int shift) {
+  __shared__ float red[kWarps][kCols * 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float pdg[kCols], pdb[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) pdg[j] = pdb[j] = 0.f;
+  for (int i = 0; i < kLnRows / kWarps; ++i) {
+    const int r = blockIdx.x * kLnRows + warp * (kLnRows / kWarps) + i;
+    if (r >= T) break;
+    const float mean = stats[2 * r], inv = stats[2 * r + 1];
+    float dv[kCols], xh[kCols];
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = lane + 32 * j;
+      dv[j] = xh[j] = 0.f;
+      if (c < C) {
+        dv[j] = d[(size_t)r * C + c];
+        xh[j] = (bf(x[(size_t)r * C + c]) - mean) * inv;
+        pdg[j] += dv[j] * xh[j];
+        pdb[j] += dv[j];
+        const float dxh = dv[j] * g[c];
+        m1 += dxh;
+        m2 += dxh * xh[j];
+      }
+    }
+    m1 = warp_sum(m1) / C;
+    m2 = warp_sum(m2) / C;
+    const size_t off = row_offset(r, H, W, C, ws, shift);
+    const float s1 = kLn2 ? dp[2 * (r / (H * W))] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int c = lane + 32 * j;
+      if (c >= C) continue;
+      const float t = inv * (dv[j] * g[c] - m1 - xh[j] * m2);
+      if (kLn2) {
+        const float res = bf(dout[off + c]) + t;
+        dy_out[(size_t)r * C + c] = res;
+        dattn[(size_t)r * C + c] = tobf(s1 * res);
+      } else {
+        dx[off + c] = tobf((dy_in ? dy_in[(size_t)r * C + c] : 0.f) + t);
+      }
+    }
+  }
+  // the CTA's dg, then its db, through one buffer (warps summed in order)
+  float* out = part + (size_t)blockIdx.x * 2 * C;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) red[warp][j * 32 + lane] = pdg[j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w][c];
+    out[c] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) red[warp][j * 32 + lane] = pdb[j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w][c];
+    out[C + c] = s;
+  }
+}
+
+// Launches the LN backward with the fewest columns per lane that hold C.
+template <bool kLn2>
+inline cudaError_t ln_bwd(const float* d, const bf16* x, const float* stats, const float* g,
+                          const bf16* dout, const float* dy_in, const float* dp, float* dy_out,
+                          bf16* dattn, bf16* dx, float* part, int T, int C, int H, int W, int ws,
+                          int shift, cudaStream_t st, int* launches) {
+  if (C <= 12 * 32)
+    ln_bwd_kernel<kLn2, 12><<<ln_ctas(T), kThreads, 0, st>>>(
+        d, x, stats, g, dout, dy_in, dp, dy_out, dattn, dx, part, T, C, H, W, ws, shift);
+  else if (C <= kLnMaxC)
+    ln_bwd_kernel<kLn2, kLnMaxC / 32><<<ln_ctas(T), kThreads, 0, st>>>(
+        d, x, stats, g, dout, dy_in, dp, dy_out, dattn, dx, part, T, C, H, W, ws, shift);
+  else
+    return cudaErrorInvalidValue;
+  return launched(launches);
+}
+
+// dg and db from the LN backward's partials: two fixed-order sums.
+inline cudaError_t ln_param_grads(const float* part, float* dg, float* db, int T, int C,
+                                  cudaStream_t st, int* launches) {
+  SUNET_TRY(reduce_splits(part, dg, ln_ctas(T), C, 2 * C, st, launches));
+  return reduce_splits(part + C, db, ln_ctas(T), C, 2 * C, st, launches);
+}
+
+// ---- token-row GEMM epilogues (m: token row, n: output column)
+
+struct EpiBias {   // out = round(acc + bias), bias optional
+  bf16* out;
+  const float* bias;
+  int ld;
+  __device__ float operator()(int m, int n, float v, int) const {
+    out[(size_t)m * ld + n] = tobf(v + (bias ? bias[n] : 0.f));
+    return 0.f;
+  }
+};
+
+struct EpiFc1 {   // a = acc + b1 (fp32, when a is given), h = round(gelu(acc + b1))
+  float* a;
+  bf16* h;
+  const float* b1;
+  int ld;
+  __device__ float operator()(int m, int n, float v, int) const {
+    const size_t e = (size_t)m * ld + n;
+    const float t = v + b1[n];
+    if (a) a[e] = t;
+    h[e] = tobf(gelu_f(t));
+    return 0.f;
+  }
+};
+
+struct EpiDa {   // da = acc * gelu'(a) (fp32) and round(da)
+  float* da;
+  bf16* dab;
+  const float* a;
+  int ld;
+  __device__ float operator()(int m, int n, float v, int) const {
+    const size_t e = (size_t)m * ld + n;
+    const float t = v * gelu_grad_f(a[e]);
+    da[e] = t;
+    dab[e] = tobf(t);
+    return 0.f;
+  }
+};
+
+struct EpiBf16 {
+  bf16* out;
+  int ld;
+  __device__ float operator()(int m, int n, float v, int) const {
+    out[(size_t)m * ld + n] = tobf(v);
+    return 0.f;
   }
 };
 

@@ -18,6 +18,16 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   backward, recompute form. CUDA: ``csrc/swin_block_bwd.cu``.
   :class:`SwinBlockTrainable` pairs it with :func:`fused_swin_block`'s
   train form (per-image drop-path scales) for autograd.
+- The two training sublayers of the blocks above the block-kernel cap:
+  :func:`ln_window_attention_bwd` (JAX ``_ln_wmsa_bwd_impl``, CUDA
+  ``csrc/ln_wmsa_bwd.cu``) is the backward of
+  :func:`fused_ln_window_attention`, and :class:`LnWindowAttentionTrainable`
+  pairs the two (JAX ``ln_window_attention_trainable``);
+  :func:`ln_mlp_branch` (JAX ``_ln_mlp_branch``, CUDA
+  ``csrc/ln_mlp_branch.cu``), ``fc2(gelu(fc1(LN(y))))`` without the
+  residual, and its backward :func:`ln_mlp_bwd` (JAX ``_ln_mlp_bwd``, CUDA
+  ``csrc/ln_mlp_bwd.cu``) make :class:`LnMlpTrainable` (JAX
+  ``ln_mlp_trainable``).
 
 Arguments follow the JAX functions: NHWC activations, weight matrices in
 (in, out) layout and in the compute dtype, LN parameters and biases in any
@@ -54,9 +64,16 @@ BF16 = torch.bfloat16
 # (215,808 bytes at C=384, of 232,448). Wider blocks take the split
 # LN+W-MSA / LN+MLP kernels.
 BLOCK_KERNEL_MAX_C = 384
-# Kernel launches one swin_block_bwd call makes (csrc/swin_block_bwd.cu:
-# the forward recompute, the backward products and the token reductions).
+# Kernel launches one call of each training wrapper makes (the forward
+# recompute, the backward products and the token reductions of
+# csrc/swin_block_bwd.cu, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; LN and the two
+# products of ln_mlp_branch.cu).
 SWIN_BLOCK_BWD_LAUNCHES = 35
+LN_WMSA_BWD_LAUNCHES = 19
+LN_MLP_BRANCH_LAUNCHES = 3
+LN_MLP_BWD_LAUNCHES = 15
+# Widest C of the training sublayer kernels (the LN backward's rows).
+SPLIT_TRAIN_MAX_C = 768
 
 
 @contextlib.contextmanager
@@ -130,13 +147,18 @@ def _qkv_ctx(xn, wqkv, bqkv, bias, mask, ws, num_heads, scale):
                                scale=scale).to(dt)
 
 
-def _mlp_tail(y, ln, w1, b1, w2, b2, s2=None):
-    """round(y + s2 * fc2(gelu(fc1(LN(y))))); s2 per image or None (1)."""
+def _mlp_branch32(y, ln, w1, b1, w2, b2):
+    """fc2(round(gelu(fc1(round(LN(y)))))) + b2 in float32."""
     dt = y.dtype
     yn = ln32(y, *ln).to(dt)
     h1 = gelu_erf(mm32(yn, w1) + b1.float()).to(dt)
-    m = mm32(h1, w2) + b2.float()
-    return (y.float() + (m if s2 is None else s2 * m)).to(dt)
+    return mm32(h1, w2) + b2.float()
+
+
+def _mlp_tail(y, ln, w1, b1, w2, b2, s2=None):
+    """round(y + s2 * fc2(gelu(fc1(LN(y))))); s2 per image or None (1)."""
+    m = _mlp_branch32(y, ln, w1, b1, w2, b2)
+    return (y.float() + (m if s2 is None else s2 * m)).to(y.dtype)
 
 
 def _dp_scales(dp, B: int):
@@ -157,6 +179,91 @@ def _ln_bwd_dx(dxhat, xhat, inv):
     """LN input cotangent inv * (dxhat - mean(dxhat) - xhat * mean(dxhat*xhat))."""
     return inv * (dxhat - dxhat.mean(-1, keepdim=True)
                   - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+
+
+def _wmsa_recompute(uw, wqkv, bqkv, bias, mask, *, num_heads: int,
+                    scale: float) -> tuple:
+    """Forward recompute of the attention sublayer from its LN'd rows ``uw``
+    (T, C) in window-major order: (round(q*scale), k, v) per (window, head)
+    (Bn, h, N, d), the float32 softmax P (Bn, h, N, N) and ctx =
+    round(round(P) @ v) as rows (T, C)."""
+    dt = uw.dtype
+    T, C = uw.shape
+    h = num_heads
+    N = bias.shape[-1]
+    Bn = T // N
+    qkv = mm32(uw, wqkv)
+    if bqkv is not None:
+        qkv = qkv + bqkv.float()
+    qkv = qkv.to(dt)
+    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(Bn, N, h, C // h).permute(0, 2, 1, 3)
+               for i in range(3))
+    qs = (q.float() * scale).to(dt)
+    s = mm32(qs, k.transpose(-1, -2)) + bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(Bn // nW, nW, h, N, N) + mask.float()[None, :, None]).reshape(
+            Bn, h, N, N)
+    P = torch.softmax(s, dim=-1)
+    ctx = mm32(P.to(dt), v).permute(0, 2, 1, 3).reshape(T, C).to(dt)
+    return qs, k, v, P, ctx
+
+
+def _wmsa_bwd(uw, dattn, rec, wqkv, wproj, *, scale: float) -> tuple:
+    """Backward of the attention sublayer from the cotangent ``dattn`` (T,
+    C, window-major rows, compute dtype) of its projection output, ``rec``
+    from :func:`_wmsa_recompute`: dctx = round(dattn wproj^T); per head dP
+    = dctx v^T, dv = round(P)^T dctx, ds = P*(dP - rowsum(dP*P)), dq =
+    round(ds) k * scale, dk = round(ds)^T round(q*scale). Returns (du =
+    round(dqkv) wqkv^T as float32 rows, dwqkv = uw^T round(dqkv), dbqkv,
+    dwproj = ctx^T dattn, dbproj, dbias = sum of ds over windows)."""
+    qs, k, v, P, ctx = rec
+    dt = uw.dtype
+    T, C = uw.shape
+    Bn, h, N, d = k.shape
+    heads = lambda t: t.reshape(Bn, N, h, d).permute(0, 2, 1, 3)
+    unheads = lambda t: t.permute(0, 2, 1, 3).reshape(T, C)
+    dwproj = mm32(ctx.t(), dattn)
+    dbproj = dattn.float().sum(0)
+    dctx = heads(mm32(dattn, wproj.t()).to(dt))
+    dP = mm32(dctx, v.transpose(-1, -2))
+    dv = mm32(P.to(dt).transpose(-1, -2), dctx)
+    ds = P * (dP - (dP * P).sum(-1, keepdim=True))
+    dbias = ds.sum(0)
+    dsb = ds.to(dt)
+    dq = mm32(dsb, k) * scale
+    dk = mm32(dsb.transpose(-1, -2), qs)
+    dqkv = torch.cat([unheads(dq), unheads(dk), unheads(dv)], dim=-1)
+    dqkv_b = dqkv.to(dt)
+    return (mm32(dqkv_b, wqkv.t()), mm32(uw.t(), dqkv_b), dqkv.sum(0), dwproj,
+            dbproj, dbias)
+
+
+def _mlp_recompute(rows, ln, w1, b1) -> tuple:
+    """Forward recompute of the MLP branch over token rows (T, C): (xhat,
+    inv) of its LN in float32, yn = round(LN(rows)), the float32 fc1
+    pre-activation a and round(gelu(a))."""
+    yhat, inv = _ln_stats(rows)
+    yn = (yhat * ln[0].float() + ln[1].float()).to(rows.dtype)
+    a = mm32(yn, w1) + b1.float()
+    return yhat, inv, yn, a, gelu_erf(a).to(rows.dtype)
+
+
+def _mlp_bwd(dm, rec, ln_scale, w1, w2) -> tuple:
+    """Backward of the MLP branch from its output cotangent ``dm`` (T, C,
+    compute dtype), ``rec`` from :func:`_mlp_recompute`: dw2 = hgelu^T dm;
+    da = (dm w2^T) * gelu'(a); dab = round(da); dw1 = yn^T dab; dyn = dab
+    w1^T. Returns (LN^T(dyn * g) as float32 rows, dg, db, dw1, db1, dw2,
+    db2)."""
+    yhat, inv, yn, a, hgelu = rec
+    dw2 = mm32(hgelu.t(), dm)
+    db2 = dm.float().sum(0)
+    da = mm32(dm, w2.t()) * gelu_erf_grad(a)
+    dab = da.to(dm.dtype)
+    dw1 = mm32(yn.t(), dab)
+    dyn = mm32(dab, w1.t())
+    return (_ln_bwd_dx(dyn * ln_scale.float(), yhat, inv), (dyn * yhat).sum(0),
+            dyn.sum(0), dw1, da.sum(0), dw2, db2)
 
 
 # ---------------------------------------------------------------- plain versions
@@ -202,78 +309,69 @@ def swin_block_bwd_reference(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1,
     with exact_fp32():
         dt = x.dtype
         B, H, W, C = x.shape
-        h, d, N = num_heads, C // num_heads, ws * ws
-        nW = (H // ws) * (W // ws)
         s1, s2 = _dp_scales(drop_path_scale, B)
         if s1 is None:
             s1 = s2 = torch.ones(B, 1, 1, 1, device=x.device)
         f = lambda t: t.float()
         win = lambda t: window_partition(t, ws).reshape(-1, t.shape[-1])
-        unwin = lambda t: window_reverse(t.reshape(-1, N, t.shape[-1]), ws, H, W)
-        heads = lambda t: t.reshape(B * nW, N, h, d).permute(0, 2, 1, 3)
-        unheads = lambda t: t.permute(0, 2, 1, 3).reshape(B * nW * N, C)
+        unwin = lambda t: window_reverse(t.reshape(-1, ws * ws, t.shape[-1]), ws, H, W)
 
         # forward recompute
         xr = roll2d(x, -shift)
         xhat1, inv1 = _ln_stats(xr)
-        u = (xhat1 * f(ln1[0]) + f(ln1[1])).to(dt)
-        uw = win(u)
-        qkv = mm32(uw, wqkv)
-        if bqkv is not None:
-            qkv = qkv + f(bqkv)
-        qkv = qkv.to(dt)
-        q, k, v = (heads(qkv[:, i * C:(i + 1) * C]) for i in range(3))
-        qs = (q.float() * scale).to(dt)
-        s = mm32(qs, k.transpose(-1, -2)) + f(bias)[None]
-        if mask is not None:
-            s = (s.reshape(B, nW, h, N, N) + f(mask)[None, :, None]).reshape(
-                B * nW, h, N, N)
-        P = torch.softmax(s, dim=-1)
-        ctx = unheads(mm32(P.to(dt), v)).to(dt)                   # (T, C)
-        attn = unwin(mm32(ctx, wproj) + f(bproj))
+        uw = win((xhat1 * f(ln1[0]) + f(ln1[1])).to(dt))
+        att = _wmsa_recompute(uw, wqkv, bqkv, bias, mask, num_heads=num_heads,
+                              scale=scale)
+        attn = unwin(mm32(att[4], wproj) + f(bproj))
         y = (xr.float() + s1 * attn).to(dt)
-        yhat2, inv2 = _ln_stats(y)
-        yn = (yhat2 * f(ln2[0]) + f(ln2[1])).to(dt).reshape(-1, C)
-        a = mm32(yn, w1) + f(b1)
-        hgelu = gelu_erf(a).to(dt)
+        mlp = _mlp_recompute(y.reshape(-1, C), ln2, w1, b1)
 
         # MLP sublayer
         dout32 = roll2d(dout.to(dt), -shift).float()
         dm = (s2 * dout32).to(dt).reshape(-1, C)
-        dw2 = mm32(hgelu.t(), dm)
-        dbm2 = dm.float().sum(0)
-        da = mm32(dm, w2.t()) * gelu_erf_grad(a)
-        dab = da.to(dt)
-        dw1 = mm32(yn.t(), dab)
-        dbm1 = da.sum(0)
-        dyn = mm32(dab, w1.t()).reshape(B, H, W, C)
-        dg2 = (dyn * yhat2).sum((0, 1, 2))
-        db2 = dyn.sum((0, 1, 2))
-        dy = dout32 + _ln_bwd_dx(dyn * f(ln2[0]), yhat2, inv2)
+        dy2, dg2, db2, dw1, dbm1, dw2, dbm2 = _mlp_bwd(dm, mlp, ln2[0], w1, w2)
+        dy = dout32 + dy2.reshape(B, H, W, C)
 
         # attention sublayer
-        dattn = win((s1 * dy).to(dt))                              # (T, C)
-        dwproj = mm32(ctx.t(), dattn)
-        dbproj = dattn.float().sum(0)
-        dctx = heads(mm32(dattn, wproj.t()).to(dt))
-        dP = mm32(dctx, v.transpose(-1, -2))
-        dv = mm32(P.to(dt).transpose(-1, -2), dctx)
-        ds = P * (dP - (dP * P).sum(-1, keepdim=True))
-        dbias = ds.sum(0)
-        dsb = ds.to(dt)
-        dq = mm32(dsb, k) * scale
-        dk = mm32(dsb.transpose(-1, -2), qs)
-        dqkv = torch.cat([unheads(dq), unheads(dk), unheads(dv)], dim=-1)
-        dqkv_b = dqkv.to(dt)
-        dwqkv = mm32(uw.t(), dqkv_b)
-        dbqkv = dqkv.sum(0)
-        du = unwin(mm32(dqkv_b, wqkv.t()))
+        du, dwqkv, dbqkv, dwproj, dbproj, dbias = _wmsa_bwd(
+            uw, win((s1 * dy).to(dt)), att, wqkv, wproj, scale=scale)
+        du = unwin(du)
         dg1 = (du * xhat1).sum((0, 1, 2))
         db1 = du.sum((0, 1, 2))
         dx = dy + _ln_bwd_dx(du * f(ln1[0]), xhat1, inv1)
         dx = roll2d(dx, shift).to(dt)
         return (dx, dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2, dw1,
                 dbm1, dw2, dbm2, dbias)
+
+
+def ln_window_attention_bwd_reference(x, dout, ln_scale, ln_bias, wqkv, bqkv,
+                                      wproj, bias, mask, *, ws: int,
+                                      num_heads: int, scale: float) -> tuple:
+    """Plain PyTorch version of :func:`ln_window_attention_bwd`, step by step
+    after the JAX ``_strip_bwd_kernel`` with its rounding points: LN, qkv,
+    per-head softmax P and ctx recomputed from x (rolled by the caller);
+    dwproj = ctx^T round(dout), dbproj = sum round(dout), dctx =
+    round(round(dout) wproj^T), the per-head attention backward of
+    :func:`_wmsa_bwd`, dwqkv = u^T round(dqkv), du = round(dqkv) wqkv^T,
+    dx = LN^T(du * g) with no residual term.
+
+    Returns (dx in x's dtype, then float32 grads of the LN scale and bias,
+    wqkv, bqkv, wproj, bproj and bias (h, N, N)); weight grads are (in,
+    out) like the weights."""
+    with exact_fp32():
+        dt = x.dtype
+        B, H, W, C = x.shape
+        win = lambda t: window_partition(t, ws).reshape(-1, C)
+        xhat, inv = _ln_stats(x)
+        uw = win((xhat * ln_scale.float() + ln_bias.float()).to(dt))
+        rec = _wmsa_recompute(uw, wqkv, bqkv, bias, mask, num_heads=num_heads,
+                              scale=scale)
+        du, dwqkv, dbqkv, dwproj, dbproj, dbias = _wmsa_bwd(
+            uw, win(dout.to(dt)), rec, wqkv, wproj, scale=scale)
+        du = window_reverse(du.reshape(-1, ws * ws, C), ws, H, W)
+        dx = _ln_bwd_dx(du * ln_scale.float(), xhat, inv).to(dt)
+        return (dx, (du * xhat).sum((0, 1, 2)), du.sum((0, 1, 2)), dwqkv,
+                dbqkv, dwproj, dbproj, dbias)
 
 
 def fused_ln_window_attention_reference(x, ln_scale, ln_bias, wqkv, bqkv,
@@ -296,11 +394,39 @@ def fused_ln_mlp_reference(y, ln, w1, b1, w2, b2) -> torch.Tensor:
         return _mlp_tail(y, ln, w1, b1, w2, b2)
 
 
+def ln_mlp_branch_reference(y, ln, w1, b1, w2, b2) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ln_mlp_branch` (JAX
+    ``_mlp_branch_kernel``): fc2(round(gelu(fc1(round(LN(y)))))) + b2,
+    rounded to y's dtype, no residual."""
+    with exact_fp32():
+        return _mlp_branch32(y, ln, w1, b1, w2, b2).to(y.dtype)
+
+
+def ln_mlp_bwd_reference(y, dout, ln, w1, b1, w2) -> tuple:
+    """Plain PyTorch version of :func:`ln_mlp_bwd`, step by step after the
+    JAX ``_mlp_bwd_kernel`` with its rounding points: LN(y) and the fc1
+    pre-activation a recomputed, then the branch backward of
+    :func:`_mlp_bwd` from dm = round(dout), and dy = LN^T(dyn * g) with no
+    residual term. Returns (dy in y's dtype, then float32 grads of the LN
+    scale and bias, w1 (C, hidden), b1, w2 (hidden, C) and b2)."""
+    with exact_fp32():
+        dt = y.dtype
+        C = y.shape[-1]
+        rec = _mlp_recompute(y.reshape(-1, C), ln, w1, b1)
+        dy, *grads = _mlp_bwd(dout.to(dt).reshape(-1, C), rec, ln[0], w1, w2)
+        return (dy.reshape(y.shape).to(dt), *grads)
+
+
 # ---------------------------------------------------------------- CUDA launches
 
 
 def _f32(t: Optional[torch.Tensor], device) -> Optional[torch.Tensor]:
     return None if t is None else t.to(device=device, dtype=torch.float32).contiguous()
+
+
+def _workspace(lib_fn, dev, *dims) -> torch.Tensor:
+    """A kernel's device workspace: ``lib_fn(*dims)`` bytes."""
+    return torch.empty(lib_fn(*dims), device=dev, dtype=torch.uint8)
 
 
 def _check_x(name: str, x: torch.Tensor):
@@ -436,9 +562,8 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
     dp = (torch.ones(B, 2, device=dev) if drop_path_scale is None
           else f(drop_path_scale))
     lib = _build.library()
-    ws_bytes = lib.sunet_swin_block_bwd_workspace(B, H, W, C, hidden, ws,
-                                                  num_heads)
-    work = torch.empty(ws_bytes, device=dev, dtype=torch.uint8)
+    work = _workspace(lib.sunet_swin_block_bwd_workspace, dev, B, H, W, C, hidden,
+                      ws, num_heads)
     dx = torch.empty_like(x)
     z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
     grads = [z(C), z(C), z(C, 3 * C), z(3 * C), z(C, C), z(C), z(C), z(C),
@@ -581,3 +706,186 @@ def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     _build.check(name, err)
     count.cuda += 1
     return out
+
+
+# ---------------------------------------------------------------- training sublayers
+
+
+def _check_vec(name: str, **vecs):
+    """Each given vector (None allowed) holds exactly its length of values."""
+    for vname, (v, n) in vecs.items():
+        if v is not None and v.numel() != n:
+            raise ValueError(f"{name}: {vname} has {v.numel()} values, expected {n}")
+
+
+def _check_dout(name: str, x: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    if tuple(dout.shape) != tuple(x.shape) or dout.device != x.device:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} on {dout.device}, expected "
+                         f"{tuple(x.shape)} on {x.device}")
+    return dout.to(BF16).contiguous()
+
+
+def ln_window_attention_bwd(x, dout, ln_scale, ln_bias, wqkv, bqkv, wproj, bias,
+                            mask, *, ws: int, num_heads: int,
+                            scale: float) -> tuple:
+    """Backward of :func:`fused_ln_window_attention` (JAX
+    ``_ln_wmsa_bwd_impl``): x as in the forward (raw, rolled by the caller),
+    dout the cotangent of its output. Returns (dx, then float32 grads of the
+    LN scale and bias, wqkv, bqkv, wproj, bproj and bias). CUDA:
+    ``csrc/ln_wmsa_bwd.cu``, a fixed sequence of launches, each counted."""
+    name = "ln_window_attention_bwd"
+    count = _build.counter(name)
+    if x.device.type == "cpu":
+        count.cpu += LN_WMSA_BWD_LAUNCHES
+        return ln_window_attention_bwd_reference(
+            x, dout, ln_scale, ln_bias, wqkv, bqkv, wproj, bias, mask, ws=ws,
+            num_heads=num_heads, scale=scale)
+    _check_x(name, x)
+    B, H, W, C = x.shape
+    if C > SPLIT_TRAIN_MAX_C:
+        raise ValueError(f"{name}: C={C} above {SPLIT_TRAIN_MAX_C}")
+    _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
+    _check_window(name, H, W, C, ws, num_heads, bias, mask)
+    _check_vec(name, ln_scale=(ln_scale, C), ln_bias=(ln_bias, C), bqkv=(bqkv, 3 * C))
+    dout = _check_dout(name, x, dout)
+    dev = x.device
+    f = lambda t: _f32(t, dev)
+    lib = _build.library()
+    work = _workspace(lib.sunet_ln_wmsa_bwd_workspace, dev, B, H, W, C, ws, num_heads)
+    dx = torch.empty_like(x)
+    z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    grads = [z(C), z(C), z(C, 3 * C), z(3 * C), z(C, C), z(C),
+             z(num_heads, ws * ws, ws * ws)]
+    args = [f(ln_scale), f(ln_bias), wqkv, f(bqkv), wproj, f(bias), f(mask)]
+    launches = _build.c_int(0)
+    err = lib.sunet_ln_wmsa_bwd(
+        _build.ptr(x), _build.ptr(dout), *[_build.ptr(a) for a in args],
+        _build.ptr(dx), *[_build.ptr(g) for g in grads], _build.ptr(work),
+        B, H, W, C, ws, num_heads, float(scale), _build.byref(launches),
+        _build.stream())
+    _build.check(name, err)
+    count.cuda += launches.value
+    return (dx, *grads)
+
+
+def _check_mlp(name, y, ln, w1, b1, w2, b2=None):
+    _check_x(name, y)
+    C, hidden = y.shape[-1], w1.shape[1]
+    if C % 16 or hidden % 16 or C > SPLIT_TRAIN_MAX_C:
+        raise ValueError(f"{name}: C={C}, hidden={hidden}: the kernel takes "
+                         f"multiples of 16 and C <= {SPLIT_TRAIN_MAX_C}")
+    _check_w(name, y, w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
+    _check_vec(name, ln_scale=(ln[0], C), ln_bias=(ln[1], C), b1=(b1, hidden), b2=(b2, C))
+
+
+def ln_mlp_branch(y, ln, w1, b1, w2, b2) -> torch.Tensor:
+    """fc2(gelu(fc1(LN(y)))) over an NHWC map, in y's dtype, without the
+    residual (JAX ``_ln_mlp_branch``). CUDA: ``csrc/ln_mlp_branch.cu``, the
+    LN row kernel and two GEMM launches, each counted."""
+    name = "ln_mlp_branch"
+    count = _build.counter(name)
+    if y.device.type == "cpu":
+        count.cpu += LN_MLP_BRANCH_LAUNCHES
+        return ln_mlp_branch_reference(y, ln, w1, b1, w2, b2)
+    _check_mlp(name, y, ln, w1, b1, w2, b2)
+    B, H, W, C = y.shape
+    hidden = w1.shape[1]
+    dev = y.device
+    f = lambda t: _f32(t, dev)
+    lib = _build.library()
+    work = _workspace(lib.sunet_ln_mlp_branch_workspace, dev, B * H * W, C, hidden)
+    out = torch.empty_like(y)
+    args = [f(ln[0]), f(ln[1]), w1, f(b1), w2, f(b2)]
+    launches = _build.c_int(0)
+    err = lib.sunet_ln_mlp_branch(
+        _build.ptr(y), _build.ptr(out), *[_build.ptr(a) for a in args],
+        _build.ptr(work), B * H * W, C, hidden, _build.byref(launches),
+        _build.stream())
+    _build.check(name, err)
+    count.cuda += launches.value
+    return out
+
+
+def ln_mlp_bwd(y, dout, ln, w1, b1, w2) -> tuple:
+    """Backward of :func:`ln_mlp_branch` (JAX ``_ln_mlp_bwd``). Returns (dy,
+    then float32 grads of the LN scale and bias, w1, b1, w2 and b2). CUDA:
+    ``csrc/ln_mlp_bwd.cu``, a fixed sequence of launches, each counted."""
+    name = "ln_mlp_bwd"
+    count = _build.counter(name)
+    if y.device.type == "cpu":
+        count.cpu += LN_MLP_BWD_LAUNCHES
+        return ln_mlp_bwd_reference(y, dout, ln, w1, b1, w2)
+    _check_mlp(name, y, ln, w1, b1, w2)
+    dout = _check_dout(name, y, dout)
+    B, H, W, C = y.shape
+    hidden = w1.shape[1]
+    dev = y.device
+    f = lambda t: _f32(t, dev)
+    lib = _build.library()
+    work = _workspace(lib.sunet_ln_mlp_bwd_workspace, dev, B * H * W, C, hidden)
+    dy = torch.empty_like(y)
+    z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    grads = [z(C), z(C), z(C, hidden), z(hidden), z(hidden, C), z(C)]
+    args = [f(ln[0]), f(ln[1]), w1, f(b1), w2]
+    launches = _build.c_int(0)
+    err = lib.sunet_ln_mlp_bwd(
+        _build.ptr(y), _build.ptr(dout), *[_build.ptr(a) for a in args],
+        _build.ptr(dy), *[_build.ptr(g) for g in grads], _build.ptr(work),
+        B * H * W, C, hidden, _build.byref(launches), _build.stream())
+    _build.check(name, err)
+    count.cuda += launches.value
+    return (dy, *grads)
+
+
+class LnWindowAttentionTrainable(torch.autograd.Function):
+    """Differentiable LN + W-MSA + projection sublayer (JAX
+    ``ln_window_attention_trainable``): forward = :func:`fused_ln_window_attention`,
+    backward = :func:`ln_window_attention_bwd`. x comes rolled by the
+    caller; the output is the sublayer's before the residual. Weights come
+    in float32, (in, out) layout, and are cast to x's dtype for the kernels;
+    their grads come back in float32. ``mask`` and the static arguments get
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, ws,
+                num_heads, scale):
+        dt = x.dtype
+        cast = lambda w: w.detach().to(dt).contiguous()
+        x = x.contiguous()
+        p = (ln_s.detach(), ln_b.detach(), cast(wqkv),
+             None if bqkv is None else bqkv.detach(), cast(wproj), bias.detach())
+        ctx.save_for_backward(x, mask, *p)
+        ctx.static = (ws, num_heads, scale)
+        return fused_ln_window_attention(x, *p[:5], bproj.detach(), p[5], mask,
+                                         ws=ws, num_heads=num_heads, scale=scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        ws, num_heads, scale = ctx.static
+        x, mask, *p = ctx.saved_tensors
+        g = list(ln_window_attention_bwd(x, dout, *p, mask, ws=ws,
+                                         num_heads=num_heads, scale=scale))
+        if p[3] is None:
+            g[4] = None
+        return (*g, None, None, None, None)
+
+
+class LnMlpTrainable(torch.autograd.Function):
+    """Differentiable LN + MLP branch without the residual (JAX
+    ``ln_mlp_trainable``): forward = :func:`ln_mlp_branch`, backward =
+    :func:`ln_mlp_bwd`. Weights come in float32, (in, out) layout, cast to
+    y's dtype for the kernels; their grads come back in float32."""
+
+    @staticmethod
+    def forward(ctx, y, ln_s, ln_b, w1, b1, w2, b2):
+        dt = y.dtype
+        cast = lambda w: w.detach().to(dt).contiguous()
+        y = y.contiguous()
+        p = (ln_s.detach(), ln_b.detach(), cast(w1), b1.detach(), cast(w2))
+        ctx.save_for_backward(y, *p)
+        return ln_mlp_branch(y, p[0:2], *p[2:5], b2.detach())
+
+    @staticmethod
+    def backward(ctx, dout):
+        y, ln_s, ln_b, w1, b1, w2 = ctx.saved_tensors
+        return ln_mlp_bwd(y, dout, (ln_s, ln_b), w1, b1, w2)

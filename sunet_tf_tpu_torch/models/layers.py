@@ -21,13 +21,22 @@ Two routes per block, chosen by ``backend``:
   kernel (load/store addressing), at any map size.
 
 Training (a ``torch.Generator`` passed to ``forward``) draws per-image
-stochastic-depth scales from it. On the fused route a block with C <=
-``ROUTE_TRAIN_BLOCK_MAX_C`` runs ``SwinBlockTrainable`` (block kernel
-forward, ``swin_block_bwd`` backward); wider blocks train through plain
-autograd of the eager block, as the JAX package does with
-``SUNET_TRAIN_KERNEL_MAX_C=384``: a routing rule of this configuration (the
-C=768 training kernels are ROADMAP queue B), never a reaction to a kernel
-failing. Training never takes the chain route.
+stochastic-depth scales from it. On the fused route a block trains by its
+width, a routing rule of the configuration and never a reaction to a kernel
+failing:
+
+- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384): ``SwinBlockTrainable``, the block
+  kernel forward and ``swin_block_bwd`` backward (JAX ``_trainable_block``);
+- C <= ``ROUTE_TRAIN_SPLIT_MAX_C`` (768): the two sublayers,
+  ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with the residuals
+  and drop-path in autograd (JAX's sublayer route,
+  ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
+  ``SUNET_TRAIN_BLOCK_KERNEL=0``; JAX's default trains C=768 on the
+  whole-block kernel, whose window does not fit one CTA here);
+- wider (the scaled EMB-180 config's C=1440): autograd of the eager block,
+  as JAX above ``SUNET_TRAIN_KERNEL_MAX_C=768``.
+
+Training never takes the chain route.
 """
 
 from __future__ import annotations
@@ -58,9 +67,12 @@ ROUTE_PAIR_MIN_C = 192
 ROUTE_BLOCK_MAX_C = wa.BLOCK_KERNEL_MAX_C
 # Longest run of blocks fused into one chain (W->SW pairs).
 ROUTE_CHAIN_MAX = 2
-# Widest block trained through the block kernels (JAX
-# SUNET_TRAIN_KERNEL_MAX_C=384); wider ones take autograd of the eager block.
+# Widest block trained through the block kernels; wider ones up to
+# ROUTE_TRAIN_SPLIT_MAX_C train through the two sublayer kernels (JAX
+# SUNET_TRAIN_KERNEL_MAX_C=768), wider still through autograd of the eager
+# block.
 ROUTE_TRAIN_BLOCK_MAX_C = 384
+ROUTE_TRAIN_SPLIT_MAX_C = wa.SPLIT_TRAIN_MAX_C
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -296,6 +308,24 @@ class SwinBlock(nn.Module):
             self.mask(H, W, x.device), self.window_size, a.num_heads, a.scale,
             self.shift_size)
 
+    def _train_split(self, x: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+        """Training through the two sublayer kernels (the JAX sublayer
+        route, ``layers.py`` ``SwinBlock.__call__``): x + drop_path(roll(
+        LN+W-MSA(roll(x, -ss)), ss)), then y + drop_path(LN+MLP(y)); the
+        roll, the residuals and drop-path run in autograd."""
+        a, m = self.attn, self.mlp
+        H, W = x.shape[1], x.shape[2]
+        ss = self.shift_size
+        t = lambda lin: lin.weight.t()
+        att = wa.LnWindowAttentionTrainable.apply(
+            roll2d(x, -ss), self.norm1.weight, self.norm1.bias, t(a.qkv), a.qkv.bias,
+            t(a.proj), a.proj.bias, a.bias_matrix(), self.mask(H, W, x.device),
+            self.window_size, a.num_heads, a.scale)
+        x = x + drop_path(roll2d(att, ss), dp[:, 0])
+        y = wa.LnMlpTrainable.apply(x, self.norm2.weight, self.norm2.bias, t(m.fc1),
+                                    m.fc1.bias, t(m.fc2), m.fc2.bias)
+        return x + drop_path(y, dp[:, 1])
+
     def _eager(self, x: torch.Tensor, dp: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, H, W, C = x.shape
         ws, ss = self.window_size, self.shift_size
@@ -318,6 +348,8 @@ class SwinBlock(nn.Module):
             dp = drop_path_scales(B, self.drop_path_rate, generator, x.device)
             if self.backend == "fused" and self.dim <= ROUTE_TRAIN_BLOCK_MAX_C:
                 return self._train_block(x, dp)
+            if self.backend == "fused" and self.dim <= ROUTE_TRAIN_SPLIT_MAX_C:
+                return self._train_split(x, dp)
             return self._eager(x, dp)
         if self.backend == "eager":
             return self._eager(x)

@@ -43,7 +43,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 INFER_WRAPPERS = ("fused_swin_block", "fused_swin_block_chain",
                   "fused_ln_window_attention", "fused_ln_mlp",
                   "fused_dual_upsample4_conv_phase")
-TRAIN_WRAPPERS = INFER_WRAPPERS + ("swin_block_bwd", "up4_conv_bwd")
+TRAIN_WRAPPERS = INFER_WRAPPERS + ("swin_block_bwd", "ln_window_attention_bwd",
+                                  "ln_mlp_branch", "ln_mlp_bwd", "up4_conv_bwd")
 
 
 def _dpr_schedule(depths: tuple, drop_path_rate: float) -> list:
@@ -278,10 +279,15 @@ class SUNet(nn.Module):
         """Kernel launches one fused forward of an input of ``x_shape``
         makes, per wrapper, as the router decides them: a chain of K blocks
         launches the block kernel K times, LN+W-MSA launches two kernels.
-        ``train=True``: one training step, forward and backward (every block
-        up to ROUTE_TRAIN_BLOCK_MAX_C launches the block kernel once and
-        its backward's fixed sequence; the x4 head its forward kernel and
-        its backward's sequence; wider blocks run plain autograd)."""
+        ``train=True``: one training step, forward and backward, by the
+        three-width training rule: a block up to ROUTE_TRAIN_BLOCK_MAX_C
+        launches the block kernel once and its backward's fixed sequence
+        (JAX ``swin_block_trainable``); one up to ROUTE_TRAIN_SPLIT_MAX_C
+        the LN+W-MSA pair, LN+W-MSA backward, LN+MLP branch and LN+MLP
+        backward sequences (JAX ``ln_window_attention_trainable`` +
+        ``ln_mlp_trainable``); a wider one runs plain autograd and launches
+        nothing. The x4 head launches its forward kernel and its backward's
+        sequence."""
         counts = dict.fromkeys(TRAIN_WRAPPERS if train else INFER_WRAPPERS, 0)
         if self.backend != "fused":
             return counts
@@ -291,6 +297,11 @@ class SUNet(nn.Module):
                     if blk.dim <= layers.ROUTE_TRAIN_BLOCK_MAX_C:
                         counts["fused_swin_block"] += 1
                         counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
+                    elif blk.dim <= layers.ROUTE_TRAIN_SPLIT_MAX_C:
+                        counts["fused_ln_window_attention"] += 2
+                        counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES
+                        counts["ln_mlp_branch"] += wa.LN_MLP_BRANCH_LAUNCHES
+                        counts["ln_mlp_bwd"] += wa.LN_MLP_BWD_LAUNCHES
             if 16 * self.cfg.out_chans <= 128:
                 counts["fused_dual_upsample4_conv_phase"] += 1
                 counts["up4_conv_bwd"] += up_kernels.UP4_CONV_BWD_LAUNCHES

@@ -75,13 +75,28 @@ def prepare(batch: dict, task: str, sigma: float, generator: torch.Generator) ->
 
 def loss_and_metrics(model, inp, tar, generator, valid, task: str) -> tuple:
     """(loss, logits, weights) of the training forward; ``valid`` (B,) 0/1
-    masks padded samples out of the loss (sum(l*w)/sum(w) normalisation)."""
+    masks padded samples out of the loss under the sum(l*w)/sum(w)
+    normalisation. As in the JAX step, the denoise weight is the (B, 1, 1,
+    1) mask itself, so that loss is the per-image sum of the pixel losses
+    over the valid images, not their mean (ROADMAP: JAX-package
+    questions)."""
     logits = model(inp, generator=generator)
     v4 = valid.reshape(-1, 1, 1, 1)
     if task == "denoise":
-        return charbonnier_loss(logits, tar, v4.expand_as(logits)), logits, None
+        return charbonnier_loss(logits, tar, v4), logits, None
     weights = boundary_ring_weights(tar)
     return charbonnier_loss(logits, tar, weights * v4), logits, weights
+
+
+def train_scalars(task: str, logits, tar, weights, valid) -> dict:
+    """The logged MSE scalars of a training step, weighted as the JAX step
+    weighs them: by the (B, 1, 1, 1) valid mask (and the boundary weights
+    for ``mse_w``)."""
+    v4 = valid.reshape(-1, 1, 1, 1)
+    scalars = {"mse": mse_loss(logits, tar, v4)}
+    if task == "mask":
+        scalars["mse_w"] = mse_loss(logits, tar, weights * v4)
+    return scalars
 
 
 def build_steps(model, optimizer, task: str = "denoise", sigma: float = 50.0,
@@ -107,14 +122,10 @@ def build_steps(model, optimizer, task: str = "denoise", sigma: float = 50.0,
         loss.backward()
         optimizer.step()
         logits = logits.detach()
-        v4 = v.reshape(-1, 1, 1, 1)
-        scalars = {"loss": loss.detach()}
+        scalars = {"loss": loss.detach(), **train_scalars(task, logits, tar, weights, v)}
         if task == "denoise":
             scalars["psnr"] = psnr(tar, logits.clamp(0.0, 1.0))
-            scalars["mse"] = mse_loss(logits, tar, v4.expand_as(logits))
         else:
-            scalars["mse"] = mse_loss(logits, tar, v4.expand_as(logits))
-            scalars["mse_w"] = mse_loss(logits, tar, weights * v4)
             hists = update_histograms(hists, torch.sigmoid(logits), (tar > 0.5).float(),
                                       sample_weight=v)
         return scalars, hists

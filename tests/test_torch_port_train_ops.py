@@ -163,6 +163,13 @@ def test_bf16_stochastic_rounding_matches_jax_and_is_unbiased():
 
 
 def test_losses_match_jax_and_pin_the_denoise_normalisation():
+    """The losses against JAX (rtol 1e-5), and the train step's loss and
+    logged MSE against the JAX step's (float32, rtol 1e-6): both weigh by
+    the (B,1,1,1) valid mask itself, so the denoise loss is the per-image
+    sum of the pixel losses over the valid images (ROADMAP: JAX-package
+    questions), and a padded image adds nothing."""
+    from sunet_tf_tpu_torch.train.loop import loss_and_metrics, train_scalars
+
     rng = np.random.default_rng(7)
     pred, tar = rng.random((2, 8, 8, 3)).astype(np.float32), rng.random((2, 8, 8, 3)).astype(np.float32)
     w = rng.random((2, 8, 8, 3)).astype(np.float32)
@@ -171,14 +178,23 @@ def test_losses_match_jax_and_pin_the_denoise_normalisation():
         close(getattr(tloss, fn)(T(pred), T(tar)), getattr(jloss, fn)(J(pred), J(tar)))
         close(getattr(tloss, fn)(T(pred), T(tar), T(w)),
               getattr(jloss, fn)(J(pred), J(tar), J(w)))
-    # The JAX denoise step passes the (B,1,1,1) valid mask as the weight, so
-    # its loss is the per-image SUM over pixels (sum(l*v)/sum(v)), not the
-    # reference's mean; the port's step expands the mask to the logits'
-    # shape and so trains on the mean (ROADMAP queue C).
-    v4 = np.ones((2, 1, 1, 1), np.float32)
-    l = np.sqrt((pred - tar) ** 2 + 1e-6)
-    close(jloss.charbonnier_loss(J(pred), J(tar), J(v4)), l.sum() / 2)
-    close(tloss.charbonnier_loss(T(pred), T(tar), T(v4).expand(2, 8, 8, 3)), l.mean())
+    equal = lambda g, ww: np.testing.assert_allclose(np.asarray(g), np.asarray(ww), rtol=1e-6)
+    valid = np.array([1.0, 0.0], np.float32)   # image 1 is padding
+    v4 = valid.reshape(-1, 1, 1, 1)
+    model = lambda inp, generator=None: inp
+    loss, logits, _ = loss_and_metrics(model, T(pred), T(tar), None, T(valid), "denoise")
+    equal(loss, jloss.charbonnier_loss(J(pred), J(tar), J(v4)))
+    equal(loss, np.sqrt((pred[0] - tar[0]) ** 2 + 1e-6).sum())
+    equal(train_scalars("denoise", logits, T(tar), None, T(valid))["mse"],
+          jloss.mse_loss(J(pred), J(tar), J(v4)))
+    pm = pred[..., :1]
+    tm = (tar[..., :1] > 0.5).astype(np.float32)
+    loss, logits, weights = loss_and_metrics(model, T(pm), T(tm), None, T(valid), "mask")
+    jw = jax_weights(J(tm)) * J(v4)
+    equal(loss, jloss.charbonnier_loss(J(pm), J(tm), jw))
+    got = train_scalars("mask", logits, T(tm), weights, T(valid))
+    equal(got["mse"], jloss.mse_loss(J(pm), J(tm), J(v4)))
+    equal(got["mse_w"], jloss.mse_loss(J(pm), J(tm), jw))
 
 
 def test_trainer_and_cli_default_to_cuda(monkeypatch):

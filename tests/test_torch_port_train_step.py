@@ -10,14 +10,17 @@ kernels in interpret mode. Weights come from the JAX model through
 ``tools/export_torch_checkpoint.py::params_to_state_dict``; the JAX
 gradients are mapped to the port's parameter names the same way.
 
-Two routings, matched on both sides: every block through the block
-kernels (the default caps, this file), and the C=128 stage through plain
-autograd (port ``ROUTE_TRAIN_BLOCK_MAX_C`` and JAX
-``SUNET_TRAIN_KERNEL_MAX_C`` at 64, ``test_torch_port_train_step_cap.py``,
-which imports ``check_step`` from here; one file each keeps each under two
-minutes on one core). The JAX side runs the recompute backward with the per-head attention
-form (``SUNET_BWD_RESID=0``, ``SUNET_ATTN_LAYOUT_BWD=perhead``), the form
-the port implements.
+Three routings, matched on both sides: every block through the block
+kernels (the default caps, this file); the C=128 stage through plain
+autograd (port ``ROUTE_TRAIN_BLOCK_MAX_C`` and ``ROUTE_TRAIN_SPLIT_MAX_C``
+and JAX ``SUNET_TRAIN_KERNEL_MAX_C`` at 64,
+``test_torch_port_train_step_cap.py``); and every block through the two
+sublayer kernels (port ``ROUTE_TRAIN_BLOCK_MAX_C`` at 0, JAX
+``SUNET_TRAIN_BLOCK_KERNEL=0``, ``test_torch_port_train_step_split.py``).
+The other two files import ``check_step`` from here; one file each keeps
+each under two minutes on one core. The JAX side runs the recompute
+backward with the per-head attention form (``SUNET_BWD_RESID=0``,
+``SUNET_ATTN_LAYOUT_BWD=perhead``), the form the port implements.
 
 Tolerance: loss relative 1e-5; every gradient tensor max |diff| <= 2e-3 *
 max|ref| + 1e-7: float32 through a whole network and back, in other
@@ -38,6 +41,7 @@ from sunet_tf_tpu.ops.morphology import boundary_ring_weights as jax_weights
 from sunet_tf_tpu.train.losses import charbonnier_loss as jax_charbonnier
 from sunet_tf_tpu_torch import config as tconfig
 from sunet_tf_tpu_torch.kernels import _build
+from sunet_tf_tpu_torch.kernels import window_attention as wa
 from sunet_tf_tpu_torch.models import layers as tlayers
 from sunet_tf_tpu_torch.models.sunet import TRAIN_WRAPPERS, build_model
 from sunet_tf_tpu_torch.train.loop import loss_and_metrics
@@ -60,14 +64,20 @@ def make_batch():
     return inp, tar
 
 
-def check_step(cap, monkeypatch):
+def check_step(cap, monkeypatch, split: bool = False):
     """The port's tiny training step against JAX's with the training-kernel
-    cap ``cap`` on both sides (None: the defaults)."""
+    cap ``cap`` on both sides (None: the defaults); ``split``: every block
+    within the cap on the two sublayer kernels instead of the block
+    kernels."""
     monkeypatch.setenv("SUNET_BWD_RESID", "0")
     monkeypatch.setenv("SUNET_ATTN_LAYOUT_BWD", "perhead")
     if cap is not None:
         monkeypatch.setenv("SUNET_TRAIN_KERNEL_MAX_C", str(cap))
         monkeypatch.setattr(tlayers, "ROUTE_TRAIN_BLOCK_MAX_C", cap)
+        monkeypatch.setattr(tlayers, "ROUTE_TRAIN_SPLIT_MAX_C", cap)
+    if split:
+        monkeypatch.setenv("SUNET_TRAIN_BLOCK_KERNEL", "0")
+        monkeypatch.setattr(tlayers, "ROUTE_TRAIN_BLOCK_MAX_C", 0)
     inp, tar = make_batch()
 
     jcfg = _no_drop_path(jconfig.tiny_config())
@@ -99,9 +109,11 @@ def check_step(cap, monkeypatch):
     loss.backward()
     calls = {k: _build.counter(k).cpu for k in TRAIN_WRAPPERS}
     assert calls == model.expected_launches(inp.shape, train=True)
-    assert calls["swin_block_bwd"] > 0 and calls["up4_conv_bwd"] > 0
-    if cap is not None:   # the C=128 bottleneck's 2 blocks take plain autograd
-        assert calls["fused_swin_block"] == 12
+    assert calls["up4_conv_bwd"] > 0
+    # blocks on each route (the tiny model has 14: 2 at C=128)
+    on_block = calls["fused_swin_block"]
+    on_split = calls["ln_mlp_branch"] // wa.LN_MLP_BRANCH_LAUNCHES
+    assert (on_block, on_split) == ((0, 14) if split else (12, 0) if cap else (14, 0))
 
     assert abs(float(loss.detach()) - float(jl)) <= LOSS_REL * abs(float(jl))
     n = 0

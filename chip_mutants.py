@@ -7,9 +7,12 @@ Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
 x4-head backward at (64,64,96) out 1, and on the C=768 training sublayers
 of ``chip_smoke.sublayer_cases``: the LN+W-MSA backward at (8,8,768) and
-(16,16,768) shift 4, the LN+MLP branch and its backward at (8,8,768)) with
-failures reported instead of raised, and the training step's gradients,
-in these settings:
+(16,16,768) shift 4, the LN+MLP branch and its backward at (8,8,768); and
+on the residual route's block backward at (64,64,96) and (32,32,192),
+shift 0 and 4, from the residual forward's stored state, and on that
+forward's output and stored state, ``check_res_state``) with failures
+reported instead of raised, and the training step's gradients, in these
+settings:
 
 - ``kernel``: the CUDA kernels against their plain versions, two input
   seeds, logit gain 1 and 0.25 (the sound readings the limits must pass);
@@ -18,26 +21,43 @@ in these settings:
 - one run per mutant: a copy of the repository under a temporary directory
   with one deliberate fault in a kernel source, built and checked there
   (each must fail);
-- ``step`` (alone with ``--step-only``): the limit of chip_smoke's training
-  gate for the one-value parameters (the PReLU slopes). chip_smoke's batch-4
-  step of the default SUNet runs on the float32 eager route and twice on
-  each of six bf16 variants that differ only in where they round (the
-  fused route; with its C=768 blocks on eager autograd; with the C=768
-  sublayer kernels replaced by their plain versions; the fused and the
-  eager route each with the drop-path product taken in float32; the eager
-  route). Each run's relative error of every one-value gradient, and the
-  relative L2 error of the C=768 stage's output; the largest error must
-  stay within ``chip_smoke.ONE_VALUE_NOISE``.
+- ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
+  training gate. chip_smoke's batch-4 step of the default SUNet runs on the
+  float32 eager route and twice on each bf16 variant below, which differ
+  only in where they round: the fused route, with and without
+  ``ROUTE_TRAIN_RESID``, each also with the drop-path product in float32
+  and with every kernel replaced by its plain version (the same rounding
+  points, no kernel); the residual route with every kernel by its plain
+  version and the drop-path product in float32, and either of those with
+  its C=768 stage on eager autograd; the residual route with only #6, or
+  only #7, by its plain version; its C=768 stage on eager autograd or on
+  its plain versions; and chip_smoke's NOISE_ROUTES: the eager route, the
+  eager route with JAX's residual attention (``chip_smoke.res_attention``)
+  in the residual route's blocks, each also with the float32 product. It
+  reads, per run, every one-value gradient's relative error (the largest
+  must stay within ``chip_smoke.ONE_VALUE_NOISE``), the relative L2 error
+  of the C=768 stage's output, and the run against chip_smoke's whole gate
+  (its noise reference from the first runs of the NOISE_ROUTES variants):
+  the tensors beyond it and the largest shares of their limits. Then, over
+  the tensors whose eager distance is beyond the strict limits, the
+  per-tensor ratio of 1 - cos between two realizations of one route (the
+  spread GRAD_NOISE_FACTOR must cover); per variant, the geometric mean of
+  its 1 - cos over eager's on those tensors and each stage's median
+  relative L2; and the ``PAIRS`` per stage: each fused route against its
+  plain-version route (how far the kernels alone move the gradients) and
+  against its float32 drop-path product, and the eager route against its
+  sound variants (how far one rounding point moves them).
 
 Every reading goes to ``--out`` (default: beside the built kernels, in
-``sunet_tf_tpu_torch/kernels/_build/``, git-ignored); the last lines
+``sunet_tf_tpu_torch/kernels/_build/``, git-ignored), the step setting's
+per-tensor distances beside it (``.dists.json``); the last lines
 summarise the failing checks per setting. Needs one GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
+import math
 import shutil
 import subprocess
 import sys
@@ -63,6 +83,13 @@ MUTANTS = {
     "ln_bwd_no_mean": ("train_common.cuh", "    m1 = warp_sum(m1) / C;\n", "    m1 = 0.f;\n"),
     "ds_no_rowsum": ("attn_train.cuh", "const float ds = p * (sm.s[i * ld + j] - sm.rd[i]);",
                      "const float ds = p * sm.s[i * ld + j];"),
+    # the residual route's attention backward without the rowsum_head(t) term
+    "res_de_no_rowsum": ("attn_train.cuh",
+                         "const float ds = sm.p[i * ld + j] * (sm.s[i * ld + j] - sm.rd[i]);",
+                         "const float ds = sm.p[i * ld + j] * sm.s[i * ld + j];"),
+    # the residual forward's row sum over the unrounded exponentials (the
+    # port's inference form) instead of JAX's rounded ones
+    "res_den_unrounded": ("common.cuh", "        sum += bf(eb);\n", "        sum += e;\n"),
     "up4_prelu_slope_ignored": (
         "up4_conv_bwd.cu",
         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(zz > 0.f ? v : *alpha * v);",
@@ -124,6 +151,31 @@ for name, case, kernel, plain, args, kw, _, labels in cs.sublayer_cases(gen, gai
         cs.compare(f"{name} {case} {tag}", got.cuda(), ref)
     else:
         cs.compare_grads(f"{name} {case} {tag}", tuple(g.cuda() for g in got), ref, labels)
+for H, C in ((64, 96), (32, 192)):
+    for shift in (0, 4):
+        p = cs.block_params(C, heads, ws * ws, gen, qkv_gain=gain)
+        x = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        dout = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+        fargs = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12],
+                 mask, dp)
+        fwd = (wa.fused_swin_block_res_reference if mode == "floor" else wa.fused_swin_block_res)
+        out, *res = fwd(*fargs, **kw)
+        if mode != "floor":
+            ref_out, *ref_res = wa.fused_swin_block_res_reference(*fargs, **kw)
+            name = f"fused_swin_block_res ({H},{H},{C}) shift {shift} {tag}"
+            cs.compare(f"{name} out", out, ref_out)
+            cs.check_res_state(name, tuple(res), tuple(ref_res), x, p, mask, ws=ws, heads=heads,
+                               scale=scale, shift=shift)
+        args = (x, dout, *res, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11],
+                dp)
+        ref = wa.swin_block_bwd_res_reference(*args, **kw)
+        got = (wa.swin_block_bwd_res_reference(*cpu(args), **kw) if mode == "floor"
+               else wa.swin_block_bwd_res(*args, **kw))
+        cs.compare_grads(f"swin_block_bwd_res ({H},{H},{C}) shift {shift} {tag}",
+                         tuple(g.cuda() for g in got), ref, cs.BLOCK_GRADS)
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)
@@ -140,22 +192,45 @@ def run(cwd: Path, mode: str, seed: int, gain: float, log) -> list:
     return [ln for ln in proc.stdout.splitlines() if ln.startswith("SUMMARY")]
 
 
-@contextlib.contextmanager
-def patched(patches: list):
-    """Sets each (module, name, value) for the duration."""
-    old = [(m, a, getattr(m, a)) for m, a, _ in patches]
-    for m, a, v in patches:
-        setattr(m, a, v)
-    try:
-        yield
-    finally:
-        for m, a, v in old:
-            setattr(m, a, v)
+# The step setting's pairs of variants compared per stage: each fused
+# route against its plain-version route (how far its kernels alone move the
+# gradients) and against its own float32 drop-path product, and the eager
+# route against its two sound variants (how far a rounding point moves
+# them, no kernel involved).
+PAIRS = (("fused", "fused, every kernel by its plain version"),
+         ("fused, ROUTE_TRAIN_RESID off",
+          "fused, ROUTE_TRAIN_RESID off, every kernel by its plain version"),
+         ("fused", "fused, drop-path product in float32"),
+         ("fused, ROUTE_TRAIN_RESID off", "fused, ROUTE_TRAIN_RESID off, drop-path product in "
+          "float32"),
+         ("eager", "eager, drop-path product in float32"),
+         ("eager", "eager, JAX's residual attention"))
+# chip_smoke's NOISE_ROUTES by their step-setting labels
+NOISE_LABELS = {"eager": "eager", "eager_dp32": "eager, drop-path product in float32",
+                "eager_res": "eager, JAX's residual attention",
+                "eager_res_dp32": "eager, JAX's residual attention, drop-path product in "
+                                  "float32"}
 
 
-def step_noise(log) -> list:
+def plain_kernels() -> list:
+    """(module, name, plain version) of every kernel wrapper the training
+    step calls."""
+    from sunet_tf_tpu_torch.kernels import upsample as up
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+
+    names = [(wa, n) for n in ("fused_swin_block", "swin_block_bwd", "fused_swin_block_res",
+                               "swin_block_bwd_res", "fused_ln_window_attention",
+                               "ln_window_attention_bwd", "ln_mlp_branch", "ln_mlp_bwd")]
+    names += [(up, "fused_dual_upsample4_conv_phase"), (up, "up4_conv_bwd")]
+    return [(m, n, getattr(m, n + "_reference")) for m, n in names]
+
+
+def step_noise(log, dists_out: Path) -> list:
     """The ``step`` setting: one-value gradients of the training step under
-    bf16 rounding variants, against the float32 eager route."""
+    bf16 rounding variants, against the float32 eager route; every run's
+    per-tensor (cos, rl2) against it goes to ``dists_out`` (JSON)."""
+    import json
+
     import torch
 
     sys.path.insert(0, str(ROOT))
@@ -206,28 +281,48 @@ def step_noise(log) -> list:
 
     rl2 = lambda a, b: float((a - b).norm() / b.norm())
     loss32, ref, ref_act = step("eager_fp32")
+    gated = [n for n, v in ref.items() if bool(v.any())]
+    kept = {}    # first-run gradients of the variants PAIRS compares
+    dists = []   # (label, run, {tensor: (cos, rl2) against float32})
     one = sorted(n for n, v in ref.items() if v.numel() == 1)
     say("[step] one-value gradients (float32 route): "
         + " ".join(f"{n} {ref[n].item():.3e}" for n in one))
-    dp32 = lambda x, s: (x.float() * s.reshape((-1,) + (1,) * (x.dim() - 1))).to(x.dtype)
+    dp32 = cs.drop_path_f32
     sublayers = ("fused_ln_window_attention", "ln_window_attention_bwd", "ln_mlp_branch",
                  "ln_mlp_bwd")
+    plain = plain_kernels()
+    c768_eager = (layers, "ROUTE_TRAIN_SPLIT_MAX_C", layers.ROUTE_TRAIN_BLOCK_MAX_C)
     variants = (
         ("fused", "fused", []),
-        ("fused, C=768 on eager autograd", "fused",
-         [(layers, "ROUTE_TRAIN_SPLIT_MAX_C", layers.ROUTE_TRAIN_BLOCK_MAX_C)]),
+        ("fused, every kernel by its plain version", "fused", plain),
+        ("fused, fused_swin_block_res by its plain version", "fused",
+         [(wa, "fused_swin_block_res", wa.fused_swin_block_res_reference)]),
+        ("fused, swin_block_bwd_res by its plain version", "fused",
+         [(wa, "swin_block_bwd_res", wa.swin_block_bwd_res_reference)]),
+        ("fused, every kernel by its plain version, drop-path product in float32", "fused",
+         [*plain, (layers, "drop_path", dp32)]),
+        ("fused, every kernel by its plain version, C=768 on eager autograd", "fused",
+         [*plain, c768_eager]),
+        ("fused, every kernel by its plain version, C=768 on eager autograd, drop-path "
+         "product in float32", "fused", [*plain, c768_eager, (layers, "drop_path", dp32)]),
+        ("fused, ROUTE_TRAIN_RESID off, every kernel by its plain version", "fused",
+         [(layers, "ROUTE_TRAIN_RESID", False), *plain]),
+        ("fused, ROUTE_TRAIN_RESID off", "fused", [(layers, "ROUTE_TRAIN_RESID", False)]),
+        ("fused, C=768 on eager autograd", "fused", [c768_eager]),
         ("fused, C=768 sublayers by their plain versions", "fused",
          [(wa, n, getattr(wa, n + "_reference")) for n in sublayers]),
         ("fused, drop-path product in float32", "fused", [(layers, "drop_path", dp32)]),
-        ("eager", "eager", []),
-        ("eager, drop-path product in float32", "eager", [(layers, "drop_path", dp32)]))
+        ("fused, ROUTE_TRAIN_RESID off, drop-path product in float32", "fused",
+         [(layers, "ROUTE_TRAIN_RESID", False), (layers, "drop_path", dp32)]),
+        *((label, "eager", cs.route_patches(be)) for be, label in NOISE_LABELS.items()))
     worst = (0.0, "", "")
     for label, be, patches in variants:
         runs = []
         for run in (1, 2):
-            with patched(patches):
+            with cs.patched(patches):
                 loss, g, act = step(be)
             runs.append(g)
+            dists.append((label, run, {n: cs.grad_distance(g[n], ref[n]) for n in gated}))
             err = {n: float((g[n] - ref[n]) / ref[n]) for n in one}
             worst = max(worst, *((abs(e), n, label) for n, e in err.items()))
             say(f"[step] {label}, run {run}: loss rel err {abs(loss - loss32) / loss32:.3e}; "
@@ -236,10 +331,68 @@ def step_noise(log) -> list:
         same = sum(torch.equal(runs[0][n], runs[1][n]) for n in runs[0])
         say(f"[step] {label}: {same} of {len(runs[0])} gradient tensors bit-identical "
             "between its two runs")
+        if any(label in pair for pair in PAIRS):
+            kept[label] = runs[0]
+    dists_out.write_text(json.dumps({f"{label}|{run}": d for label, run, d in dists}))
     covered = worst[0] <= cs.ONE_VALUE_NOISE
-    return [f"SUMMARY [step]: largest one-value relative error {worst[0]:.4e} ({worst[1]}, "
-            f"{worst[2]}); chip_smoke.ONE_VALUE_NOISE {cs.ONE_VALUE_NOISE} "
-            + ("covers it" if covered else "DOES NOT cover it")]
+    summary = [f"SUMMARY [step]: largest one-value relative error {worst[0]:.4e} ({worst[1]}, "
+               f"{worst[2]}); chip_smoke.ONE_VALUE_NOISE {cs.ONE_VALUE_NOISE} "
+               + ("covers it" if covered else "DOES NOT cover it")]
+    # chip_smoke's noise reference: per tensor, the farthest first run of
+    # its NOISE_ROUTES (the kernel-free variants)
+    first = {label: d for label, run, d in dists if run == 1}
+    refs = [first[NOISE_LABELS[be]] for be in cs.NOISE_ROUTES]
+    noise = {n: (min(d[n][0] for d in refs), max(d[n][1] for d in refs)) for n in gated}
+    noisy = [n for n in gated if first["eager"][n][0] < cs.TRAIN_GRAD_COS
+             or first["eager"][n][1] > cs.TRAIN_GRAD_RL2]
+    for a in ("eager", "eager, JAX's residual attention", "fused",
+              "fused, ROUTE_TRAIN_RESID off", "fused, every kernel by its plain version"):
+        b = a + ", drop-path product in float32"
+        r = sorted(max(x, y) / max(min(x, y), 1e-30) for x, y in
+                   ((1 - first[a][n][0], 1 - first[b][n][0]) for n in noisy))
+        summary.append(f"SUMMARY [step] spread, {a} against its float32 drop-path product, "
+                       f"1 - cos ratio over {len(r)} noise-dominated tensors: median "
+                       f"{r[len(r) // 2]:.2f}, 95% {r[int(0.95 * len(r))]:.2f}, largest "
+                       f"{r[-1]:.2f}, {sum(x > 2 for x in r)} above 2")
+    # how far each variant sits from float32 over all noise-dominated
+    # tensors at once: the geometric mean of its 1 - cos over eager's
+    gm = lambda d, ns: math.exp(sum(math.log(max(1 - d[n][0], 1e-30)
+                                             / max(1 - first["eager"][n][0], 1e-30))
+                                    for n in ns) / len(ns))
+    bottleneck = [n for n in noisy if n.startswith("layers.3.")]
+    for label, d in first.items():
+        summary.append(f"SUMMARY [step] geometric mean of 1 - cos over eager's, {label}: "
+                       f"{len(noisy)} noise-dominated tensors {gm(d, noisy):.3f}, the "
+                       f"{len(bottleneck)} at layers.3 {gm(d, bottleneck):.3f}; closer to float32 "
+                       f"than eager (rl2) in {sum(d[n][1] <= first['eager'][n][1] for n in gated)}"
+                       f" of {len(gated)} tensors")
+    stage = lambda n: ".".join(n.split(".")[:2]) if n.startswith("layers") else n.split(".")[0]
+    stages = sorted({stage(n) for n in gated if n.startswith("layers")})
+    for label, d in first.items():
+        med = [sorted(d[n][1] for n in gated if stage(n) == st
+                      and "relative_position" not in n) for st in stages]
+        summary.append(f"SUMMARY [step] median relative L2 per stage (rel-pos tables left out), "
+                       f"{label}: " + " ".join(f"{st} {m[len(m) // 2]:.4f}"
+                                               for st, m in zip(stages, med)))
+    for a, b in PAIRS:
+        by_stage = {}
+        for n in gated:
+            by_stage.setdefault(stage(n), []).append(
+                (*cs.grad_distance(kept[a][n], kept[b][n]), n))
+        far = {st: max(v, key=lambda t: t[1]) for st, v in by_stage.items()}
+        summary.append(f"SUMMARY [step] {a} against {b}, per stage (worst cosine, largest "
+                       "relative L2 and its tensor): " + "; ".join(
+                           f"{st} {min(c for c, _, _ in v):.5f} {far[st][1]:.2e} "
+                           f"{far[st][2][len(st) + 1:] or far[st][2]}"
+                           for st, v in by_stage.items()))
+    for label, run, d in dists:
+        shares = sorted(((cs.gate_share(*d[n], *cs.grad_limits(ref[n].numel(), noise[n])), n)
+                         for n in gated), reverse=True)
+        beyond = sum(sh > 1 for sh, _ in shares)
+        summary.append(f"SUMMARY [step] gate, {label}, run {run}: {beyond} of {len(gated)} "
+                       "tensors beyond it; largest shares of the limit: "
+                       + ", ".join(f"{n} {sh:.2f}" for sh, n in shares[:4]))
+    return summary
 
 
 def main():
@@ -274,7 +427,7 @@ def main():
                     raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in {src}")
                 path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
-        summary += step_noise(log)
+        summary += step_noise(log, out.with_suffix(".dists.json"))
     print("\n".join(summary))
     print(f"chip_mutants: readings in {out}")
 

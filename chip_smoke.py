@@ -12,9 +12,11 @@
    runs after warm-up, and the kernel's bound (bytes or operations over
    the card's published peak rates). The training kernels: the block
    kernel's train form (drop-path scales), the block backward, the x4
-   head backward, and the C=768 sublayers (the LN+W-MSA backward, the
-   LN+MLP branch and its backward), dx and every weight grad held against
-   the plain version.
+   head backward, the C=768 sublayers (the LN+W-MSA backward, the LN+MLP
+   branch and its backward), and the residual route of the C=96/192 blocks
+   (the block forward that stores the softmax state, output and state held
+   against the plain version, and the backward from that state), dx and
+   every weight grad held against the plain version.
 4. The inference slice: the default SUNet (99,681,993 parameters, seeded
    weights) at 256x256 batch 4 through backend="fused"; the kernels' launch
    counts must equal the router's prediction; the output is held against
@@ -25,10 +27,13 @@
    batch 4 on a synthetic dataset, fused vs eager on the same weights,
    batch and drop-path draws (loss and every parameter's gradient), launch
    counts equal to ``expected_launches(train=True)`` with every block on a
-   kernel route (C <= 384 the block kernels, the C=768 stage the two
-   sublayer kernels), train-step times, peak memory, a profiler trace of
-   one step; then ``python -m sunet_tf_tpu_torch.train`` for 1 epoch of 3
-   steps and a val pass.
+   kernel route (C=96/192 the residual route, C=384 the block kernels with
+   the recompute backward, the C=768 stage the two sublayer kernels), and
+   the same step with ``ROUTE_TRAIN_RESID`` off (every C <= 384 block on
+   the recompute backward), both held against float32 eager; train-step
+   times, peak memory and a profiler trace of one step of each fused route;
+   then ``python -m sunet_tf_tpu_torch.train`` for 1 epoch of 3 steps and a
+   val pass.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0)
@@ -38,6 +43,8 @@ lines. Needs one GPU; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -65,6 +72,9 @@ MEAN_TOL = 3e-4
 # other key. With logits of 1e4 and more the softmax is one-hot, and such a
 # token may differ by the gap between two value rows.
 NEAR_TIE = 2.0 ** -6
+# The residual forward's rden against the row sums of its own eb, float32
+# precision (check_res_state).
+RES_DEN_TOL = 1e-5
 SLICE_MEAN_TOL = 5e-3   # fused vs eager forward (the JAX bench.py gate)
 # The backward kernels against their plain versions. The two share every
 # rounding point and sum the same bf16 products in another order, so they
@@ -77,26 +87,33 @@ SLICE_MEAN_TOL = 5e-3   # fused vs eager forward (the JAX bench.py gate)
 BWD_MAX_TOL = 1e-1
 BWD_MEAN_TOL = 2e-3
 GRAD_MEAN_TOL = 1e-2
-# Training step: the fused route and the eager route in bf16 are both held
+# Training step: the fused routes and the eager route in bf16 are held
 # against the eager route in float32 on the same weights, batch and
 # drop-path draws. Loss relative difference <= TRAIN_LOSS_RTOL; per
 # parameter tensor, cosine >= TRAIN_GRAD_COS and relative L2 <=
-# TRAIN_GRAD_RL2, or, where the eager bf16 route itself is farther from
-# float32 than that, within GRAD_NOISE_FACTOR times the eager bf16 route's
-# own distance: bf16 compute alone moves the gradients of a freshly
-# initialised model that far (the rel-pos bias tables most; PERF.md).
+# TRAIN_GRAD_RL2, or, where a kernel-free eager bf16 route is farther from
+# float32 than that, within GRAD_NOISE_FACTOR times the farthest of
+# NOISE_ROUTES' own distances. The NOISE_ROUTES run no code of the fused
+# route: the eager route (the XLA path's rounding) and the eager route with
+# JAX's residual-route attention (ResAttention below: the rounding points
+# of the JAX package's residual kernels, written here) in the blocks that
+# the fused route trains on residuals, each also with the drop-path product
+# in float32 (another place to round). bf16 compute alone moves the
+# gradients of a freshly initialised model that far (the rel-pos bias
+# tables most; PERF.md).
 TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_COS = 0.999
 TRAIN_GRAD_RL2 = 5e-2
 GRAD_NOISE_FACTOR = 2.0
+NOISE_ROUTES = ("eager", "eager_dp32", "eager_res", "eager_res_dp32")
 # A one-value parameter (a PReLU slope) has a gradient that is one
 # cancelling sum, whose relative error moves with where the bf16 roundings
 # upstream fall. ONE_VALUE_NOISE is the largest such error that
-# chip_mutants.py's step setting read on the H100 over six bf16 rounding
+# chip_mutants.py's step setting read on the H100 over its bf16 rounding
 # variants of the step (two runs each, every slope; PERF.md); a one-value
 # gradient's relative L2 limit is GRAD_NOISE_FACTOR times that, far below
 # what a dropped (1) or sign-flipped (2) slope gradient reads.
-ONE_VALUE_NOISE = 0.1532
+ONE_VALUE_NOISE = 0.2716
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): bf16 tensor
 # cores and HBM3 bandwidth; the bounds below are against these.
 PEAK_BF16_FLOPS = 989e12
@@ -112,6 +129,9 @@ REPLACES = {
     "fused_dual_upsample4_conv_phase": ("sunet_tf_tpu/kernels/upsample.py:589",
                                         "sunet_tf_tpu_torch/kernels/csrc/up4_conv.cu"),
     "swin_block_bwd": (f"{WA}:2031", "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd.cu"),
+    "fused_swin_block_res": (f"{WA}:2315", "sunet_tf_tpu_torch/kernels/csrc/swin_block.cu"),
+    "swin_block_bwd_res": (f"{WA}:2535",
+                           "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd_res.cu"),
     "ln_window_attention_bwd": (f"{WA}:346", "sunet_tf_tpu_torch/kernels/csrc/ln_wmsa_bwd.cu"),
     "ln_mlp_branch": (f"{WA}:1481", "sunet_tf_tpu_torch/kernels/csrc/ln_mlp_branch.cu"),
     "ln_mlp_bwd": (f"{WA}:1523", "sunet_tf_tpu_torch/kernels/csrc/ln_mlp_bwd.cu"),
@@ -147,6 +167,32 @@ def block_bwd_cost(B: int, H: int, C: int, ws: int = 8) -> dict:
     backward = 2 * 2 * T * C * (4 * C + 2 * hid) + 8 * T * N * C
     w = 4 * C * C + 2 * C * hid
     return bound(recompute + backward, 3 * T * C * 2 + w * 2 + w * 4)
+
+
+def res_bytes(B: int, H: int, C: int, ws: int = 8, heads: int = 8) -> int:
+    """Bytes of the residual route's stored state: eb (bf16, one N x N map
+    per head and window), rden and ctx_f (float32)."""
+    T, N = B * H * H, ws * ws
+    nwin = T // N
+    return nwin * heads * N * N * 2 + nwin * heads * N * 4 + T * C * 4
+
+
+def block_res_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 8) -> dict:
+    """The residual route's block forward (#6): #1's operations and bytes
+    plus the stored state written."""
+    c = block_cost(B, H, C, ws)
+    return bound(c["flops"], c["bytes"] + res_bytes(B, H, C, ws, heads))
+
+
+def block_bwd_res_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 8) -> dict:
+    """Backward of one block from the residuals (#7): #8's operations
+    without the score product and the attention recompute (LN1 and qkv,
+    proj and fc1 are recomputed); bytes: #8's plus the stored state read."""
+    T, N, hid = B * H * H, ws * ws, 4 * C
+    recompute = 2 * T * C * (4 * C + hid)
+    backward = 2 * 2 * T * C * (4 * C + 2 * hid) + 8 * T * N * C
+    c = block_bwd_cost(B, H, C, ws)
+    return bound(recompute + backward, c["bytes"] + res_bytes(B, H, C, ws, heads))
 
 
 def ln_wmsa_bwd_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 8,
@@ -196,6 +242,32 @@ def up4_bwd_cost(B: int, H: int, C: int, out: int) -> dict:
     return bound(M * (3 * 68 * C * C + (288 + 1152) * C * out),
                  2 * M * C * 2 + M * 16 * out * 2 + 19 * C * C * 2
                  + (19 * C * C + 36 * C * 16 * out) * 4)
+
+
+def grad_distance(a, b) -> tuple:
+    """(cosine, relative L2) of a gradient ``a`` against the float32 one ``b``
+    (flat float64 tensors)."""
+    return (float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)),
+            float((a - b).norm() / b.norm()))
+
+
+def grad_limits(numel: int, noise: tuple = None) -> tuple:
+    """(cosine, relative L2) limits of the training gate for a gradient
+    tensor of ``numel`` values; ``noise``: the (cos, rl2) of the farthest
+    NOISE_ROUTES route for it, which widens them where it is farther."""
+    cos_lim, rl2_lim = TRAIN_GRAD_COS, TRAIN_GRAD_RL2
+    if numel == 1:
+        rl2_lim = GRAD_NOISE_FACTOR * ONE_VALUE_NOISE
+    if noise is not None:
+        ce, re = noise
+        cos_lim = min(cos_lim, 1.0 - GRAD_NOISE_FACTOR * (1.0 - ce))
+        rl2_lim = max(rl2_lim, GRAD_NOISE_FACTOR * re)
+    return cos_lim, rl2_lim
+
+
+def gate_share(cos: float, rl2: float, cos_lim: float, rl2_lim: float) -> float:
+    """How much of its gate limits a reading uses (> 1: beyond them)."""
+    return max(rl2 / rl2_lim, (1 - cos) / max(1 - cos_lim, 1e-12))
 
 
 def check(cond: bool, msg: str):
@@ -253,15 +325,14 @@ def compare(name: str, got, ref, near_tie=None, max_tol: float = MAX_TOL,
     return mx, mean
 
 
-def near_tie_tokens(x, p, mask, *, ws: int, heads: int, scale: float, shift: int):
-    """((B, H, W) bool, max |logit|): the tokens whose attention row, in
-    some head, has its top two logits within NEAR_TIE of the larger |q_i
-    k_i| term of either key, with q, k and the logits computed as the plain
-    version computes them."""
+def _plain_qk(x, p, mask, *, ws: int, heads: int, scale: float, shift: int) -> tuple:
+    """round(q*scale), k and v per (window, head) (Bn, h, N, d) and the
+    logits (Bn, h, N, N), float32, computed as the plain version computes
+    them."""
     import torch
 
     from sunet_tf_tpu_torch.kernels import window_attention as wa
-    from sunet_tf_tpu_torch.ops.window import roll2d, window_partition, window_reverse
+    from sunet_tf_tpu_torch.ops.window import roll2d, window_partition
 
     B, H, W, C = x.shape
     d = C // heads
@@ -277,14 +348,82 @@ def near_tie_tokens(x, p, mask, *, ws: int, heads: int, scale: float, shift: int
             nW = mask.shape[0]
             s = (s.reshape(Bn // nW, nW, heads, N, N) + mask[None, :, None]).reshape(
                 Bn, heads, N, N)
-        top, idx = s.topk(2, dim=-1)
-        # largest |q_i k_i| term against each of the two top keys
-        term = lambda j: (q.abs() * k.abs().gather(
-            2, idx[..., j:j + 1].expand(-1, -1, -1, d))).amax(-1)
-        tie = (top[..., 0] - top[..., 1]) < NEAR_TIE * (term(0) + term(1))
-        tie = tie.any(1).float()[..., None]                       # (Bn, N, 1)
+    return q, k, split(qkv[..., 2 * C:]), s
+
+
+def near_tie_tokens(x, p, mask, *, ws: int, heads: int, scale: float, shift: int):
+    """((B, H, W) bool, max |logit|): the tokens whose attention row, in
+    some head, has its top two logits within NEAR_TIE of the larger |q_i
+    k_i| term of either key, with q, k and the logits computed as the plain
+    version computes them."""
+    import torch
+
+    from sunet_tf_tpu_torch.ops.window import roll2d, window_reverse
+
+    B, H, W, C = x.shape
+    d = C // heads
+    q, k, _, s = _plain_qk(x, p, mask, ws=ws, heads=heads, scale=scale, shift=shift)
+    top, idx = s.topk(2, dim=-1)
+    # largest |q_i k_i| term against each of the two top keys
+    term = lambda j: (q.abs() * k.abs().gather(
+        2, idx[..., j:j + 1].expand(-1, -1, -1, d))).amax(-1)
+    tie = (top[..., 0] - top[..., 1]) < NEAR_TIE * (term(0) + term(1))
+    tie = tie.any(1).float()[..., None]                       # (Bn, N, 1)
     tie = roll2d(window_reverse(tie, ws, H, W), shift)[..., 0] > 0.5
     return tie, float(s.abs().max())
+
+
+def check_res_state(name: str, got: tuple, ref: tuple, x, p, mask, *, ws: int, heads: int,
+                    scale: float, shift: int):
+    """Hold the residual route's stored state (eb, rden, ctx_f) against the
+    plain version's. Against the plain state: mean |diff| <= MEAN_TOL *
+    max(1, mean|ref|); the largest differences are printed but are no limit,
+    since the two round the same float32 products summed in other orders
+    and a q or k element near a bf16 rounding boundary may round either way,
+    which at QK_SCALE 8 moves single exponentials by up to ~10%. Elementwise,
+    through relations that no such flip changes: every (window, head, row)
+    of eb has its largest value exactly 1 (the per-head row max) and none
+    outside [0, 1]; rden * sum_j eb of the kernel's own eb is 1 within
+    RES_DEN_TOL (the JAX rounding point: the sum of the rounded
+    exponentials); ctx_f equals (eb @ v) * rden of the kernel's own eb and
+    rden and the plain version's v (whose own flips move it by one bf16 ulp
+    at most), under the forward limits."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+
+    torch.cuda.synchronize()
+    for lab, g, r in zip(("eb", "rden", "ctx_f"), got, ref):
+        g, r = g.double(), r.double()
+        check(bool(torch.isfinite(g).all()), f"{name} {lab}: non-finite kernel output")
+        d = (g - r).abs()
+        mean, tol = float(d.mean()), MEAN_TOL * max(1.0, float(r.abs().mean()))
+        beyond = int((d > MAX_TOL * max(1.0, float(r.abs().max()))).sum())
+        print(f"  {name} {lab} vs plain: mean|diff| {mean:.3e} (tol {tol:.3e}); max|diff| "
+              f"{float(d.max()):.3e}, {beyond} of {d.numel()} elements beyond {MAX_TOL:g} * "
+              f"max(1, max|ref|) (no limit) {'ok' if mean <= tol else 'FAIL'}")
+        check(mean <= tol, f"{name} {lab}: stored state disagrees with its plain version")
+    eb, rden, ctx = got
+    ebf = eb.float()
+    top = ebf.amax(-1)
+    print(f"  {name} eb: row maxima in [{float(top.min())}, {float(top.max())}], values in "
+          f"[{float(ebf.min())}, {float(ebf.max())}]")
+    check(bool((top == 1).all()) and float(ebf.min()) >= 0,
+          f"{name} eb: a row's largest exponential is not exactly 1")
+    # rden * sum(eb) of the kernel's own eb is 1 up to the float32 sum of N
+    # values in [0, 1] (at most (N - 1) * 2^-24 relative, 3.8e-6 at N = 64)
+    # and the reciprocal's rounding: no bf16 flip moves it, and a row sum
+    # over the unrounded exponentials would be off by their roundings
+    unit = float((rden.double() * ebf.double().sum(-1) - 1).abs().max())
+    print(f"  {name} rden * sum(eb): largest |diff| from 1 {unit:.3e} (tol {RES_DEN_TOL:g}) "
+          f"{'ok' if unit <= RES_DEN_TOL else 'FAIL'}")
+    check(unit <= RES_DEN_TOL, f"{name} rden: not the reciprocal of the rounded row sum")
+    _, _, v, _ = _plain_qk(x, p, mask, ws=ws, heads=heads, scale=scale, shift=shift)
+    Bn, h, N, d = v.shape
+    with wa.exact_fp32():
+        num = ebf @ v
+    compare(f"{name} ctx_f vs (eb @ v) * rden", ctx,
+            (num * rden[..., None]).transpose(1, 2).reshape(Bn * N, h * d))
 
 
 def block_params(C: int, heads: int, N: int, gen, *, qkv_gain: float = 1.0):
@@ -376,8 +515,9 @@ def sublayer_cases(gen, B: int = 2, ws: int = 8, heads: int = 8, scale: float = 
 
 
 def train_kernel_phases(results: dict):
-    """The training kernels: #1's train form, #8, #9 and the C=768
-    sublayers #12, #13, #14 against their plain versions."""
+    """The training kernels: #1's train form, #8, the residual route's #6
+    and #7, #9 and the C=768 sublayers #12, #13, #14 against their plain
+    versions."""
     import torch
 
     from sunet_tf_tpu_torch.kernels import upsample as up
@@ -432,6 +572,50 @@ def train_kernel_phases(results: dict):
             record_time(results, "swin_block_bwd", case, got_fn, ref_fn,
                         block_bwd_cost(B, H, C), mx, mean)
 
+    # the residual route (C=96/192): the forward's output and stored state,
+    # then the backward from that state; its own generator, so that the
+    # other kernels' cases keep their inputs
+    rgen = torch.Generator(device="cuda").manual_seed(4322)
+    for H, C, shift in ((64, 96, 4), (32, 192, 0)):
+        p = block_params(C, heads, N, rgen)
+        x = torch.randn(B, H, H, C, device="cuda", generator=rgen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        args = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11],
+                p[12], mask, dp)
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+        case = f"({H},{H},{C}) shift {shift}"
+        got_fn = lambda: wa.fused_swin_block_res(*args, **kw)
+        ref_fn = lambda: wa.fused_swin_block_res_reference(*args, **kw)
+        got, ref = got_fn(), ref_fn()
+        mx, mean = compare(f"fused_swin_block_res {case} out", got[0], ref[0])
+        check_res_state(f"fused_swin_block_res {case}", got[1:], ref[1:], x, p, mask, ws=ws,
+                        heads=heads, scale=scale, shift=shift)
+        record_time(results, "fused_swin_block_res", case, got_fn, ref_fn,
+                    block_res_cost(B, H, C, ws, heads), mx, mean)
+    for H, C in ((64, 96), (32, 192)):
+        for shift in (0, 4):
+            p = block_params(C, heads, N, rgen)
+            x = torch.randn(B, H, H, C, device="cuda", generator=rgen).to(torch.bfloat16)
+            dout = torch.randn(B, H, H, C, device="cuda", generator=rgen).to(torch.bfloat16)
+            mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                    if shift else None)
+            kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+            _, *res = wa.fused_swin_block_res(x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8],
+                                              p[9], p[10], p[11], p[12], mask, dp, **kw)
+            args = (x, dout, *res, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
+                    p[11], dp)
+            case = f"({H},{H},{C}) shift {shift}"
+            got_fn = lambda: wa.swin_block_bwd_res(*args, **kw)
+            ref_fn = lambda: wa.swin_block_bwd_res_reference(*args, **kw)
+            got = got_fn()
+            mx, mean = compare_grads(f"swin_block_bwd_res {case}", got, ref_fn(), BLOCK_GRADS)
+            check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
+                  f"swin_block_bwd_res {case}: two runs differ (the reductions must be "
+                  "deterministic)")
+            record_time(results, "swin_block_bwd_res", case, got_fn, ref_fn,
+                        block_bwd_res_cost(B, H, C, ws, heads), mx, mean)
+
     H, C, out_ch = 64, 96, 1
     n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     bw = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
@@ -447,7 +631,8 @@ def train_kernel_phases(results: dict):
     mx, mean = compare_grads(f"up4_conv_bwd {case}", got, ref_fn(), UP4_GRADS)
     check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
           f"up4_conv_bwd {case}: two runs differ (the reductions must be deterministic)")
-    print("  both backward kernels: two runs equal bit for bit")
+    print("  the block backward kernels (both routes) and the head backward: two runs "
+          "equal bit for bit")
     record_time(results, "up4_conv_bwd", case, got_fn, ref_fn, up4_bwd_cost(B, H, C, out_ch),
                 mx, mean)
 
@@ -676,9 +861,123 @@ def trace_step(fn, label: str) -> dict:
             "groups": {k: {"launches": n, "ms": us / 1000} for k, (n, us) in groups.items()}}
 
 
+@contextlib.contextmanager
+def patched(patches: list):
+    """Sets each (module, name, value) for the duration."""
+    old = [(m, a, getattr(m, a)) for m, a, _ in patches]
+    for m, a, v in patches:
+        setattr(m, a, v)
+    try:
+        yield
+    finally:
+        for m, a, v in old:
+            setattr(m, a, v)
+
+
+def drop_path_f32(x, scale):
+    """``layers.drop_path`` with the product taken in float32."""
+    return (x.float() * scale.reshape((-1,) + (1,) * (x.dim() - 1))).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def res_attention():
+    """The attention core of JAX's residual route (the JAX package's
+    ``window_attention.py``: the forward ``_block_fwd_res_kernel`` and the
+    blockdiag half of ``_attn_core_bwd`` with ``recip=True``) as an autograd
+    Function of plain torch ops, written here and sharing no code with the
+    port's kernels, wrappers or Functions. Per (window, head): qs =
+    round(q * scale); e = exp(s - rowmax(s)) of s = qs k^T + bias (+ mask),
+    eb = round(e); rden = 1 / max(sum(eb), 1e-37); ctx_f = (eb @ v) * rden,
+    returned rounded. Backward: dn = dctx * rden; t = dn * ctx_f; de =
+    round(dn) v^T - rowsum(round(t)); ds = eb * de; dq = round(ds) k *
+    scale, dk = round(ds)^T qs, dv = eb^T round(dn), dbias = sum of ds over
+    windows. Products accumulate in float32."""
+    import torch
+
+    bf = torch.bfloat16
+
+    class ResAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, bias, mask, scale):
+            Bn, h, N, _ = q.shape
+            qs = (q.float() * scale).to(bf)
+            s = qs.float() @ k.float().transpose(-1, -2) + bias.float()
+            if mask is not None:
+                nW = mask.shape[0]
+                s = (s.reshape(Bn // nW, nW, h, N, N) + mask[None, :, None]).reshape(
+                    Bn, h, N, N)
+            eb = torch.exp(s - s.amax(-1, keepdim=True)).to(bf)
+            rden = 1.0 / eb.float().sum(-1, keepdim=True).clamp_min(1e-37)
+            ctx_f = (eb.float() @ v.float()) * rden
+            ctx.save_for_backward(qs, k, v, eb, rden, ctx_f)
+            ctx.scale = scale
+            return ctx_f.to(bf)
+
+        @staticmethod
+        def backward(ctx, dctx):
+            qs, k, v, eb, rden, ctx_f = ctx.saved_tensors
+            dn = dctx.float() * rden
+            t = dn * ctx_f
+            dnb = dn.to(bf).float()
+            de = dnb @ v.float().transpose(-1, -2) - t.to(bf).float().sum(-1, keepdim=True)
+            ds = eb.float() * de
+            dsb = ds.to(bf).float()
+            dq = (dsb @ k.float() * ctx.scale).to(bf)
+            dk = (dsb.transpose(-1, -2) @ qs.float()).to(bf)
+            dv = (eb.float().transpose(-1, -2) @ dnb).to(bf)
+            return dq, dk, dv, ds.sum(0), None, None
+
+    return ResAttention
+
+
+def res_attention_patch() -> list:
+    """Patches ``WindowAttention.forward`` so that the blocks the fused
+    route trains on residuals (``SwinBlock.trains_on_residuals``) run
+    :func:`res_attention`; the qkv and projection products stay the eager
+    model's."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.models import layers
+
+    eager_forward = layers.WindowAttention.forward
+
+    def forward(self, xw, mask=None):
+        Bn, N, C = xw.shape
+        h = self.num_heads
+        if xw.dtype != torch.bfloat16 or not wa.bwd_residuals_enabled(C, h, N):
+            return eager_forward(self, xw, mask)
+        qkv = layers.linear(xw, self.qkv.weight, self.qkv.bias)
+        qkv = qkv.reshape(Bn, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
+        out = res_attention().apply(qkv[0], qkv[1], qkv[2], self.bias_matrix(), mask,
+                                    self.scale)
+        out = out.permute(0, 2, 1, 3).reshape(Bn, N, C)
+        return layers.linear(out, self.proj.weight, self.proj.bias)
+
+    return [(layers.WindowAttention, "forward", forward)]
+
+
+def route_patches(be: str) -> list:
+    """Route ``be``'s settings: ``ROUTE_TRAIN_RESID`` off for
+    "fused_recompute"; JAX's residual-route attention in the eager model for
+    "eager_res*"; the drop-path product in float32 for "*_dp32"; the
+    defaults for every other route."""
+    from sunet_tf_tpu_torch.models import layers
+
+    return ([(layers, "ROUTE_TRAIN_RESID", be != "fused_recompute")]
+            + (res_attention_patch() if be.startswith("eager_res") else [])
+            + ([(layers, "drop_path", drop_path_f32)] if be.endswith("_dp32") else []))
+
+
+def train_route(be: str):
+    """Route ``be``'s settings (:func:`route_patches`) for the duration."""
+    return patched(route_patches(be))
+
+
 def train_phase(results: dict) -> dict:
-    """One training step of the default SUNet, fused vs eager, then the
-    training entry point."""
+    """One training step of the default SUNet on both fused routes (the
+    residual route, the default, and ``ROUTE_TRAIN_RESID`` off) and eager,
+    then the training entry point."""
     import csv
 
     import numpy as np
@@ -706,24 +1005,33 @@ def train_phase(results: dict) -> dict:
         ds = PairDataset(str(tmp / "train"), 256, train=True, seed=0)
         batch = to_device(next(batch_iterator(ds, 4, shuffle=True, drop_last=True, seed=0)),
                           "cuda")
-        # the fused route and the eager route in the compute dtype (bf16), and
-        # the eager route in float32, the oracle of both
+        # the two fused routes and the eager route in the compute dtype
+        # (bf16), the eager route in float32, the oracle of all three, and
+        # NOISE_ROUTES' variants of the eager model, which gauge how far
+        # rounding alone moves each gradient
+        fused = ("fused", "fused_recompute")
         models = {"fused": build_model(cfg, device="cuda", backend="fused", seed=0),
+                  "fused_recompute": build_model(cfg, device="cuda", backend="fused", seed=0),
                   "eager": build_model(cfg, device="cuda", backend="eager", seed=0),
                   "eager_fp32": build_model(cfg.replace(compute_dtype="float32"),
                                             device="cuda", backend="eager", seed=0)}
-        for be in ("eager", "eager_fp32"):
+        for be in ("fused_recompute", "eager", "eager_fp32"):
             models[be].load_state_dict(models["fused"].state_dict())
+        for be in NOISE_ROUTES[1:]:
+            models[be] = models["eager"]
         inp, tar = prepare(batch, task, 50.0, step_generators(0, 0, "cuda")[0])
         valid = torch.ones(4, device="cuda")
-        want = models["fused"].expected_launches(tuple(inp.shape), train=True)
+        want = {}
+        for be in fused:
+            with train_route(be):
+                want[be] = models[be].expected_launches(tuple(inp.shape), train=True)
         step, grads = {}, {}
         for be, m in models.items():
             m.train().requires_grad_(True)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _build.reset_counts()
-            with wa.exact_fp32():
+            with train_route(be), wa.exact_fp32():
                 loss, _, _ = loss_and_metrics(m, inp, tar, step_generators(0, 0, "cuda")[1],
                                               valid, task)
                 loss.backward()
@@ -736,43 +1044,40 @@ def train_phase(results: dict) -> dict:
                          if p.grad is not None}
             m.zero_grad(set_to_none=True)
         launches = step["fused"]["launches"]
-        print(f"  launches per training step: {launches} (router predicts {want})")
-        check(launches == want, "training launch counts differ from expected_launches")
+        blocks = [b for st in list(models["fused"].layers) + list(models["fused"].layers_up[1:])
+                  for b in st.blocks]
+        for be in fused:
+            got = step[be]["launches"]
+            print(f"  {be}: launches per training step: {got} (router predicts {want[be]})")
+            check(got == want[be], f"{be}: training launch counts differ from "
+                  "expected_launches")
+            on_res = got["fused_swin_block_res"]
+            on_block = got["fused_swin_block"]
+            on_split = got["ln_mlp_branch"] // wa.LN_MLP_BRANCH_LAUNCHES
+            print(f"  {be}: blocks {len(blocks)}; on the residual route {on_res}, on the "
+                  f"block kernels with the recompute backward {on_block}, on the sublayer "
+                  f"kernels {on_split}, on eager autograd "
+                  f"{len(blocks) - on_res - on_block - on_split}")
+            check(on_res + on_block + on_split == len(blocks),
+                  f"{be}: a block trained on eager autograd")
+            # Config(): the 32 blocks at C=96 and C=192 take the residual route
+            check(on_res == (32 if be == "fused" else 0),
+                  f"{be}: {on_res} blocks on the residual route")
+            check(not any(step[be]["cpu"].values()), f"{be}: plain versions ran in training")
         check(all(v > 0 for k, v in launches.items()
                   if k not in ("fused_swin_block_chain", "fused_ln_mlp")),
               "a training kernel was not launched")
-        blocks = [b for st in list(models["fused"].layers) + list(models["fused"].layers_up[1:])
-                  for b in st.blocks]
-        on_block = launches["fused_swin_block"]
-        on_split = launches["ln_mlp_branch"] // wa.LN_MLP_BRANCH_LAUNCHES
-        print(f"  blocks: {len(blocks)}; on the block kernels {on_block}, on the sublayer "
-              f"kernels {on_split}, on eager autograd {len(blocks) - on_block - on_split}")
-        check(on_block + on_split == len(blocks), "a block trained on eager autograd")
-        check(not any(step["fused"]["cpu"].values()), "plain versions ran in training")
-        for be in ("eager", "eager_fp32"):
+        for be in ("eager_fp32", *NOISE_ROUTES):
             check(not any(step[be]["launches"].values()), f"{be} route launched kernels")
         ref = grads["eager_fp32"]
         one = sorted(n for n, v in ref.items() if v.numel() == 1 and bool(v.any()))
-        for be in ("fused", "eager"):
+        for be in (*fused, *NOISE_ROUTES):
             print(f"  {be}: one-value gradients, relative error against float32: " + " ".join(
                 f"{n} {float((grads[be][n] - ref[n]) / ref[n]):+.3e}" for n in one))
 
-        def distance(a, b) -> tuple:
-            return (float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300)),
-                    float((a - b).norm() / b.norm()))
-
-        def limits(name: str, noise: dict = None) -> tuple:
-            """(cosine, relative L2) limits of tensor ``name``; ``noise``: the
-            eager bf16 route's own (cos, rl2) per tensor, which widens them
-            where it is farther."""
-            cos_lim, rl2_lim = TRAIN_GRAD_COS, TRAIN_GRAD_RL2
-            if ref[name].numel() == 1:
-                rl2_lim = GRAD_NOISE_FACTOR * ONE_VALUE_NOISE
-            if noise is not None:
-                ce, re = noise[name]
-                cos_lim = min(cos_lim, 1.0 - GRAD_NOISE_FACTOR * (1.0 - ce))
-                rl2_lim = max(rl2_lim, GRAD_NOISE_FACTOR * re)
-            return cos_lim, rl2_lim
+        distance = grad_distance
+        limits = lambda name, noise=None: grad_limits(
+            ref[name].numel(), None if noise is None else noise[name])
 
         def agree(be: str, noise: dict = None) -> dict:
             """Loss and per-parameter gradient agreement of route ``be`` with
@@ -797,8 +1102,7 @@ def train_phase(results: dict) -> dict:
                 if cos < cos_lim or rl2 > rl2_lim:
                     r["bad"].append(f"{name} cos {cos:.5f} (limit {cos_lim:.5f}) rl2 "
                                     f"{rl2:.3e} (limit {rl2_lim:.3e})")
-                r["margin"].append((max(rl2 / rl2_lim, (1 - cos) / max(1 - cos_lim, 1e-12)),
-                                    name))
+                r["margin"].append((gate_share(cos, rl2, cos_lim, rl2_lim), name))
             print(f"  {be} vs eager float32: loss {lr:.6f} vs {lo:.6f} (rel diff "
                   f"{r['loss_rel_diff']:.3e}); {r['n']} gradient tensors, worst cosine "
                   f"{r['cos'][0]:.6f} ({r['cos'][1]}), worst relative L2 {r['rl2'][0]:.3e} "
@@ -807,34 +1111,41 @@ def train_phase(results: dict) -> dict:
                   + ", ".join(f"{n} {m:.2f}" for m, n in sorted(r["margin"])[-3:]))
             return r
 
-        eager_r = agree("eager")
-        fused_r = agree("fused", noise=eager_r["per"])
-        closer = sum(fused_r["per"][k][1] <= eager_r["per"][k][1] for k in fused_r["per"])
-        print(f"  the fused route is closer to float32 than the eager bf16 route in "
-              f"{closer} of {fused_r['n']} tensors")
-        for b in fused_r["bad"][:20]:
-            print(f"    FAIL {b}")
-        check(np.isfinite(step["fused"]["loss"]), "non-finite training loss")
-        check(fused_r["loss_rel_diff"] <= TRAIN_LOSS_RTOL,
-              "fused training loss disagrees with eager")
-        check(not fused_r["bad"], f"{len(fused_r['bad'])} fused parameter gradients "
-              "disagree with eager float32")
+        noise_r = [agree(be) for be in NOISE_ROUTES]
+        eager_r = noise_r[0]
+        # per tensor, the farthest of the eager bf16 routes
+        noise = {n: (min(r["per"][n][0] for r in noise_r),
+                     max(r["per"][n][1] for r in noise_r)) for n in eager_r["per"]}
+        route_r = {be: agree(be, noise=noise) for be in fused}
+        for be, r in route_r.items():
+            closer = sum(r["per"][k][1] <= eager_r["per"][k][1] for k in r["per"])
+            print(f"  {be} is closer to float32 than the eager bf16 route in "
+                  f"{closer} of {r['n']} tensors")
+            for b in r["bad"][:20]:
+                print(f"    FAIL {b}")
+            check(np.isfinite(step[be]["loss"]), f"{be}: non-finite training loss")
+            check(r["loss_rel_diff"] <= TRAIN_LOSS_RTOL,
+                  f"{be}: training loss disagrees with eager")
+            check(not r["bad"], f"{len(r['bad'])} {be} parameter gradients "
+                  "disagree with eager float32")
+        fused_r = route_r["fused"]
         # the one-value limits sit between the sound readings and a slope
         # gradient that is dropped or sign-flipped: the gate fails each of those
         for name in one:
             for fault, f in (("dropped", 0.0), ("sign-flipped", -1.0)):
                 cos, rl2 = distance(grads["fused"][name] * f, ref[name])
-                cos_lim, rl2_lim = limits(name, eager_r["per"])
+                cos_lim, rl2_lim = limits(name, noise)
                 check(cos < cos_lim and rl2 > rl2_lim,
                       f"the gate does not fail a {fault} gradient of {name}")
         print(f"  one-value gradients: relative L2 limit "
-              f"{max(limits(n, eager_r['per'])[1] for n in one):.3e} at most; the gate "
+              f"{max(limits(n, noise)[1] for n in one):.3e} at most; the gate "
               f"fails each of the {len(one)} dropped (rl2 1) and sign-flipped (rl2 2, cos -1)")
         lf, le = step["fused"]["loss"], step["eager_fp32"]["loss"]
         rel, worst_cos, worst_rl2 = (fused_r["loss_rel_diff"], fused_r["cos"][0],
                                      fused_r["rl2"][0])
         del grads, ref
-        models.pop("eager_fp32")
+        for be in ("eager_fp32", *NOISE_ROUTES[1:]):
+            models.pop(be)
         torch.cuda.empty_cache()
 
         # train-step times (forward, backward, Adam update), peak memory of a
@@ -844,18 +1155,19 @@ def train_phase(results: dict) -> dict:
             fns[be] = build_steps(m, make_optimizer(cfg, m, 1), task=task, seed=0)
             counter = iter(range(1, 10_000))
             run = lambda f=fns[be]: f.train_step(batch, next(counter), f.init_metrics())
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            run()
-            torch.cuda.synchronize()
-            step[be]["first_peak_bytes"] = torch.cuda.max_memory_allocated()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            run()
-            torch.cuda.synchronize()
-            step[be]["step_peak_bytes"] = torch.cuda.max_memory_allocated()
-            step[be]["step_added_bytes"] = step[be]["step_peak_bytes"] - base
-            times[be] = time_ms(run, iters=10, warmup=2)
+            with train_route(be):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                run()
+                torch.cuda.synchronize()
+                step[be]["first_peak_bytes"] = torch.cuda.max_memory_allocated()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run()
+                torch.cuda.synchronize()
+                step[be]["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+                step[be]["step_added_bytes"] = step[be]["step_peak_bytes"] - base
+                times[be] = time_ms(run, iters=10, warmup=2)
         for be in models:
             print(f"  {be}: train step {times[be]:.3f} ms (median of 10); peak memory "
                   f"over the first step (its optimizer state is made there) "
@@ -864,10 +1176,13 @@ def train_phase(results: dict) -> dict:
                   f"{step[be]['step_added_bytes'] / 2**30:.3f} GiB above what was allocated "
                   "before it (both models' weights, grads and optimizer states stay "
                   "resident)")
-        counter = iter(range(100, 10_000))
-        trace = trace_step(lambda: fns["fused"].train_step(batch, next(counter),
-                                                            fns["fused"].init_metrics()),
-                           "fused training step")
+        traces = {}
+        for be in fused:
+            counter = iter(range(100, 10_000))
+            with train_route(be):
+                traces[be] = trace_step(lambda f=fns[be]: f.train_step(batch, next(counter),
+                                                                       f.init_metrics()),
+                                        f"{be} training step")
         del models, fns
         torch.cuda.empty_cache()
         for k, v in launches.items():
@@ -898,12 +1213,15 @@ def train_phase(results: dict) -> dict:
               f"val loss {float(rows[0]['Val_LOSS']):.6f}, checkpoint "
               f"{ckpt.stat().st_size / 2**20:.1f} MiB")
     out.update({"fused_step_ms": times["fused"], "eager_step_ms": times["eager"],
+                "fused_recompute_step_ms": times["fused_recompute"],
                 "loss_fused": lf, "loss_eager": le, "loss_rel_diff": rel,
                 "worst_grad_cos": worst_cos, "worst_grad_rel_l2": worst_rl2,
                 "first_step_peak_bytes": {be: step[be].get("first_peak_bytes") for be in step},
                 "peak_bytes": {be: step[be].get("step_peak_bytes") for be in step},
                 "step_added_bytes": {be: step[be].get("step_added_bytes") for be in step},
-                "launches": launches, "trace": trace, "cli_seconds": fit_s})
+                "launches": launches, "recompute_launches": step["fused_recompute"]["launches"],
+                "trace": traces["fused"], "recompute_trace": traces["fused_recompute"],
+                "cli_seconds": fit_s})
     return out
 
 

@@ -43,6 +43,8 @@ SIGNATURES = {
     # bias, mask, dp (B, 2) or NULL, B, H, W, C, hidden, ws, heads, shift,
     # scale, stream
     "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F, _P],
+    # sunet_swin_block's pointers, then eb, rden, ctx_f; the same scalars
+    "sunet_swin_block_res": [_P] * 20 + [_I] * 8 + [_F, _P],
     # x, dout, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
     # bias, mask, dp, dx, 13 grads (ln1 g/b, wqkv, bqkv, wproj, bproj, ln2
     # g/b, w1, b1, w2, b2, bias), workspace, B, H, W, C, hidden, ws, heads,
@@ -50,6 +52,12 @@ SIGNATURES = {
     "sunet_swin_block_bwd": [_P] * 32 + [_I] * 8 + [_F, _P, _P],
     # B, H, W, C, hidden, ws, heads -> workspace bytes
     "sunet_swin_block_bwd_workspace": [_I] * 7,
+    # x, dout, eb, rden, ctx_f, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b,
+    # w1, b1, w2, b2, dp, dx, 13 grads, workspace, B, H, W, C, hidden, ws,
+    # heads, shift, scale, int* launches, stream
+    "sunet_swin_block_bwd_res": [_P] * 33 + [_I] * 8 + [_F, _P, _P],
+    # B, H, W, C, hidden, ws, heads -> workspace bytes
+    "sunet_swin_block_bwd_res_workspace": [_I] * 7,
     # x, dout, w_exp (C, 16C), wb1, bb1, wpf, wbf, wconv, alphas, dx,
     # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, dwfold, workspace, B, H, W,
     # C, out, int* launches, stream

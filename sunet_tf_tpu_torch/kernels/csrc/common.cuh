@@ -228,19 +228,32 @@ __device__ inline void carve_warp(unsigned char* p, int warp, bf16*& bt, float*&
   stg = reinterpret_cast<float*>(p + (size_t)kWarps * 16 * kBtLd * 2) + warp * 16 * kStgLd;
 }
 
+// The attention state that the training forward of the residual route
+// (fused_swin_block_res) stores for its backward, for one window: the
+// per-head exponentials eb (heads x N x N bf16), the reciprocal row sums
+// rden (heads x N) and the float32 context ctx (N rows of C).
+struct AttnRes {
+  bf16* eb;
+  float* rden;
+  float* ctx;
+};
+
 // One head hh of windowed attention over N tokens whose LN'd rows are xn
 // (N x C bf16, shared, row stride ldx). qkv = round(xn @ wqkv + bqkv); q = round(q * scale);
 // s = q k^T + bias[hh] (+ mask); e = exp(s - rowmax); ctx = round((e_bf16 @
 // v) / sum(e)). Calls store(token, channel, ctx) for the head's d channels.
-// Ends with a block barrier.
-template <class Store>
+// kRes (the JAX residual kernel _block_fwd_res_kernel): the row sum is
+// taken over the rounded exponentials, rden = 1/max(sum, 1e-37), ctx_f =
+// (e_bf16 @ v) * rden, ctx = round(ctx_f), and eb, rden and ctx_f go to
+// `res`. Ends with a block barrier.
+template <bool kRes = false, class Store>
 __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, int hh,
                           const bf16* __restrict__ wqkv,
                           const float* __restrict__ bqkv,
                           const float* __restrict__ bias,
                           const float* __restrict__ mask, float scale,
                           const HeadSmem& sm, bf16* bt, float* stg, int warp,
-                          int lane, Store store) {
+                          int lane, Store store, AttnRes res = AttnRes{}) {
   const int rt_n = N / 16, ct_n = dp / 16;
   // q/k/v column tile x group of row tiles per work item: all row tiles,
   // or half of them where that would leave warps idle (small heads)
@@ -301,11 +314,25 @@ __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, 
     float sum = 0.f;
     for (int j = lane; j < N; j += 32) {
       const float e = expf(si[j] - m);
-      sum += e;
-      sm.p[i * sm.ldp + j] = tobf(e);
+      if constexpr (kRes) {
+        const bf16 eb = tobf(e);
+        sum += bf(eb);
+        sm.p[i * sm.ldp + j] = eb;
+        res.eb[((size_t)hh * N + i) * N + j] = eb;
+      } else {
+        sum += e;
+        sm.p[i * sm.ldp + j] = tobf(e);
+      }
     }
     sum = warp_sum(sum);
-    if (lane == 0) sm.den[i] = fmaxf(sum, 1e-37f);
+    if constexpr (kRes) {
+      if (lane == 0) {   // den holds the reciprocal
+        sm.den[i] = 1.f / fmaxf(sum, 1e-37f);
+        res.rden[hh * N + i] = sm.den[i];
+      }
+    } else if (lane == 0) {
+      sm.den[i] = fmaxf(sum, 1e-37f);
+    }
   }
   __syncthreads();
   for (int t = warp; t < rt_n * ct_n; t += kWarps) {
@@ -321,7 +348,15 @@ __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, 
     }
     epilogue(acc, stg, lane, [&](int r, int c, float v) {
       const int col = ct * 16 + c;
-      if (col < d) store(rt * 16 + r, hh * d + col, tobf(v / sm.den[rt * 16 + r]));
+      if constexpr (kRes) {
+        if (col < d) {
+          const float cf = v * sm.den[rt * 16 + r];
+          res.ctx[(size_t)(rt * 16 + r) * C + hh * d + col] = cf;
+          store(rt * 16 + r, hh * d + col, tobf(cf));
+        }
+      } else if (col < d) {
+        store(rt * 16 + r, hh * d + col, tobf(v / sm.den[rt * 16 + r]));
+      }
     });
   }
   __syncthreads();

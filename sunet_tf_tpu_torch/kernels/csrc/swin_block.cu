@@ -8,6 +8,17 @@
 // its stochastic-depth pair dp[b] = (s1, s2) where _block_body applies them:
 // y = round(x + s1*attn), out = round(y + s2*mlp).
 //
+// The residual-saving training forward (sunet_swin_block_res) is the same
+// kernel with kRes set. It replaces fused_swin_block_res (its kernel
+// _block_fwd_res_kernel): each head's softmax denominator is the sum of
+// the bf16-rounded exponentials, ctx_f = (e_bf16 @ v) * (1/den), the block
+// goes on from round(ctx_f), and the kernel also stores the attention state
+// that swin_block_bwd_res.cu differentiates, in window-major (rolled) token
+// order: eb (B*nW, heads, N, N) bf16, rden (B*nW, heads, N) and ctx_f (T,
+// C) float32. Those stores add ~9 KB per head-window at N=64 to the
+// kernel's HBM traffic; with kRes unset the inference and train-form
+// launches compile to the code they had before.
+//
 // What bounds it on Hopper: at C=96..384 a 64-token window holds ~16 MFLOP
 // of products against ~0.1-0.3 MB of (L2-resident) weights read per CTA, so
 // the weight stream from L2 and the tensor-core issue rate bound it, not
@@ -49,6 +60,7 @@ struct BlockArgs {
   const float* dp;   // (B, 2) drop-path scales of the two branches, or null (ones)
   int B, H, W, C, hidden, ws, heads, shift;
   float scale;
+  AttnRes res;       // the residual route's stores (kRes), whole-batch bases
 };
 
 // tok offsets | x | LN(x) | ctx (then the MLP hidden chunk) | head | warps;
@@ -60,7 +72,7 @@ __host__ __device__ inline size_t block_smem_bytes(int N, int C, int dp) {
          warp_smem_bytes();
 }
 
-template <int MC>
+template <int MC, bool kRes>
 __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = a.ws * a.ws, C = a.C, d = C / a.heads, dp = align_up(d, 16);
@@ -105,10 +117,16 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
   layer_norm_rows(xs, xn, ldx, N, C, a.g1, a.be1, warp, lane);
   __syncthreads();
   const float* mask = a.mask ? a.mask + (size_t)win * N * N : nullptr;
+  AttnRes res{};
+  if constexpr (kRes) {
+    const size_t wg = (size_t)b * gridDim.x + win;   // window-major window index
+    res = {a.res.eb + wg * a.heads * N * N, a.res.rden + wg * a.heads * N,
+           a.res.ctx + wg * N * C};
+  }
   for (int hh = 0; hh < a.heads; ++hh)
-    attn_head(xn, ldx, C, N, d, dp, hh, a.wqkv, a.bqkv, a.bias, mask, a.scale, hs,
-              bt, stg, warp, lane,
-              [&](int t, int c, bf16 v) { ctx[t * ldx + c] = v; });
+    attn_head<kRes>(xn, ldx, C, N, d, dp, hh, a.wqkv, a.bqkv, a.bias, mask, a.scale, hs,
+                    bt, stg, warp, lane,
+                    [&](int t, int c, bf16 v) { ctx[t * ldx + c] = v; }, res);
   const int rt_n = N / 16, nc = owned(C / 16, warp);
   if (nc > 0) {
     FragC acc[kMR * MC];
@@ -137,6 +155,24 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
                     warp, lane, [&](int t, int c, bf16 v) { a.out[tok[t] + c] = v; });
 }
 
+template <bool kRes>
+cudaError_t launch_block(const BlockArgs& a, cudaStream_t st) {
+  const int N = a.ws * a.ws;
+  if (N % 16 || N > 64 || a.C % 16 || a.C % a.heads || a.hidden % 16 || a.H % a.ws ||
+      a.W % a.ws)
+    return cudaErrorInvalidValue;
+  const size_t smem = block_smem_bytes(N, a.C, align_up(a.C / a.heads, 16));
+  const dim3 grid((a.H / a.ws) * (a.W / a.ws), a.B);
+  const int need = (a.C / 16 + kWarps - 1) / kWarps;
+  return dispatch_mc<3>(need, [&](auto mc) -> cudaError_t {
+    auto k = swin_block_kernel<decltype(mc)::value, kRes>;
+    cudaError_t e = set_smem(k, smem);
+    if (e != cudaSuccess) return e;
+    k<<<grid, kThreads, smem, st>>>(a);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace sunet
 
 using namespace sunet;
@@ -155,18 +191,27 @@ extern "C" int sunet_swin_block(const void* x, void* out, const void* g1,
               (const float*)be2,  (const bf16*)w1,    (const float*)b1,
               (const bf16*)w2,    (const float*)b2,   (const float*)bias,
               (const float*)mask, (const float*)dp, B, H, W, C, hidden, ws, heads, shift,
-              scale};
-  const int N = ws * ws;
-  if (N % 16 || N > 64 || C % 16 || C % heads || hidden % 16 || H % ws || W % ws)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = block_smem_bytes(N, C, align_up(C / heads, 16));
-  const dim3 grid((H / ws) * (W / ws), B);
-  const int need = (C / 16 + kWarps - 1) / kWarps;
-  return (int)dispatch_mc<3>(need, [&](auto mc) -> cudaError_t {
-    auto k = swin_block_kernel<decltype(mc)::value>;
-    cudaError_t e = set_smem(k, smem);
-    if (e != cudaSuccess) return e;
-    k<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
-    return cudaGetLastError();
-  });
+              scale, AttnRes{}};
+  return (int)launch_block<false>(a, (cudaStream_t)stream);
+}
+
+// The residual route's training forward: sunet_swin_block's arguments, then
+// eb, rden and ctx_f (layouts in the header note).
+extern "C" int sunet_swin_block_res(const void* x, void* out, const void* g1,
+                                    const void* be1, const void* wqkv, const void* bqkv,
+                                    const void* wproj, const void* bproj, const void* g2,
+                                    const void* be2, const void* w1, const void* b1,
+                                    const void* w2, const void* b2, const void* bias,
+                                    const void* mask, const void* dp, void* eb, void* rden,
+                                    void* ctx, int B, int H, int W, int C, int hidden, int ws,
+                                    int heads, int shift, float scale, void* stream) {
+  if (eb == nullptr || rden == nullptr || ctx == nullptr) return (int)cudaErrorInvalidValue;
+  BlockArgs a{(const bf16*)x,     (bf16*)out,         (const float*)g1,
+              (const float*)be1,  (const bf16*)wqkv,  (const float*)bqkv,
+              (const bf16*)wproj, (const float*)bproj, (const float*)g2,
+              (const float*)be2,  (const bf16*)w1,    (const float*)b1,
+              (const bf16*)w2,    (const float*)b2,   (const float*)bias,
+              (const float*)mask, (const float*)dp, B, H, W, C, hidden, ws, heads, shift,
+              scale, AttnRes{(bf16*)eb, (float*)rden, (float*)ctx}};
+  return (int)launch_block<true>(a, (cudaStream_t)stream);
 }

@@ -347,6 +347,21 @@ inline cudaError_t gather_rows(const bf16* src, const float* dp, bf16* dst, int 
   return launched(launches);
 }
 
+// dst = round(src), n values.
+static __global__ void round_kernel(const float* __restrict__ src, bf16* __restrict__ dst,
+                                    size_t n) {
+  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads)
+    dst[i] = tobf(src[i]);
+}
+
+inline cudaError_t round_rows(const float* src, bf16* dst, size_t n, cudaStream_t st,
+                              int* launches) {
+  const int blocks = (int)std::min<size_t>((n + kThreads - 1) / kThreads, 1024);
+  round_kernel<<<blocks, kThreads, 0, st>>>(src, dst, n);
+  return launched(launches);
+}
+
 // LayerNorm backward over T rows, kCols columns per lane (C <= 32*kCols):
 // xhat from x (the token matrix's rows, bf16) and its stats, dxhat = d *
 // g, t = inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)). kLn2 (the

@@ -18,6 +18,15 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   backward, recompute form. CUDA: ``csrc/swin_block_bwd.cu``.
   :class:`SwinBlockTrainable` pairs it with :func:`fused_swin_block`'s
   train form (per-image drop-path scales) for autograd.
+- The residual route, JAX's default training block where the attention
+  takes the blockdiag layout (:func:`bwd_residuals_enabled`):
+  :func:`fused_swin_block_res` (JAX ``fused_swin_block_res``, CUDA
+  ``csrc/swin_block.cu``'s residual form) is the train-form block that
+  also returns the softmax state (eb, rden, ctx_f), and
+  :func:`swin_block_bwd_res` (JAX ``_block_bwd_impl_res``, CUDA
+  ``csrc/swin_block_bwd_res.cu``) the block backward from that state, with
+  no score or softmax recompute; :class:`SwinBlockTrainableRes` pairs them
+  (JAX ``swin_block_trainable_res``).
 - The two training sublayers of the blocks above the block-kernel cap:
   :func:`ln_window_attention_bwd` (JAX ``_ln_wmsa_bwd_impl``, CUDA
   ``csrc/ln_wmsa_bwd.cu``) is the backward of
@@ -69,11 +78,28 @@ BLOCK_KERNEL_MAX_C = 384
 # csrc/swin_block_bwd.cu, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; LN and the two
 # products of ln_mlp_branch.cu).
 SWIN_BLOCK_BWD_LAUNCHES = 35
+SWIN_BLOCK_BWD_RES_LAUNCHES = 35   # #8's sequence: ctx rounding for the recompute
 LN_WMSA_BWD_LAUNCHES = 19
 LN_MLP_BRANCH_LAUNCHES = 3
 LN_MLP_BWD_LAUNCHES = 15
 # Widest C of the training sublayer kernels (the LN backward's rows).
 SPLIT_TRAIN_MAX_C = 768
+
+
+def _pad128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def bwd_residuals_enabled(C: int, num_heads: int, N: int) -> bool:
+    """Whether a block of width C, ``num_heads`` heads and N-token windows
+    trains on the residual route: JAX ``bwd_residuals_enabled`` at the JAX
+    package's defaults (``SUNET_BWD_RESID=1``, the rowmax softmax, automatic
+    layouts). It holds when the attention takes the blockdiag layout in both
+    directions (``_attn_layout``, ``_attn_layout_bwd``), which JAX picks iff
+    pad128(C) * N <= pad128(d) * pad128(N), ties to blockdiag. The port's
+    softmax is always the rowmax form."""
+    d = C // num_heads
+    return _pad128(C) * N <= _pad128(d) * _pad128(N)
 
 
 @contextlib.contextmanager
@@ -181,62 +207,116 @@ def _ln_bwd_dx(dxhat, xhat, inv):
                   - xhat * (dxhat * xhat).mean(-1, keepdim=True))
 
 
+def _qkv_heads(uw, wqkv, bqkv, *, num_heads: int, N: int, scale: float) -> tuple:
+    """qkv = round(uw @ wqkv + bqkv) of the LN'd rows ``uw`` (T, C) in
+    window-major order, split per (window, head) (Bn, h, N, d):
+    (round(q*scale), k, v)."""
+    dt = uw.dtype
+    T, C = uw.shape
+    qkv = mm32(uw, wqkv)
+    if bqkv is not None:
+        qkv = qkv + bqkv.float()
+    qkv = qkv.to(dt)
+    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(T // N, N, num_heads, C // num_heads)
+               .permute(0, 2, 1, 3) for i in range(3))
+    return (q.float() * scale).to(dt), k, v
+
+
+def _scores(qs, k, bias, mask):
+    """float32 logits qs k^T + bias (+ the window's mask), (Bn, h, N, N)."""
+    Bn, h, N, _ = qs.shape
+    s = mm32(qs, k.transpose(-1, -2)) + bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(Bn // nW, nW, h, N, N) + mask.float()[None, :, None]).reshape(
+            Bn, h, N, N)
+    return s
+
+
 def _wmsa_recompute(uw, wqkv, bqkv, bias, mask, *, num_heads: int,
                     scale: float) -> tuple:
     """Forward recompute of the attention sublayer from its LN'd rows ``uw``
     (T, C) in window-major order: (round(q*scale), k, v) per (window, head)
     (Bn, h, N, d), the float32 softmax P (Bn, h, N, N) and ctx =
     round(round(P) @ v) as rows (T, C)."""
+    T, C = uw.shape
+    qs, k, v = _qkv_heads(uw, wqkv, bqkv, num_heads=num_heads, N=bias.shape[-1],
+                          scale=scale)
+    P = torch.softmax(_scores(qs, k, bias, mask), dim=-1)
+    ctx = mm32(P.to(uw.dtype), v).permute(0, 2, 1, 3).reshape(T, C).to(uw.dtype)
+    return qs, k, v, P, ctx
+
+
+def _attn_res_state(qs, k, v, bias, mask) -> tuple:
+    """The residual route's attention forward (JAX ``_bd_fwd_core`` and the
+    normalisation of ``_block_fwd_res_kernel``): e = exp(s - rowmax_head(s))
+    rounded to the compute dtype (eb), den = sum of the rounded e, rden =
+    1/max(den, 1e-37), ctx_f = (eb @ v) * rden. Returns (eb (Bn, h, N, N),
+    rden (Bn, h, N) float32, ctx_f as float32 rows (T, C))."""
+    Bn, h, N, d = qs.shape
+    s = _scores(qs, k, bias, mask)
+    eb = torch.exp(s - s.amax(-1, keepdim=True)).to(qs.dtype)
+    rden = 1.0 / eb.float().sum(-1).clamp_min(1e-37)
+    ctx_f = mm32(eb, v) * rden[..., None]
+    return eb, rden, ctx_f.permute(0, 2, 1, 3).reshape(Bn * N, h * d)
+
+
+def _qkv_bwd(uw, ds, qs, k, dv, wqkv, *, scale: float) -> tuple:
+    """The attention backward's common tail from the float32 score cotangent
+    ``ds`` and dv (Bn, h, N, ...): dbias = sum of ds over windows, dq =
+    round(ds) k * scale, dk = round(ds)^T round(q*scale). Returns (du =
+    round(dqkv) wqkv^T as float32 rows, dwqkv = uw^T round(dqkv), dbqkv,
+    dbias)."""
     dt = uw.dtype
     T, C = uw.shape
-    h = num_heads
-    N = bias.shape[-1]
-    Bn = T // N
-    qkv = mm32(uw, wqkv)
-    if bqkv is not None:
-        qkv = qkv + bqkv.float()
-    qkv = qkv.to(dt)
-    q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(Bn, N, h, C // h).permute(0, 2, 1, 3)
-               for i in range(3))
-    qs = (q.float() * scale).to(dt)
-    s = mm32(qs, k.transpose(-1, -2)) + bias.float()[None]
-    if mask is not None:
-        nW = mask.shape[0]
-        s = (s.reshape(Bn // nW, nW, h, N, N) + mask.float()[None, :, None]).reshape(
-            Bn, h, N, N)
-    P = torch.softmax(s, dim=-1)
-    ctx = mm32(P.to(dt), v).permute(0, 2, 1, 3).reshape(T, C).to(dt)
-    return qs, k, v, P, ctx
+    unheads = lambda t: t.permute(0, 2, 1, 3).reshape(T, C)
+    dsb = ds.to(dt)
+    dq = mm32(dsb, k) * scale
+    dk = mm32(dsb.transpose(-1, -2), qs)
+    dqkv = torch.cat([unheads(dq), unheads(dk), unheads(dv)], dim=-1)
+    dqkv_b = dqkv.to(dt)
+    return mm32(dqkv_b, wqkv.t()), mm32(uw.t(), dqkv_b), dqkv.sum(0), ds.sum(0)
 
 
 def _wmsa_bwd(uw, dattn, rec, wqkv, wproj, *, scale: float) -> tuple:
     """Backward of the attention sublayer from the cotangent ``dattn`` (T,
     C, window-major rows, compute dtype) of its projection output, ``rec``
     from :func:`_wmsa_recompute`: dctx = round(dattn wproj^T); per head dP
-    = dctx v^T, dv = round(P)^T dctx, ds = P*(dP - rowsum(dP*P)), dq =
-    round(ds) k * scale, dk = round(ds)^T round(q*scale). Returns (du =
-    round(dqkv) wqkv^T as float32 rows, dwqkv = uw^T round(dqkv), dbqkv,
-    dwproj = ctx^T dattn, dbproj, dbias = sum of ds over windows)."""
+    = dctx v^T, dv = round(P)^T dctx, ds = P*(dP - rowsum(dP*P)), then
+    :func:`_qkv_bwd`. Returns (du, dwqkv, dbqkv, dwproj = ctx^T dattn,
+    dbproj, dbias)."""
     qs, k, v, P, ctx = rec
+    T, C = uw.shape
+    Bn, h, N, d = k.shape
+    dctx = mm32(dattn, wproj.t()).to(uw.dtype).reshape(Bn, N, h, d).permute(0, 2, 1, 3)
+    dP = mm32(dctx, v.transpose(-1, -2))
+    dv = mm32(P.to(uw.dtype).transpose(-1, -2), dctx)
+    ds = P * (dP - (dP * P).sum(-1, keepdim=True))
+    du, dwqkv, dbqkv, dbias = _qkv_bwd(uw, ds, qs, k, dv, wqkv, scale=scale)
+    return du, dwqkv, dbqkv, mm32(ctx.t(), dattn), dattn.float().sum(0), dbias
+
+
+def _wmsa_bwd_res(uw, dattn, qkv, eb, rden, ctx_f, wqkv, wproj, *, scale: float) -> tuple:
+    """Backward of the attention sublayer on the residual route (JAX
+    ``_attn_core_bwd``, blockdiag, ``recip=True``), from the stored eb,
+    rden and ctx_f and ``qkv`` = (round(q*scale), k, v) of
+    :func:`_qkv_heads`: dctx = dattn wproj^T in float32; dn = dctx * rden;
+    de = round(dn) v^T - rowsum_head(round(dn * ctx_f)); ds = eb * de; dv =
+    eb^T round(dn); then :func:`_qkv_bwd`. Returns (du, dwqkv, dbqkv,
+    dwproj = round(ctx_f)^T dattn, dbproj, dbias)."""
+    qs, k, v = qkv
     dt = uw.dtype
     T, C = uw.shape
     Bn, h, N, d = k.shape
     heads = lambda t: t.reshape(Bn, N, h, d).permute(0, 2, 1, 3)
-    unheads = lambda t: t.permute(0, 2, 1, 3).reshape(T, C)
-    dwproj = mm32(ctx.t(), dattn)
-    dbproj = dattn.float().sum(0)
-    dctx = heads(mm32(dattn, wproj.t()).to(dt))
-    dP = mm32(dctx, v.transpose(-1, -2))
-    dv = mm32(P.to(dt).transpose(-1, -2), dctx)
-    ds = P * (dP - (dP * P).sum(-1, keepdim=True))
-    dbias = ds.sum(0)
-    dsb = ds.to(dt)
-    dq = mm32(dsb, k) * scale
-    dk = mm32(dsb.transpose(-1, -2), qs)
-    dqkv = torch.cat([unheads(dq), unheads(dk), unheads(dv)], dim=-1)
-    dqkv_b = dqkv.to(dt)
-    return (mm32(dqkv_b, wqkv.t()), mm32(uw.t(), dqkv_b), dqkv.sum(0), dwproj,
-            dbproj, dbias)
+    dn = heads(mm32(dattn, wproj.t())) * rden[..., None]
+    t = (dn * heads(ctx_f)).to(dt).float().sum(-1, keepdim=True)
+    dnb = dn.to(dt)
+    ds = eb.float() * (mm32(dnb, v.transpose(-1, -2)) - t)
+    dv = mm32(eb.transpose(-1, -2), dnb)
+    du, dwqkv, dbqkv, dbias = _qkv_bwd(uw, ds, qs, k, dv, wqkv, scale=scale)
+    return (du, dwqkv, dbqkv, mm32(ctx_f.to(dt).t(), dattn), dattn.float().sum(0),
+            dbias)
 
 
 def _mlp_recompute(rows, ln, w1, b1) -> tuple:
@@ -286,22 +366,43 @@ def fused_swin_block_reference(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1,
         return roll2d(_mlp_tail(y, ln2, w1, b1, w2, b2, s2), shift)
 
 
-def swin_block_bwd_reference(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1,
-                             b1, w2, b2, bias, mask, drop_path_scale, *,
-                             ws: int, num_heads: int, scale: float,
-                             shift: int = 0) -> tuple:
-    """Plain PyTorch version of :func:`swin_block_bwd`, written step by step
-    after the JAX ``_block_bwd_kernel`` with its rounding points: the block
-    is recomputed (LN1, qkv, per-head softmax P in float32, ctx =
-    round(round(P) @ v), y, LN2, fc1 pre-activation a), then
+def fused_swin_block_res_reference(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1,
+                                   w2, b2, bias, mask, drop_path_scale=None, *,
+                                   ws: int, num_heads: int, scale: float,
+                                   shift: int = 0) -> tuple:
+    """Plain PyTorch version of :func:`fused_swin_block_res`, step by step
+    after the JAX ``_block_fwd_res_kernel``: the block of
+    :func:`fused_swin_block_reference` with the residual route's attention
+    (:func:`_attn_res_state`) and round(ctx_f) into the projection. Returns
+    (out, eb (B*nW, h, N, N) in x's dtype, rden (B*nW, h, N) float32, ctx_f
+    (B*H*W, C) float32), the residuals in window-major (rolled) order."""
+    with exact_fp32():
+        dt = x.dtype
+        B, H, W, C = x.shape
+        s1, s2 = _dp_scales(drop_path_scale, B)
+        xr = roll2d(x, -shift)
+        uw = window_partition(ln32(xr, *ln1).to(dt), ws).reshape(-1, C)
+        qs, k, v = _qkv_heads(uw, wqkv, bqkv, num_heads=num_heads, N=ws * ws, scale=scale)
+        eb, rden, ctx_f = _attn_res_state(qs, k, v, bias, mask)
+        attn = window_reverse((mm32(ctx_f.to(dt), wproj) + bproj.float()).reshape(
+            -1, ws * ws, C), ws, H, W)
+        y = (xr.float() + (attn if s1 is None else s1 * attn)).to(dt)
+        return roll2d(_mlp_tail(y, ln2, w1, b1, w2, b2, s2), shift), eb, rden, ctx_f
 
-      dm = round(s2*dout); dw2 = hgelu^T dm; da = (dm w2^T) * gelu'(a);
-      dab = round(da); dw1 = yn^T dab; dy = dout + LN2^T(dab w1^T);
-      dattn = round(s1*dy); dwproj = ctx^T dattn; dctx = dattn wproj^T;
-      per head: dP = round(dctx) v^T, dv = round(P)^T round(dctx),
-      ds = P*(dP - rowsum(dP*P)), dq = round(ds) k * scale,
-      dk = round(ds)^T round(q*scale); dbias = sum of ds over windows;
-      dwqkv = u^T round(dqkv); dx = dy + LN1^T(round(dqkv) wqkv^T).
+
+def _block_bwd_plain(x, dout, ln1, wproj, bproj, ln2, w1, b1, w2, b2, drop_path_scale,
+                     attention, *, ws: int, shift: int) -> tuple:
+    """The whole block's backward, step by step after the JAX block backward
+    kernels with their rounding points, for either attention route:
+    ``attention(uw)`` takes the LN1 rows ``uw`` (window-major) and returns
+    (ctx rows in the compute dtype, ``bwd``), ``bwd(dattn)`` the attention
+    sublayer's (du, dwqkv, dbqkv, dwproj, dbproj, dbias). Then
+
+      y = round(x + s1 * (ctx wproj + bproj)); LN2(y) and the fc1
+      pre-activation a recomputed; dm = round(s2*dout); dw2 = hgelu^T dm;
+      da = (dm w2^T) * gelu'(a); dab = round(da); dw1 = yn^T dab;
+      dy = dout + LN2^T(dab w1^T); dattn = round(s1*dy) into ``bwd``;
+      dx = dy + LN1^T(du).
 
     Returns (dx in x's dtype, then float32 grads of ln1 g/b, wqkv, bqkv,
     wproj, bproj, ln2 g/b, w1, b1, w2, b2 and bias (h, N, N)). Weight
@@ -320,9 +421,8 @@ def swin_block_bwd_reference(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1,
         xr = roll2d(x, -shift)
         xhat1, inv1 = _ln_stats(xr)
         uw = win((xhat1 * f(ln1[0]) + f(ln1[1])).to(dt))
-        att = _wmsa_recompute(uw, wqkv, bqkv, bias, mask, num_heads=num_heads,
-                              scale=scale)
-        attn = unwin(mm32(att[4], wproj) + f(bproj))
+        ctx, attn_bwd = attention(uw)
+        attn = unwin(mm32(ctx, wproj) + f(bproj))
         y = (xr.float() + s1 * attn).to(dt)
         mlp = _mlp_recompute(y.reshape(-1, C), ln2, w1, b1)
 
@@ -333,8 +433,7 @@ def swin_block_bwd_reference(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1,
         dy = dout32 + dy2.reshape(B, H, W, C)
 
         # attention sublayer
-        du, dwqkv, dbqkv, dwproj, dbproj, dbias = _wmsa_bwd(
-            uw, win((s1 * dy).to(dt)), att, wqkv, wproj, scale=scale)
+        du, dwqkv, dbqkv, dwproj, dbproj, dbias = attn_bwd(win((s1 * dy).to(dt)))
         du = unwin(du)
         dg1 = (du * xhat1).sum((0, 1, 2))
         db1 = du.sum((0, 1, 2))
@@ -342,6 +441,44 @@ def swin_block_bwd_reference(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1,
         dx = roll2d(dx, shift).to(dt)
         return (dx, dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2, dw1,
                 dbm1, dw2, dbm2, dbias)
+
+
+def swin_block_bwd_reference(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1,
+                             b1, w2, b2, bias, mask, drop_path_scale, *,
+                             ws: int, num_heads: int, scale: float,
+                             shift: int = 0) -> tuple:
+    """Plain PyTorch version of :func:`swin_block_bwd` (JAX
+    ``_block_bwd_kernel``): :func:`_block_bwd_plain` with the attention
+    recomputed (per-head softmax P in float32, ctx = round(round(P) @ v))
+    and differentiated through P (:func:`_wmsa_bwd`: per head dP =
+    round(dctx) v^T, dv = round(P)^T round(dctx), ds = P*(dP -
+    rowsum(dP*P)), dq = round(ds) k * scale, dk = round(ds)^T
+    round(q*scale))."""
+    def attention(uw):
+        rec = _wmsa_recompute(uw, wqkv, bqkv, bias, mask, num_heads=num_heads,
+                              scale=scale)
+        return rec[4], lambda dattn: _wmsa_bwd(uw, dattn, rec, wqkv, wproj, scale=scale)
+
+    return _block_bwd_plain(x, dout, ln1, wproj, bproj, ln2, w1, b1, w2, b2,
+                            drop_path_scale, attention, ws=ws, shift=shift)
+
+
+def swin_block_bwd_res_reference(x, dout, eb, rden, ctx, ln1, wqkv, bqkv, wproj,
+                                 bproj, ln2, w1, b1, w2, b2, drop_path_scale, *,
+                                 ws: int, num_heads: int, scale: float,
+                                 shift: int = 0) -> tuple:
+    """Plain PyTorch version of :func:`swin_block_bwd_res` (JAX
+    ``_block_bwd_res_kernel``): :func:`_block_bwd_plain` with LN1 and qkv
+    recomputed, ctx = round(ctx_f) from the residuals and the attention
+    backward from the stored state (:func:`_wmsa_bwd_res`); no scores, no
+    softmax, no rel-pos bias or mask."""
+    def attention(uw):
+        qkv = _qkv_heads(uw, wqkv, bqkv, num_heads=num_heads, N=ws * ws, scale=scale)
+        return ctx.to(uw.dtype), lambda dattn: _wmsa_bwd_res(
+            uw, dattn, qkv, eb, rden, ctx, wqkv, wproj, scale=scale)
+
+    return _block_bwd_plain(x, dout, ln1, wproj, bproj, ln2, w1, b1, w2, b2,
+                            drop_path_scale, attention, ws=ws, shift=shift)
 
 
 def ln_window_attention_bwd_reference(x, dout, ln_scale, ln_bias, wqkv, bqkv,
@@ -452,7 +589,10 @@ def _check_w(name: str, x: torch.Tensor, **ws):
                              f"expected {tuple(shape)}")
 
 
-def _check_window(name: str, H, W, C, ws, num_heads, bias, mask):
+def _check_window(name: str, H, W, C, ws, num_heads, bias, mask, *,
+                  no_bias: bool = False):
+    """``no_bias``: the kernel reads no rel-pos bias (the residual route's
+    backward), and ``bias`` must be None."""
     N = ws * ws
     if H % ws or W % ws:
         raise ValueError(f"{name}: ({H},{W}) not divisible by window {ws}")
@@ -461,15 +601,19 @@ def _check_window(name: str, H, W, C, ws, num_heads, bias, mask):
                          "takes 16, 32, 48 or 64")
     if C % 16 or C % num_heads:
         raise ValueError(f"{name}: C={C} must be a multiple of 16 and of heads")
-    if tuple(bias.shape) != (num_heads, N, N):
-        raise ValueError(f"{name}: bias shape {tuple(bias.shape)}")
+    if no_bias:
+        if bias is not None:
+            raise ValueError(f"{name}: takes no rel-pos bias")
+    elif bias is None or tuple(bias.shape) != (num_heads, N, N):
+        raise ValueError(f"{name}: bias shape "
+                         f"{None if bias is None else tuple(bias.shape)}")
     nW = (H // ws) * (W // ws)
     if mask is not None and tuple(mask.shape) != (nW, N, N):
         raise ValueError(f"{name}: mask shape {tuple(mask.shape)}")
 
 
 def _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
-                 shift, dp):
+                 shift, dp, *, no_bias: bool = False):
     _check_x(name, x)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
@@ -481,7 +625,7 @@ def _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
         raise ValueError(f"{name}: hidden {hidden} not a multiple of 16")
     _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)),
              w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
-    _check_window(name, H, W, C, ws, num_heads, bias, mask)
+    _check_window(name, H, W, C, ws, num_heads, bias, mask, no_bias=no_bias)
     if not 0 <= shift < ws:
         raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
     if dp is not None and tuple(dp.shape) != (B, 2):
@@ -491,9 +635,11 @@ def _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
 
 def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
                   mask, dp=None, *, ws: int, num_heads: int, scale: float,
-                  shift: int) -> torch.Tensor:
-    _check_block("fused_swin_block", x, wqkv, wproj, w1, w2, bias, mask, ws,
-                 num_heads, shift, dp)
+                  shift: int, res: bool = False):
+    """One launch of the block kernel; ``res``: its residual form, which
+    returns (out, eb, rden, ctx_f)."""
+    name = "fused_swin_block_res" if res else "fused_swin_block"
+    _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads, shift, dp)
     B, H, W, C = x.shape
     dev = x.device
     f = lambda t: _f32(t, dev)
@@ -501,12 +647,19 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
             f(ln2[0]), f(ln2[1]), w1, f(b1), w2, f(b2), f(bias), f(mask), f(dp)]
     out = torch.empty_like(x)
     lib = _build.library()
-    err = lib.sunet_swin_block(
-        _build.ptr(x), _build.ptr(out), *[_build.ptr(a) for a in args],
-        B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale),
-        _build.stream())
-    _build.check("fused_swin_block", err)
-    return out
+    dims = (B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale), _build.stream())
+    ptrs = [_build.ptr(a) for a in [x, out, *args]]
+    if not res:
+        _build.check(name, lib.sunet_swin_block(*ptrs, *dims))
+        return out
+    N = ws * ws
+    nwin = B * (H // ws) * (W // ws)
+    state = (torch.empty(nwin, num_heads, N, N, device=dev, dtype=x.dtype),
+             torch.empty(nwin, num_heads, N, device=dev, dtype=torch.float32),
+             torch.empty(B * H * W, C, device=dev, dtype=torch.float32))
+    _build.check(name, lib.sunet_swin_block_res(
+        *ptrs, *[_build.ptr(t) for t in state], *dims))
+    return (out, *state)
 
 
 # ---------------------------------------------------------------- wrappers
@@ -614,6 +767,130 @@ class SwinBlockTrainable(torch.autograd.Function):
             x, dout.contiguous(), p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8],
             p[9], p[10], p[11], p[12], mask, dp, ws=ws, num_heads=num_heads,
             scale=scale, shift=shift))
+        if p[3] is None:
+            g[4] = None
+        return (*g, None, None, None, None, None, None)
+
+
+def fused_swin_block_res(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
+                         bias, mask, drop_path_scale=None, *, ws: int,
+                         num_heads: int, scale: float, shift: int = 0) -> tuple:
+    """The residual route's training forward (JAX ``fused_swin_block_res``):
+    the block of :func:`fused_swin_block` whose softmax normalises by the
+    reciprocal of the rounded exponentials' sum, and which also returns the
+    attention state its backward :func:`swin_block_bwd_res` differentiates.
+    Returns (out, eb (B*nW, h, N, N) in x's dtype, rden (B*nW, h, N)
+    float32, ctx_f (B*H*W, C) float32), the residuals in window-major order
+    of the rolled map. CUDA: ``csrc/swin_block.cu`` (kRes), one launch."""
+    count = _build.counter("fused_swin_block_res")
+    if x.device.type == "cpu":
+        count.cpu += 1
+        return fused_swin_block_res_reference(
+            x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask,
+            drop_path_scale, ws=ws, num_heads=num_heads, scale=scale, shift=shift)
+    out = _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
+                        mask, drop_path_scale, ws=ws, num_heads=num_heads, scale=scale,
+                        shift=shift, res=True)
+    count.cuda += 1
+    return out
+
+
+def _check_res(name: str, x, eb, rden, ctx, ws: int, num_heads: int):
+    """The residuals have the layouts :func:`fused_swin_block_res` gives."""
+    B, H, W, C = x.shape
+    N = ws * ws
+    nwin = B * (H // ws) * (W // ws)
+    for rname, t, shape, dtype in (("eb", eb, (nwin, num_heads, N, N), BF16),
+                                   ("rden", rden, (nwin, num_heads, N), torch.float32),
+                                   ("ctx", ctx, (B * H * W, C), torch.float32)):
+        if (t.device != x.device or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {rname} must be a contiguous {dtype} tensor of "
+                             f"shape {shape} on {x.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def swin_block_bwd_res(x, dout, eb, rden, ctx, ln1, wqkv, bqkv, wproj, bproj, ln2,
+                       w1, b1, w2, b2, drop_path_scale, *, ws: int, num_heads: int,
+                       scale: float, shift: int = 0) -> tuple:
+    """Backward of :func:`fused_swin_block_res` (JAX ``_block_bwd_impl_res``)
+    from x (unrolled, as in the forward), its output's cotangent ``dout``
+    and the forward's residuals eb, rden and ctx; no rel-pos bias or mask.
+    Returns (dx, then float32 grads of ln1 g/b, wqkv, bqkv, wproj, bproj,
+    ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd_res.cu``, a
+    fixed sequence of launches, each counted."""
+    name = "swin_block_bwd_res"
+    count = _build.counter(name)
+    if x.device.type == "cpu":
+        count.cpu += SWIN_BLOCK_BWD_RES_LAUNCHES
+        return swin_block_bwd_res_reference(
+            x, dout, eb, rden, ctx, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
+            drop_path_scale, ws=ws, num_heads=num_heads, scale=scale, shift=shift)
+    _check_block(name, x, wqkv, wproj, w1, w2, None, None, ws, num_heads, shift,
+                 drop_path_scale, no_bias=True)
+    _check_res(name, x, eb, rden, ctx, ws, num_heads)
+    dout = _check_dout(name, x, dout)
+    B, H, W, C = x.shape
+    hidden = w1.shape[1]
+    dev = x.device
+    f = lambda t: _f32(t, dev)
+    dp = (torch.ones(B, 2, device=dev) if drop_path_scale is None
+          else f(drop_path_scale))
+    lib = _build.library()
+    work = _workspace(lib.sunet_swin_block_bwd_res_workspace, dev, B, H, W, C, hidden,
+                      ws, num_heads)
+    dx = torch.empty_like(x)
+    z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    grads = [z(C), z(C), z(C, 3 * C), z(3 * C), z(C, C), z(C), z(C), z(C),
+             z(C, hidden), z(hidden), z(hidden, C), z(C),
+             z(num_heads, ws * ws, ws * ws)]
+    args = [eb, rden, ctx, f(ln1[0]), f(ln1[1]), wqkv, f(bqkv), wproj, f(bproj),
+            f(ln2[0]), f(ln2[1]), w1, f(b1), w2, f(b2), dp]
+    launches = _build.c_int(0)
+    err = lib.sunet_swin_block_bwd_res(
+        _build.ptr(x), _build.ptr(dout), *[_build.ptr(a) for a in args],
+        _build.ptr(dx), *[_build.ptr(g) for g in grads], _build.ptr(work),
+        B, H, W, C, hidden, ws, num_heads, shift, float(scale),
+        _build.byref(launches), _build.stream())
+    _build.check(name, err)
+    count.cuda += launches.value
+    return (dx, *grads)
+
+
+class SwinBlockTrainableRes(torch.autograd.Function):
+    """Differentiable whole Swin block on the residual route (JAX
+    ``swin_block_trainable_res``): forward = :func:`fused_swin_block_res`
+    with per-image drop-path scales ``dp``, whose residuals are saved for
+    backward = :func:`swin_block_bwd_res`. Arguments, casts and returned
+    grads as :class:`SwinBlockTrainable`'s; ``dp``, ``mask`` and the static
+    arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b,
+                w1, b1, w2, b2, bias, dp, mask, ws, num_heads, scale, shift):
+        dt = x.dtype
+        cast = lambda w: w.detach().to(dt).contiguous()
+        x = x.contiguous()
+        p = (ln1_s.detach(), ln1_b.detach(), cast(wqkv),
+             None if bqkv is None else bqkv.detach(), cast(wproj),
+             bproj.detach(), ln2_s.detach(), ln2_b.detach(), cast(w1),
+             b1.detach(), cast(w2), b2.detach())
+        out, eb, rden, cf = fused_swin_block_res(
+            x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11],
+            bias.detach(), mask, dp, ws=ws, num_heads=num_heads, scale=scale,
+            shift=shift)
+        ctx.save_for_backward(x, dp, eb, rden, cf, *p)
+        ctx.static = (ws, num_heads, scale, shift)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        ws, num_heads, scale, shift = ctx.static
+        x, dp, eb, rden, cf, *p = ctx.saved_tensors
+        g = list(swin_block_bwd_res(
+            x, dout.contiguous(), eb, rden, cf, p[0:2], p[2], p[3], p[4], p[5], p[6:8],
+            p[8], p[9], p[10], p[11], dp, ws=ws, num_heads=num_heads, scale=scale,
+            shift=shift))
         if p[3] is None:
             g[4] = None
         return (*g, None, None, None, None, None, None)

@@ -25,8 +25,16 @@ stochastic-depth scales from it. On the fused route a block trains by its
 width, a routing rule of the configuration and never a reaction to a kernel
 failing:
 
-- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384): ``SwinBlockTrainable``, the block
-  kernel forward and ``swin_block_bwd`` backward (JAX ``_trainable_block``);
+- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384), where the attention takes JAX's
+  blockdiag layout (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8
+  heads) and ``ROUTE_TRAIN_RESID`` is set: ``SwinBlockTrainableRes``, the
+  residual route, JAX's default there (``swin_block_trainable_res``): the
+  block kernel's residual form stores the softmax state and
+  ``swin_block_bwd_res`` differentiates it without recomputing it;
+- other C <= ``ROUTE_TRAIN_BLOCK_MAX_C``: ``SwinBlockTrainable``, the block
+  kernel forward and ``swin_block_bwd`` backward, which recomputes the
+  attention (JAX ``swin_block_trainable``, and every block of this width
+  under ``SUNET_BWD_RESID=0``);
 - C <= ``ROUTE_TRAIN_SPLIT_MAX_C`` (768): the two sublayers,
   ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with the residuals
   and drop-path in autograd (JAX's sublayer route,
@@ -73,6 +81,10 @@ ROUTE_CHAIN_MAX = 2
 # block.
 ROUTE_TRAIN_BLOCK_MAX_C = 384
 ROUTE_TRAIN_SPLIT_MAX_C = wa.SPLIT_TRAIN_MAX_C
+# Train the blockdiag-layout blocks within ROUTE_TRAIN_BLOCK_MAX_C on the
+# residual route (JAX's default); False is JAX's SUNET_BWD_RESID=0, the
+# recompute backward for every such block.
+ROUTE_TRAIN_RESID = True
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
@@ -294,14 +306,23 @@ class SwinBlock(nn.Module):
         x = x + roll2d(att, ss)
         return wa.fused_ln_mlp(x, p[6:8], p[8], p[9], p[10], p[11])
 
+    def trains_on_residuals(self) -> bool:
+        """Whether training takes the residual route (when the block trains
+        through the block kernels)."""
+        return ROUTE_TRAIN_RESID and wa.bwd_residuals_enabled(
+            self.dim, self.attn.num_heads, self.window_size ** 2)
+
     def _train_block(self, x: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
-        """Training through the block kernels (JAX ``_trainable_block``):
-        autograd reaches the float32 parameters through the (in, out)
-        weight views and the rel-pos bias gather."""
+        """Training through the block kernels (JAX ``_trainable_block``), on
+        the residual route or the recompute one: autograd reaches the
+        float32 parameters through the (in, out) weight views and the
+        rel-pos bias gather."""
         a, m = self.attn, self.mlp
         H, W = x.shape[1], x.shape[2]
         t = lambda lin: lin.weight.t()
-        return wa.SwinBlockTrainable.apply(
+        fn = (wa.SwinBlockTrainableRes if self.trains_on_residuals()
+              else wa.SwinBlockTrainable)
+        return fn.apply(
             x, self.norm1.weight, self.norm1.bias, t(a.qkv), a.qkv.bias,
             t(a.proj), a.proj.bias, self.norm2.weight, self.norm2.bias,
             t(m.fc1), m.fc1.bias, t(m.fc2), m.fc2.bias, a.bias_matrix(), dp,

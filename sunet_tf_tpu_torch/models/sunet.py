@@ -43,7 +43,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 INFER_WRAPPERS = ("fused_swin_block", "fused_swin_block_chain",
                   "fused_ln_window_attention", "fused_ln_mlp",
                   "fused_dual_upsample4_conv_phase")
-TRAIN_WRAPPERS = INFER_WRAPPERS + ("swin_block_bwd", "ln_window_attention_bwd",
+TRAIN_WRAPPERS = INFER_WRAPPERS + ("fused_swin_block_res", "swin_block_bwd",
+                                  "swin_block_bwd_res", "ln_window_attention_bwd",
                                   "ln_mlp_branch", "ln_mlp_bwd", "up4_conv_bwd")
 
 
@@ -281,8 +282,10 @@ class SUNet(nn.Module):
         launches the block kernel K times, LN+W-MSA launches two kernels.
         ``train=True``: one training step, forward and backward, by the
         three-width training rule: a block up to ROUTE_TRAIN_BLOCK_MAX_C
-        launches the block kernel once and its backward's fixed sequence
-        (JAX ``swin_block_trainable``); one up to ROUTE_TRAIN_SPLIT_MAX_C
+        launches the block kernel once and its backward's fixed sequence,
+        on the residual route where ``trains_on_residuals`` holds (JAX
+        ``swin_block_trainable_res``), else on the recompute one (JAX
+        ``swin_block_trainable``); one up to ROUTE_TRAIN_SPLIT_MAX_C
         the LN+W-MSA pair, LN+W-MSA backward, LN+MLP branch and LN+MLP
         backward sequences (JAX ``ln_window_attention_trainable`` +
         ``ln_mlp_trainable``); a wider one runs plain autograd and launches
@@ -295,8 +298,12 @@ class SUNet(nn.Module):
             for stage in list(self.layers) + list(self.layers_up[1:]):
                 for blk in stage.blocks:
                     if blk.dim <= layers.ROUTE_TRAIN_BLOCK_MAX_C:
-                        counts["fused_swin_block"] += 1
-                        counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
+                        if blk.trains_on_residuals():
+                            counts["fused_swin_block_res"] += 1
+                            counts["swin_block_bwd_res"] += wa.SWIN_BLOCK_BWD_RES_LAUNCHES
+                        else:
+                            counts["fused_swin_block"] += 1
+                            counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
                     elif blk.dim <= layers.ROUTE_TRAIN_SPLIT_MAX_C:
                         counts["fused_ln_window_attention"] += 2
                         counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES

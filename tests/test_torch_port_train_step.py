@@ -17,10 +17,12 @@ and JAX ``SUNET_TRAIN_KERNEL_MAX_C`` at 64,
 ``test_torch_port_train_step_cap.py``); and every block through the two
 sublayer kernels (port ``ROUTE_TRAIN_BLOCK_MAX_C`` at 0, JAX
 ``SUNET_TRAIN_BLOCK_KERNEL=0``, ``test_torch_port_train_step_split.py``).
-The other two files import ``check_step`` from here; one file each keeps
-each under two minutes on one core. The JAX side runs the recompute
-backward with the per-head attention form (``SUNET_BWD_RESID=0``,
-``SUNET_ATTN_LAYOUT_BWD=perhead``), the form the port implements.
+The other files import ``check_step`` from here; one file each keeps
+each under two minutes on one core. These three run the recompute backward
+on both sides: the port's ``ROUTE_TRAIN_RESID`` off, and JAX's per-head
+attention form (``SUNET_BWD_RESID=0``, ``SUNET_ATTN_LAYOUT_BWD=perhead``),
+the form the port implements. ``test_torch_port_train_step_res.py`` runs
+the residual route against JAX's defaults (``resid=True``).
 
 Tolerance: loss relative 1e-5; every gradient tensor max |diff| <= 2e-3 *
 max|ref| + 1e-7: float32 through a whole network and back, in other
@@ -64,13 +66,16 @@ def make_batch():
     return inp, tar
 
 
-def check_step(cap, monkeypatch, split: bool = False):
+def check_step(cap, monkeypatch, split: bool = False, resid: bool = False):
     """The port's tiny training step against JAX's with the training-kernel
     cap ``cap`` on both sides (None: the defaults); ``split``: every block
     within the cap on the two sublayer kernels instead of the block
-    kernels."""
-    monkeypatch.setenv("SUNET_BWD_RESID", "0")
-    monkeypatch.setenv("SUNET_ATTN_LAYOUT_BWD", "perhead")
+    kernels; ``resid``: the residual route at JAX's defaults (every tiny
+    block takes the blockdiag layout), else the recompute route."""
+    if not resid:
+        monkeypatch.setenv("SUNET_BWD_RESID", "0")
+        monkeypatch.setenv("SUNET_ATTN_LAYOUT_BWD", "perhead")
+        monkeypatch.setattr(tlayers, "ROUTE_TRAIN_RESID", False)
     if cap is not None:
         monkeypatch.setenv("SUNET_TRAIN_KERNEL_MAX_C", str(cap))
         monkeypatch.setattr(tlayers, "ROUTE_TRAIN_BLOCK_MAX_C", cap)
@@ -111,9 +116,10 @@ def check_step(cap, monkeypatch, split: bool = False):
     assert calls == model.expected_launches(inp.shape, train=True)
     assert calls["up4_conv_bwd"] > 0
     # blocks on each route (the tiny model has 14: 2 at C=128)
-    on_block = calls["fused_swin_block"]
+    on_block = calls["fused_swin_block"] + calls["fused_swin_block_res"]
     on_split = calls["ln_mlp_branch"] // wa.LN_MLP_BRANCH_LAUNCHES
     assert (on_block, on_split) == ((0, 14) if split else (12, 0) if cap else (14, 0))
+    assert calls["fused_swin_block_res"] == (on_block if resid else 0)
 
     assert abs(float(loss.detach()) - float(jl)) <= LOSS_REL * abs(float(jl))
     n = 0

@@ -9,11 +9,14 @@ build (into its own ``sunet_tf_tpu_torch/kernels/_build/``), on the same
 seeded inputs: the block kernel's inference launch and its train form (#1)
 and the recompute block backward (#8), at (64,64,96), (32,32,192) and
 (16,16,384), shift 0 and 4, batch 2, bf16, with ``chip_smoke.block_params``
-weights, and the C=768 training sublayers of ``chip_smoke.sublayer_cases``
-(#12, #13, #14). Every output must be equal bit for bit; the exit code is 1
-where one differs. The other tree needs ``chip_smoke.block_params``,
-``chip_smoke.sublayer_cases`` and the wrappers ``fused_swin_block`` and
-``swin_block_bwd``. Needs one GPU; imports nothing of JAX.
+weights, the C=768 training sublayers of ``chip_smoke.sublayer_cases``
+(#12, #13, #14), and the conv-fused x4 head (#5) and its backward (#9) at
+(64,64,96), out 1 and 3. Every output must be equal bit for bit; the exit
+code is 1 where one differs. The trees run in turns (other, this, this,
+other), each printing the times of #5 and #9 (CUDA events, medians of 20). The other tree needs
+``chip_smoke.block_params``, ``chip_smoke.sublayer_cases`` and the wrappers
+``fused_swin_block``, ``swin_block_bwd``, ``fused_dual_upsample4_conv_phase``
+and ``up4_conv_bwd``. Needs one GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import sys
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
+from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
 from sunet_tf_tpu_torch.ops.window import shift_attn_mask
 
@@ -58,6 +62,20 @@ for name, case, kernel, _, args, kw, _, _ in cs.sublayer_cases(gen):
     out = kernel(*args, **kw)
     for i, g in enumerate(out if isinstance(out, tuple) else (out,)):
         outs[f"{name} {case} output {i}"] = g
+n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+bw = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+H, C = 64, 96
+for out_ch in (1, 3):
+    hp = (n(B, H, H, C).to(torch.bfloat16), bw(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
+          bw(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), bw(C, C), bw(C, C),
+          (n(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16))
+    outs[f"fused_dual_upsample4_conv_phase out {out_ch}"] = up.fused_dual_upsample4_conv_phase(*hp)
+    dout = n(B, H, H, 16 * out_ch).to(torch.bfloat16)
+    for i, g in enumerate(up.up4_conv_bwd(*hp, dout)):
+        outs[f"up4_conv_bwd out {out_ch} output {i}"] = g
+    print(f"TIME up4 head out {out_ch}: fused_dual_upsample4_conv_phase "
+          f"{cs.time_ms(lambda: up.fused_dual_upsample4_conv_phase(*hp)):.4f} ms, up4_conv_bwd "
+          f"{cs.time_ms(lambda: up.up4_conv_bwd(*hp, dout)):.4f} ms", flush=True)
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''
 
@@ -67,6 +85,9 @@ def outputs(tree: Path, path: Path):
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"chip_ab: {tree} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("TIME"):
+            print(f"{tree}: {line}")
 
 
 def main():
@@ -79,7 +100,9 @@ def main():
         raise SystemExit("chip_ab: torch.cuda.is_available() is false")
     with tempfile.TemporaryDirectory() as tmp:
         got = {}
-        for label, tree in (("other", other), ("this", ROOT)):
+        # in turns (other, this, this, other): the x4 head's times compare
+        # the two trees on one card
+        for label, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
             outputs(tree, Path(tmp) / f"{label}.pt")
             got[label] = torch.load(Path(tmp) / f"{label}.pt")
     a, b = got["other"], got["this"]

@@ -90,14 +90,36 @@ MUTANTS = {
     # the residual forward's row sum over the unrounded exponentials (the
     # port's inference form) instead of JAX's rounded ones
     "res_den_unrounded": ("common.cuh", "        sum += bf(eb);\n", "        sum += e;\n"),
+    # the PReLU derivative and the stencil adjoint of both x4-head backwards
+    # (#9 and #11, through up4_bwd.cuh)
     "up4_prelu_slope_ignored": (
-        "up4_conv_bwd.cu",
+        "up4_bwd.cuh",
         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(zz > 0.f ? v : *alpha * v);",
         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(v);"),
     "up4_stencil_edge_not_folded": (
-        "up4_conv_bwd.cu",
+        "up4_bwd.cuh",
         "const int lo = p < 2 ? max(u - 1, 0) : u, hi = p < 2 ? u : min(u + 1, n - 1);",
         "const int lo = p < 2 ? u - 1 : u, hi = p < 2 ? u : u + 1;"),
+    # the split head (#10) with its bilinear branch rounded to bf16 before
+    # the stencil (the eager route's rounding point, not the JAX kernel's)
+    "up4_split_bilinear_rounded": (
+        "up4.cu",
+        "  bilinear_rows(x1, ld, kSplitHR / 16, z, xb, ldb, a.wb1, a.bb1, a.wbf, ab, C, bt, stg, "
+        "warp, lane);\n",
+        "  bilinear_rows(x1, ld, kSplitHR / 16, z, xb, ldb, a.wb1, a.bb1, a.wbf, ab, C, bt, stg, "
+        "warp, lane);\n"
+        "  for (int i = threadIdx.x; i < kSplitHR * ldb; i += kThreads) xb[i] = bf(tobf(xb[i]));\n"
+        "  __syncthreads();\n"),
+    # the H-axis stencil adjoint (#11, and #9 through up4_bwd.cuh) with the
+    # top edge's clamped tap not folded back onto the edge row
+    "up4_h_adjoint_top_unclamped": (
+        "up4_bwd.cuh",
+        "      acc += stencil_adj(h, H, i, [&](int u) {\n",
+        "      acc += (h == 0 && i < 2 ? -kQ4[i][0] * dyh[((size_t)i * M + (size_t)b * H * W + w) "
+        "* C + c] : 0.f) +\n             stencil_adj(h, H, i, [&](int u) {\n"),
+    # the standalone W-MSA (#15) without its qkv bias
+    "wmsa_no_qkv_bias": ("window_attention.cu", "a.wqkv, a.bqkv, a.bias, mask",
+                         "a.wqkv, nullptr, a.bias, mask"),
 }
 
 # Run inside a checkout: the backward checks of chip_smoke in one setting.
@@ -176,9 +198,72 @@ for H, C in ((64, 96), (32, 192)):
                else wa.swin_block_bwd_res(*args, **kw))
         cs.compare_grads(f"swin_block_bwd_res ({H},{H},{C}) shift {shift} {tag}",
                          tuple(g.cuda() for g in got), ref, cs.BLOCK_GRADS)
+# the split head (#10, #11) and the standalone W-MSA (#15), drawn last so
+# that the cases above keep their inputs
+for H, W in ((64, 64), (30, 44)):
+    hp = cs.split_head_args(gen, B, H, W, 96)
+    ref = up.fused_dual_upsample4_reference(*hp)
+    got = (up.fused_dual_upsample4_reference(*cpu(hp)) if mode == "floor"
+           else up.fused_dual_upsample4(*hp))
+    cs.compare(f"fused_dual_upsample4 ({H},{W},96) {tag}", got.cuda(), ref)
+    dout = torch.randn(B, 4 * H, 4 * W, 96, device="cuda", generator=gen).to(torch.bfloat16)
+    ref = up.up4_bwd_reference(*hp, dout)
+    got = (up.up4_bwd_reference(*cpu(hp), dout.cpu()) if mode == "floor"
+           else up.up4_bwd(*hp, dout))
+    cs.compare_grads(f"up4_bwd ({H},{W},96) {tag}", tuple(g.cuda() for g in got), ref,
+                     cs.UP4_SPLIT_GRADS)
+for shift in (0, 4):
+    p = cs.block_params(96, heads, ws * ws, gen, qkv_gain=gain)
+    x = torch.randn(B, 64, 64, 96, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = (torch.as_tensor(shift_attn_mask(64, 64, ws, shift), device="cuda")
+            if shift else None)
+    args = (x, p[2], p[3], p[4], p[5], p[12], mask)
+    kw = dict(ws=ws, num_heads=heads, scale=scale)
+    ref = wa.fused_window_attention_reference(*args, **kw)
+    got = (wa.fused_window_attention_reference(*cpu(args), **kw) if mode == "floor"
+           else wa.fused_window_attention(*args, **kw))
+    cs.compare(f"wmsa_core (64,64,96) shift {shift} {tag}", got.cuda(), ref)
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)
+'''
+
+
+# Run inside a checkout: the LN+W-MSA backward's (#12) dx over many draws of
+# inputs (chip_smoke.sublayer_cases, fresh generator per seed, qkv gain 1
+# and 0.25), kernel and plain version on the CPU each against the plain
+# version on the card: mean |diff| over max(1, mean|ref|), the quantity of
+# its dx mean limit.
+DX_DRAWS = r'''
+import sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+
+cpu = lambda t: (None if t is None else tuple(cpu(u) for u in t) if isinstance(t, tuple)
+                 else t.cpu())
+worst = {"kernel": (0.0, ""), "floor": (0.0, "")}
+for seed in range(1, int(sys.argv[1]) + 1):
+    for gain in (1.0, 0.25):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for name, case, kernel, plain, args, kw, _, _ in cs.sublayer_cases(gen, gain=gain):
+            if name != "ln_window_attention_bwd":
+                continue
+            ref = plain(*args, **kw)[0].float()
+            scale = max(1.0, float(ref.abs().mean()))
+            for mode, got in (("kernel", kernel(*args, **kw)[0]),
+                              ("floor", plain(*cpu(args), **kw)[0])):
+                d = (got.cuda().float() - ref).abs()
+                rel = float(d.mean()) / scale
+                tag = f"seed {seed} gain {gain:g} {case}"
+                worst[mode] = max(worst[mode], (rel, tag))
+                print(f"DRAW {mode} {tag}: dx mean|diff| / max(1, mean|ref|) {rel:.4e}, "
+                      f"max|diff| {float(d.max()):.3e}, mean|ref| {float(ref.abs().mean()):.3e}",
+                      flush=True)
+for mode, (rel, tag) in worst.items():
+    print(f"SUMMARY [ln_window_attention_bwd dx draws] largest {mode} reading {rel:.4e} "
+          f"({tag}); chip_smoke's limit {cs.dx_mean_tol('ln_window_attention_bwd'):g}",
+          flush=True)
 '''
 
 
@@ -401,6 +486,8 @@ def main():
                                          / "chip_mutants.log"))
     ap.add_argument("--step-only", action="store_true",
                     help="run the step setting alone")
+    ap.add_argument("--dx-draws", type=int, default=0, metavar="N",
+                    help="run only the LN+W-MSA backward's dx over N seeds of inputs")
     args = ap.parse_args()
     import torch
 
@@ -411,6 +498,16 @@ def main():
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     summary = []
+    if args.dx_draws:
+        proc = subprocess.run([sys.executable, "-c", DX_DRAWS, str(args.dx_draws)], cwd=ROOT,
+                              capture_output=True, text=True)
+        out.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise SystemExit(f"chip_mutants: dx draws exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+        print("\n".join(ln for ln in proc.stdout.splitlines() if ln.startswith("SUMMARY")))
+        print(f"chip_mutants: readings in {out}")
+        return
     with open(out, "w") as log, tempfile.TemporaryDirectory() as tmp:
         if not args.step_only:
             for seed in (4321, 99):

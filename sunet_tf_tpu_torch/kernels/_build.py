@@ -90,6 +90,19 @@ SIGNATURES = {
     # x, out, wexp(16,C,C), wb1, bb1, wpf, wbf, wconv(3,3,C,out), alphas,
     # B, H, W, C, out_ch, stream
     "sunet_up4_conv_phase": [_P] * 9 + [_I] * 5 + [_P],
+    # x, out (B, 4H, 4W, C), wexp(16,C,C), wb1, bb1, wpf, wbf, alphas, B, H,
+    # W, C, stream
+    "sunet_up4": [_P] * 8 + [_I] * 4 + [_P],
+    # x, dout (B, 4H, 4W, C), w_exp (C, 16C), wb1, bb1, wpf, wbf, alphas, dx,
+    # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, workspace, B, H, W, C, int*
+    # launches, stream
+    "sunet_up4_bwd": [_P] * 16 + [_I] * 4 + [_P, _P],
+    # B, H, W, C -> workspace bytes
+    "sunet_up4_bwd_workspace": [_I] * 4,
+    # xw, ctx, wqkv, bqkv, bias, mask, T, nW, N, C, heads, scale, stream
+    "sunet_wmsa_ctx": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # x, out, n, op, T, stream
+    "sunet_alu_chain": [_P, _P, ctypes.c_longlong, _I, _I, _P],
 }
 
 

@@ -23,15 +23,15 @@
 // 36-slot fold matmul was a TPU lane-layout device Hopper does not need.
 // Halo pixels are recomputed by neighbour tiles (2.5x the pixel-shuffle
 // work of the tile itself), the price of keeping the phase maps on chip.
-#include "common.cuh"
+// The tile loader, the two branches and the stencil are up4_common.cuh's,
+// shared with the split head (up4.cu).
+#include "up4_common.cuh"
 
 namespace sunet {
 
 constexpr int kTH = 2, kTW = 8;                  // low-res tile
 constexpr int kE2W = kTW + 4, kE2 = (kTH + 4) * kE2W, kE2R = 80;   // 2-halo
 constexpr int kE1W = kTW + 2, kE1 = (kTH + 2) * kE1W, kE1R = 48;   // 1-halo
-__constant__ float kP4[4][2] = {{0.375f, 0.625f}, {0.125f, 0.875f},
-                                {0.875f, 0.125f}, {0.625f, 0.375f}};
 
 struct Up4Args {
   const bf16* x;
@@ -55,8 +55,6 @@ __host__ __device__ inline size_t up4_smem_bytes(int C, int out) {
          align128((size_t)16 * kE1 * C * 2) + align128((size_t)9 * C * out * 2) +
          warp_smem_bytes();
 }
-
-__device__ inline float prelu(float v, float a) { return fmaxf(v, 0.f) + a * fminf(v, 0.f); }
 
 __global__ void __launch_bounds__(kThreads) up4_conv_kernel(Up4Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -83,16 +81,7 @@ __global__ void __launch_bounds__(kThreads) up4_conv_kernel(Up4Args a) {
   const float ap = a.alphas[0], ab = a.alphas[1];
   const int cv = C / 8;
   // input with a 2-pixel halo, edge-clamped; rows past kE2 are zero
-  for (int i = threadIdx.x; i < kE2R * cv; i += kThreads) {
-    const int q = i / cv, c8 = i % cv;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q < kE2) {
-      const int gy = min(max(h0 - 2 + q / kE2W, 0), H - 1);
-      const int gx = min(max(w0 - 2 + q % kE2W, 0), W - 1);
-      v = __ldg(reinterpret_cast<const uint4*>(a.x + (((size_t)b * H + gy) * W + gx) * C) + c8);
-    }
-    reinterpret_cast<uint4*>(x2 + q * ld)[c8] = v;
-  }
+  load_region_clamped(a.x, x2, ld, kE2R, kTH + 4, kE2W, h0 - 2, w0 - 2, b, H, W, C);
   for (int i = threadIdx.x; i < 9 * C * a.out; i += kThreads) wc[i] = a.wconv[i];
   __syncthreads();
   // the 1-halo rows are a subset of the 2-halo ones
@@ -104,58 +93,19 @@ __global__ void __launch_bounds__(kThreads) up4_conv_kernel(Up4Args a) {
   }
 
   // ---- bilinear branch at low res: xb = prelu(x @ wb1 + bb1) @ wbf
-  const int ct_n = C / 16;
-  for (int t = warp; t < (kE2R / 16) * ct_n; t += kWarps) {
-    const int rt = t / ct_n, ct = t % ct_n;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    mma_block<1, 1>(&acc, x2 + rt * 16 * ld, ld, 1, a.wb1, C, 0, ct * 16, 0, 1, 16, C, bt, lane);
-    epilogue(acc, stg, lane, [&](int r, int c, float v) {
-      z[(rt * 16 + r) * ld + ct * 16 + c] = tobf(prelu(v + a.bb1[ct * 16 + c], ab));
-    });
-  }
-  __syncthreads();
-  for (int t = warp; t < (kE2R / 16) * ct_n; t += kWarps) {
-    const int rt = t / ct_n, ct = t % ct_n;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-    mma_block<1, 1>(&acc, z + rt * 16 * ld, ld, 1, a.wbf, C, 0, ct * 16, 0, 1, 16, C, bt, lane);
-    wmma::store_matrix_sync(xb + rt * 16 * ldb + ct * 16, acc, ldb, wmma::mem_row_major);
-  }
-  __syncthreads();
+  bilinear_rows(x2, ld, kE2R / 16, z, xb, ldb, a.wb1, a.bb1, a.wbf, ab, C, bt, stg, warp, lane);
 
   // ---- 16 phase maps over the 1-halo region
   for (int s = 0; s < 16; ++s) {
     const int pi = s / 4, pj = s % 4;
-    for (int t = warp; t < (kE1R / 16) * ct_n; t += kWarps) {
-      const int rt = t / ct_n, ct = t % ct_n;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      mma_block<1, 1>(&acc, x1 + rt * 16 * ld, ld, 1, a.wexp + (size_t)s * C * C, C, 0, ct * 16, 0, 1, 16, C, bt, lane);
-      epilogue(acc, stg, lane, [&](int r, int c, float v) {
-        z[(rt * 16 + r) * ld + ct * 16 + c] = tobf(prelu(v, ap));
-      });
-    }
-    __syncthreads();
-    for (int t = warp; t < (kE1R / 16) * ct_n; t += kWarps) {
-      const int rt = t / ct_n, ct = t % ct_n;
-      FragC acc;
-      wmma::fill_fragment(acc, 0.f);
-      mma_block<1, 1>(&acc, z + rt * 16 * ld, ld, 1, a.wpf, C, 0, ct * 16, 0, 1, 16, C, bt, lane);
-      epilogue(acc, stg, lane, [&](int r, int c, float v) {
-        const int q = rt * 16 + r, col = ct * 16 + c;
-        if (q >= kE1) return;
-        // stencil taps in 2-halo coordinates around this pixel
-        const int r2 = q / kE1W + 1, c2 = q % kE1W + 1;
-        const int rlo = pi < 2 ? r2 - 1 : r2, clo = pj < 2 ? c2 - 1 : c2;
-        const float* lo = xb + (rlo * kE2W) * ldb + col;
-        const float* hi = lo + kE2W * ldb;
-        const float yl = kP4[pi][0] * lo[clo * ldb] + kP4[pi][1] * hi[clo * ldb];
-        const float yr = kP4[pi][0] * lo[(clo + 1) * ldb] + kP4[pi][1] * hi[(clo + 1) * ldb];
-        y[((size_t)s * kE1 + q) * C + col] = tobf(v + (kP4[pj][0] * yl + kP4[pj][1] * yr));
-      });
-    }
-    __syncthreads();
+    shuffle_rows(x1, ld, kE1R / 16, z, s, a.wexp, a.wpf, ap, C, bt, stg, warp, lane,
+                 [&](int q, int col, float v) {
+                   if (q >= kE1) return;
+                   // stencil taps in 2-halo coordinates around this pixel
+                   const int r2 = q / kE1W + 1, c2 = q % kE1W + 1;
+                   y[((size_t)s * kE1 + q) * C + col] =
+                       tobf(v + stencil4(xb, ldb, kE2W, r2, c2, pi, pj, col));
+                 });
   }
 
   // ---- 3x3 conv over the phase maps, zero padding at the image edge

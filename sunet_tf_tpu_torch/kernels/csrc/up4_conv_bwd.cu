@@ -29,14 +29,11 @@
 // the per-slot conv grads and the stencil adjoints are small direct
 // kernels. Weight grads sum over pixels in fixed chunks, then in a fixed
 // order; the PReLU-slope sums reduce per-CTA partials in a fixed order.
-#include "train_common.cuh"
+// The epilogues, the stencil adjoints and the bilinear branch's chain are
+// up4_bwd.cuh's, shared with the split head's backward (up4_bwd.cu).
+#include "up4_bwd.cuh"
 
 namespace sunet {
-
-__constant__ float kQ4[4][2] = {{0.375f, 0.625f}, {0.125f, 0.875f},
-                                {0.875f, 0.125f}, {0.625f, 0.375f}};
-
-__device__ inline float prelu_f(float v, float a) { return fmaxf(v, 0.f) + a * fminf(v, 0.f); }
 
 struct Up4BwdArgs {
   const bf16 *x, *dout, *wexp, *wb1;
@@ -46,36 +43,6 @@ struct Up4BwdArgs {
   bf16* dx;
   float *dwexp, *dalphas, *dwb1, *dbb1, *dwpf, *dwbf, *dwfold;
   int B, H, W, C, out;
-};
-
-// ---- epilogues (m: low-res pixel row b*H*W + h*W + w; s: subpixel)
-
-struct EpiPrelu {   // z = acc + bias; pre = z (fp32), act = round(prelu(z))
-  float* pre;
-  bf16* act;
-  const float* bias;
-  const float* alpha;
-  int ld;
-  __device__ float operator()(int m, int n, float v, int) const {
-    const size_t e = (size_t)m * ld + n;
-    const float z = v + bias[n];
-    pre[e] = z;
-    act[e] = tobf(prelu_f(z, *alpha));
-    return 0.f;
-  }
-};
-
-struct EpiPreluPhase {   // column n = c*16 + s of x @ w_exp -> phase-major rows s*M + m
-  float* pre;
-  bf16* act;
-  const float* alpha;
-  int M, C;
-  __device__ float operator()(int m, int n, float v, int) const {
-    const size_t e = ((size_t)(n % 16) * M + m) * C + n / 16;
-    pre[e] = v;
-    act[e] = tobf(prelu_f(v, *alpha));
-    return 0.f;
-  }
 };
 
 // y_s = round(ps + stencil_s(xb)): the separable half-pixel x4 bilinear
@@ -93,48 +60,6 @@ struct EpiStencil {
     const float yl = kQ4[i][0] * at(rlo, clo) + kQ4[i][1] * at(rhi, clo);
     const float yr = kQ4[i][0] * at(rlo, chi) + kQ4[i][1] * at(rhi, chi);
     y[(size_t)r * C + n] = tobf(v + (kQ4[j][0] * yl + kQ4[j][1] * yr));
-    return 0.f;
-  }
-};
-
-// dz = prelu'(z) * acc for the subpixel branch, scattered back to the
-// (M, 16C) column order c*16 + s; side: min(z, 0) * acc (the slope grad).
-struct EpiPreluBwdPhase {
-  bf16* dz;
-  const float* z;
-  const float* alpha;
-  int M, C;
-  __device__ float operator()(int r, int n, float v, int) const {
-    const float zz = z[(size_t)r * C + n];
-    const int s = r / M, m = r % M;
-    dz[(size_t)m * 16 * C + n * 16 + s] = tobf(zz > 0.f ? v : *alpha * v);
-    return fminf(zz, 0.f) * v;
-  }
-};
-
-// dz = prelu'(z) * acc for the bilinear branch: fp32 and rounded copies.
-struct EpiPreluBwd {
-  float* dz;
-  bf16* dzb;
-  const float* z;
-  const float* alpha;
-  int C;
-  __device__ float operator()(int m, int n, float v, int) const {
-    const size_t e = (size_t)m * C + n;
-    const float zz = z[e], t = zz > 0.f ? v : *alpha * v;
-    dz[e] = t;
-    dzb[e] = tobf(t);
-    return fminf(zz, 0.f) * v;
-  }
-};
-
-struct EpiAddBf16 {   // out = round(base + acc)
-  bf16* out;
-  const float* base;
-  int C;
-  __device__ float operator()(int m, int n, float v, int) const {
-    const size_t e = (size_t)m * C + n;
-    out[e] = tobf(base[e] + v);
     return 0.f;
   }
 };
@@ -229,21 +154,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Adjoint of one axis of the clamped x4 stencil at target index t (size
-// n): sum over source indices u of g(u) * (a_p [lo(u) == t] + b_p [hi(u) ==
-// t]) for phase p.
-template <class G>
-__device__ inline float stencil_adj(int t, int n, int p, G g) {
-  float acc = 0.f;
-  for (int u = max(t - 1, 0); u <= min(t + 1, n - 1); ++u) {
-    const int lo = p < 2 ? max(u - 1, 0) : u, hi = p < 2 ? u : min(u + 1, n - 1);
-    const float v = g(u);
-    if (lo == t) acc += kQ4[p][0] * v;
-    if (hi == t) acc += kQ4[p][1] * v;
-  }
-  return acc;
-}
-
 // W-axis adjoint: dyh[i][m][c] = sum over phases j of the adjoint of dY[i*4+j].
 __global__ void stencil_w_adj_kernel(const float* __restrict__ dyf, float* __restrict__ dyh,
                                      int M, int H, int W, int C) {
@@ -261,24 +171,6 @@ __global__ void stencil_w_adj_kernel(const float* __restrict__ dyf, float* __res
     dyh[e] = acc;
   }
 }
-
-// H-axis adjoint: dxb[m][c] = round(sum over phases i of the adjoint of dyh[i]).
-__global__ void stencil_h_adj_kernel(const float* __restrict__ dyh, bf16* __restrict__ dxb,
-                                     int M, int H, int W, int C) {
-  const size_t total = (size_t)M * C;
-  for (size_t e = blockIdx.x * (size_t)kThreads + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * kThreads) {
-    const int c = e % C, m = e / C, w = m % W, h = (m / W) % H, b = m / (H * W);
-    float acc = 0.f;
-    for (int i = 0; i < 4; ++i)
-      acc += stencil_adj(h, H, i, [&](int u) {
-        return dyh[((size_t)i * M + ((size_t)b * H + u) * W + w) * C + c];
-      });
-    dxb[e] = tobf(acc);
-  }
-}
-
-inline int grid_for(size_t n) { return (int)std::min<size_t>((n + kThreads - 1) / kThreads, 4096); }
 
 struct Up4Work {
   float *zb, *xb, *zf, *dyf, *dx, *dyh, *dzb, *part, *side;
@@ -327,7 +219,8 @@ cudaError_t up4_bwd(const Up4BwdArgs& a, const Up4Work& w, cudaStream_t st, int*
   SUNET_TRY((gemm<false, false>(w.abv, C, a.wbf, C, M, C, C, 1, EpiF32{w.xb, C, 0}, nullptr,
                                     st, n)));
   SUNET_TRY((gemm<false, false>(a.x, C, a.wexp, 16 * C, M, 16 * C, C, 1,
-                                    EpiPreluPhase{w.zf, w.a, ap, M, C}, nullptr, st, n)));
+                                    EpiPreluPhase<PhaseRows>{w.zf, w.a, ap, PhaseRows{M}, C},
+                                    nullptr, st, n)));
   SUNET_TRY((gemm<false, false>(w.a, C, a.wpf, C, 16 * M, C, C, 1,
                                     EpiStencil{w.y, w.xb, M, a.H, a.W, C}, nullptr, st, n)));
 
@@ -346,7 +239,9 @@ cudaError_t up4_bwd(const Up4BwdArgs& a, const Up4Work& w, cudaStream_t st, int*
   // ---- pixel-shuffle branch
   SUNET_TRY(weight_grad(w.a, C, w.dyb, C, C, C, 16 * M, w.part, a.dwpf, st, n));
   SUNET_TRY((gemm<false, true>(w.dyb, C, a.wpf, C, 16 * M, C, C, 1,
-                                   EpiPreluBwdPhase{w.dz, w.zf, ap, M, C}, w.side, st, n)));
+                                   EpiPreluBwdPhase<PhaseRows, false>{w.dz, w.zf, ap,
+                                                                      PhaseRows{M}, C},
+                                   w.side, st, n)));
   SUNET_TRY(reduce_splits(w.side, a.dalphas, gemm_ctas(16 * M, C, 1), 1, 1, st, n));
   SUNET_TRY(weight_grad(a.x, C, w.dz, 16 * C, C, 16 * C, M, w.part, a.dwexp, st, n));
   SUNET_TRY((gemm<false, true>(w.dz, 16 * C, a.wexp, 16 * C, M, C, 16 * C, 1,
@@ -359,15 +254,9 @@ cudaError_t up4_bwd(const Up4BwdArgs& a, const Up4Work& w, cudaStream_t st, int*
   stencil_h_adj_kernel<<<grid_for((size_t)M * C), kThreads, 0, st>>>(w.dyh, w.dxb, M, a.H, a.W,
                                                                      C);
   SUNET_TRY(launched(n));
-  SUNET_TRY(weight_grad(w.abv, C, w.dxb, C, C, C, M, w.part, a.dwbf, st, n));
-  SUNET_TRY((gemm<false, true>(w.dxb, C, a.wbf, C, M, C, C, 1,
-                                   EpiPreluBwd{w.dzb, w.dzb_b, w.zb, ab, C}, w.side, st, n)));
-  SUNET_TRY(reduce_splits(w.side, a.dalphas + 1, gemm_ctas(M, C, 1), 1, 1, st, n));
-  SUNET_TRY(weight_grad(a.x, C, w.dzb_b, C, C, C, M, w.part, a.dwb1, st, n));
-  SUNET_TRY(colsum(w.dzb, M, C, w.part, a.dbb1, st, n));
-  SUNET_TRY((gemm<false, true>(w.dzb_b, C, a.wb1, C, M, C, C, 1,
-                                   EpiAddBf16{a.dx, w.dx, C}, nullptr, st, n)));
-  return cudaSuccess;
+  return up4_bilinear_bwd(a.x, w.abv, w.dxb, w.zb, a.wbf, a.wb1, ab, w.dx, w.dzb, w.dzb_b,
+                          a.dwbf, a.dalphas + 1, a.dwb1, a.dbb1, a.dx, w.part, w.side, M, C, st,
+                          n);
 }
 
 }  // namespace sunet

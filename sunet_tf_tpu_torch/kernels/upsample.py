@@ -1,10 +1,18 @@
-"""The x4 dual up-sample head fused with the 3x3 output conv, in phase space.
+"""The x4 dual up-sample head: fused with the 3x3 output conv in phase
+space, or split, writing the up-sampled map.
 
-Counterpart of ``sunet_tf_tpu/kernels/upsample.py::
-fused_dual_upsample4_conv_phase``: from a low-res map x (B, H, W, C) it
-returns (B, H, W, 16*out) where channels (i*4+j)*out .. +out at base (h, w)
-hold the output conv at pixel (4h+i, 4w+j). The 4x-upsampled map never
-exists in device memory. CUDA: ``csrc/up4_conv.cu``.
+Counterparts of ``sunet_tf_tpu/kernels/upsample.py``:
+
+- :func:`fused_dual_upsample4_conv_phase` (JAX
+  ``fused_dual_upsample4_conv_phase``): from a low-res map x (B, H, W, C) it
+  returns (B, H, W, 16*out) where channels (i*4+j)*out .. +out at base (h,
+  w) hold the output conv at pixel (4h+i, 4w+j). The 4x-upsampled map never
+  exists in device memory. CUDA: ``csrc/up4_conv.cu``. The model's head
+  where 16 * out_chans <= 128.
+- :func:`fused_dual_upsample4` (JAX ``fused_dual_upsample4``): the split
+  head, (B, 4H, 4W, C) in x's dtype; the model's output conv follows it as
+  a plain convolution. CUDA: ``csrc/up4.cu``. The model's head where 16 *
+  out_chans > 128.
 
 Head math (the three weight-space folds of the JAX ``DualUpsample``):
 pixel-shuffle branch ``prelu(x @ w_exp_s) @ wpf`` per subpixel s; bilinear
@@ -14,8 +22,14 @@ half-pixel x4 stencil with EDGE-CLAMPED taps; phase map = round(sum). The
 at the image edge. The two edge rules differ on purpose.
 
 Training: :func:`up4_conv_bwd` (JAX ``_up4c_bwd_impl``, CUDA
-``csrc/up4_conv_bwd.cu``) is its backward, and
-:class:`DualUpsample4ConvTrainable` pairs the two for autograd.
+``csrc/up4_conv_bwd.cu``) is the conv-fused head's backward, and
+:class:`DualUpsample4ConvTrainable` pairs the two for autograd;
+:func:`up4_bwd` (JAX ``_up4_bwd_impl``, CUDA ``csrc/up4_bwd.cu``) is the
+split head's, and :class:`DualUpsample4Trainable` (JAX
+``dual_upsample4_trainable``) pairs it with :func:`fused_dual_upsample4`.
+The split head's rounding points differ from the conv head's only after the
+phase maps: its cotangent arrives in pixel space, and dP = dout wpf^T is
+rounded before the PReLU derivative.
 
 Dispatch as in :mod:`.window_attention`: CPU tensor -> plain version, CUDA
 tensor -> kernel or raise.
@@ -39,6 +53,11 @@ UP4_KERNEL_MAX_C = 96
 UP4_KERNEL_MAX_OUT = 8
 # Kernel launches one up4_conv_bwd call makes (csrc/up4_conv_bwd.cu).
 UP4_CONV_BWD_LAUNCHES = 25
+# The split head's kernels (csrc/up4.cu, up4_bwd.cu) keep one tile's working
+# set in shared memory: C a multiple of 16 up to this width.
+UP4_SPLIT_KERNEL_MAX_C = 256
+# Kernel launches one up4_bwd call makes (csrc/up4_bwd.cu).
+UP4_BWD_LAUNCHES = 20
 
 
 def _prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -63,6 +82,18 @@ def phase_to_pixel(o: torch.Tensor) -> torch.Tensor:
     return o.reshape(B, 4 * H, 4 * W, out_ch)
 
 
+def _phases_to_pixel(y: torch.Tensor) -> torch.Tensor:
+    """(16, B, H, W, C) phase maps, s = i*4+j -> (B, 4H, 4W, C) pixels."""
+    _, B, H, W, C = y.shape
+    return y.reshape(4, 4, B, H, W, C).permute(2, 3, 0, 4, 1, 5).reshape(
+        B, 4 * H, 4 * W, C)
+
+
+def _pixel_phases(p: torch.Tensor) -> list:
+    """(B, 4H, 4W, C) pixels -> the 16 phase maps (B, H, W, C), s = i*4+j."""
+    return [p[:, s // 4::4, s % 4::4] for s in range(16)]
+
+
 def _pixel_to_phase(p: torch.Tensor) -> torch.Tensor:
     B, H4, W4, out_ch = p.shape
     H, W = H4 // 4, W4 // 4
@@ -70,29 +101,47 @@ def _pixel_to_phase(p: torch.Tensor) -> torch.Tensor:
     return p.reshape(B, H, W, 16 * out_ch)
 
 
+def _phase_maps(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf) -> torch.Tensor:
+    """The head's 16 phase maps (16, B, H, W, C) in x's dtype, at the JAX
+    kernels' rounding points (``_up4_kernel``, ``_up4_conv_kernel``): per
+    subpixel s, round(prelu(x @ w_exp_s)) @ wpf in float32; the bilinear
+    branch round(prelu(x @ w_b1 + b_b1)) @ wbf in float32 through the
+    float32 stencil; one rounding of the sum. Call inside exact_fp32()."""
+    dt = x.dtype
+    C = x.shape[-1]
+    ap = alpha_p.float().reshape(())
+    ab = alpha_b.float().reshape(())
+    zb = _prelu(mm32(x, w_b1) + b_b1.float(), ab).to(dt)
+    xb = mm32(zb, wbf)
+    st = [_stencil_x4(t, 2) for t in _stencil_x4(xb, 1)]   # st[i][j]
+    wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1)
+    ys = []
+    for s in range(16):
+        z = _prelu(mm32(x, wexp_s[s]), ap).to(dt)
+        ys.append((mm32(z, wpf) + st[s // 4][s % 4]).to(dt))
+    return torch.stack(ys)
+
+
+def fused_dual_upsample4_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
+                                   wpf, wbf) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_dual_upsample4` (JAX
+    ``_up4_kernel``): the phase maps of :func:`_phase_maps` at their
+    pixels, (B, 4H, 4W, C) in x's dtype."""
+    with exact_fp32():
+        return _phases_to_pixel(_phase_maps(x, w_exp, alpha_p, w_b1, b_b1,
+                                            alpha_b, wpf, wbf))
+
+
 def fused_dual_upsample4_conv_phase_reference(x, w_exp, alpha_p, w_b1, b_b1,
                                               alpha_b, wpf, wbf, wconv):
     """Plain PyTorch version of :func:`fused_dual_upsample4_conv_phase`."""
     with exact_fp32():
-        dt = x.dtype
-        B, H, W, C = x.shape
-        ap = alpha_p.float().reshape(())
-        ab = alpha_b.float().reshape(())
-        zb = _prelu(mm32(x, w_b1) + b_b1.float(), ab).to(dt)
-        xb = mm32(zb, wbf)
-        yh = _stencil_x4(xb, 1)
-        st = [_stencil_x4(t, 2) for t in yh]          # st[i][j]
-        wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1)
-        ys = []
-        for s in range(16):
-            z = _prelu(mm32(x, wexp_s[s]), ap).to(dt)
-            ys.append((mm32(z, wpf) + st[s // 4][s % 4]).to(dt))
         # pixel-space head map, then the zero-padded 3x3 conv in float32
-        y = torch.stack(ys).reshape(4, 4, B, H, W, C)
-        y = y.permute(2, 3, 0, 4, 1, 5).reshape(B, 4 * H, 4 * W, C)
+        y = _phases_to_pixel(_phase_maps(x, w_exp, alpha_p, w_b1, b_b1,
+                                         alpha_b, wpf, wbf))
         o = F.conv2d(y.float().permute(0, 3, 1, 2),
                      wconv.float().permute(3, 2, 0, 1), padding=1)
-        return _pixel_to_phase(o.permute(0, 2, 3, 1)).to(dt)
+        return _pixel_to_phase(o.permute(0, 2, 3, 1)).to(x.dtype)
 
 
 def _stencil_x4_adjoint(gs: list, axis: int) -> torch.Tensor:
@@ -165,6 +214,68 @@ def _phase_slots(y: torch.Tensor) -> list:
     return out
 
 
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(-1, t.shape[-1])
+
+
+def _head_recompute(x, w_exp, alpha_p, w_b1, b_b1, alpha_b) -> tuple:
+    """The backward kernels' forward recompute: (zb float32, abv = round(prelu
+    (zb)), the 16 subpixel pre-activations z_s float32, a_s =
+    round(prelu(z_s)), w_exp as (16, C, C))."""
+    dt = x.dtype
+    C = x.shape[-1]
+    ap = alpha_p.float().reshape(())
+    ab = alpha_b.float().reshape(())
+    zb = mm32(x, w_b1) + b_b1.float()
+    wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1)
+    z = [mm32(x, wexp_s[s]) for s in range(16)]
+    return (zb, _prelu(zb, ab).to(dt), z, [_prelu(zs, ap).to(dt) for zs in z],
+            wexp_s)
+
+
+def _shuffle_bwd(x, z, a, dys, wexp_s, wpf, alpha_p, round_dp: bool) -> tuple:
+    """Pixel-shuffle branch backward from the 16 subpixel cotangents ``dys``
+    (rows, x's dtype): dwpf += a_s^T dy_s; dP = dy_s wpf^T (rounded to x's
+    dtype when ``round_dp``, the split head's point); dz = prelu'(z_s) * dP;
+    dw_exp_s = x^T round(dz), dx += round(dz) w_exp_s^T. Returns (dwpf,
+    dw_exp (C, 16C), dalpha_p, dx rows), float32."""
+    dt = x.dtype
+    C = x.shape[-1]
+    ap = alpha_p.float().reshape(())
+    xr = _rows(x)
+    dwpf = torch.zeros(C, C, device=x.device)
+    dwexp = []
+    dap = torch.zeros((), device=x.device)
+    dx = torch.zeros(xr.shape[0], C, device=x.device)
+    for s in range(16):
+        dwpf += mm32(_rows(a[s]).t(), dys[s])
+        dpre = mm32(dys[s], wpf.t())
+        if round_dp:
+            dpre = dpre.to(dt).float()
+        zs = _rows(z[s])
+        dz = torch.where(zs > 0, dpre, ap * dpre)
+        dap = dap + (torch.clamp_max(zs, 0) * dpre).sum()
+        dzb = dz.to(dt)
+        dwexp.append(mm32(xr.t(), dzb))
+        dx += mm32(dzb, wexp_s[s].t())
+    return dwpf, torch.stack(dwexp).permute(1, 2, 0).reshape(C, 16 * C), dap, dx
+
+
+def _bilinear_bwd(x, zb, abv, dxb, wbf, w_b1, alpha_b) -> tuple:
+    """Bilinear branch backward from its rounded stencil adjoint ``dxb``
+    (rows): dwbf = abv^T dxb, dzb = prelu'(zb) * (dxb wbf^T), dwb1 = x^T
+    round(dzb), dbb1 = sum dzb. Returns (dwbf, dalpha_b, dwb1, dbb1, the dx
+    rows round(dzb) w_b1^T), float32."""
+    ab = alpha_b.float().reshape(())
+    dwbf = mm32(_rows(abv).t(), dxb)
+    dabm = mm32(dxb, wbf.t())
+    zbr = _rows(zb)
+    dzb = torch.where(zbr > 0, dabm, ab * dabm)
+    dab = (torch.clamp_max(zbr, 0) * dabm).sum()
+    dzb_b = dzb.to(x.dtype)
+    return dwbf, dab, mm32(_rows(x).t(), dzb_b), dzb.sum(0), mm32(dzb_b, w_b1.t())
+
+
 def up4_conv_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf,
                            wconv, dout) -> tuple:
     """Plain PyTorch version of :func:`up4_conv_bwd`, after the JAX
@@ -183,63 +294,74 @@ def up4_conv_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf,
         dt = x.dtype
         B, H, W, C = x.shape
         out_ch = wconv.shape[-1]
-        ap = alpha_p.float().reshape(())
-        ab = alpha_b.float().reshape(())
-        rows = lambda t: t.reshape(-1, t.shape[-1])
-        xr = rows(x)
-        # forward recompute
-        zb = mm32(x, w_b1) + b_b1.float()
-        abv = _prelu(zb, ab).to(dt)
+        zb, abv, z, a, wexp_s = _head_recompute(x, w_exp, alpha_p, w_b1, b_b1,
+                                                alpha_b)
         xb = mm32(abv, wbf)
         st = [_stencil_x4(t, 2) for t in _stencil_x4(xb, 1)]
-        wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1)
-        z = [mm32(x, wexp_s[s]) for s in range(16)]
-        a = [_prelu(zs, ap).to(dt) for zs in z]
         y = torch.stack([(mm32(a[s], wpf) + st[s // 4][s % 4]).to(dt)
                          for s in range(16)])
         # the conv: dwfold over the 36 slots, then the adjoint into the phases
         dob = dout.to(dt)
-        dwfold = torch.stack([mm32(rows(t).t(), rows(dob)) for t in _phase_slots(y)])
+        dwfold = torch.stack([mm32(_rows(t).t(), _rows(dob)) for t in _phase_slots(y)])
         dwconv = unfold_output_conv4_grad(dwfold, C, out_ch)
-        ypix = y.reshape(4, 4, B, H, W, C).permute(2, 3, 0, 4, 1, 5).reshape(
-            B, 4 * H, 4 * W, C)
+        ypix = _phases_to_pixel(y)
         dY = torch.nn.grad.conv2d_input(
             ypix.permute(0, 3, 1, 2).shape,
             wconv.float().permute(3, 2, 0, 1),
             phase_to_pixel(dob).float().permute(0, 3, 1, 2), padding=1)
         dY = dY.permute(0, 2, 3, 1).reshape(B, H, 4, W, 4, C)
         dys = [dY[:, :, s // 4, :, s % 4] for s in range(16)]
-        # pixel-shuffle branch
-        dwpf = torch.zeros(C, C, device=x.device)
-        dwexp = []
-        dap = torch.zeros((), device=x.device)
-        dx = torch.zeros(B * H * W, C, device=x.device)
-        for s in range(16):
-            dyb = rows(dys[s].to(dt))
-            dwpf += mm32(rows(a[s]).t(), dyb)
-            dpre = mm32(dyb, wpf.t())
-            zs = rows(z[s])
-            dz = torch.where(zs > 0, dpre, ap * dpre)
-            dap = dap + (torch.clamp_max(zs, 0) * dpre).sum()
-            dzb = dz.to(dt)
-            dwexp.append(mm32(xr.t(), dzb))
-            dx += mm32(dzb, wexp_s[s].t())
-        # bilinear branch
+        dwpf, dw_exp, dap, dx = _shuffle_bwd(
+            x, z, a, [_rows(d.to(dt)) for d in dys], wexp_s, wpf, alpha_p,
+            round_dp=False)
+        # the bilinear branch from the edge-clamped stencil's adjoint
         dyh = [_stencil_x4_adjoint(dys[4 * i:4 * i + 4], 2) for i in range(4)]
-        dxb = rows(_stencil_x4_adjoint(dyh, 1).to(dt))
-        dwbf = mm32(rows(abv).t(), dxb)
-        dabm = mm32(dxb, wbf.t())
-        zbr = rows(zb)
-        dzb = torch.where(zbr > 0, dabm, ab * dabm)
-        dab = (torch.clamp_max(zbr, 0) * dabm).sum()
-        dzb_b = dzb.to(dt)
-        dwb1 = mm32(xr.t(), dzb_b)
-        dbb1 = dzb.sum(0)
-        dx += mm32(dzb_b, w_b1.t())
-        dw_exp = torch.stack(dwexp).permute(1, 2, 0).reshape(C, 16 * C)
+        dxb = _rows(_stencil_x4_adjoint(dyh, 1).to(dt))
+        dwbf, dab, dwb1, dbb1, dxl = _bilinear_bwd(x, zb, abv, dxb, wbf, w_b1,
+                                                   alpha_b)
+        dx += dxl
         return (dx.reshape(B, H, W, C).to(dt), dw_exp,
                 dap.reshape(alpha_p.shape), dwb1, dbb1,
                 dab.reshape(alpha_b.shape), dwpf, dwbf, dwconv)
+
+
+def up4_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf,
+                      dout) -> tuple:
+    """Plain PyTorch version of :func:`up4_bwd`, after the JAX
+    ``_up4_bwd_kernel`` and its rounding points: dout (B, 4H, 4W, C) rounded
+    to x's dtype; per subpixel s (dout's pixels (4h+i, 4w+j)) dwpf += a_s^T
+    dout_s, dP = round(dout_s wpf^T), dz = prelu'(z_s) * dP, dwexp_s = x^T
+    round(dz), dx += round(dz) wexp_s^T, the slope grad sum(min(z_s, 0) *
+    dP); the bilinear stencil's adjoint (edge-clamped) in float32 on the
+    rounded dout gives dxb, rounded, then the bilinear chain as in
+    :func:`up4_conv_bwd_reference`.
+
+    Returns (dx in x's dtype, dw_exp (C, 16C), dalpha_p, dw_b1, db_b1,
+    dalpha_b, dwpf, dwbf), grads float32."""
+    with exact_fp32():
+        dt = x.dtype
+        B, H, W, C = x.shape
+        zb, abv, z, a, wexp_s = _head_recompute(x, w_exp, alpha_p, w_b1, b_b1,
+                                                alpha_b)
+        dys = _pixel_phases(dout.to(dt))
+        dwpf, dw_exp, dap, dx = _shuffle_bwd(
+            x, z, a, [_rows(d) for d in dys], wexp_s, wpf, alpha_p, round_dp=True)
+        dyf = [d.float() for d in dys]
+        dyh = [_stencil_x4_adjoint(dyf[4 * i:4 * i + 4], 2) for i in range(4)]
+        dxb = _rows(_stencil_x4_adjoint(dyh, 1).to(dt))
+        dwbf, dab, dwb1, dbb1, dxl = _bilinear_bwd(x, zb, abv, dxb, wbf, w_b1,
+                                                   alpha_b)
+        dx += dxl
+        return (dx.reshape(B, H, W, C).to(dt), dw_exp,
+                dap.reshape(alpha_p.shape), dwb1, dbb1,
+                dab.reshape(alpha_b.shape), dwpf, dwbf)
+
+
+def _alphas_bias(alpha_p, b_b1, alpha_b, dev) -> tuple:
+    """The two PReLU slopes as one float32 (2,) tensor, and b_b1 in float32."""
+    alphas = torch.stack([alpha_p.reshape(()), alpha_b.reshape(())]).to(
+        device=dev, dtype=torch.float32)
+    return alphas, b_b1.to(device=dev, dtype=torch.float32).contiguous()
 
 
 def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
@@ -259,9 +381,7 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
     wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1).contiguous()
-    alphas = torch.stack([alpha_p.reshape(()), alpha_b.reshape(())]).to(
-        device=x.device, dtype=torch.float32)
-    bb1 = b_b1.to(device=x.device, dtype=torch.float32).contiguous()
+    alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
     out = torch.empty((B, H, W, 16 * out_ch), device=x.device, dtype=BF16)
     err = _build.library().sunet_up4_conv_phase(
         _build.ptr(x), _build.ptr(out), _build.ptr(wexp_s), _build.ptr(w_b1),
@@ -308,9 +428,7 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     dout = dout.to(BF16).contiguous()
     if tuple(dout.shape) != (B, H, W, 16 * out_ch):
         raise ValueError(f"{name}: dout shape {tuple(dout.shape)}")
-    alphas = torch.stack([alpha_p.reshape(()), alpha_b.reshape(())]).to(
-        device=dev, dtype=torch.float32)
-    bb1 = b_b1.to(device=dev, dtype=torch.float32).contiguous()
+    alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, dev)
     lib = _build.library()
     work = torch.empty(lib.sunet_up4_conv_bwd_workspace(B, H, W, C, out_ch),
                        device=dev, dtype=torch.uint8)
@@ -357,3 +475,102 @@ class DualUpsample4ConvTrainable(torch.autograd.Function):
     def backward(ctx, dout):
         x, *p = ctx.saved_tensors
         return up4_conv_bwd(x, *p, dout.contiguous())
+
+
+def _check_up4_split(name, x, w_exp, w_b1, wpf, wbf):
+    _check_x(name, x)
+    C = x.shape[-1]
+    if C % 16 or C > UP4_SPLIT_KERNEL_MAX_C:
+        raise ValueError(f"{name}: C={C}: the kernel takes C a multiple of 16 "
+                         f"up to {UP4_SPLIT_KERNEL_MAX_C}")
+    _check_w(name, x, w_exp=(w_exp, (C, 16 * C)), w_b1=(w_b1, (C, C)),
+             wpf=(wpf, (C, C)), wbf=(wbf, (C, C)))
+
+
+def fused_dual_upsample4(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf,
+                         wbf) -> torch.Tensor:
+    """Split x4 dual up-sample head (JAX ``fused_dual_upsample4``).
+
+    x: (B, H, W, C); w_exp: (C, 16C) pixel-shuffle expand, (in, out) layout,
+    column c*16 + i*4 + j feeding pixel (4h+i, 4w+j) channel c; w_b1: (C,
+    C), b_b1: (C,); wpf, wbf: (C, C) folded projections. Returns (B, 4H, 4W,
+    C) in x's dtype. CUDA: ``csrc/up4.cu``, one launch."""
+    name = "fused_dual_upsample4"
+    count = _build.counter(name)
+    if x.device.type == "cpu":
+        count.cpu += 1
+        return fused_dual_upsample4_reference(x, w_exp, alpha_p, w_b1, b_b1,
+                                              alpha_b, wpf, wbf)
+    _check_up4_split(name, x, w_exp, w_b1, wpf, wbf)
+    B, H, W, C = x.shape
+    wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1).contiguous()
+    alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
+    out = torch.empty((B, 4 * H, 4 * W, C), device=x.device, dtype=BF16)
+    err = _build.library().sunet_up4(
+        _build.ptr(x), _build.ptr(out), _build.ptr(wexp_s), _build.ptr(w_b1),
+        _build.ptr(bb1), _build.ptr(wpf), _build.ptr(wbf), _build.ptr(alphas),
+        B, H, W, C, _build.stream())
+    _build.check(name, err)
+    count.cuda += 1
+    return out
+
+
+def up4_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, dout) -> tuple:
+    """Backward of :func:`fused_dual_upsample4` (JAX ``_up4_bwd_impl``):
+    dout (B, 4H, 4W, C) pixel-space cotangent. Returns (dx, dw_exp (C,
+    16C), dalpha_p, dw_b1, db_b1, dalpha_b, dwpf, dwbf), the grads float32.
+    CUDA: ``csrc/up4_bwd.cu``, a fixed sequence of launches, each counted."""
+    name = "up4_bwd"
+    count = _build.counter(name)
+    if x.device.type == "cpu":
+        count.cpu += UP4_BWD_LAUNCHES
+        return up4_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf,
+                                 wbf, dout)
+    _check_up4_split(name, x, w_exp, w_b1, wpf, wbf)
+    B, H, W, C = x.shape
+    dev = x.device
+    if tuple(dout.shape) != (B, 4 * H, 4 * W, C) or dout.device != dev:
+        raise ValueError(f"{name}: dout {tuple(dout.shape)} on {dout.device}, "
+                         f"expected {(B, 4 * H, 4 * W, C)} on {dev}")
+    dout = dout.to(BF16).contiguous()
+    alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, dev)
+    lib = _build.library()
+    work = torch.empty(lib.sunet_up4_bwd_workspace(B, H, W, C), device=dev,
+                       dtype=torch.uint8)
+    z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    # dw_exp in w_exp's (C, 16C) layout, dalphas (2,), dwb1, dbb1, dwpf, dwbf
+    grads = [z(C, 16 * C), z(2), z(C, C), z(C), z(C, C), z(C, C)]
+    launches = _build.c_int(0)
+    err = lib.sunet_up4_bwd(
+        _build.ptr(x), _build.ptr(dout), _build.ptr(w_exp), _build.ptr(w_b1),
+        _build.ptr(bb1), _build.ptr(wpf), _build.ptr(wbf), _build.ptr(alphas),
+        _build.ptr(dx), *[_build.ptr(g) for g in grads], _build.ptr(work),
+        B, H, W, C, _build.byref(launches), _build.stream())
+    _build.check(name, err)
+    count.cuda += launches.value
+    dw_exp, dal, dwb1, dbb1, dwpf, dwbf = grads
+    return (dx, dw_exp, dal[0].reshape(alpha_p.shape), dwb1, dbb1,
+            dal[1].reshape(alpha_b.shape), dwpf, dwbf)
+
+
+class DualUpsample4Trainable(torch.autograd.Function):
+    """Differentiable split x4 head (JAX ``dual_upsample4_trainable``):
+    forward = :func:`fused_dual_upsample4`, backward = :func:`up4_bwd`.
+    Weights come in float32 and are cast to x's dtype for the kernels;
+    their grads come back in float32. Returns (B, 4H, 4W, C)."""
+
+    @staticmethod
+    def forward(ctx, x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf):
+        dt = x.dtype
+        cast = lambda w: w.detach().to(dt).contiguous()
+        x = x.contiguous()
+        p = (cast(w_exp), alpha_p.detach(), cast(w_b1), b_b1.detach(),
+             alpha_b.detach(), cast(wpf), cast(wbf))
+        ctx.save_for_backward(x, *p)
+        return fused_dual_upsample4(x, *p)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, *p = ctx.saved_tensors
+        return up4_bwd(x, *p, dout.contiguous())

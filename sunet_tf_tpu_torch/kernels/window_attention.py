@@ -14,6 +14,12 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   projection). CUDA: ``csrc/ln_window_attention.cu``.
 - :func:`fused_ln_mlp` (JAX ``fused_ln_mlp``): ``y + fc2(gelu(fc1(LN(y))))``.
   CUDA: ``csrc/ln_mlp.cu``.
+- :func:`fused_window_attention` (JAX ``fused_window_attention``): W-MSA
+  with its qkv bias and output projection over a pre-normalized,
+  pre-rolled map, no LayerNorm; the partition and reverse are torch ops
+  around :func:`wmsa_core` (JAX ``wmsa_core``: pre-partitioned windows),
+  two launches (per-head ctx, then the projection). CUDA:
+  ``csrc/window_attention.cu``. No model route calls it, as in JAX.
 - :func:`swin_block_bwd` (JAX ``_block_bwd_impl``): the whole block's
   backward, recompute form. CUDA: ``csrc/swin_block_bwd.cu``.
   :class:`SwinBlockTrainable` pairs it with :func:`fused_swin_block`'s
@@ -159,11 +165,10 @@ def attn_core_reference(q, k, v, bias, mask, *, num_heads: int, scale: float):
     return ctx.permute(0, 2, 1, 3).reshape(Bn, N, C)
 
 
-def _qkv_ctx(xn, wqkv, bqkv, bias, mask, ws, num_heads, scale):
-    """LN'd NHWC map -> rounded ctx windows (B*nW, N, C)."""
-    dt = xn.dtype
-    C = xn.shape[-1]
-    xw = window_partition(xn, ws)
+def _window_ctx(xw, wqkv, bqkv, bias, mask, num_heads, scale):
+    """Windows (Bn, N, C) in the compute dtype -> rounded ctx windows."""
+    dt = xw.dtype
+    C = xw.shape[-1]
     qkv = mm32(xw, wqkv)
     if bqkv is not None:
         qkv = qkv + bqkv.float()
@@ -171,6 +176,12 @@ def _qkv_ctx(xn, wqkv, bqkv, bias, mask, ws, num_heads, scale):
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     return attn_core_reference(q, k, v, bias, mask, num_heads=num_heads,
                                scale=scale).to(dt)
+
+
+def _qkv_ctx(xn, wqkv, bqkv, bias, mask, ws, num_heads, scale):
+    """LN'd NHWC map -> rounded ctx windows (B*nW, N, C)."""
+    return _window_ctx(window_partition(xn, ws), wqkv, bqkv, bias, mask,
+                       num_heads, scale)
 
 
 def _mlp_branch32(y, ln, w1, b1, w2, b2):
@@ -511,18 +522,37 @@ def ln_window_attention_bwd_reference(x, dout, ln_scale, ln_bias, wqkv, bqkv,
                 dbqkv, dwproj, dbproj, dbias)
 
 
+def wmsa_core_reference(xw, wqkv, bqkv, wproj, bproj, bias, mask, *,
+                        num_heads: int, scale: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`wmsa_core`, at the JAX ``_kernel``'s
+    rounding points: qkv in float32 + bias, rounded; the attention core of
+    :func:`attn_core_reference`, rounded; the projection in float32 + bias,
+    rounded to xw's dtype."""
+    with exact_fp32():
+        ctx = _window_ctx(xw, wqkv, bqkv, bias, mask, num_heads, scale)
+        return (mm32(ctx, wproj) + bproj.float()).to(xw.dtype)
+
+
+def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                     *, ws: int, num_heads: int,
+                                     scale: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_window_attention`: the window
+    partition, :func:`wmsa_core_reference`, the reverse."""
+    H, W = x.shape[1:3]
+    out = wmsa_core_reference(window_partition(x, ws), wqkv, bqkv, wproj, bproj,
+                              bias, mask, num_heads=num_heads, scale=scale)
+    return window_reverse(out, ws, H, W)
+
+
 def fused_ln_window_attention_reference(x, ln_scale, ln_bias, wqkv, bqkv,
                                         wproj, bproj, bias, mask, *, ws: int,
                                         num_heads: int,
                                         scale: float) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_ln_window_attention`."""
     with exact_fp32():
-        dt = x.dtype
-        B, H, W, C = x.shape
-        ctx = _qkv_ctx(ln32(x, ln_scale, ln_bias).to(dt), wqkv, bqkv, bias,
-                       mask, ws, num_heads, scale)
-        out = (mm32(ctx, wproj) + bproj.float()).to(dt)
-        return window_reverse(out, ws, H, W)
+        return fused_window_attention_reference(
+            ln32(x, ln_scale, ln_bias).to(x.dtype), wqkv, bqkv, wproj, bproj,
+            bias, mask, ws=ws, num_heads=num_heads, scale=scale)
 
 
 def fused_ln_mlp_reference(y, ln, w1, b1, w2, b2) -> torch.Tensor:
@@ -957,6 +987,68 @@ def fused_ln_window_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     _build.check(name, err)
     count.cuda += 1
     return out
+
+
+def wmsa_core(xw, wqkv, bqkv, wproj, bproj, bias, mask, *, num_heads: int,
+              scale: float) -> torch.Tensor:
+    """W-MSA over pre-partitioned windows (JAX ``wmsa_core``): xw (T, N, C),
+    T = B * nW windows in image-major order; bqkv may be None; mask (nW,
+    N, N) additive or None, window t taking mask[t % nW]. Returns (T, N, C)
+    in xw's dtype. CUDA: ``csrc/window_attention.cu`` (per-head ctx), then
+    the projection kernel of ``csrc/ln_window_attention.cu``."""
+    name = "wmsa_core"
+    count = _build.counter(name)
+    T, N, C = xw.shape
+    ws = math.isqrt(N)
+    if xw.device.type == "cpu":
+        count.cpu += 2  # stands in for the ctx and projection launches
+        return wmsa_core_reference(xw, wqkv, bqkv, wproj, bproj, bias, mask,
+                                   num_heads=num_heads, scale=scale)
+    if xw.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {xw.device}; the kernel takes CUDA "
+                         "tensors and the plain version CPU tensors")
+    if xw.dtype != BF16 or xw.dim() != 3 or not xw.is_contiguous():
+        raise ValueError(f"{name}: xw must be a contiguous (T, N, C) bfloat16 "
+                         f"tensor, got {xw.dtype} {tuple(xw.shape)}")
+    _check_w(name, xw, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
+    nW = 1 if mask is None else mask.shape[0]
+    if ws * ws != N or T % nW:
+        raise ValueError(f"{name}: {T} windows of {N} tokens with {nW} masks")
+    # the nW windows of one image, side by side: a (ws, nW*ws) map
+    _check_window(name, ws, ws * nW, C, ws, num_heads, bias, mask)
+    _check_vec(name, bqkv=(bqkv, 3 * C), bproj=(bproj, C))
+    dev = xw.device
+    f = lambda t: _f32(t, dev)
+    lib = _build.library()
+    ctx = torch.empty_like(xw)
+    err = lib.sunet_wmsa_ctx(
+        _build.ptr(xw), _build.ptr(ctx), _build.ptr(wqkv), _build.ptr(f(bqkv)),
+        _build.ptr(f(bias)), _build.ptr(f(mask)), T, nW, N, C, num_heads,
+        float(scale), _build.stream())
+    _build.check(name, err)
+    count.cuda += 1
+    out = torch.empty_like(xw)
+    err = lib.sunet_linear_bias(
+        _build.ptr(ctx), _build.ptr(wproj), _build.ptr(f(bproj)),
+        _build.ptr(out), T * N, C, C, _build.stream())
+    _build.check(name, err)
+    count.cuda += 1
+    return out
+
+
+def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, *, ws: int,
+                           num_heads: int, scale: float) -> torch.Tensor:
+    """W-MSA sublayer over a pre-normalized, pre-rolled NHWC map (JAX
+    ``fused_window_attention``): x (B, H, W, C) -> the attention output
+    before the residual, same shape and dtype. The window partition and
+    reverse are torch ops around :func:`wmsa_core`."""
+    H, W = x.shape[1:3]
+    if H % ws or W % ws:
+        raise ValueError(f"fused_window_attention: ({H},{W}) not divisible by "
+                         f"window {ws}")
+    out = wmsa_core(window_partition(x, ws).contiguous(), wqkv, bqkv, wproj,
+                    bproj, bias, mask, num_heads=num_heads, scale=scale)
+    return window_reverse(out, ws, H, W)
 
 
 def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:

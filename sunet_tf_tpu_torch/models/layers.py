@@ -492,14 +492,9 @@ class DualUpsample(nn.Module):
         return (torch.matmul(xp, wpf.to(dt))
                 + bilinear_resize(torch.matmul(xb, wbf.to(dt)), self.factor))
 
-    def fused_conv_head(self, x: torch.Tensor, wconv: torch.Tensor) -> torch.Tensor:
-        """x4 head AND a following 3x3 bias-free conv ``wconv`` (3, 3, C,
-        out) through the phase-space kernel; returns pixel-space (B, 4H, 4W,
-        out) in x's dtype."""
-        if self.factor != 4:
-            raise ValueError("fused_conv_head needs the x4 head")
-        dt = x.dtype
-
+    def _kernel_params(self, dt) -> tuple:
+        """The x4 head's weights for the kernels, cached per dtype: w_exp,
+        alpha_p, w_b1, b_b1, alpha_b, wpf, wbf."""
         def build():
             wpf, wbf = self.folded()
             w = lambda t: t.detach().contiguous().to(dt)
@@ -507,9 +502,35 @@ class DualUpsample(nn.Module):
                     w(self.up_b[0].kernel()), self.up_b[0].bias.detach(),
                     self.up_b[1].weight.detach(), w(wpf), w(wbf))
 
-        p = kernel_weights(self, dt, build)
-        return up_kernels.phase_to_pixel(
-            up_kernels.fused_dual_upsample4_conv_phase(x, *p, wconv))
+        return kernel_weights(self, dt, build)
+
+    def fused_head(self, x: torch.Tensor) -> torch.Tensor:
+        """The x4 head through the split-head kernel (JAX
+        ``fused_dual_upsample4``): (B, 4H, 4W, C) in x's dtype."""
+        if self.factor != 4:
+            raise ValueError("fused_head needs the x4 head")
+        return up_kernels.fused_dual_upsample4(x, *self._kernel_params(x.dtype))
+
+    def head_trainable(self, x: torch.Tensor) -> torch.Tensor:
+        """Differentiable x4 head, float32 weights: the split-head kernel
+        forward and ``up4_bwd`` backward (JAX ``dual_upsample4_trainable``);
+        autograd carries the grads of wpf and wbf back through the
+        weight-space folds. Returns (B, 4H, 4W, C) in x's dtype."""
+        if self.factor != 4:
+            raise ValueError("head_trainable needs the x4 head")
+        wpf, wbf = self.folded()
+        return up_kernels.DualUpsample4Trainable.apply(
+            x, self.up_p[0].kernel(), self.up_p[1].weight, self.up_b[0].kernel(),
+            self.up_b[0].bias, self.up_b[1].weight, wpf, wbf)
+
+    def fused_conv_head(self, x: torch.Tensor, wconv: torch.Tensor) -> torch.Tensor:
+        """x4 head AND a following 3x3 bias-free conv ``wconv`` (3, 3, C,
+        out) through the phase-space kernel; returns pixel-space (B, 4H, 4W,
+        out) in x's dtype."""
+        if self.factor != 4:
+            raise ValueError("fused_conv_head needs the x4 head")
+        return up_kernels.phase_to_pixel(up_kernels.fused_dual_upsample4_conv_phase(
+            x, *self._kernel_params(x.dtype), wconv))
 
     def conv_head_trainable(self, x: torch.Tensor,
                             wconv: torch.Tensor) -> torch.Tensor:

@@ -42,10 +42,18 @@ BACKENDS = ("fused", "eager")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 INFER_WRAPPERS = ("fused_swin_block", "fused_swin_block_chain",
                   "fused_ln_window_attention", "fused_ln_mlp",
-                  "fused_dual_upsample4_conv_phase")
+                  "fused_dual_upsample4_conv_phase", "fused_dual_upsample4")
 TRAIN_WRAPPERS = INFER_WRAPPERS + ("fused_swin_block_res", "swin_block_bwd",
                                   "swin_block_bwd_res", "ln_window_attention_bwd",
-                                  "ln_mlp_branch", "ln_mlp_bwd", "up4_conv_bwd")
+                                  "ln_mlp_branch", "ln_mlp_bwd", "up4_conv_bwd",
+                                  "up4_bwd")
+
+
+def conv_fused_head(out_chans: int) -> bool:
+    """Whether the fused route runs the x4 head fused with the output conv
+    (phase space, 16 * out_chans output lanes) or, for wider outputs, the
+    split head and then the conv: JAX's rule (``sunet.py``)."""
+    return 16 * out_chans <= 128
 
 
 def _dpr_schedule(depths: tuple, drop_path_rate: float) -> list:
@@ -216,13 +224,18 @@ class SUNet(nn.Module):
             lin = self.concat_back_dim[j]
             feats = self.layers_up[j](linear(feats, lin.weight, lin.bias), generator)
         feats = layer_norm(feats, self.norm_up)
-        if self.backend == "fused" and 16 * cfg.out_chans <= 128:
+        if self.backend != "fused":
+            return self.output(self.up(feats)).float()
+        if conv_fused_head(cfg.out_chans):
             wconv = self.output.weight.permute(2, 3, 1, 0)
             if generator is not None:
                 return self.up.conv_head_trainable(feats, wconv).float()
             return self.up.fused_conv_head(
                 feats, wconv.contiguous().to(feats.dtype)).float()
-        return self.output(self.up(feats)).float()
+        # the split head, then the output conv as a plain convolution (JAX
+        # runs it in XLA)
+        head = self.up.head_trainable if generator is not None else self.up.fused_head
+        return self.output(head(feats)).float()
 
     def flops(self, resolution: Optional[tuple] = None) -> int:
         """Analytic forward FLOPs (multiply-accumulate counted as 2), the
@@ -290,7 +303,8 @@ class SUNet(nn.Module):
         backward sequences (JAX ``ln_window_attention_trainable`` +
         ``ln_mlp_trainable``); a wider one runs plain autograd and launches
         nothing. The x4 head launches its forward kernel and its backward's
-        sequence."""
+        sequence: the conv-fused head's where ``conv_fused_head`` holds,
+        else the split head's."""
         counts = dict.fromkeys(TRAIN_WRAPPERS if train else INFER_WRAPPERS, 0)
         if self.backend != "fused":
             return counts
@@ -309,9 +323,12 @@ class SUNet(nn.Module):
                         counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES
                         counts["ln_mlp_branch"] += wa.LN_MLP_BRANCH_LAUNCHES
                         counts["ln_mlp_bwd"] += wa.LN_MLP_BWD_LAUNCHES
-            if 16 * self.cfg.out_chans <= 128:
+            if conv_fused_head(self.cfg.out_chans):
                 counts["fused_dual_upsample4_conv_phase"] += 1
                 counts["up4_conv_bwd"] += up_kernels.UP4_CONV_BWD_LAUNCHES
+            else:
+                counts["fused_dual_upsample4"] += 1
+                counts["up4_bwd"] += up_kernels.UP4_BWD_LAUNCHES
             return counts
         H = x_shape[1] // self.cfg.patch_size
         W = x_shape[2] // self.cfg.patch_size
@@ -335,8 +352,9 @@ class SUNet(nn.Module):
                     counts["fused_ln_window_attention"] += 2
                     counts["fused_ln_mlp"] += 1
                 i += 1
-        if 16 * self.cfg.out_chans <= 128:
-            counts["fused_dual_upsample4_conv_phase"] += 1
+        head = ("fused_dual_upsample4_conv_phase" if conv_fused_head(self.cfg.out_chans)
+                else "fused_dual_upsample4")
+        counts[head] += 1
         return counts
 
 

@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Hold this tree's training kernels against another checkout's, bit for bit, on one NVIDIA GPU.
+"""Hold this tree's kernels against another checkout's on one NVIDIA GPU: bit for bit where a kernel must not move, against the same plain version where its design changed.
 
     python3 chip_ab.py --other DIR
 
-For a change to a shared kernel source that must leave the existing kernels'
-results as they were. Each tree runs in its own process, with its own kernel
-build (into its own ``sunet_tf_tpu_torch/kernels/_build/``), on the same
-seeded inputs: the block kernel's inference launch and its train form (#1)
-and the recompute block backward (#8), at (64,64,96), (32,32,192) and
-(16,16,384), shift 0 and 4, batch 2, bf16, with ``chip_smoke.block_params``
-weights, the C=768 training sublayers of ``chip_smoke.sublayer_cases``
-(#12, #13, #14), and the conv-fused x4 head (#5) and its backward (#9) at
-(64,64,96), out 1 and 3. Every output must be equal bit for bit; the exit
-code is 1 where one differs. The trees run in turns (other, this, this,
-other), each printing the times of #5 and #9 (CUDA events, medians of 20). The other tree needs
-``chip_smoke.block_params``, ``chip_smoke.sublayer_cases`` and the wrappers
-``fused_swin_block``, ``swin_block_bwd``, ``fused_dual_upsample4_conv_phase``
-and ``up4_conv_bwd``. Needs one GPU; imports nothing of JAX.
+Each tree runs in its own process, with its own kernel build (into its own
+``sunet_tf_tpu_torch/kernels/_build/``), on the same seeded inputs, batch 2,
+bf16, ``chip_smoke.block_params`` weights.
+
+- Bit for bit (the exit code is 1 where one differs): the residual route's
+  block forward (#6: output and stored state) at (64,64,96) and (32,32,192),
+  the recompute block backward (#8) at (64,64,96), (32,32,192) and
+  (16,16,384), shift 0 and 4, the C=768 training sublayers of
+  ``chip_smoke.sublayer_cases`` (#12, #13, #14), and the conv-fused x4 head
+  (#5) and its backward (#9) at (64,64,96), out 1 and 3.
+- Against the plain version, both trees' readings printed (``PLAIN``
+  lines): the block kernel (#1) at the same shapes, inference and train
+  form, and the LN+MLP kernel (#4) at (8,8,768). Their fp32 summation order
+  is a design choice of each tree, so their bits may differ.
+- Times (``TIME`` lines; CUDA events, medians of 20, and the device time of
+  the wrapper's kernels from torch.profiler, per call): #1 at (64,64,96),
+  (32,32,192), (16,16,384) and #4 at (8,8,768), batch 2 and 4, and #5 and
+  #9. The trees run in turns (other, this, this, other).
+
+The other tree needs ``chip_smoke.block_params``, ``chip_smoke.time_ms``,
+``chip_smoke.sublayer_cases`` and the wrappers. Needs one GPU; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,11 +41,36 @@ ROOT = Path(__file__).resolve().parent
 OUTPUTS = r'''
 import sys
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
 import chip_smoke as cs
 from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
 from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+
+def device_ms(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / n / 1000
+
+
+def plain(name, got, ref):
+    d = (got.float() - ref.float()).abs()
+    print(f"PLAIN {name}: max|diff| {float(d.max()):.3e} mean|diff| {float(d.mean()):.3e} "
+          f"max|ref| {float(ref.float().abs().max()):.3e}", flush=True)
+
+
+def timed(name, fn):
+    print(f"TIME {name}: {cs.time_ms(fn):.4f} ms events, {device_ms(fn):.4f} ms device",
+          flush=True)
+
 
 gen = torch.Generator(device="cuda").manual_seed(2024)
 B, ws, heads, scale = 2, 8, 8, 8.0
@@ -54,10 +87,15 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
         blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12],
                mask)
         case = f"({H},{H},{C}) shift {shift}"
-        outs[f"fused_swin_block {case}"] = wa.fused_swin_block(*blk, **kw)
-        outs[f"fused_swin_block train form {case}"] = wa.fused_swin_block(*blk, dp, **kw)
+        plain(f"fused_swin_block {case}", wa.fused_swin_block(*blk, **kw),
+              wa.fused_swin_block_reference(*blk, **kw))
+        plain(f"fused_swin_block train form {case}", wa.fused_swin_block(*blk, dp, **kw),
+              wa.fused_swin_block_reference(*blk, dp, **kw))
         for i, g in enumerate(wa.swin_block_bwd(x, dout, *blk[1:], dp, **kw)):
             outs[f"swin_block_bwd {case} output {i}"] = g
+        if C < 384:
+            for i, g in enumerate(wa.fused_swin_block_res(*blk, dp, **kw)):
+                outs[f"fused_swin_block_res {case} output {i}"] = g
 for name, case, kernel, _, args, kw, _, _ in cs.sublayer_cases(gen):
     out = kernel(*args, **kw)
     for i, g in enumerate(out if isinstance(out, tuple) else (out,)):
@@ -73,9 +111,26 @@ for out_ch in (1, 3):
     dout = n(B, H, H, 16 * out_ch).to(torch.bfloat16)
     for i, g in enumerate(up.up4_conv_bwd(*hp, dout)):
         outs[f"up4_conv_bwd out {out_ch} output {i}"] = g
-    print(f"TIME up4 head out {out_ch}: fused_dual_upsample4_conv_phase "
-          f"{cs.time_ms(lambda: up.fused_dual_upsample4_conv_phase(*hp)):.4f} ms, up4_conv_bwd "
-          f"{cs.time_ms(lambda: up.up4_conv_bwd(*hp, dout)):.4f} ms", flush=True)
+    timed(f"fused_dual_upsample4_conv_phase out {out_ch}",
+          lambda: up.fused_dual_upsample4_conv_phase(*hp))
+    timed(f"up4_conv_bwd out {out_ch}", lambda: up.up4_conv_bwd(*hp, dout))
+H, C = 8, 768
+p = cs.block_params(C, heads, ws * ws, gen)
+y = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+plain(f"fused_ln_mlp ({H},{H},{C})", wa.fused_ln_mlp(y, p[6:8], *p[8:12]),
+      wa.fused_ln_mlp_reference(y, p[6:8], *p[8:12]))
+for Bt in (2, 4):
+    for H, C in ((64, 96), (32, 192), (16, 384), (8, 768)):
+        p = cs.block_params(C, heads, ws * ws, gen)
+        x = torch.randn(Bt, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        if C == 768:
+            timed(f"fused_ln_mlp batch {Bt} ({H},{H},{C})",
+                  lambda: wa.fused_ln_mlp(x, p[6:8], *p[8:12]))
+        else:
+            blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12],
+                   None)
+            timed(f"fused_swin_block batch {Bt} ({H},{H},{C})",
+                  lambda: wa.fused_swin_block(*blk, ws=ws, num_heads=heads, scale=scale))
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''
 
@@ -86,7 +141,7 @@ def outputs(tree: Path, path: Path):
     if proc.returncode != 0:
         raise SystemExit(f"chip_ab: {tree} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     for line in proc.stdout.splitlines():
-        if line.startswith("TIME"):
+        if line.startswith(("TIME", "PLAIN")):
             print(f"{tree}: {line}")
 
 
@@ -100,8 +155,8 @@ def main():
         raise SystemExit("chip_ab: torch.cuda.is_available() is false")
     with tempfile.TemporaryDirectory() as tmp:
         got = {}
-        # in turns (other, this, this, other): the x4 head's times compare
-        # the two trees on one card
+        # in turns (other, this, this, other): the times compare the two
+        # trees on one card
         for label, tree in (("other", other), ("this", ROOT), ("this", ROOT), ("other", other)):
             outputs(tree, Path(tmp) / f"{label}.pt")
             got[label] = torch.load(Path(tmp) / f"{label}.pt")

@@ -117,6 +117,19 @@ MUTANTS = {
         "      acc += stencil_adj(h, H, i, [&](int u) {\n",
         "      acc += (h == 0 && i < 2 ? -kQ4[i][0] * dyh[((size_t)i * M + (size_t)b * H * W + w) "
         "* C + c] : 0.f) +\n             stencil_adj(h, H, i, [&](int u) {\n"),
+    # the cluster block kernel (#1): the last rank's fc2 partial left out of
+    # the reduction (at G = 1 the only one), and the next rank's ctx
+    # columns not gathered before proj (G > 1: C=192 and 384)
+    "cluster_fc2_rank_dropped": ("swin_cluster.cu",
+                                 "for (int q = 0; q < G; ++q) {   // fc2 partials in rank order",
+                                 "for (int q = 0; q < G - 1; ++q) {   // fc2 partials in rank order"),
+    "cluster_ctx_slice_not_gathered": ("swin_cluster.cu",
+                                       "if (q == rank) continue;   // ctx gather",
+                                       "if (q == rank || q == (rank + 1) % G) continue;"),
+    # the LN+MLP kernel (#4): the last rank's fc2 partial left out
+    "ln_mlp_fc2_rank_dropped": ("ln_mlp.cu",
+                                "for (int q = 0; q < G; ++q)   // fc2 partials in rank order",
+                                "for (int q = 0; q < G - 1; ++q)   // fc2 partials in rank order"),
     # the standalone W-MSA (#15) without its qkv bias
     "wmsa_no_qkv_bias": ("window_attention.cu", "a.wqkv, a.bqkv, a.bias, mask",
                          "a.wqkv, nullptr, a.bias, mask"),
@@ -223,6 +236,27 @@ for shift in (0, 4):
     got = (wa.fused_window_attention_reference(*cpu(args), **kw) if mode == "floor"
            else wa.fused_window_attention(*args, **kw))
     cs.compare(f"wmsa_core (64,64,96) shift {shift} {tag}", got.cuda(), ref)
+# the cluster block kernel (#1) at the three widths, shift 0 and 4, and the
+# LN+MLP kernel (#4), drawn last so that the cases above keep their inputs
+for H, C in ((64, 96), (32, 192), (16, 384)):
+    for shift in (0, 4):
+        p = cs.block_params(C, heads, ws * ws, gen, qkv_gain=gain)
+        x = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        args = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12],
+                mask)
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+        ref = wa.fused_swin_block_reference(*args, **kw)
+        got = (wa.fused_swin_block_reference(*cpu(args), **kw) if mode == "floor"
+               else wa.fused_swin_block(*args, **kw))
+        cs.compare(f"fused_swin_block ({H},{H},{C}) shift {shift} {tag}", got.cuda(), ref)
+p = cs.block_params(768, heads, ws * ws, gen, qkv_gain=gain)
+y = torch.randn(B, 8, 8, 768, device="cuda", generator=gen).to(torch.bfloat16)
+args = (y, p[6:8], p[8], p[9], p[10], p[11])
+ref = wa.fused_ln_mlp_reference(*args)
+got = (wa.fused_ln_mlp_reference(*cpu(args)) if mode == "floor" else wa.fused_ln_mlp(*args))
+cs.compare(f"fused_ln_mlp (8,8,768) {tag}", got.cuda(), ref)
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)

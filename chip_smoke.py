@@ -8,8 +8,9 @@
    then a link) and prints the time.
 3. One phase per kernel at the default model's shapes, batch 2, bf16:
    kernel vs its plain PyTorch version (max and mean |diff| against a
-   stated tolerance), the median time of each over 20 CUDA-event-timed
-   runs after warm-up, and the kernel's bound (bytes or operations over
+   stated tolerance), the median device time of each over 20
+   CUDA-event-timed runs after warm-up (the card spins first, so the host's
+   pace of launches does not count), and the kernel's bound (bytes or operations over
    the card's published peak rates). The forward kernels also include the
    split x4 head (#10, also on a map that is not a multiple of its tile)
    and the standalone W-MSA (#15, with one PyTorch call for the same
@@ -23,8 +24,9 @@
 4. The inference slice: the default SUNet (99,681,993 parameters, seeded
    weights) at 256x256 batch 4 through backend="fused"; the kernels' launch
    counts must equal the router's prediction; the output is held against
-   backend="eager" on the same weights (finite, mean |diff| <= 5e-3); one
-   forward is traced with torch.profiler for its device time by kernel.
+   backend="eager" on the same weights (finite, mean |diff| <= 5e-3); the
+   forward's device time and its time paced by the host; one forward is
+   traced with torch.profiler for its device time by kernel.
 5. The entry point: ``sunet_tf_tpu_torch.demo.main`` on synthetic PNGs.
 6. The training slice: one training step of the default SUNet at 256x256
    batch 4 on a synthetic dataset, fused vs eager on the same weights,
@@ -145,8 +147,8 @@ PEAK_HBM_BYTES = 3.35e12
 
 WA = "sunet_tf_tpu/kernels/window_attention.py"
 REPLACES = {
-    "fused_swin_block": (f"{WA}:1582", "sunet_tf_tpu_torch/kernels/csrc/swin_block.cu"),
-    "fused_swin_block_chain": (f"{WA}:1741", "sunet_tf_tpu_torch/kernels/csrc/swin_block.cu"),
+    "fused_swin_block": (f"{WA}:1582", "sunet_tf_tpu_torch/kernels/csrc/swin_cluster.cu"),
+    "fused_swin_block_chain": (f"{WA}:1741", "sunet_tf_tpu_torch/kernels/csrc/swin_cluster.cu"),
     "fused_ln_window_attention": (f"{WA}:2742",
                                   "sunet_tf_tpu_torch/kernels/csrc/ln_window_attention.cu"),
     "fused_ln_mlp": (f"{WA}:1350", "sunet_tf_tpu_torch/kernels/csrc/ln_mlp.cu"),
@@ -354,12 +356,24 @@ def check(cond: bool, msg: str):
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, device: bool = True) -> float:
+    """Median time of ``fn`` over ``iters`` CUDA-event-timed calls. With
+    ``device`` the card first spins (``torch.cuda._sleep``) for longer than
+    the host takes to enqueue every call, so the events time the device's
+    work and not the host's pace of launches; without it they time both, as
+    a caller who waits on each call sees them."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if device:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # about 2e9 cycles per second, twice the host's time to enqueue them all
+        torch.cuda._sleep(int(min(2.0, 2 * (iters + 1) * host_s) * 2e9))
     evs = []
     for _ in range(iters):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -981,21 +995,25 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
         check(mean <= SLICE_MEAN_TOL, "fused forward disagrees with eager")
         fused_ms = time_ms(lambda: fused(x), iters=10)
         eager_ms = time_ms(lambda: eager(x), iters=10)
-        print(f"  forward ms (batch 4): fused {fused_ms:.3f}, eager {eager_ms:.3f}; "
-              f"{4000.0 / fused_ms:.1f} img/s fused")
+        fused_wall = time_ms(lambda: fused(x), iters=10, device=False)
+        eager_wall = time_ms(lambda: eager(x), iters=10, device=False)
+        print(f"  forward ms (batch 4), device: fused {fused_ms:.3f}, eager {eager_ms:.3f}; "
+              f"{4000.0 / fused_ms:.1f} img/s fused; paced by the host: fused "
+              f"{fused_wall:.3f}, eager {eager_wall:.3f}; {4000.0 / fused_wall:.1f} img/s fused")
         trace = trace_step(lambda: fused(x), f"fused forward, {label}")
     for k in report or [k for k, v in launches.items() if v > 0]:
         results.setdefault(k, {"max_abs_err": 0.0, "cases": []})["launches"] = launches[k]
     del fused, eager
     torch.cuda.empty_cache()
-    return {"fused_ms": fused_ms, "eager_ms": eager_ms, "mean_abs_diff": mean,
+    return {"fused_ms": fused_ms, "eager_ms": eager_ms, "fused_wall_ms": fused_wall,
+            "eager_wall_ms": eager_wall, "mean_abs_diff": mean,
             "launches": launches, "trace": trace}
 
 
 def trace_step(fn, label: str) -> dict:
     """Device time of one call of ``fn`` by kernel, from torch.profiler: the
-    port's kernels by name (the block kernel by its column-tile count MC: 1,
-    2, 3 at C=96, 192, 384; the backward's GEMMs by their operand layouts),
+    port's kernels by name (the residual form of the block kernel by its
+    column-tile count MC; the backward's GEMMs by their operand layouts),
     everything else as plain torch ops; the device's busy share of the
     call's CUDA-event time."""
     import re
@@ -1338,7 +1356,7 @@ def step_times(cfg, task: str, models: dict, step: dict, batch: dict) -> tuple:
             torch.cuda.synchronize()
             step[be]["step_peak_bytes"] = torch.cuda.max_memory_allocated()
             step[be]["step_added_bytes"] = step[be]["step_peak_bytes"] - base
-            times[be] = time_ms(run, iters=10, warmup=2)
+            times[be] = time_ms(run, iters=10, warmup=2, device=False)
     for be in models:
         print(f"  {be}: train step {times[be]:.3f} ms (median of 10); peak memory "
               f"over the first step (its optimizer state is made there) "

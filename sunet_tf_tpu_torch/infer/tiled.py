@@ -8,7 +8,6 @@ import math
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
 
 def required_granularity(patch_size: int, num_stages: int, win_size: int) -> int:
@@ -16,20 +15,25 @@ def required_granularity(patch_size: int, num_stages: int, win_size: int) -> int
     return patch_size * (2 ** (num_stages - 1)) * win_size
 
 
-def reflect_pad_nhwc(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """Reflect-pad the bottom and right of an NHWC tensor.
+def _reflect_index(n: int, pad: int) -> torch.Tensor:
+    """Source rows of ``n + pad`` reflect-padded rows: the index folds with
+    period 2(n - 1), so a pad past the size reflects again (numpy's and
+    ``jnp.pad``'s ``mode="reflect"``); a size of 1 repeats its one row."""
+    i = torch.arange(n + pad)
+    if n == 1:
+        return torch.zeros_like(i)
+    m = i % (2 * (n - 1))
+    return torch.where(m < n, m, 2 * (n - 1) - m)
 
-    Raises where a pad reaches the input's size: reflection is defined for
-    pads smaller than the size (numpy's ``pad`` reflects again past it)."""
+
+def reflect_pad_nhwc(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Reflect-pad the bottom and right of an NHWC tensor, reflecting again
+    where a pad reaches the input's size."""
     if ph == 0 and pw == 0:
         return x
     H, W = x.shape[1], x.shape[2]
-    if ph >= H or pw >= W:
-        raise ValueError(f"reflect pad ({ph}, {pw}) must be smaller than the "
-                         f"image ({H}, {W}); resize the image or use a "
-                         "smaller granularity")
-    y = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect")
-    return y.permute(0, 2, 3, 1)
+    y = x.index_select(1, _reflect_index(H, ph).to(x.device))
+    return y.index_select(2, _reflect_index(W, pw).to(x.device))
 
 
 def padded_inference(model_fn: Callable, img: torch.Tensor,

@@ -41,9 +41,11 @@ byref = ctypes.byref
 SIGNATURES = {
     # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
     # bias, mask, dp (B, 2) or NULL, B, H, W, C, hidden, ws, heads, shift,
-    # scale, stream
-    "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F, _P],
-    # sunet_swin_block's pointers, then eb, rden, ctx_f; the same scalars
+    # scale, then the launch plan: G, S, slot bytes, shared-memory bytes;
+    # stream
+    "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F] + [_I] * 3 + [ctypes.c_longlong, _P],
+    # sunet_swin_block's pointers, then eb, rden, ctx_f; B, H, W, C, hidden,
+    # ws, heads, shift, scale, stream
     "sunet_swin_block_res": [_P] * 20 + [_I] * 8 + [_F, _P],
     # x, dout, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
     # bias, mask, dp, dx, 13 grads (ln1 g/b, wqkv, bqkv, wproj, bproj, ln2
@@ -85,8 +87,11 @@ SIGNATURES = {
     "sunet_ln_wmsa_ctx": [_P] * 8 + [_I] * 6 + [_F, _P],
     # A, W, bias, out, M, K, Nout, stream
     "sunet_linear_bias": [_P] * 4 + [_I] * 3 + [_P],
-    # y, out, ln g/b, w1, b1, w2, b2, M, C, hidden, stream
-    "sunet_ln_mlp": [_P] * 8 + [_I] * 3 + [_P],
+    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks, S, slot,
+    # int* launches, stream
+    "sunet_ln_mlp": [_P] * 9 + [_I] * 6 + [_P, _P],
+    # M, C, hidden -> workspace bytes
+    "sunet_ln_mlp_workspace": [_I] * 3,
     # x, out, wexp(16,C,C), wb1, bb1, wpf, wbf, wconv(3,3,C,out), alphas,
     # B, H, W, C, out_ch, stream
     "sunet_up4_conv_phase": [_P] * 9 + [_I] * 5 + [_P],
@@ -154,21 +159,21 @@ def _sources() -> list:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags: tuple = NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(target: Path) -> str:
+def _compile(target: Path, flags: tuple = NVCC_FLAGS) -> str:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     nvcc = _nvcc()
     procs = []
     for cu in sorted(CSRC.glob("*.cu")):
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-c", "-o",
                str(work / (cu.stem + ".o")), str(cu)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
@@ -194,6 +199,16 @@ def _compile(target: Path) -> str:
     return "\n".join(log)
 
 
+def _load(target: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(target))
+    for name, args in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = (ctypes.c_size_t if name.endswith("_workspace")
+                      else ctypes.c_int)
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     with _Library.lock:
@@ -202,14 +217,21 @@ def library() -> ctypes.CDLL:
             target = BUILD_DIR / f"libsunet_kernels_{_digest()}.so"
             if not target.exists():
                 _Library.log = _compile(target)
-            lib = ctypes.CDLL(str(target))
-            for name, args in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = (ctypes.c_size_t if name.endswith("_workspace")
-                              else ctypes.c_int)
+            _Library.lib = _load(target)
             _Library.seconds = time.perf_counter() - t0
-            _Library.lib = lib
+        return _Library.lib
+
+
+def use_variant(defines: tuple) -> ctypes.CDLL:
+    """Build the kernels with extra ``-D`` macros (e.g. a measurement
+    build) into their own library, and make it the one the wrappers call
+    in this process."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    target = BUILD_DIR / f"libsunet_kernels_{_digest(flags)}.so"
+    with _Library.lock:
+        if not target.exists():
+            _Library.log = _compile(target, flags)
+        _Library.lib = _load(target)
         return _Library.lib
 
 

@@ -1,25 +1,23 @@
-// Whole Swin block, one CTA per (image, window).
+// Whole Swin block, one CTA per (image, window): the residual-saving
+// training forward.
 //
-// Replaces sunet_tf_tpu/kernels/window_attention.py::fused_swin_block (and,
-// launched K times, fused_swin_block_chain): LN1 -> window partition -> QKV
-// -> per head QK^T*scale + rel-pos bias (+ SW mask) -> row-max softmax -> P@V
-// -> proj -> residual -> LN2 -> fc1 -> erf GELU -> fc2 -> residual. In
-// training (swin_block_trainable) each image's two branches are scaled by
-// its stochastic-depth pair dp[b] = (s1, s2) where _block_body applies them:
-// y = round(x + s1*attn), out = round(y + s2*mlp).
+// Replaces sunet_tf_tpu/kernels/window_attention.py::fused_swin_block_res
+// (its kernel _block_fwd_res_kernel). The inference block and its train
+// form (fused_swin_block, #1, and the chain #2) moved to swin_cluster.cu;
+// this kernel serves the residual form alone, bit for bit
+// as it was. LN1 -> window partition -> QKV -> per head QK^T*scale +
+// rel-pos bias (+ SW mask) -> row-max softmax -> P@V -> proj -> residual ->
+// LN2 -> fc1 -> erf GELU -> fc2 -> residual, each image's two branches
+// scaled by its stochastic-depth pair dp[b] = (s1, s2): y = round(x +
+// s1*attn), out = round(y + s2*mlp). Each head's softmax denominator is the
+// sum of the bf16-rounded exponentials, ctx_f = (e_bf16 @ v) * (1/den), the
+// block goes on from round(ctx_f), and the kernel also stores the attention
+// state that swin_block_bwd_res.cu differentiates, in window-major (rolled)
+// token order: eb (B*nW, heads, N, N) bf16, rden (B*nW, heads, N) and ctx_f
+// (T, C) float32. Those stores add ~9 KB per head-window at N=64 to the
+// kernel's HBM traffic.
 //
-// The residual-saving training forward (sunet_swin_block_res) is the same
-// kernel with kRes set. It replaces fused_swin_block_res (its kernel
-// _block_fwd_res_kernel): each head's softmax denominator is the sum of
-// the bf16-rounded exponentials, ctx_f = (e_bf16 @ v) * (1/den), the block
-// goes on from round(ctx_f), and the kernel also stores the attention state
-// that swin_block_bwd_res.cu differentiates, in window-major (rolled) token
-// order: eb (B*nW, heads, N, N) bf16, rden (B*nW, heads, N) and ctx_f (T,
-// C) float32. Those stores add ~9 KB per head-window at N=64 to the
-// kernel's HBM traffic; with kRes unset the inference and train-form
-// launches compile to the code they had before.
-//
-// What bounds it on Hopper: at C=96..384 a 64-token window holds ~16 MFLOP
+// What bounds it on Hopper: at C=96..192 a 64-token window holds ~16 MFLOP
 // of products against ~0.1-0.3 MB of (L2-resident) weights read per CTA, so
 // the weight stream from L2 and the tensor-core issue rate bound it, not
 // HBM: the activation crosses device memory once in and once out.
@@ -30,12 +28,10 @@
 // (wy, wx) lives at x[b, (wy*ws+r+s) % H, (wx*ws+c+s) % W]); the mask row is
 // the window's rolled-space index. Shared memory (227 KB) holds x, LN(x) and
 // ctx for the window plus one head's q/k/v and scores: 215,808 bytes at
-// C=384, which is the cap (kernels/window_attention.py BLOCK_KERNEL_MAX_C).
-// The fc2 sums (64 x C fp32, 96 KB at C=384) stay in registers: each warp
-// owns up to 3 output column tiles for all 4 row tiles. Products are bf16
-// wmma tiles with fp32 accumulation, register-tiled per warp (4 rows x up
-// to 3 columns), weight tiles read straight from L2 (wgmma/TMA are later
-// work).
+// C=384. The fc2 sums (64 x C fp32) stay in registers: each warp owns up to
+// 3 output column tiles for all 4 row tiles. Products are bf16 wmma tiles
+// with fp32 accumulation, register-tiled per warp (4 rows x up to 3
+// columns), weight tiles read straight from L2.
 #include "common.cuh"
 
 namespace sunet {
@@ -60,7 +56,7 @@ struct BlockArgs {
   const float* dp;   // (B, 2) drop-path scales of the two branches, or null (ones)
   int B, H, W, C, hidden, ws, heads, shift;
   float scale;
-  AttnRes res;       // the residual route's stores (kRes), whole-batch bases
+  AttnRes res;       // the residual route's stores, whole-batch bases
 };
 
 // tok offsets | x | LN(x) | ctx (then the MLP hidden chunk) | head | warps;
@@ -72,7 +68,7 @@ __host__ __device__ inline size_t block_smem_bytes(int N, int C, int dp) {
          warp_smem_bytes();
 }
 
-template <int MC, bool kRes>
+template <int MC>
 __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int N = a.ws * a.ws, C = a.C, d = C / a.heads, dp = align_up(d, 16);
@@ -117,14 +113,11 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
   layer_norm_rows(xs, xn, ldx, N, C, a.g1, a.be1, warp, lane);
   __syncthreads();
   const float* mask = a.mask ? a.mask + (size_t)win * N * N : nullptr;
-  AttnRes res{};
-  if constexpr (kRes) {
-    const size_t wg = (size_t)b * gridDim.x + win;   // window-major window index
-    res = {a.res.eb + wg * a.heads * N * N, a.res.rden + wg * a.heads * N,
-           a.res.ctx + wg * N * C};
-  }
+  const size_t wg = (size_t)b * gridDim.x + win;   // window-major window index
+  const AttnRes res{a.res.eb + wg * a.heads * N * N, a.res.rden + wg * a.heads * N,
+                    a.res.ctx + wg * N * C};
   for (int hh = 0; hh < a.heads; ++hh)
-    attn_head<kRes>(xn, ldx, C, N, d, dp, hh, a.wqkv, a.bqkv, a.bias, mask, a.scale, hs,
+    attn_head<true>(xn, ldx, C, N, d, dp, hh, a.wqkv, a.bqkv, a.bias, mask, a.scale, hs,
                     bt, stg, warp, lane,
                     [&](int t, int c, bf16 v) { ctx[t * ldx + c] = v; }, res);
   const int rt_n = N / 16, nc = owned(C / 16, warp);
@@ -155,7 +148,6 @@ __global__ void __launch_bounds__(kThreads) swin_block_kernel(BlockArgs a) {
                     warp, lane, [&](int t, int c, bf16 v) { a.out[tok[t] + c] = v; });
 }
 
-template <bool kRes>
 cudaError_t launch_block(const BlockArgs& a, cudaStream_t st) {
   const int N = a.ws * a.ws;
   if (N % 16 || N > 64 || a.C % 16 || a.C % a.heads || a.hidden % 16 || a.H % a.ws ||
@@ -165,7 +157,7 @@ cudaError_t launch_block(const BlockArgs& a, cudaStream_t st) {
   const dim3 grid((a.H / a.ws) * (a.W / a.ws), a.B);
   const int need = (a.C / 16 + kWarps - 1) / kWarps;
   return dispatch_mc<3>(need, [&](auto mc) -> cudaError_t {
-    auto k = swin_block_kernel<decltype(mc)::value, kRes>;
+    auto k = swin_block_kernel<decltype(mc)::value>;
     cudaError_t e = set_smem(k, smem);
     if (e != cudaSuccess) return e;
     k<<<grid, kThreads, smem, st>>>(a);
@@ -177,26 +169,9 @@ cudaError_t launch_block(const BlockArgs& a, cudaStream_t st) {
 
 using namespace sunet;
 
-extern "C" int sunet_swin_block(const void* x, void* out, const void* g1,
-                                const void* be1, const void* wqkv, const void* bqkv,
-                                const void* wproj, const void* bproj, const void* g2,
-                                const void* be2, const void* w1, const void* b1,
-                                const void* w2, const void* b2, const void* bias,
-                                const void* mask, const void* dp, int B, int H, int W, int C,
-                                int hidden, int ws, int heads, int shift, float scale,
-                                void* stream) {
-  BlockArgs a{(const bf16*)x,     (bf16*)out,         (const float*)g1,
-              (const float*)be1,  (const bf16*)wqkv,  (const float*)bqkv,
-              (const bf16*)wproj, (const float*)bproj, (const float*)g2,
-              (const float*)be2,  (const bf16*)w1,    (const float*)b1,
-              (const bf16*)w2,    (const float*)b2,   (const float*)bias,
-              (const float*)mask, (const float*)dp, B, H, W, C, hidden, ws, heads, shift,
-              scale, AttnRes{}};
-  return (int)launch_block<false>(a, (cudaStream_t)stream);
-}
-
-// The residual route's training forward: sunet_swin_block's arguments, then
-// eb, rden and ctx_f (layouts in the header note).
+// The residual route's training forward: x, out, ln1 g/b, wqkv, bqkv,
+// wproj, bproj, ln2 g/b, w1, b1, w2, b2, bias, mask, dp; then eb, rden and
+// ctx_f (layouts in the header note); then the shape, scale and stream.
 extern "C" int sunet_swin_block_res(const void* x, void* out, const void* g1,
                                     const void* be1, const void* wqkv, const void* bqkv,
                                     const void* wproj, const void* bproj, const void* g2,
@@ -213,5 +188,5 @@ extern "C" int sunet_swin_block_res(const void* x, void* out, const void* g1,
               (const bf16*)w2,    (const float*)b2,   (const float*)bias,
               (const float*)mask, (const float*)dp, B, H, W, C, hidden, ws, heads, shift,
               scale, AttnRes{(bf16*)eb, (float*)rden, (float*)ctx}};
-  return (int)launch_block<true>(a, (cudaStream_t)stream);
+  return (int)launch_block(a, (cudaStream_t)stream);
 }

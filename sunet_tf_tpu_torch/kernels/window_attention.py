@@ -5,7 +5,8 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
 
 - :func:`fused_swin_block` (JAX ``fused_swin_block``): one whole block,
   LN1 -> W-MSA (+ in-kernel SW roll) -> proj -> residual -> LN2 -> MLP ->
-  residual. CUDA: ``csrc/swin_block.cu``.
+  residual. CUDA: ``csrc/swin_cluster.cu``, a cluster of CTAs per window
+  (:func:`block_plan`).
 - :func:`fused_swin_block_chain` (JAX ``fused_swin_block_chain``): K
   consecutive blocks with a bf16 cast at each seam; launches the block
   kernel K times (keeping the map on chip between blocks is open work).
@@ -13,7 +14,7 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   LN -> W-MSA -> proj, no residual; two launches (per-head ctx, then the
   projection). CUDA: ``csrc/ln_window_attention.cu``.
 - :func:`fused_ln_mlp` (JAX ``fused_ln_mlp``): ``y + fc2(gelu(fc1(LN(y))))``.
-  CUDA: ``csrc/ln_mlp.cu``.
+  CUDA: ``csrc/ln_mlp.cu``, three launches (:func:`mlp_plan`).
 - :func:`fused_window_attention` (JAX ``fused_window_attention``): W-MSA
   with its qkv bias and output projection over a pre-normalized,
   pre-rolled map, no LayerNorm; the partition and reverse are torch ops
@@ -27,7 +28,7 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
 - The residual route, JAX's default training block where the attention
   takes the blockdiag layout (:func:`bwd_residuals_enabled`):
   :func:`fused_swin_block_res` (JAX ``fused_swin_block_res``, CUDA
-  ``csrc/swin_block.cu``'s residual form) is the train-form block that
+  ``csrc/swin_block.cu``, one CTA per window) is the train-form block that
   also returns the softmax state (eb, rden, ctx_f), and
   :func:`swin_block_bwd_res` (JAX ``_block_bwd_impl_res``, CUDA
   ``csrc/swin_block_bwd_res.cu``) the block backward from that state, with
@@ -65,6 +66,7 @@ wrapper's count goes up by one per kernel launch (``_build.LaunchCount``).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Optional
 
@@ -74,10 +76,10 @@ from sunet_tf_tpu_torch.kernels import _build
 from sunet_tf_tpu_torch.ops.window import roll2d, window_partition, window_reverse
 
 BF16 = torch.bfloat16
-# Largest C the whole-block kernel takes: shared memory of one CTA holds
-# x, LN(x) and ctx for a 64-token window plus one head's q/k/v and scores
-# (215,808 bytes at C=384, of 232,448). Wider blocks take the split
-# LN+W-MSA / LN+MLP kernels.
+# Largest C the whole-block kernel takes: fc2's output columns are at most
+# six 64-column boxes, whose sums the CTA's warpgroups hold in registers
+# (csrc/swin_cluster.cu kMaxBoxes). Wider blocks take the split LN+W-MSA /
+# LN+MLP kernels.
 BLOCK_KERNEL_MAX_C = 384
 # Kernel launches one call of each training wrapper makes (the forward
 # recompute, the backward products and the token reductions of
@@ -87,6 +89,7 @@ SWIN_BLOCK_BWD_LAUNCHES = 35
 SWIN_BLOCK_BWD_RES_LAUNCHES = 35   # #8's sequence: ctx rounding for the recompute
 LN_WMSA_BWD_LAUNCHES = 19
 LN_MLP_BRANCH_LAUNCHES = 3
+LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
 LN_MLP_BWD_LAUNCHES = 15
 # Widest C of the training sublayer kernels (the LN backward's rows).
 SPLIT_TRAIN_MAX_C = 768
@@ -94,6 +97,145 @@ SPLIT_TRAIN_MAX_C = 768
 
 def _pad128(v: int) -> int:
     return -(-v // 128) * 128
+
+
+# ---------------------------------------------------------------- launch plans
+# of the cluster kernels (csrc/swin_cluster.cu for #1 and #2, csrc/ln_mlp.cu
+# for #4): cluster size, ring and shared-memory bytes, in plain Python; the
+# C entry points recompute the bytes and refuse a plan that differs.
+
+SMEM_MAX = 232448     # dynamic shared memory of one CTA on the H100
+CLUSTER_MAX = 8       # the portable thread-block cluster size
+FILL_CTAS = 96        # CTAs a launch aims at: most of the H100's 132 SMs
+BLOCK_RING = (3, 24576)   # (slots, slot bytes) of the weight ring
+MLP_RING = (4, 16384)
+_TILE = 64            # rows of a wgmma tile: one window, or 64 tokens
+_BOX = 64             # columns of a weight box
+_BOXES_PER_PRODUCT = 6   # 64-column boxes of one product (csrc/swin_cluster.cu kMaxBoxes)
+_PRODUCT_BYTES = 40   # sizeof(hop::Product)
+_CONSUMER_WGS = 3     # warpgroups of the block kernel (csrc/swin_cluster.cu kWG)
+
+
+def _up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+def _boxes(cols: int) -> int:
+    """64-column weight boxes of a product of ``cols`` columns."""
+    return -(-cols // _BOX)
+
+
+def _chunk_rows(slot: int, nb: int, K: int) -> int:
+    """Rows per ring chunk of a product of nb weight boxes over K rows
+    (``hop::chunk_rows``): the most k16 steps that fit a slot and divide K,
+    at most 256; 0 when none does."""
+    return next((bk for bk in range(256, 0, -16) if bk * nb * 128 <= slot and K % bk == 0), 0)
+
+
+def _a_bytes(K: int) -> int:
+    """Bytes of a 64 x K wgmma A operand: 8 KB panels of 64 columns."""
+    return -(-K // 64) * _TILE * 128
+
+
+def _block_carve(C: int, hidden: int, heads: int, G: int, S: int, slot: int) -> tuple:
+    """(offset of the ring, total bytes) of the cluster block kernel's
+    dynamic shared memory (``block_carve`` in csrc/swin_cluster.cu), after
+    1024 bytes of alignment slack: a header (token offsets, the ring's
+    barriers, the product table), the CTA's bias columns and its q/k/v
+    columns' offsets in the head buffers, x/y rows, the ring, the K-major A
+    operand, the larger of the CTA's heads' q, k and v and the fc1 output,
+    and the epilogues' staging tiles. The fc2 partial (64 x (C + 4) fp32)
+    later takes the place of the ring and what follows it."""
+    cg, hg, hr, d = C // G, hidden // G, heads // G, C // heads
+    ldq = _up(d, 16) + 8
+    ring = (_up(_TILE * 8 + 16 * S + 4 * _PRODUCT_BYTES, 1024) + _up((7 * cg + hg) * 4, 1024)
+            + _up(_TILE * (C + 8) * 2, 1024))
+    abuf = _a_bytes(C)
+    attn = _up(3 * hr * _TILE * ldq * 2, 128)
+    h = _a_bytes(hg)
+    staging = _CONSUMER_WGS * _TILE * (16 + 4) * 4   # each warpgroup's quarter box of sums
+    return ring, 1024 + ring + S * slot + abuf + max(attn, h) + staging
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(B: int, H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
+    """Launch plan of the cluster block kernel for a (B, H, W, C) map: the
+    smallest cluster size G (CTAs per window) whose launch has at least
+    FILL_CTAS CTAs, or the largest G that fits when none does. G divides
+    heads, C and hidden; each of the CTA's four products (q/k/v, proj, fc1,
+    fc2) has at most six 64-column boxes; its shared memory fits SMEM_MAX.
+    Raises ValueError on a shape outside the design."""
+    N = ws * ws
+    d = C // heads
+    why = None
+    if N % 16 or N > _TILE:
+        why = f"window of {N} tokens (the kernel takes N % 16 == 0, N <= {_TILE})"
+    elif C % 16 or C % heads or hidden % 16:
+        why = "C and hidden must be multiples of 16 and C of heads"
+    elif _boxes(C) > _BOXES_PER_PRODUCT:
+        why = f"C above {_BOX * _BOXES_PER_PRODUCT} (fc2's output columns)"
+    elif d > _TILE:
+        why = f"head dim {d} above {_TILE}"
+    if why:
+        raise ValueError(f"block_plan: C={C}, hidden={hidden}, heads={heads}, ws={ws}: {why}")
+    windows = B * (H // ws) * (W // ws)
+    plans = []
+    G = 1
+    while G <= CLUSTER_MAX:
+        cg, hg = C // G, hidden // G
+        nq, nh, nc = _boxes(cg), _boxes(hg), _boxes(C)
+        if (heads % G == 0 and C % G == 0 and hidden % G == 0 and cg % 8 == 0
+                and hg % 16 == 0 and max(3 * nq, nh) <= _BOXES_PER_PRODUCT):
+            S, slot = BLOCK_RING
+            ring, smem = _block_carve(C, hidden, heads, G, S, slot)
+            chunks = (_chunk_rows(slot, 3 * nq, C), _chunk_rows(slot, nq, C),
+                      _chunk_rows(slot, nh, C), _chunk_rows(slot, nc, hg))
+            if (smem <= SMEM_MAX and _TILE * (C + 4) * 4 <= smem - 1024 - ring
+                    and all(chunks)):
+                plans.append({"G": G, "S": S, "slot": slot, "smem": smem,
+                              "ctas": windows * G})
+        G *= 2
+    if not plans:
+        raise ValueError(f"block_plan: C={C}, hidden={hidden}, heads={heads}: no cluster "
+                         f"size up to {CLUSTER_MAX} divides heads, C and hidden with its "
+                         f"columns and shared memory ({SMEM_MAX} bytes) in the design")
+    return next((p for p in plans if p["ctas"] >= FILL_CTAS), plans[-1])
+
+
+def mlp_smem(K: int, S: int, slot: int) -> int:
+    """Shared-memory bytes of one GEMM launch of csrc/ln_mlp.cu over K rows
+    of W: slack, header, ring, the 64 x K A operand."""
+    return 1024 + 1024 + S * slot + _a_bytes(K)
+
+
+@functools.lru_cache(maxsize=None)
+def mlp_plan(M: int, C: int, hidden: int) -> dict:
+    """Launch plan of fused_ln_mlp's two products over M token rows: fc1 on
+    64 x 128 tiles; fc2 on the same tiles times a K split ks (its cluster
+    size, a power of two <= CLUSTER_MAX dividing hidden / 16 and 128), the
+    smallest with at least FILL_CTAS CTAs, or the largest that fits. Raises
+    ValueError on a shape outside the design."""
+    S, slot = MLP_RING
+    if M <= 0 or C % 16 or hidden % 16:
+        raise ValueError(f"mlp_plan: M={M}, C={C}, hidden={hidden}: the kernel takes M > 0 "
+                         "and multiples of 16")
+    if mlp_smem(C, S, slot) > SMEM_MAX:
+        raise ValueError(f"mlp_plan: C={C}: fc1's 64 x C operand does not fit {SMEM_MAX} bytes")
+    tiles, ncol = -(-M // _TILE), -(-C // 128)
+    plans = []
+    ks = 1
+    while ks <= CLUSTER_MAX:
+        if (hidden % (16 * ks) == 0 and mlp_smem(hidden // ks, S, slot) <= SMEM_MAX
+                and _chunk_rows(slot, 2, C) and _chunk_rows(slot, 2, hidden // ks)):
+            plans.append({"ks": ks, "S": S, "slot": slot,
+                          "smem_fc1": mlp_smem(C, S, slot),
+                          "smem_fc2": mlp_smem(hidden // ks, S, slot),
+                          "ctas_fc1": tiles * -(-hidden // 128),
+                          "ctas_fc2": tiles * ncol * ks})
+        ks *= 2
+    if not plans:
+        raise ValueError(f"mlp_plan: hidden={hidden}: no K split fits {SMEM_MAX} bytes")
+    return next((p for p in plans if p["ctas_fc2"] >= FILL_CTAS), plans[-1])
 
 
 def bwd_residuals_enabled(C: int, num_heads: int, N: int) -> bool:
@@ -680,7 +822,10 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
     dims = (B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale), _build.stream())
     ptrs = [_build.ptr(a) for a in [x, out, *args]]
     if not res:
-        _build.check(name, lib.sunet_swin_block(*ptrs, *dims))
+        plan = block_plan(B, H, W, C, w1.shape[1], ws, num_heads)
+        _build.check(name, lib.sunet_swin_block(
+            *ptrs, *dims[:-1], plan["G"], plan["S"], plan["slot"], plan["smem"],
+            _build.stream()))
         return out
     N = ws * ws
     nwin = B * (H // ws) * (W // ws)
@@ -811,7 +956,7 @@ def fused_swin_block_res(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     attention state its backward :func:`swin_block_bwd_res` differentiates.
     Returns (out, eb (B*nW, h, N, N) in x's dtype, rden (B*nW, h, N)
     float32, ctx_f (B*H*W, C) float32), the residuals in window-major order
-    of the rolled map. CUDA: ``csrc/swin_block.cu`` (kRes), one launch."""
+    of the rolled map. CUDA: ``csrc/swin_block.cu``, one launch."""
     count = _build.counter("fused_swin_block_res")
     if x.device.type == "cpu":
         count.cpu += 1
@@ -1052,28 +1197,36 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, *, ws: int,
 
 
 def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
-    """y + fc2(gelu(fc1(LN(y)))) over an NHWC map, in y's dtype."""
+    """y + fc2(gelu(fc1(LN(y)))) over an NHWC map, in y's dtype. CUDA:
+    ``csrc/ln_mlp.cu``, three launches (LN, fc1, fc2 on a K-split cluster;
+    :func:`mlp_plan`), each counted."""
     name = "fused_ln_mlp"
     count = _build.counter(name)
     if y.device.type == "cpu":
-        count.cpu += 1
+        count.cpu += LN_MLP_LAUNCHES
         return fused_ln_mlp_reference(y, ln, w1, b1, w2, b2)
     _check_x(name, y)
     B, H, W, C = y.shape
     hidden = w1.shape[1]
-    if C % 16 or hidden % 16 or C > 768:
+    if C % 16 or hidden % 16 or C > SPLIT_TRAIN_MAX_C:
         raise ValueError(f"{name}: C={C}, hidden={hidden}: the kernel takes "
-                         "multiples of 16 and C <= 768")
+                         f"multiples of 16 and C <= {SPLIT_TRAIN_MAX_C}")
     _check_w(name, y, w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
+    M = B * H * W
+    plan = mlp_plan(M, C, hidden)
     dev = y.device
     f = lambda t: _f32(t, dev)
+    lib = _build.library()
+    work = _workspace(lib.sunet_ln_mlp_workspace, dev, M, C, hidden)
     out = torch.empty_like(y)
     args = [f(ln[0]), f(ln[1]), w1, f(b1), w2, f(b2)]
-    err = _build.library().sunet_ln_mlp(
-        _build.ptr(y), _build.ptr(out), *[_build.ptr(a) for a in args],
-        B * H * W, C, hidden, _build.stream())
+    launches = _build.c_int(0)
+    err = lib.sunet_ln_mlp(
+        _build.ptr(y), _build.ptr(out), *[_build.ptr(a) for a in args], _build.ptr(work),
+        M, C, hidden, plan["ks"], plan["S"], plan["slot"], _build.byref(launches),
+        _build.stream())
     _build.check(name, err)
-    count.cuda += 1
+    count.cuda += launches.value
     return out
 
 

@@ -40,7 +40,7 @@ failing:
   and drop-path in autograd (JAX's sublayer route,
   ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
   ``SUNET_TRAIN_BLOCK_KERNEL=0``; JAX's default trains C=768 on the
-  whole-block kernel, whose window does not fit one CTA here);
+  whole-block kernel, which here takes C <= 384, ``BLOCK_KERNEL_MAX_C``);
 - wider (the scaled EMB-180 config's C=1440): autograd of the eager block,
   as JAX above ``SUNET_TRAIN_KERNEL_MAX_C=768``.
 

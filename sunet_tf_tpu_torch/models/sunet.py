@@ -350,7 +350,7 @@ class SUNet(nn.Module):
                     counts["fused_swin_block"] += 1
                 else:
                     counts["fused_ln_window_attention"] += 2
-                    counts["fused_ln_mlp"] += 1
+                    counts["fused_ln_mlp"] += wa.LN_MLP_LAUNCHES
                 i += 1
         head = ("fused_dual_upsample4_conv_phase" if conv_fused_head(self.cfg.out_chans)
                 else "fused_dual_upsample4")

@@ -109,7 +109,11 @@ def test_ln_mlp_plain_matches_jax():
     y = rng.standard_normal((2, 8, 8, C)).astype(np.float32)
     args = ((p[6], p[7]), p[8], p[9], p[10], p[11])
     ref = jwa.fused_ln_mlp(jnp.asarray(y), *J(args))
+    c = _build.counter("fused_ln_mlp")
+    before = c.cpu
     got = twa.fused_ln_mlp(torch.from_numpy(y), *T(args))
+    # stands in for the kernel's three launches: LN, fc1, fc2
+    assert twa.LN_MLP_LAUNCHES == 3 and c.cpu == before + twa.LN_MLP_LAUNCHES
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 

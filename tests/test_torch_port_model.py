@@ -191,8 +191,10 @@ def test_reflect_pad_matches_numpy_and_refuses_long_pads():
     got = reflect_pad_nhwc(torch.from_numpy(x), 3, 6)
     want = np.pad(x, ((0, 0), (0, 3), (0, 6), (0, 0)), mode="reflect")
     np.testing.assert_array_equal(got.numpy(), want)
-    with pytest.raises(ValueError, match="smaller than the image"):
-        reflect_pad_nhwc(torch.from_numpy(x), 5, 0)
+    # a pad at or past the image's side reflects again, as numpy does
+    got = reflect_pad_nhwc(torch.from_numpy(x), 5, 16)
+    want = np.pad(x, ((0, 0), (0, 5), (0, 16), (0, 0)), mode="reflect")
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_demo_writes_bmps(tmp_path):

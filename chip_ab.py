@@ -15,16 +15,22 @@ bf16, ``chip_smoke.block_params`` weights.
   (#5) and its backward (#9) at (64,64,96), out 1 and 3.
 - Against the plain version, both trees' readings printed (``PLAIN``
   lines): the block kernel (#1) at the same shapes, inference and train
-  form, and the LN+MLP kernel (#4) at (8,8,768). Their fp32 summation order
-  is a design choice of each tree, so their bits may differ.
-- Times (``TIME`` lines; CUDA events, medians of 20, and the device time of
-  the wrapper's kernels from torch.profiler, per call): #1 at (64,64,96),
-  (32,32,192), (16,16,384) and #4 at (8,8,768), batch 2 and 4, and #5 and
-  #9. The trees run in turns (other, this, this, other).
+  form, and at batch 4 (shift 4), and the LN+MLP kernel (#4) at (8,8,768),
+  batch 2 and 4. Their fp32 summation order is a design choice of each
+  tree, so their bits may differ.
+- Times (``TIME`` lines), each by this script's own ``time_ms`` and
+  ``device_ms``, the same code for both trees: CUDA events, medians of 20,
+  with the card spinning first so that the host's pace of launches does not
+  count; and the device time of the wrapper's kernels from torch.profiler,
+  mean per call. #1 at (64,64,96), (32,32,192), (16,16,384) and #4 at
+  (8,8,768), batch 2 and 4, #5 and #9, and the default model's fused bf16
+  forward at 256x256 batch 4 (also paced by the host: events around each
+  call with nothing queued ahead, as a caller who waits on each call sees
+  it). The trees run in turns (other, this, this, other).
 
-The other tree needs ``chip_smoke.block_params``, ``chip_smoke.time_ms``,
-``chip_smoke.sublayer_cases`` and the wrappers. Needs one GPU; imports
-nothing of JAX.
+The other tree needs ``chip_smoke.block_params``,
+``chip_smoke.sublayer_cases``, ``models.sunet.build_model`` and the
+wrappers. Needs one GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -39,15 +45,45 @@ ROOT = Path(__file__).resolve().parent
 
 # Run inside a checkout: save the kernels' outputs to argv[1].
 OUTPUTS = r'''
+import statistics
 import sys
+import time
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, ".")
 import chip_smoke as cs
+from sunet_tf_tpu_torch.config import Config
 from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.models.sunet import build_model
 from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+
+def time_ms(fn, iters=20, device=True):
+    """Median of CUDA-event times of fn; with ``device`` the card first
+    spins (torch.cuda._sleep) for longer than the host takes to enqueue
+    every call, so the events time the device's work alone."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    if device:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(2.0, 2 * (iters + 1) * host_s) * 2e9))
+    evs = []
+    for _ in range(iters):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        evs.append((s, e))
+        if not device:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
 def device_ms(fn, n=20):
@@ -68,7 +104,7 @@ def plain(name, got, ref):
 
 
 def timed(name, fn):
-    print(f"TIME {name}: {cs.time_ms(fn):.4f} ms events, {device_ms(fn):.4f} ms device",
+    print(f"TIME {name}: {time_ms(fn):.4f} ms events, {device_ms(fn):.4f} ms device",
           flush=True)
 
 
@@ -119,6 +155,18 @@ p = cs.block_params(C, heads, ws * ws, gen)
 y = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
 plain(f"fused_ln_mlp ({H},{H},{C})", wa.fused_ln_mlp(y, p[6:8], *p[8:12]),
       wa.fused_ln_mlp_reference(y, p[6:8], *p[8:12]))
+# batch 4, the main path's grid
+y = torch.randn(4, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+plain(f"fused_ln_mlp batch 4 ({H},{H},{C})", wa.fused_ln_mlp(y, p[6:8], *p[8:12]),
+      wa.fused_ln_mlp_reference(y, p[6:8], *p[8:12]))
+for H, C in ((64, 96), (32, 192), (16, 384)):
+    p = cs.block_params(C, heads, ws * ws, gen)
+    x = torch.randn(4, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.as_tensor(shift_attn_mask(H, H, ws, 4), device="cuda")
+    blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12], mask)
+    kw = dict(ws=ws, num_heads=heads, scale=scale, shift=4)
+    plain(f"fused_swin_block batch 4 ({H},{H},{C}) shift 4", wa.fused_swin_block(*blk, **kw),
+          wa.fused_swin_block_reference(*blk, **kw))
 for Bt in (2, 4):
     for H, C in ((64, 96), (32, 192), (16, 384), (8, 768)):
         p = cs.block_params(C, heads, ws * ws, gen)
@@ -131,6 +179,13 @@ for Bt in (2, 4):
                    None)
             timed(f"fused_swin_block batch {Bt} ({H},{H},{C})",
                   lambda: wa.fused_swin_block(*blk, ws=ws, num_heads=heads, scale=scale))
+model = build_model(Config(), device="cuda", backend="fused", seed=0)
+img = torch.rand(4, 256, 256, 3, device="cuda", generator=gen)
+with torch.inference_mode():
+    fwd = lambda: model(img)
+    print(f"TIME forward batch 4 (Config(), 256x256, fused bf16): {time_ms(fwd, 10):.4f} ms "
+          f"events, {time_ms(fwd, 10, device=False):.4f} ms paced by the host, "
+          f"{device_ms(fwd, 5):.4f} ms device", flush=True)
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''
 

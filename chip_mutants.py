@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Calibrate chip_smoke's limits for the backward kernels on one NVIDIA GPU.
 
-    python3 chip_mutants.py [--out PATH] [--step-only]
+    python3 chip_mutants.py [--out PATH] [--step-only] [--mutants NAME,...]
 
 Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
@@ -20,7 +20,8 @@ settings:
   (the spread of a reordering alone);
 - one run per mutant: a copy of the repository under a temporary directory
   with one deliberate fault in a kernel source, built and checked there
-  (each must fail);
+  (each must fail); ``--mutants`` runs only the named ones and no other
+  setting;
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -520,6 +521,8 @@ def main():
                                          / "chip_mutants.log"))
     ap.add_argument("--step-only", action="store_true",
                     help="run the step setting alone")
+    ap.add_argument("--mutants", default="", metavar="NAME,...",
+                    help="run only these mutants (no other setting)")
     ap.add_argument("--dx-draws", type=int, default=0, metavar="N",
                     help="run only the LN+W-MSA backward's dx over N seeds of inputs")
     args = ap.parse_args()
@@ -542,13 +545,19 @@ def main():
         print("\n".join(ln for ln in proc.stdout.splitlines() if ln.startswith("SUMMARY")))
         print(f"chip_mutants: readings in {out}")
         return
+    only = [m for m in args.mutants.split(",") if m]
+    if set(only) - set(MUTANTS):
+        raise SystemExit(f"chip_mutants: unknown mutants {sorted(set(only) - set(MUTANTS))}")
     with open(out, "w") as log, tempfile.TemporaryDirectory() as tmp:
         if not args.step_only:
-            for seed in (4321, 99):
-                for gain in (1.0, 0.25):
-                    summary += run(ROOT, "kernel", seed, gain, log)
-            summary += run(ROOT, "floor", 4321, 1.0, log)
+            if not only:
+                for seed in (4321, 99):
+                    for gain in (1.0, 0.25):
+                        summary += run(ROOT, "kernel", seed, gain, log)
+                summary += run(ROOT, "floor", 4321, 1.0, log)
             for name, (src, old, new) in MUTANTS.items():
+                if only and name not in only:
+                    continue
                 copy = Path(tmp) / name
                 shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
                     "_build", ".git", "__pycache__"))
@@ -558,7 +567,8 @@ def main():
                     raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in {src}")
                 path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
-        summary += step_noise(log, out.with_suffix(".dists.json"))
+        if not only:
+            summary += step_noise(log, out.with_suffix(".dists.json"))
     print("\n".join(summary))
     print(f"chip_mutants: readings in {out}")
 

@@ -6,7 +6,9 @@
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
    then a link) and prints the time.
-3. One phase per kernel at the default model's shapes, batch 2, bf16:
+3. One phase per kernel at the default model's shapes, batch 2, bf16
+   (and #1 and #4 also at batch 4 with each launch plan asserted, and #1
+   at head counts whose cluster size is not a power of two):
    kernel vs its plain PyTorch version (max and mean |diff| against a
    stated tolerance), the median device time of each over 20
    CUDA-event-timed runs after warm-up (the card spins first, so the host's
@@ -23,7 +25,8 @@
    backward (#11), dx and every weight grad held against the plain version.
 4. The inference slice: the default SUNet (99,681,993 parameters, seeded
    weights) at 256x256 batch 4 through backend="fused"; the kernels' launch
-   counts must equal the router's prediction; the output is held against
+   counts must equal the router's prediction, and every launch plan it
+   takes must be one that 3. held against its plain version; the output is held against
    backend="eager" on the same weights (finite, mean |diff| <= 5e-3); the
    forward's device time and its time paced by the host; one forward is
    traced with torch.profiler for its device time by kernel.
@@ -858,6 +861,31 @@ def kernel_phases(results: dict):
                lambda: wa.fused_swin_block_reference(*args, **kw), block_cost(B, H, C),
                near_tie=tie)
 
+    # The main path's grid: batch 4, the inference and train forms, with the
+    # cluster size of each width asserted (a plan is a function of one
+    # image's shape, so batch 2 above ran the same ones); then head counts
+    # whose cluster size is not a power of two (G = 3 and 6).
+    dp4 = torch.tensor([[1 / 0.9, 1 / 0.9], [1 / 0.9, 0.0], [0.0, 1 / 0.9], [1.0, 1.0]],
+                       device="cuda")
+    for Bc, H, C, hc, shift, G, train in (
+            (4, 64, 96, 8, 4, 1, False), (4, 32, 192, 8, 0, 2, False),
+            (4, 32, 192, 8, 4, 2, False), (4, 32, 192, 8, 4, 2, True),
+            (4, 16, 384, 8, 4, 8, False), (4, 16, 384, 8, 0, 8, True),
+            (2, 32, 192, 3, 4, 3, False), (2, 16, 384, 6, 4, 6, False)):
+        check(wa.block_plan(H, H, C, 4 * C, ws, hc)["G"] == G,
+              f"({H},{H},{C}) {hc} heads: cluster size {wa.block_plan(H, H, C, 4 * C, ws, hc)}, "
+              f"expected {G}")
+        p = block_params(C, hc, N, gen)
+        x = torch.randn(Bc, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        args = block_args(p, x, mask) + ((dp4[:Bc],) if train else ())
+        kw = dict(ws=ws, num_heads=hc, scale=scale, shift=shift)
+        case = (f"batch {Bc} ({H},{H},{C}) shift {shift}" + (f" {hc} heads" if hc != heads else "")
+                + (" train form" if train else "") + f", G={G}")
+        record("fused_swin_block", case, lambda: wa.fused_swin_block(*args, **kw),
+               lambda: wa.fused_swin_block_reference(*args, **kw), block_cost(Bc, H, C))
+
     # The chain W -> SW at C=192. Its second block is held against the plain
     # version fed the kernel's own first-block output, which isolates the
     # kernel's error from the second block's response to the first block's
@@ -902,6 +930,14 @@ def kernel_phases(results: dict):
            lambda: wa.fused_ln_mlp(x, p[6:8], *p[8:12]),
            lambda: wa.fused_ln_mlp_reference(x, p[6:8], *p[8:12]),
            bound(4 * T * C * 4 * C, 2 * T * C * 2 + 2 * C * 4 * C * 2))
+    # the main path's grid: batch 4, its K split asserted
+    check(wa.mlp_plan(H * H, C, 4 * C)["ks"] == 4, f"fused_ln_mlp K split "
+          f"{wa.mlp_plan(H * H, C, 4 * C)}, expected 4")
+    y4 = torch.randn(4, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+    record("fused_ln_mlp", f"batch 4 ({H},{H},{C}), ks=4",
+           lambda: wa.fused_ln_mlp(y4, p[6:8], *p[8:12]),
+           lambda: wa.fused_ln_mlp_reference(y4, p[6:8], *p[8:12]),
+           bound(4 * 2 * T * C * 4 * C, 2 * 2 * T * C * 2 + 2 * C * 4 * C * 2))
 
     H, C = 64, 96
     n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
@@ -973,7 +1009,8 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
     with torch.inference_mode():
         torch.cuda.synchronize()
         _build.reset_counts()
-        y_fused = fused(x)
+        with plans_taken(set()) as plans:
+            y_fused = fused(x)
         torch.cuda.synchronize()
         launches = {k: _build.counter(k).cuda for k in want}
         cpu_calls = {k: _build.counter(k).cpu for k in want}
@@ -982,6 +1019,10 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
         check(all(v > 0 for k, v in launches.items() if k != other_head),
               "a kernel was not launched")
         check(not any(cpu_calls.values()), f"plain versions ran: {cpu_calls}")
+        print(f"  launch plans: {sorted(plans)}")
+        if HELD_PLANS:   # the per-kernel checks ran in this process
+            check(plans <= HELD_PLANS, "launch plans of the main path that no per-kernel "
+                  f"check held against its plain version: {sorted(plans - HELD_PLANS)}")
         y_eager = eager(x)
         torch.cuda.synchronize()
         check(tuple(y_fused.shape) == (4, 256, 256, sw.out_chans),
@@ -1076,6 +1117,34 @@ def patched(patches: list):
     finally:
         for m, a, v in old:
             setattr(m, a, v)
+
+
+# The launch plans (#1's cluster size, #4's K split) that the per-kernel
+# checks held against their plain versions, filled by plans_taken.
+HELD_PLANS: set = set()
+
+
+@contextlib.contextmanager
+def plans_taken(into: set):
+    """Record into ``into`` each launch plan the wrappers take for the
+    duration: ("fused_swin_block", C, hidden, heads, G) and
+    ("fused_ln_mlp", C, hidden, ks)."""
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+
+    block_plan, mlp_plan = wa.block_plan, wa.mlp_plan
+
+    def block(H, W, C, hidden, ws, heads):
+        plan = block_plan(H, W, C, hidden, ws, heads)
+        into.add(("fused_swin_block", C, hidden, heads, plan["G"]))
+        return plan
+
+    def mlp(M, C, hidden):
+        plan = mlp_plan(M, C, hidden)
+        into.add(("fused_ln_mlp", C, hidden, plan["ks"]))
+        return plan
+
+    with patched([(wa, "block_plan", block), (wa, "mlp_plan", mlp)]):
+        yield into
 
 
 def drop_path_f32(x, scale):
@@ -1639,10 +1708,11 @@ def main():
 
     results: dict = {}
     stats: dict = {}
-    if "kernels" in phases:
-        kernel_phases(results)
-    if "train_kernels" in phases:
-        train_kernel_phases(results)
+    with plans_taken(HELD_PLANS):
+        if "kernels" in phases:
+            kernel_phases(results)
+        if "train_kernels" in phases:
+            train_kernel_phases(results)
     if "slice" in phases:
         stats["slice"] = slice_phase(results)
     if "demo" in phases:

@@ -41,9 +41,8 @@ byref = ctypes.byref
 SIGNATURES = {
     # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
     # bias, mask, dp (B, 2) or NULL, B, H, W, C, hidden, ws, heads, shift,
-    # scale, then the launch plan: G, S, slot bytes, shared-memory bytes;
-    # stream
-    "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F] + [_I] * 3 + [ctypes.c_longlong, _P],
+    # scale, the launch plan's cluster size G, stream
+    "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F, _I, _P],
     # sunet_swin_block's pointers, then eb, rden, ctx_f; B, H, W, C, hidden,
     # ws, heads, shift, scale, stream
     "sunet_swin_block_res": [_P] * 20 + [_I] * 8 + [_F, _P],
@@ -87,9 +86,9 @@ SIGNATURES = {
     "sunet_ln_wmsa_ctx": [_P] * 8 + [_I] * 6 + [_F, _P],
     # A, W, bias, out, M, K, Nout, stream
     "sunet_linear_bias": [_P] * 4 + [_I] * 3 + [_P],
-    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks, S, slot,
-    # int* launches, stream
-    "sunet_ln_mlp": [_P] * 9 + [_I] * 6 + [_P, _P],
+    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks (the
+    # launch plan's K split), int* launches, stream
+    "sunet_ln_mlp": [_P] * 9 + [_I] * 4 + [_P, _P],
     # M, C, hidden -> workspace bytes
     "sunet_ln_mlp_workspace": [_I] * 3,
     # x, out, wexp(16,C,C), wb1, bb1, wpf, wbf, wconv(3,3,C,out), alphas,

@@ -19,7 +19,8 @@
 //    the erf GELU and stores h rounded;
 // 3. fc2: a cluster of KS CTAs per 64-row x 128-column tile, each over hidden
 //    / KS rows of w2 (KS from the launch plan, kernels/window_attention.py::
-//    mlp_plan: 4 at batch 4, 96 CTAs); the fp32 partials meet in distributed
+//    mlp_plan, from one image's rows: 4 for the default model's 8x8 map, 96
+//    CTAs at batch 4); the fp32 partials meet in distributed
 //    shared memory, and rank r sums its 128/KS columns in rank order, adds b2
 //    and y and rounds once: the same bits every run.
 // Rows past the end are zero-filled and not written.
@@ -34,19 +35,24 @@ using hop::a_off;
 constexpr int kMlpThreads = 256;   // two warpgroups, one 64-column box each
 constexpr int kMlpCols = 128;      // output columns of a CTA
 constexpr int kPartLd = kMlpCols + kPadF;
+constexpr int kRingS = 4;          // slots of the weight ring
+constexpr int kRingSlot = 16384;   // bytes of a slot
+static_assert((size_t)64 * kPartLd * 4 <= (size_t)kRingS * kRingSlot,
+              "the fc2 partial takes the place of the ring");
 
 struct MlpArgs {
   const bf16* a;    // A rows (M x lda): yn (fc1) or h (fc2)
   const float* bias;
   const bf16* y;    // fc2: the residual
   bf16* out;        // fc1: h (M x hidden); fc2: out (M x C)
-  int M, lda, K, ncols, S, slot;
+  int M, lda, K, ncols;
   int G;            // fc2: the cluster size (K split); fc1: 1
 };
 
-// Shared-memory bytes of one GEMM launch: header, ring, A (64 x K).
-__host__ __device__ inline size_t mlp_gemm_smem(int K, int S, int slot) {
-  return 1024 + 1024 + (size_t)S * slot + hop::a_bytes(K);
+// Shared-memory bytes of one GEMM launch: header, ring, A (64 x K)
+// (kernels/window_attention.py::mlp_smem mirrors it).
+__host__ __device__ inline size_t mlp_gemm_smem(int K) {
+  return 1024 + 1024 + (size_t)kRingS * kRingSlot + hop::a_bytes(K);
 }
 
 // fc1 (kFc2 false) or fc2 (kFc2: cluster rank = K slice), on one 64-row
@@ -65,22 +71,22 @@ __global__ void __launch_bounds__(kMlpThreads, 1)
   const int valid = (int)min(64LL, a.M - r0);
   const int K = a.K, k0 = rank * K;   // this CTA's rows of W (columns of A)
   uint64_t* full = reinterpret_cast<uint64_t*>(base);
-  uint64_t* empty = full + a.S;
-  hop::Product* prod = reinterpret_cast<hop::Product*>(empty + a.S);
+  uint64_t* empty = full + kRingS;
+  hop::Product* prod = reinterpret_cast<hop::Product*>(empty + kRingS);
   unsigned char* slots = base + 1024;
-  unsigned char* as = slots + (size_t)a.S * a.slot;
+  unsigned char* as = slots + (size_t)kRingS * kRingSlot;
   if (tid == 0) {
-    for (int s = 0; s < a.S; ++s) {
+    for (int s = 0; s < kRingS; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], kMlpThreads);
     }
     hop::mbar_fence_init();
     const int nb = min(2, hop::nboxes(a.ncols - n0));
-    *prod = {&map, n0, nb, 0, nb, k0, K, hop::chunk_rows(a.slot, 2, K)};
+    *prod = {&map, n0, nb, 0, nb, k0, K, hop::chunk_rows(kRingSlot, 2, K)};
   }
   __syncthreads();
-  hop::Ring ring{full, empty, slots, a.S, (uint32_t)a.slot, prod, 1, 0, 0, 0, 0};
-  if (tid == 0) ring.produce(a.S);
+  hop::Ring ring{full, empty, slots, kRingS, (uint32_t)kRingSlot, prod, 1, 0, 0, 0, 0};
+  if (tid == 0) ring.produce(kRingS);
   const int k8 = K / 8;
   for (int i = tid; i < 64 * k8; i += kMlpThreads) {
     const int r = i / k8, c = (i % k8) * 8;
@@ -154,13 +160,12 @@ extern "C" size_t sunet_ln_mlp_workspace(int M, int C, int hidden) {
 }
 
 // out (M, C) = round(y + fc2(round(gelu(fc1(round(LN(y))) + b1))) + b2);
-// ks: fc2's K split (its cluster size); S, slot: the ring.
+// ks: fc2's K split (its cluster size, from the launch plan).
 extern "C" int sunet_ln_mlp(const void* y, void* out, const void* g, const void* be,
                             const void* w1, const void* b1, const void* w2, const void* b2,
-                            void* work, int M, int C, int hidden, int ks, int S, int slot,
-                            int* launches, void* stream) {
-  if (M <= 0 || C % 16 || hidden % 16 || ks < 1 || hidden % (16 * ks) || kMlpCols % ks ||
-      slot % 1024 || (size_t)64 * kPartLd * 4 > (size_t)S * slot)
+                            void* work, int M, int C, int hidden, int ks, int* launches,
+                            void* stream) {
+  if (M <= 0 || C % 16 || hidden % 16 || ks < 1 || hidden % (16 * ks) || kMlpCols % ks)
     return (int)cudaErrorInvalidValue;
   const MlpWork w = carve_mlp((unsigned char*)work, M, C, hidden);
   cudaStream_t st = (cudaStream_t)stream;
@@ -170,18 +175,18 @@ extern "C" int sunet_ln_mlp(const void* y, void* out, const void* g, const void*
   const int tiles = (M + 63) / 64, kh = hidden / ks;
   CUtensorMap m1, m2;
   cudaError_t e;
-  if ((e = hop::weight_map(&m1, w1, C, hidden, hop::chunk_rows(slot, 2, C))) ||
-      (e = hop::weight_map(&m2, w2, hidden, C, hop::chunk_rows(slot, 2, kh))))
+  if ((e = hop::weight_map(&m1, w1, C, hidden, hop::chunk_rows(kRingSlot, 2, C))) ||
+      (e = hop::weight_map(&m2, w2, hidden, C, hop::chunk_rows(kRingSlot, 2, kh))))
     return (int)e;
-  MlpArgs a1{w.yn, (const float*)b1, nullptr, w.h, M, C, C, hidden, S, slot, 1};
+  MlpArgs a1{w.yn, (const float*)b1, nullptr, w.h, M, C, C, hidden, 1};
   SUNET_TRY(hop::launch_cluster(mlp_gemm_kernel<false>,
                                 dim3((hidden + kMlpCols - 1) / kMlpCols, tiles), kMlpThreads,
-                                mlp_gemm_smem(C, S, slot), st, 1, a1, m1));
+                                mlp_gemm_smem(C), st, 1, a1, m1));
   ++*launches;
-  MlpArgs a2{w.h, (const float*)b2, (const bf16*)y, (bf16*)out, M, hidden, kh, C, S, slot, ks};
+  MlpArgs a2{w.h, (const float*)b2, (const bf16*)y, (bf16*)out, M, hidden, kh, C, ks};
   SUNET_TRY(hop::launch_cluster(mlp_gemm_kernel<true>,
                                 dim3((C + kMlpCols - 1) / kMlpCols * ks, tiles), kMlpThreads,
-                                mlp_gemm_smem(kh, S, slot), st, ks, a2, m2));
+                                mlp_gemm_smem(kh), st, ks, a2, m2));
   ++*launches;
   return 0;
 }

@@ -24,17 +24,18 @@
 //
 // Design:
 // - A cluster of G CTAs per window (G from the launch plan, kernels/
-//   window_attention.py::block_plan: 1 at C=96, 2 at C=192, 8 at C=384 for
-//   a batch-4 forward, so each stage fills the card). Rank r owns heads
+//   window_attention.py::block_plan, from one image's shape so that a
+//   batch-4 launch fills the card: 1 at C=96, 2 at C=192, 8 at C=384 for
+//   the default model's images, at any batch). Rank r owns heads
 //   [r*h/G, (r+1)*h/G): its q, k, v columns (cg = C/G of each), its cg
 //   columns of proj and of the output, hg = hidden/G columns of fc1, and the
 //   split-K partial of fc2 over those hg rows of w2.
 // - The window is one wgmma row tile (64 tokens; a smaller window leaves
 //   rows unused). Each product runs on hopper.cuh's mainloop: the A operand
 //   (LN(x), ctx, LN(y), h) in shared memory, weight boxes by TMA into a ring
-//   of S slots with full/empty mbarriers, one thread keeping the ring S
-//   chunks ahead across products. Three consumer warpgroups split the 64-column
-//   boxes of each product.
+//   of kRingS slots with full/empty mbarriers, one thread keeping the ring
+//   kRingS chunks ahead across products. Three consumer warpgroups split
+//   the 64-column boxes of each product.
 // - The sublayer seams go through distributed shared memory: each rank
 //   writes its ctx columns, the cluster syncs, each rank gathers the others'
 //   columns before proj; the same for y before LN2. The fc2 partials (64 x
@@ -72,6 +73,8 @@ constexpr int kEpiCols = 16;            // a warpgroup's staging quarter box (fp
 constexpr int kEpiLd = kEpiCols + kPadF;
 constexpr size_t kEpiBytes = (size_t)kWG * kTile * kEpiLd * 4;
 constexpr int kVtLd = kTile + kPad;   // row stride of a head's v, transposed
+constexpr int kRingS = 3;               // slots of the weight ring
+constexpr int kRingSlot = 24576;        // bytes of a slot
 
 // A measurement build (-DSUNET_PHASE_CLOCK, sunet_tf_tpu_torch/tools/
 // block_phases.py) records thread 0's SM clock at each phase boundary of
@@ -98,7 +101,7 @@ struct ClusterArgs {
   const float *g1, *be1, *bqkv, *bproj, *g2, *be2, *b1, *b2, *bias, *mask, *dp;
   int B, H, W, C, hidden, ws, heads, shift;
   float scale;
-  int G, S, slot;
+  int G;
 };
 
 struct WeightMaps {
@@ -106,27 +109,26 @@ struct WeightMaps {
 };
 
 // Offsets from the 1024-aligned base of dynamic shared memory (the launch
-// plan, kernels/window_attention.py::block_plan, computes the same bytes).
+// plan, kernels/window_attention.py::_block_carve, mirrors it to choose G).
 struct BlockCarve {
   size_t vec, xs, ring, abuf, work, stg, total;
   int cg, hg, hr, d, ldq;
 };
 
-__host__ __device__ inline BlockCarve block_carve(int C, int hidden, int heads, int G, int S,
-                                                  int slot) {
+__host__ __device__ inline BlockCarve block_carve(int C, int hidden, int heads, int G) {
   BlockCarve c;
   c.cg = C / G;
   c.hg = hidden / G;
   c.hr = heads / G;
   c.d = C / heads;
   c.ldq = align_up(c.d, 16) + kPad;
-  const size_t hdr = align1024(kTile * 8 + 2 * 8 * (size_t)S + 4 * sizeof(Product));
+  const size_t hdr = align1024(kTile * 8 + 2 * 8 * (size_t)kRingS + 4 * sizeof(Product));
   // the CTA's bias columns: bqkv (3 cg), bproj (cg), b1 (hg), b2 (cg); then
   // per q/k/v column its offset in the head buffers (q, k and v transposed)
   c.vec = hdr;
   c.xs = c.vec + align1024((size_t)(7 * c.cg + c.hg) * 4);
   c.ring = c.xs + align1024((size_t)kTile * (C + kPad) * 2);
-  c.abuf = c.ring + (size_t)S * slot;
+  c.abuf = c.ring + (size_t)kRingS * kRingSlot;
   c.work = c.abuf + hop::a_bytes(C);
   const size_t qkv = align128((size_t)3 * c.hr * kTile * c.ldq * 2);
   const size_t h = hop::a_bytes(c.hg);
@@ -411,14 +413,14 @@ __global__ void __launch_bounds__(kCThreads, 1)
   cg::cluster_group cl = cg::this_cluster();
   const int G = a.G, rank = (int)cl.block_rank();
   const int C = a.C, N = a.ws * a.ws, ldx = C + kPad;
-  const BlockCarve cv = block_carve(C, a.hidden, a.heads, G, a.S, a.slot);
+  const BlockCarve cv = block_carve(C, a.hidden, a.heads, G);
   const int cg_ = cv.cg, hg = cv.hg, hr = cv.hr, d = cv.d, ldq = cv.ldq;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   long long* tok = reinterpret_cast<long long*>(base);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + kTile * 8);
-  uint64_t* empty = full + a.S;
-  Product* prods = reinterpret_cast<Product*>(empty + a.S);
+  uint64_t* empty = full + kRingS;
+  Product* prods = reinterpret_cast<Product*>(empty + kRingS);
   float* bq = reinterpret_cast<float*>(base + cv.vec);
   float* bp = bq + 3 * cg_;
   float* bm1 = bp + cg_;
@@ -437,17 +439,17 @@ __global__ void __launch_bounds__(kCThreads, 1)
   const float s1 = a.dp ? a.dp[2 * b] : 1.f, s2 = a.dp ? a.dp[2 * b + 1] : 1.f;
 
   if (tid == 0) {
-    for (int s = 0; s < a.S; ++s) {
+    for (int s = 0; s < kRingS; ++s) {
       hop::mbar_init(&full[s], 1);
       hop::mbar_init(&empty[s], kCThreads);
     }
     hop::mbar_fence_init();
     const int pq = nboxes(cg_);
-    prods[0] = {&maps.qkv, rank * cg_, pq, C, 3 * pq, 0, C, chunk_rows(a.slot, 3 * pq, C)};
-    prods[1] = {&maps.proj, rank * cg_, pq, 0, pq, 0, C, chunk_rows(a.slot, pq, C)};
+    prods[0] = {&maps.qkv, rank * cg_, pq, C, 3 * pq, 0, C, chunk_rows(kRingSlot, 3 * pq, C)};
+    prods[1] = {&maps.proj, rank * cg_, pq, 0, pq, 0, C, chunk_rows(kRingSlot, pq, C)};
     const int ph = nboxes(hg), pc = nboxes(C);
-    prods[2] = {&maps.fc1, rank * hg, ph, 0, ph, 0, C, chunk_rows(a.slot, ph, C)};
-    prods[3] = {&maps.fc2, 0, pc, 0, pc, rank * hg, hg, chunk_rows(a.slot, pc, hg)};
+    prods[2] = {&maps.fc1, rank * hg, ph, 0, ph, 0, C, chunk_rows(kRingSlot, ph, C)};
+    prods[3] = {&maps.fc2, 0, pc, 0, pc, rank * hg, hg, chunk_rows(kRingSlot, pc, hg)};
   }
   for (int i = tid; i < 5 * cg_ + hg; i += kCThreads) {
     float v;
@@ -472,8 +474,8 @@ __global__ void __launch_bounds__(kCThreads, 1)
   }
   __syncthreads();
   PHASE(0);
-  Ring ring{full, empty, base + cv.ring, a.S, (uint32_t)a.slot, prods, 4, 0, 0, 0, 0};
-  if (tid == 0) ring.produce(a.S);   // the QKV weights, while x loads
+  Ring ring{full, empty, base + cv.ring, kRingS, (uint32_t)kRingSlot, prods, 4, 0, 0, 0, 0};
+  if (tid == 0) ring.produce(kRingS);   // the QKV weights, while x loads
 
   const int cv8 = C / 8;
   copy16(reinterpret_cast<unsigned char*>(xs),
@@ -498,7 +500,7 @@ __global__ void __launch_bounds__(kCThreads, 1)
   __syncthreads();
   PHASE(2);
   product_phase(ring, prods[0], abuf, kEpiQkv, ex);
-  if (tid == 0) ring.produce(ring.consumed + a.S);   // proj weights during attention
+  if (tid == 0) ring.produce(ring.consumed + kRingS);   // proj weights during attention
   PHASE(3);
   __syncthreads();
 
@@ -528,7 +530,7 @@ __global__ void __launch_bounds__(kCThreads, 1)
   __syncthreads();
   PHASE(5);
   product_phase(ring, prods[1], abuf, kEpiProj, ex);
-  if (tid == 0) ring.produce(ring.consumed + a.S);   // fc1 weights
+  if (tid == 0) ring.produce(ring.consumed + kRingS);   // fc1 weights
   PHASE(6);
   // y: every rank's columns
   cl.sync();
@@ -614,46 +616,40 @@ extern "C" int sunet_swin_block_max_clusters(int G, long long smem) {
 }
 #endif
 
-// Shared-memory bytes of the cluster kernel's launch (0: a plan it refuses).
-static size_t block_smem(int C, int hidden, int heads, int G, int S, int slot) {
-  if (G < 1 || heads % G || C % G || hidden % G || slot % 1024) return 0;
-  return block_carve(C, hidden, heads, G, S, slot).total;
-}
-
 // x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2, bias,
-// mask, dp (B, 2) or NULL; then the shape; then the launch plan (cluster
-// size G, ring slots S and slot bytes, and the plan's shared-memory bytes,
-// which must equal this carve's).
+// mask, dp (B, 2) or NULL; then the shape; then the cluster size G (from
+// the launch plan). A G whose columns or shared memory the design does not
+// take is refused.
 extern "C" int sunet_swin_block(const void* x, void* out, const void* g1, const void* be1,
                                 const void* wqkv, const void* bqkv, const void* wproj,
                                 const void* bproj, const void* g2, const void* be2,
                                 const void* w1, const void* b1, const void* w2, const void* b2,
                                 const void* bias, const void* mask, const void* dp, int B, int H,
                                 int W, int C, int hidden, int ws, int heads, int shift,
-                                float scale, int G, int S, int slot, long long smem_bytes,
-                                void* stream) {
+                                float scale, int G, void* stream) {
   const int N = ws * ws;
   if (N % 16 || N > kTile || C % 16 || C % heads || hidden % 16 || H % ws || W % ws)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = block_smem(C, hidden, heads, G, S, slot);
-  if (smem == 0 || (long long)smem != smem_bytes || smem > kMaxSmem)
+  if (G < 1 || G > 8 || heads % G || C % G || hidden % G || C / heads > kTile)
     return (int)cudaErrorInvalidConfiguration;
-  const BlockCarve cv = block_carve(C, hidden, heads, G, S, slot);
-  if (cv.cg % 8 || cv.hg % 16 || nboxes(cv.cg) * 3 > kMaxBoxes || nboxes(cv.hg) > kMaxBoxes ||
-      nboxes(C) > kMaxBoxes || (size_t)kTile * (C + kPadF) * 4 > cv.total - 1024 - cv.ring)
+  const BlockCarve cv = block_carve(C, hidden, heads, G);
+  const size_t smem = cv.total;
+  if (smem > kMaxSmem || cv.cg % 8 || cv.hg % 16 || nboxes(cv.cg) * 3 > kMaxBoxes ||
+      nboxes(cv.hg) > kMaxBoxes || nboxes(C) > kMaxBoxes ||
+      (size_t)kTile * (C + kPadF) * 4 > cv.total - 1024 - cv.ring)
     return (int)cudaErrorInvalidConfiguration;
   ClusterArgs a{(const bf16*)x,     (bf16*)out,         (const float*)g1, (const float*)be1,
                 (const float*)bqkv, (const float*)bproj, (const float*)g2, (const float*)be2,
                 (const float*)b1,   (const float*)b2,   (const float*)bias,
                 (const float*)mask, (const float*)dp,   B, H, W, C, hidden, ws, heads, shift,
-                scale, G, S, slot};
+                scale, G};
   WeightMaps m;
   const int pq = nboxes(cv.cg), ph = nboxes(cv.hg), pc = nboxes(C);
   cudaError_t e;
-  if ((e = hop::weight_map(&m.qkv, wqkv, C, 3 * C, chunk_rows(slot, 3 * pq, C))) ||
-      (e = hop::weight_map(&m.proj, wproj, C, C, chunk_rows(slot, pq, C))) ||
-      (e = hop::weight_map(&m.fc1, w1, C, hidden, chunk_rows(slot, ph, C))) ||
-      (e = hop::weight_map(&m.fc2, w2, hidden, C, chunk_rows(slot, pc, cv.hg))))
+  if ((e = hop::weight_map(&m.qkv, wqkv, C, 3 * C, chunk_rows(kRingSlot, 3 * pq, C))) ||
+      (e = hop::weight_map(&m.proj, wproj, C, C, chunk_rows(kRingSlot, pq, C))) ||
+      (e = hop::weight_map(&m.fc1, w1, C, hidden, chunk_rows(kRingSlot, ph, C))) ||
+      (e = hop::weight_map(&m.fc2, w2, hidden, C, chunk_rows(kRingSlot, pc, cv.hg))))
     return (int)e;
   if ((e = hop::launch_cluster(swin_cluster_kernel, dim3((H / ws) * (W / ws) * G, B), kCThreads,
                               smem, (cudaStream_t)stream, G, a, m)))

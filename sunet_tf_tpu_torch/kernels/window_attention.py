@@ -101,14 +101,18 @@ def _pad128(v: int) -> int:
 
 # ---------------------------------------------------------------- launch plans
 # of the cluster kernels (csrc/swin_cluster.cu for #1 and #2, csrc/ln_mlp.cu
-# for #4): cluster size, ring and shared-memory bytes, in plain Python; the
-# C entry points recompute the bytes and refuse a plan that differs.
+# for #4): cluster size and shared-memory bytes, in plain Python. A plan
+# depends on one image's shape and not on the batch, so an image gives the
+# same bits at any batch. The C entry points take the cluster size alone
+# and lay out their shared memory from the same constants (the ring's
+# slots and slot bytes are compile-time constants there).
 
 SMEM_MAX = 232448     # dynamic shared memory of one CTA on the H100
 CLUSTER_MAX = 8       # the portable thread-block cluster size
 FILL_CTAS = 96        # CTAs a launch aims at: most of the H100's 132 SMs
-BLOCK_RING = (3, 24576)   # (slots, slot bytes) of the weight ring
-MLP_RING = (4, 16384)
+PLAN_BATCH = 4        # the batch whose launch a plan sizes to FILL_CTAS
+BLOCK_RING = (3, 24576)   # (slots, slot bytes): swin_cluster.cu kRingS, kRingSlot
+MLP_RING = (4, 16384)     # ln_mlp.cu kRingS, kRingSlot
 _TILE = 64            # rows of a wgmma tile: one window, or 64 tokens
 _BOX = 64             # columns of a weight box
 _BOXES_PER_PRODUCT = 6   # 64-column boxes of one product (csrc/swin_cluster.cu kMaxBoxes)
@@ -137,7 +141,7 @@ def _a_bytes(K: int) -> int:
     return -(-K // 64) * _TILE * 128
 
 
-def _block_carve(C: int, hidden: int, heads: int, G: int, S: int, slot: int) -> tuple:
+def _block_carve(C: int, hidden: int, heads: int, G: int) -> tuple:
     """(offset of the ring, total bytes) of the cluster block kernel's
     dynamic shared memory (``block_carve`` in csrc/swin_cluster.cu), after
     1024 bytes of alignment slack: a header (token offsets, the ring's
@@ -146,6 +150,7 @@ def _block_carve(C: int, hidden: int, heads: int, G: int, S: int, slot: int) -> 
     operand, the larger of the CTA's heads' q, k and v and the fc1 output,
     and the epilogues' staging tiles. The fc2 partial (64 x (C + 4) fp32)
     later takes the place of the ring and what follows it."""
+    S, slot = BLOCK_RING
     cg, hg, hr, d = C // G, hidden // G, heads // G, C // heads
     ldq = _up(d, 16) + 8
     ring = (_up(_TILE * 8 + 16 * S + 4 * _PRODUCT_BYTES, 1024) + _up((7 * cg + hg) * 4, 1024)
@@ -158,15 +163,49 @@ def _block_carve(C: int, hidden: int, heads: int, G: int, S: int, slot: int) -> 
 
 
 @functools.lru_cache(maxsize=None)
-def block_plan(B: int, H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
-    """Launch plan of the cluster block kernel for a (B, H, W, C) map: the
-    smallest cluster size G (CTAs per window) whose launch has at least
-    FILL_CTAS CTAs, or the largest G that fits when none does. G divides
-    heads, C and hidden; each of the CTA's four products (q/k/v, proj, fc1,
-    fc2) has at most six 64-column boxes; its shared memory fits SMEM_MAX.
-    Raises ValueError on a shape outside the design."""
+def _cluster_sizes(C: int, hidden: int, heads: int) -> tuple:
+    """((G, shared-memory bytes), ...) of every cluster size the block
+    kernel takes for a block of this width, G ascending: G <= CLUSTER_MAX
+    divides heads, C and hidden; each of the CTA's four products (q/k/v,
+    proj, fc1, fc2) has at most six 64-column boxes; its shared memory fits
+    SMEM_MAX. Empty for a width outside the design."""
+    if (C % 16 or hidden % 16 or C % heads or C // heads > _TILE
+            or _boxes(C) > _BOXES_PER_PRODUCT):
+        return ()
+    slot = BLOCK_RING[1]
+    sizes = []
+    for G in range(1, CLUSTER_MAX + 1):
+        if heads % G or C % G or hidden % G:
+            continue
+        cg, hg = C // G, hidden // G
+        nq, nh, nc = _boxes(cg), _boxes(hg), _boxes(C)
+        if cg % 8 or hg % 16 or max(3 * nq, nh) > _BOXES_PER_PRODUCT:
+            continue
+        ring, smem = _block_carve(C, hidden, heads, G)
+        chunks = (_chunk_rows(slot, 3 * nq, C), _chunk_rows(slot, nq, C),
+                  _chunk_rows(slot, nh, C), _chunk_rows(slot, nc, hg))
+        if smem <= SMEM_MAX and _TILE * (C + 4) * 4 <= smem - 1024 - ring and all(chunks):
+            sizes.append((G, smem))
+    return tuple(sizes)
+
+
+def block_kernel_takes(C: int, hidden: int, heads: int) -> bool:
+    """Whether the whole-block kernel has a cluster size for a block of
+    width C, MLP width ``hidden`` and ``heads`` heads. The router sends a
+    block within its cap that the kernel does not take (a head dim above
+    64, or no cluster size that divides the heads) to the split LN+W-MSA /
+    LN+MLP kernels, as it sends the wider ones."""
+    return bool(_cluster_sizes(C, hidden, heads))
+
+
+@functools.lru_cache(maxsize=None)
+def block_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
+    """Launch plan of the cluster block kernel for (H, W, C) images: the
+    smallest cluster size G (CTAs per window, :func:`_cluster_sizes`) whose
+    launch at PLAN_BATCH images has at least FILL_CTAS CTAs, or the largest
+    G when none does. Returns G, the shared-memory bytes of a CTA and the
+    CTAs per image. Raises ValueError on a shape outside the design."""
     N = ws * ws
-    d = C // heads
     why = None
     if N % 16 or N > _TILE:
         why = f"window of {N} tokens (the kernel takes N % 16 == 0, N <= {_TILE})"
@@ -174,64 +213,49 @@ def block_plan(B: int, H: int, W: int, C: int, hidden: int, ws: int, heads: int)
         why = "C and hidden must be multiples of 16 and C of heads"
     elif _boxes(C) > _BOXES_PER_PRODUCT:
         why = f"C above {_BOX * _BOXES_PER_PRODUCT} (fc2's output columns)"
-    elif d > _TILE:
-        why = f"head dim {d} above {_TILE}"
+    elif C // heads > _TILE:
+        why = f"head dim {C // heads} above {_TILE}"
+    elif not _cluster_sizes(C, hidden, heads):
+        why = (f"no cluster size up to {CLUSTER_MAX} divides heads, C and hidden with its "
+               f"columns and shared memory ({SMEM_MAX} bytes) in the design")
     if why:
         raise ValueError(f"block_plan: C={C}, hidden={hidden}, heads={heads}, ws={ws}: {why}")
-    windows = B * (H // ws) * (W // ws)
-    plans = []
-    G = 1
-    while G <= CLUSTER_MAX:
-        cg, hg = C // G, hidden // G
-        nq, nh, nc = _boxes(cg), _boxes(hg), _boxes(C)
-        if (heads % G == 0 and C % G == 0 and hidden % G == 0 and cg % 8 == 0
-                and hg % 16 == 0 and max(3 * nq, nh) <= _BOXES_PER_PRODUCT):
-            S, slot = BLOCK_RING
-            ring, smem = _block_carve(C, hidden, heads, G, S, slot)
-            chunks = (_chunk_rows(slot, 3 * nq, C), _chunk_rows(slot, nq, C),
-                      _chunk_rows(slot, nh, C), _chunk_rows(slot, nc, hg))
-            if (smem <= SMEM_MAX and _TILE * (C + 4) * 4 <= smem - 1024 - ring
-                    and all(chunks)):
-                plans.append({"G": G, "S": S, "slot": slot, "smem": smem,
-                              "ctas": windows * G})
-        G *= 2
-    if not plans:
-        raise ValueError(f"block_plan: C={C}, hidden={hidden}, heads={heads}: no cluster "
-                         f"size up to {CLUSTER_MAX} divides heads, C and hidden with its "
-                         f"columns and shared memory ({SMEM_MAX} bytes) in the design")
-    return next((p for p in plans if p["ctas"] >= FILL_CTAS), plans[-1])
+    windows = (H // ws) * (W // ws)
+    G, smem = next(((G, m) for G, m in _cluster_sizes(C, hidden, heads)
+                    if PLAN_BATCH * windows * G >= FILL_CTAS),
+                   _cluster_sizes(C, hidden, heads)[-1])
+    return {"G": G, "smem": smem, "ctas_per_image": windows * G}
 
 
-def mlp_smem(K: int, S: int, slot: int) -> int:
+def mlp_smem(K: int) -> int:
     """Shared-memory bytes of one GEMM launch of csrc/ln_mlp.cu over K rows
     of W: slack, header, ring, the 64 x K A operand."""
+    S, slot = MLP_RING
     return 1024 + 1024 + S * slot + _a_bytes(K)
 
 
 @functools.lru_cache(maxsize=None)
 def mlp_plan(M: int, C: int, hidden: int) -> dict:
-    """Launch plan of fused_ln_mlp's two products over M token rows: fc1 on
-    64 x 128 tiles; fc2 on the same tiles times a K split ks (its cluster
-    size, a power of two <= CLUSTER_MAX dividing hidden / 16 and 128), the
-    smallest with at least FILL_CTAS CTAs, or the largest that fits. Raises
+    """Launch plan of fused_ln_mlp's two products for images of M token
+    rows each: fc1 on 64 x 128 tiles; fc2 on the same tiles times a K
+    split ks (its cluster size, a power of two <= CLUSTER_MAX dividing
+    hidden / 16 and 128), the smallest whose launch at PLAN_BATCH images
+    has at least FILL_CTAS CTAs, or the largest that fits. Raises
     ValueError on a shape outside the design."""
-    S, slot = MLP_RING
+    slot = MLP_RING[1]
     if M <= 0 or C % 16 or hidden % 16:
-        raise ValueError(f"mlp_plan: M={M}, C={C}, hidden={hidden}: the kernel takes M > 0 "
-                         "and multiples of 16")
-    if mlp_smem(C, S, slot) > SMEM_MAX:
+        raise ValueError(f"mlp_plan: M={M} rows per image, C={C}, hidden={hidden}: the kernel "
+                         "takes M > 0 and multiples of 16")
+    if mlp_smem(C) > SMEM_MAX:
         raise ValueError(f"mlp_plan: C={C}: fc1's 64 x C operand does not fit {SMEM_MAX} bytes")
-    tiles, ncol = -(-M // _TILE), -(-C // 128)
+    tiles, ncol = -(-PLAN_BATCH * M // _TILE), -(-C // 128)
     plans = []
     ks = 1
     while ks <= CLUSTER_MAX:
-        if (hidden % (16 * ks) == 0 and mlp_smem(hidden // ks, S, slot) <= SMEM_MAX
+        if (hidden % (16 * ks) == 0 and mlp_smem(hidden // ks) <= SMEM_MAX
                 and _chunk_rows(slot, 2, C) and _chunk_rows(slot, 2, hidden // ks)):
-            plans.append({"ks": ks, "S": S, "slot": slot,
-                          "smem_fc1": mlp_smem(C, S, slot),
-                          "smem_fc2": mlp_smem(hidden // ks, S, slot),
-                          "ctas_fc1": tiles * -(-hidden // 128),
-                          "ctas_fc2": tiles * ncol * ks})
+            plans.append({"ks": ks, "smem_fc1": mlp_smem(C), "smem_fc2": mlp_smem(hidden // ks),
+                          "ctas_fc1": tiles * -(-hidden // 128), "ctas_fc2": tiles * ncol * ks})
         ks *= 2
     if not plans:
         raise ValueError(f"mlp_plan: hidden={hidden}: no K split fits {SMEM_MAX} bytes")
@@ -822,10 +846,8 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
     dims = (B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale), _build.stream())
     ptrs = [_build.ptr(a) for a in [x, out, *args]]
     if not res:
-        plan = block_plan(B, H, W, C, w1.shape[1], ws, num_heads)
-        _build.check(name, lib.sunet_swin_block(
-            *ptrs, *dims[:-1], plan["G"], plan["S"], plan["slot"], plan["smem"],
-            _build.stream()))
+        plan = block_plan(H, W, C, w1.shape[1], ws, num_heads)
+        _build.check(name, lib.sunet_swin_block(*ptrs, *dims[:-1], plan["G"], _build.stream()))
         return out
     N = ws * ws
     nwin = B * (H // ws) * (W // ws)
@@ -1213,7 +1235,7 @@ def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
                          f"multiples of 16 and C <= {SPLIT_TRAIN_MAX_C}")
     _check_w(name, y, w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
     M = B * H * W
-    plan = mlp_plan(M, C, hidden)
+    plan = mlp_plan(H * W, C, hidden)
     dev = y.device
     f = lambda t: _f32(t, dev)
     lib = _build.library()
@@ -1223,7 +1245,7 @@ def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     launches = _build.c_int(0)
     err = lib.sunet_ln_mlp(
         _build.ptr(y), _build.ptr(out), *[_build.ptr(a) for a in args], _build.ptr(work),
-        M, C, hidden, plan["ks"], plan["S"], plan["slot"], _build.byref(launches),
+        M, C, hidden, plan["ks"], _build.byref(launches),
         _build.stream())
     _build.check(name, err)
     count.cuda += launches.value

@@ -17,7 +17,11 @@ Two routes per block, chosen by ``backend``:
 - ``"fused"``: the JAX Pallas path's routing (``SwinBlock.__call__``,
   ``chain_fusable_len``): whole-block kernel at C <= ``ROUTE_BLOCK_MAX_C``,
   W->SW pair chains at C >= ``ROUTE_PAIR_MIN_C``, and the split LN+W-MSA /
-  LN+MLP kernels above the cap. The SW roll always happens inside the block
+  LN+MLP kernels above the cap. A block within the cap whose shape the
+  block kernel's launch plan does not take (``wa.block_kernel_takes``: a
+  head dim above 64, or no cluster size that divides the heads) also takes
+  the split kernels, where JAX runs its block kernel: the two routes round
+  y once more apart (y = x + round(attn) instead of round(x + attn)). The SW roll always happens inside the block
   kernel (load/store addressing), at any map size.
 
 Training (a ``torch.Generator`` passed to ``forward``) draws per-image
@@ -31,11 +35,12 @@ failing:
   residual route, JAX's default there (``swin_block_trainable_res``): the
   block kernel's residual form stores the softmax state and
   ``swin_block_bwd_res`` differentiates it without recomputing it;
-- other C <= ``ROUTE_TRAIN_BLOCK_MAX_C``: ``SwinBlockTrainable``, the block
-  kernel forward and ``swin_block_bwd`` backward, which recomputes the
-  attention (JAX ``swin_block_trainable``, and every block of this width
-  under ``SUNET_BWD_RESID=0``);
-- C <= ``ROUTE_TRAIN_SPLIT_MAX_C`` (768): the two sublayers,
+- other C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` that the block kernel takes
+  (``wa.block_kernel_takes``): ``SwinBlockTrainable``, the block kernel
+  forward and ``swin_block_bwd`` backward, which recomputes the attention
+  (JAX ``swin_block_trainable``, and every block of this width under
+  ``SUNET_BWD_RESID=0``);
+- the others up to ``ROUTE_TRAIN_SPLIT_MAX_C`` (768): the two sublayers,
   ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with the residuals
   and drop-path in autograd (JAX's sublayer route,
   ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
@@ -306,6 +311,17 @@ class SwinBlock(nn.Module):
         x = x + roll2d(att, ss)
         return wa.fused_ln_mlp(x, p[6:8], p[8], p[9], p[10], p[11])
 
+    def takes_block_kernel(self) -> bool:
+        """Whether the whole-block kernel has a launch plan for this block's
+        shape (``wa.block_kernel_takes``); the router's caps still apply."""
+        return wa.block_kernel_takes(self.dim, self.mlp.fc1.out_features, self.attn.num_heads)
+
+    def trains_on_block_kernels(self) -> bool:
+        """Whether training takes the block kernels (the residual route or
+        the recompute one) rather than the sublayer kernels."""
+        return self.dim <= ROUTE_TRAIN_BLOCK_MAX_C and (
+            self.trains_on_residuals() or self.takes_block_kernel())
+
     def trains_on_residuals(self) -> bool:
         """Whether training takes the residual route (when the block trains
         through the block kernels)."""
@@ -367,14 +383,14 @@ class SwinBlock(nn.Module):
             raise ValueError(f"resolution ({H},{W}) not divisible by window {ws}")
         if generator is not None:
             dp = drop_path_scales(B, self.drop_path_rate, generator, x.device)
-            if self.backend == "fused" and self.dim <= ROUTE_TRAIN_BLOCK_MAX_C:
+            if self.backend == "fused" and self.trains_on_block_kernels():
                 return self._train_block(x, dp)
             if self.backend == "fused" and self.dim <= ROUTE_TRAIN_SPLIT_MAX_C:
                 return self._train_split(x, dp)
             return self._eager(x, dp)
         if self.backend == "eager":
             return self._eager(x)
-        if self.dim <= ROUTE_BLOCK_MAX_C:
+        if self.dim <= ROUTE_BLOCK_MAX_C and self.takes_block_kernel():
             return self._fused_block(x)
         return self._fused_split(x)
 
@@ -388,7 +404,7 @@ def chain_fusable_len(blocks: list, start: int, x: torch.Tensor) -> int:
     if C < ROUTE_PAIR_MIN_C or C > ROUTE_BLOCK_MAX_C:
         return 0
     b0 = blocks[start]
-    if b0.backend != "fused" or b0.dim != C:
+    if b0.backend != "fused" or b0.dim != C or not b0.takes_block_kernel():
         return 0
     n = 1
     ss = b0.shift_size or None
@@ -397,6 +413,7 @@ def chain_fusable_len(blocks: list, start: int, x: torch.Tensor) -> int:
         if not (b.backend == "fused" and b.dim == C
                 and b.window_size == b0.window_size
                 and b.attn.num_heads == b0.attn.num_heads
+                and b.mlp.fc1.out_features == b0.mlp.fc1.out_features
                 and b.attn.scale == b0.attn.scale):
             break
         if b.shift_size > 0:

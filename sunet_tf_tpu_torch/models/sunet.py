@@ -292,13 +292,16 @@ class SUNet(nn.Module):
     def expected_launches(self, x_shape: tuple, train: bool = False) -> dict:
         """Kernel launches one fused forward of an input of ``x_shape``
         makes, per wrapper, as the router decides them: a chain of K blocks
-        launches the block kernel K times, LN+W-MSA launches two kernels.
+        launches the block kernel K times, LN+W-MSA launches two kernels,
+        a block within the cap whose shape the block kernel does not take
+        (``SwinBlock.takes_block_kernel``) the split kernels.
         ``train=True``: one training step, forward and backward, by the
         three-width training rule: a block up to ROUTE_TRAIN_BLOCK_MAX_C
+        that trains on the block kernels (``trains_on_block_kernels``)
         launches the block kernel once and its backward's fixed sequence,
         on the residual route where ``trains_on_residuals`` holds (JAX
         ``swin_block_trainable_res``), else on the recompute one (JAX
-        ``swin_block_trainable``); one up to ROUTE_TRAIN_SPLIT_MAX_C
+        ``swin_block_trainable``); another up to ROUTE_TRAIN_SPLIT_MAX_C
         the LN+W-MSA pair, LN+W-MSA backward, LN+MLP branch and LN+MLP
         backward sequences (JAX ``ln_window_attention_trainable`` +
         ``ln_mlp_trainable``); a wider one runs plain autograd and launches
@@ -311,7 +314,7 @@ class SUNet(nn.Module):
         if train:
             for stage in list(self.layers) + list(self.layers_up[1:]):
                 for blk in stage.blocks:
-                    if blk.dim <= layers.ROUTE_TRAIN_BLOCK_MAX_C:
+                    if blk.trains_on_block_kernels():
                         if blk.trains_on_residuals():
                             counts["fused_swin_block_res"] += 1
                             counts["swin_block_bwd_res"] += wa.SWIN_BLOCK_BWD_RES_LAUNCHES
@@ -346,7 +349,8 @@ class SUNet(nn.Module):
                     counts["fused_swin_block_chain"] += k
                     i += k
                     continue
-                if blocks[i].dim <= layers.ROUTE_BLOCK_MAX_C:
+                if (blocks[i].dim <= layers.ROUTE_BLOCK_MAX_C
+                        and blocks[i].takes_block_kernel()):
                     counts["fused_swin_block"] += 1
                 else:
                     counts["fused_ln_window_attention"] += 2

@@ -9,10 +9,12 @@ each phase boundary. Runs ``fused_swin_block`` at the default model's three
 block widths, (64,64,96), (32,32,192) and (16,16,384), window 8, 8 heads,
 shift 0, bf16, seeded weights, and prints per width the launch plan, the
 median over CTAs of each phase's clock cycles and of a CTA's total, how
-many of its clusters the card holds at once (the occupancy API), and the
-median device time of the launch (torch.profiler), beside the card's name
-and power limit. The clocks are per SM (not comparable across SMs), so
-only differences within one CTA are used. Refuses to run without a card.
+many of its clusters the card holds at once (the occupancy API), beside
+the card's name and power limit (the launch's time is chip_smoke.py's and
+chip_ab.py's reading). The clocks are per SM (not comparable across SMs),
+so only differences within one CTA are used. These shares are the per-layer
+metric of #1's redesign (PERF.md, Layers): which phases to overlap next.
+Refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -41,21 +43,6 @@ def block_args(B: int, H: int, C: int, gen) -> tuple:
             n(8, 64, 64), None)
 
 
-def device_ms(fn, n: int = 10) -> float:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = sorted(ev.time_range.end - ev.time_range.start for ev in prof.events()
-                   if ev.device_type == DeviceType.CUDA)
-    return times[len(times) // 2] / 1000
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4)
@@ -71,8 +58,8 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     for H, C in SHAPES:
         args = block_args(B, H, C, gen)
-        plan = wa.block_plan(B, H, H, C, 4 * C, 8, 8)
-        ctas = plan["ctas"]
+        plan = wa.block_plan(H, H, C, 4 * C, 8, 8)
+        ctas = B * plan["ctas_per_image"]
         clocks = torch.zeros(ctas, len(PHASES) + 1, dtype=torch.int64, device="cuda")
         run = lambda: wa.fused_swin_block(*args, ws=8, num_heads=8, scale=8.0)
         _build.check("block_phases", lib.sunet_swin_block_phase_clock(
@@ -85,8 +72,7 @@ def main():
         total = float((c[:, -1] - c[:, 0]).median())
         held = lib.sunet_swin_block_max_clusters(plan["G"], plan["smem"])
         print(f"({H},{H},{C}) batch {B}: cluster {plan['G']}, {ctas} CTAs, {plan['smem']} bytes "
-              f"of shared memory, {held} clusters held at once; launch {device_ms(run):.4f} ms "
-              f"device; per CTA {total:.0f} cycles")
+              f"of shared memory, {held} clusters held at once; per CTA {total:.0f} cycles")
         print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
                                for name, v in zip(PHASES, phase.tolist())))
 

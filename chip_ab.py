@@ -7,30 +7,35 @@ Each tree runs in its own process, with its own kernel build (into its own
 ``sunet_tf_tpu_torch/kernels/_build/``), on the same seeded inputs, batch 2,
 bf16, ``chip_smoke.block_params`` weights.
 
-- Bit for bit (the exit code is 1 where one differs): the residual route's
-  block forward (#6: output and stored state) at (64,64,96) and (32,32,192),
-  the recompute block backward (#8) at (64,64,96), (32,32,192) and
-  (16,16,384), shift 0 and 4, the C=768 training sublayers of
-  ``chip_smoke.sublayer_cases`` (#12, #13, #14), and the conv-fused x4 head
-  (#5) and its backward (#9) at (64,64,96), out 1 and 3.
+- Bit for bit (the exit code is 1 where one differs): the block kernel
+  (#1) at (64,64,96), (32,32,192) and (16,16,384), shift 0 and 4, inference
+  and train form, and at batch 4 (shift 4); the residual route's block
+  forward (#6: output and stored state) at (64,64,96) and (32,32,192), the
+  recompute block backward (#8) at the three widths, shift 0 and 4, the
+  C=768 training sublayers of ``chip_smoke.sublayer_cases`` (#12, #13,
+  #14), the LN+MLP kernel (#4) at (8,8,768), batch 2 and 4, the conv-fused
+  x4 head's backward (#9) at (64,64,96), out 1 and 3, the split x4 head
+  (#10) at (64,64,96) (it shares ``up4_common.cuh`` with #5) and the
+  standalone W-MSA (#15) at (64,64,96), shift 0 and 4 (it shares
+  ``linear_bias_kernel`` with #3).
 - Against the plain version, both trees' readings printed (``PLAIN``
-  lines): the block kernel (#1) at the same shapes, inference and train
-  form, and at batch 4 (shift 4), and the LN+MLP kernel (#4) at (8,8,768),
-  batch 2 and 4. Their fp32 summation order is a design choice of each
-  tree, so their bits may differ.
+  lines): the conv-fused x4 head (#5) at (64,64,96), out 1 and 3, batch 2,
+  and out 1 at batch 4; the LN+W-MSA kernel (#3) at (8,8,768), batch 2 and
+  4, and at (16,16,768), shift 4 with the mask. Their fp32 summation order
+  is a design choice of each tree, so their bits may differ.
 - Times (``TIME`` lines), each by this script's own ``time_ms`` and
   ``device_ms``, the same code for both trees: CUDA events, medians of 20,
   with the card spinning first so that the host's pace of launches does not
   count; and the device time of the wrapper's kernels from torch.profiler,
-  mean per call. #1 at (64,64,96), (32,32,192), (16,16,384) and #4 at
-  (8,8,768), batch 2 and 4, #5 and #9, and the default model's fused bf16
-  forward at 256x256 batch 4 (also paced by the host: events around each
-  call with nothing queued ahead, as a caller who waits on each call sees
-  it). The trees run in turns (other, this, this, other).
+  mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4 and #3 at
+  (8,8,768) and #5 at (64,64,96) out 1, batch 2 and 4, #9, and the default
+  model's fused bf16 forward at 256x256 batch 4 (also paced by the host:
+  events around each call with nothing queued ahead, as a caller who waits
+  on each call sees it). The trees run in turns (other, this, this, other).
 
 The other tree needs ``chip_smoke.block_params``,
-``chip_smoke.sublayer_cases``, ``models.sunet.build_model`` and the
-wrappers. Needs one GPU; imports nothing of JAX.
+``chip_smoke.sublayer_cases``, ``chip_smoke.split_head_args``,
+``models.sunet.build_model`` and the wrappers. Needs one GPU; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -123,10 +128,8 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
         blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12],
                mask)
         case = f"({H},{H},{C}) shift {shift}"
-        plain(f"fused_swin_block {case}", wa.fused_swin_block(*blk, **kw),
-              wa.fused_swin_block_reference(*blk, **kw))
-        plain(f"fused_swin_block train form {case}", wa.fused_swin_block(*blk, dp, **kw),
-              wa.fused_swin_block_reference(*blk, dp, **kw))
+        outs[f"fused_swin_block {case}"] = wa.fused_swin_block(*blk, **kw)
+        outs[f"fused_swin_block train form {case}"] = wa.fused_swin_block(*blk, dp, **kw)
         for i, g in enumerate(wa.swin_block_bwd(x, dout, *blk[1:], dp, **kw)):
             outs[f"swin_block_bwd {case} output {i}"] = g
         if C < 384:
@@ -143,30 +146,64 @@ for out_ch in (1, 3):
     hp = (n(B, H, H, C).to(torch.bfloat16), bw(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
           bw(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), bw(C, C), bw(C, C),
           (n(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16))
-    outs[f"fused_dual_upsample4_conv_phase out {out_ch}"] = up.fused_dual_upsample4_conv_phase(*hp)
+    plain(f"fused_dual_upsample4_conv_phase out {out_ch}", up.fused_dual_upsample4_conv_phase(*hp),
+          up.fused_dual_upsample4_conv_phase_reference(*hp))
     dout = n(B, H, H, 16 * out_ch).to(torch.bfloat16)
     for i, g in enumerate(up.up4_conv_bwd(*hp, dout)):
         outs[f"up4_conv_bwd out {out_ch} output {i}"] = g
-    timed(f"fused_dual_upsample4_conv_phase out {out_ch}",
-          lambda: up.fused_dual_upsample4_conv_phase(*hp))
     timed(f"up4_conv_bwd out {out_ch}", lambda: up.up4_conv_bwd(*hp, dout))
 H, C = 8, 768
 p = cs.block_params(C, heads, ws * ws, gen)
 y = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
-plain(f"fused_ln_mlp ({H},{H},{C})", wa.fused_ln_mlp(y, p[6:8], *p[8:12]),
-      wa.fused_ln_mlp_reference(y, p[6:8], *p[8:12]))
+outs[f"fused_ln_mlp ({H},{H},{C})"] = wa.fused_ln_mlp(y, p[6:8], *p[8:12])
 # batch 4, the main path's grid
 y = torch.randn(4, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
-plain(f"fused_ln_mlp batch 4 ({H},{H},{C})", wa.fused_ln_mlp(y, p[6:8], *p[8:12]),
-      wa.fused_ln_mlp_reference(y, p[6:8], *p[8:12]))
+outs[f"fused_ln_mlp batch 4 ({H},{H},{C})"] = wa.fused_ln_mlp(y, p[6:8], *p[8:12])
 for H, C in ((64, 96), (32, 192), (16, 384)):
     p = cs.block_params(C, heads, ws * ws, gen)
     x = torch.randn(4, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
     mask = torch.as_tensor(shift_attn_mask(H, H, ws, 4), device="cuda")
     blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12], mask)
     kw = dict(ws=ws, num_heads=heads, scale=scale, shift=4)
-    plain(f"fused_swin_block batch 4 ({H},{H},{C}) shift 4", wa.fused_swin_block(*blk, **kw),
-          wa.fused_swin_block_reference(*blk, **kw))
+    outs[f"fused_swin_block batch 4 ({H},{H},{C}) shift 4"] = wa.fused_swin_block(*blk, **kw)
+# the split head (#10) and the standalone W-MSA (#15), which share a header
+# and a kernel with #5 and #3
+hp = cs.split_head_args(gen, B, 64, 64, 96)
+outs["fused_dual_upsample4 (64,64,96)"] = up.fused_dual_upsample4(*hp)
+for shift in (0, 4):
+    p = cs.block_params(96, heads, ws * ws, gen)
+    x = torch.randn(B, 64, 64, 96, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = (torch.as_tensor(shift_attn_mask(64, 64, ws, shift), device="cuda")
+            if shift else None)
+    outs[f"wmsa_core (64,64,96) shift {shift}"] = wa.fused_window_attention(
+        x, p[2], p[3], p[4], p[5], p[12], mask, ws=ws, num_heads=heads, scale=scale)
+# the redesigned kernels against their plain versions: #3 at the main
+# path's (8,8,768), batch 2 and 4, and with the SW mask; #5 at batch 4
+for Bt, H, shift in ((2, 8, 0), (4, 8, 0), (2, 16, 4)):
+    p = cs.block_params(768, heads, ws * ws, gen)
+    x = torch.randn(Bt, H, H, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+            if shift else None)
+    args = (x, *p[0:6], p[12], mask)
+    kw = dict(ws=ws, num_heads=heads, scale=scale)
+    plain(f"fused_ln_window_attention batch {Bt} ({H},{H},768) shift {shift}",
+          wa.fused_ln_window_attention(*args, **kw),
+          wa.fused_ln_window_attention_reference(*args, **kw))
+    if not shift:
+        timed(f"fused_ln_window_attention batch {Bt} ({H},{H},768)",
+              lambda: wa.fused_ln_window_attention(*args, **kw))
+for Bt in (2, 4):
+    H, C = 64, 96
+    hp = (n(Bt, H, H, C).to(torch.bfloat16), bw(C, 16 * C),
+          torch.full((1,), 0.25, device="cuda"), bw(C, C), 0.1 * n(C),
+          torch.full((1,), 0.2, device="cuda"), bw(C, C), bw(C, C),
+          (n(3, 3, C, 1) / (9 * C) ** 0.5).to(torch.bfloat16))
+    if Bt == 4:
+        plain("fused_dual_upsample4_conv_phase batch 4 out 1",
+              up.fused_dual_upsample4_conv_phase(*hp),
+              up.fused_dual_upsample4_conv_phase_reference(*hp))
+    timed(f"fused_dual_upsample4_conv_phase batch {Bt} out 1",
+          lambda: up.fused_dual_upsample4_conv_phase(*hp))
 for Bt in (2, 4):
     for H, C in ((64, 96), (32, 192), (16, 384), (8, 768)):
         p = cs.block_params(C, heads, ws * ws, gen)

@@ -127,10 +127,26 @@ MUTANTS = {
     "cluster_ctx_slice_not_gathered": ("swin_cluster.cu",
                                        "if (q == rank) continue;   // ctx gather",
                                        "if (q == rank || q == (rank + 1) % G) continue;"),
-    # the LN+MLP kernel (#4): the last rank's fc2 partial left out
-    "ln_mlp_fc2_rank_dropped": ("ln_mlp.cu",
-                                "for (int q = 0; q < G; ++q)   // fc2 partials in rank order",
-                                "for (int q = 0; q < G - 1; ++q)   // fc2 partials in rank order"),
+    # the token-row GEMM of the LN+MLP (#4) and LN+W-MSA (#3) kernels
+    # (gemm_tile.cuh): the last rank's split partial left out (#4's fc2 at
+    # ks=4, #3's projection at ks=4)
+    "gemm_split_rank_dropped": ("gemm_tile.cuh",
+                                "for (int q = 0; q < G; ++q)   // split partials in rank order",
+                                "for (int q = 0; q < G - 1; ++q)   // split partials in rank order"),
+    # the LN+W-MSA kernel (#3): the last head's ctx dropped (zero)
+    "ln_wmsa_head_ctx_dropped": (
+        "ln_window_attention.cu", "  l0 = fmaxf(l0, 1e-37f);\n  l1 = fmaxf(l1, 1e-37f);\n",
+        "  l0 = hh == a.heads - 1 ? INFINITY : fmaxf(l0, 1e-37f);\n"
+        "  l1 = hh == a.heads - 1 ? INFINITY : fmaxf(l1, 1e-37f);\n"),
+    # the conv-fused x4 head (#5): the top halo row's phases (i = 3) not
+    # computed, and the four corners' phases not computed (4 outputs per
+    # tile lose a tap)
+    "up4c_top_halo_row_dropped": (
+        "up4_conv.cu", "if (q < kTW) return i == 3 ? q : (i == 0 ? kTW + q : -1);",
+        "if (q < kTW) return i == 3 ? -1 : (i == 0 ? kTW + q : -1);"),
+    "up4c_corners_dropped": (
+        "up4_conv.cu", "if (q == kTW + kTH && (i == 3 || i == 0) && (j == 3 || j == 0))",
+        "if (false && q == kTW + kTH)"),
     # the standalone W-MSA (#15) without its qkv bias
     "wmsa_no_qkv_bias": ("window_attention.cu", "a.wqkv, a.bqkv, a.bias, mask",
                          "a.wqkv, nullptr, a.bias, mask"),
@@ -258,6 +274,31 @@ args = (y, p[6:8], p[8], p[9], p[10], p[11])
 ref = wa.fused_ln_mlp_reference(*args)
 got = (wa.fused_ln_mlp_reference(*cpu(args)) if mode == "floor" else wa.fused_ln_mlp(*args))
 cs.compare(f"fused_ln_mlp (8,8,768) {tag}", got.cuda(), ref)
+# the LN+W-MSA kernel (#3) at the main path's (8,8,768), batch 4, and with
+# the SW mask, and the conv-fused x4 head (#5) at the main path's grid and
+# on a map that is not a multiple of its tile, drawn last
+for Bt, H, shift in ((4, 8, 0), (2, 16, 4)):
+    p = cs.block_params(768, heads, ws * ws, gen, qkv_gain=gain)
+    x = torch.randn(Bt, H, H, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+            if shift else None)
+    args = (x, *p[0:6], p[12], mask)
+    kw = dict(ws=ws, num_heads=heads, scale=scale)
+    ref = wa.fused_ln_window_attention_reference(*args, **kw)
+    got = (wa.fused_ln_window_attention_reference(*cpu(args), **kw) if mode == "floor"
+           else wa.fused_ln_window_attention(*args, **kw))
+    cs.compare(f"fused_ln_window_attention batch {Bt} ({H},{H},768) shift {shift} {tag}",
+               got.cuda(), ref)
+for Bt, H, W, out_ch in ((4, 64, 64, 1), (2, 34, 40, 3)):
+    hp = (n(Bt, H, W, 96).to(torch.bfloat16), bw(96, 16 * 96),
+          torch.full((1,), 0.25, device="cuda"), bw(96, 96), 0.1 * n(96),
+          torch.full((1,), 0.2, device="cuda"), bw(96, 96), bw(96, 96),
+          (n(3, 3, 96, out_ch) / (9 * 96) ** 0.5).to(torch.bfloat16))
+    ref = up.fused_dual_upsample4_conv_phase_reference(*hp)
+    got = (up.fused_dual_upsample4_conv_phase_reference(*cpu(hp)) if mode == "floor"
+           else up.fused_dual_upsample4_conv_phase(*hp))
+    cs.compare(f"fused_dual_upsample4_conv_phase batch {Bt} ({H},{W},96) out {out_ch} {tag}",
+               got.cuda(), ref)
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)

@@ -7,8 +7,11 @@
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
    then a link) and prints the time.
 3. One phase per kernel at the default model's shapes, batch 2, bf16
-   (and #1 and #4 also at batch 4 with each launch plan asserted, and #1
-   at head counts whose cluster size is not a power of two):
+   (and #1, #3, #4 and #5 also at batch 4 with each launch plan asserted,
+   #1 at head counts whose cluster size is not a power of two, #3 at
+   (16,16,768) with the SW mask and at C=384 with 2 heads (head dim 192),
+   #5 on a map that is not a multiple of its 6 x 8 tile, on a map of one
+   tile and at C=192, out 8):
    kernel vs its plain PyTorch version (max and mean |diff| against a
    stated tolerance), the median device time of each over 20
    CUDA-event-timed runs after warm-up (the card spins first, so the host's
@@ -260,11 +263,11 @@ def ln_mlp_bwd_cost(B: int, H: int, C: int) -> dict:
                  + (2 * C * hid + 3 * C + hid) * 4)
 
 
-def up4_cost(B: int, H: int, C: int, out: int) -> dict:
+def up4_cost(B: int, H: int, C: int, out: int, W: int = None) -> dict:
     """x4 head + conv forward (#5), per low-res pixel: 34 C^2 multiply-adds
     of the head, 144 C*out of the conv; bytes: x in, phase map out, bf16
-    weights."""
-    M = B * H * H
+    weights. W defaults to H."""
+    M = B * H * (W or H)
     return bound(M * (68 * C * C + 288 * C * out),
                  M * C * 2 + M * 16 * out * 2 + 19 * C * C * 2)
 
@@ -296,6 +299,14 @@ def up4_split_bwd_cost(B: int, H: int, W: int, C: int) -> dict:
     M = B * H * W
     return bound(M * 170 * C * C, 2 * M * C * 2 + 16 * M * C * 2 + 19 * C * C * 2
                  + (19 * C * C + C + 2) * 4)
+
+
+def ln_wmsa_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 8,
+                 masked: bool = False) -> dict:
+    """LN + W-MSA (#3): #15's operations and bytes and the float32 LN
+    scale and bias."""
+    c = wmsa_cost(B, H, C, ws, heads, masked)
+    return bound(c["flops"], c["bytes"] + 2 * C * 4)
 
 
 def wmsa_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 8,
@@ -925,7 +936,27 @@ def kernel_phases(results: dict):
     record("fused_ln_window_attention", f"({H},{H},{C})",
            lambda: wa.fused_ln_window_attention(x, *p[0:6], p[12], None, **bkw),
            lambda: wa.fused_ln_window_attention_reference(x, *p[0:6], p[12], None, **bkw),
-           bound(2 * T * C * 4 * C + 4 * T * N * C, 2 * T * C * 2 + 4 * C * C * 2))
+           ln_wmsa_cost(B, H, C))
+    # #3 on the main path's grid (batch 4) and where the router also sends
+    # blocks: the SW mask on a map of 4 windows, a head dim of 192; each
+    # with its K splits (qkv, projection) asserted
+    for Bc, Hc, Cc, hc, shift, splits in ((4, 8, 768, 8, 0, (1, 4)), (2, 16, 768, 8, 4, (1, 1)),
+                                         (2, 16, 384, 2, 0, (1, 2))):
+        plan = wa.wmsa_plan(Hc, Hc, Cc, hc, ws)
+        check((plan["ksq"], plan["ks"]) == splits,
+              f"fused_ln_window_attention ({Hc},{Hc},{Cc}) {hc} heads: plan {plan}, "
+              f"expected K splits {splits}")
+        pc = block_params(Cc, hc, N, gen)
+        xc = torch.randn(Bc, Hc, Hc, Cc, device="cuda", generator=gen).to(torch.bfloat16)
+        mc = (torch.as_tensor(shift_attn_mask(Hc, Hc, ws, shift), device="cuda")
+              if shift else None)
+        kwc = dict(ws=ws, num_heads=hc, scale=scale)
+        record("fused_ln_window_attention",
+               f"batch {Bc} ({Hc},{Hc},{Cc}) shift {shift}, {hc} heads, ksq={splits[0]} "
+               f"ks={splits[1]}",
+               lambda: wa.fused_ln_window_attention(xc, *pc[0:6], pc[12], mc, **kwc),
+               lambda: wa.fused_ln_window_attention_reference(xc, *pc[0:6], pc[12], mc, **kwc),
+               ln_wmsa_cost(Bc, Hc, Cc, ws, hc, masked=shift > 0))
     record("fused_ln_mlp", f"({H},{H},{C})",
            lambda: wa.fused_ln_mlp(x, p[6:8], *p[8:12]),
            lambda: wa.fused_ln_mlp_reference(x, p[6:8], *p[8:12]),
@@ -942,15 +973,33 @@ def kernel_phases(results: dict):
     H, C = 64, 96
     n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
     bw = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+
+    def head_args(Bh, Hh, Wh, Ch, out_ch):
+        return (n(Bh, Hh, Wh, Ch).to(torch.bfloat16), bw(Ch, 16 * Ch),
+                torch.full((1,), 0.25, device="cuda"), bw(Ch, Ch), 0.1 * n(Ch),
+                torch.full((1,), 0.2, device="cuda"), bw(Ch, Ch), bw(Ch, Ch),
+                (n(3, 3, Ch, out_ch) / (9 * Ch) ** 0.5).to(torch.bfloat16))
+
     for out_ch in (1, 3):
-        x = n(B, H, H, C).to(torch.bfloat16)
-        hp = (x, bw(C, 16 * C), torch.full((1,), 0.25, device="cuda"), bw(C, C),
-              0.1 * n(C), torch.full((1,), 0.2, device="cuda"), bw(C, C), bw(C, C),
-              (n(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16))
+        hp = head_args(B, H, H, C, out_ch)
         record("fused_dual_upsample4_conv_phase", f"({H},{H},{C}) out {out_ch}",
                lambda: up.fused_dual_upsample4_conv_phase(*hp),
                lambda: up.fused_dual_upsample4_conv_phase_reference(*hp),
                up4_cost(B, H, C, out_ch))
+    # #5 on the main path's grid (batch 4), on a map that is not a multiple
+    # of the 6 x 8 tile, on a map of one tile, and at C=192 (one tile per
+    # CTA); each with its tiles per CTA asserted
+    for Bh, Hh, Wh, Ch, out_ch, T in ((4, 64, 64, 96, 1, 2), (4, 64, 64, 96, 3, 2),
+                                      (2, 34, 40, 96, 1, 2), (2, 6, 8, 96, 1, 2),
+                                      (2, 16, 24, 192, 8, 1)):
+        check(up.up4_plan(Ch, out_ch)["T"] == T, f"fused_dual_upsample4_conv_phase C={Ch} "
+              f"out {out_ch}: plan {up.up4_plan(Ch, out_ch)}, expected {T} tiles per CTA")
+        hp = head_args(Bh, Hh, Wh, Ch, out_ch)
+        record("fused_dual_upsample4_conv_phase",
+               f"batch {Bh} ({Hh},{Wh},{Ch}) out {out_ch}, T={T}",
+               lambda: up.fused_dual_upsample4_conv_phase(*hp),
+               lambda: up.fused_dual_upsample4_conv_phase_reference(*hp),
+               up4_cost(Bh, Hh, Ch, out_ch, W=Wh))
 
     # the split head (#10): the main path's (64,64,96), and a map whose H
     # and W are not multiples of the kernel's 4 x 8 tile
@@ -1119,19 +1168,22 @@ def patched(patches: list):
             setattr(m, a, v)
 
 
-# The launch plans (#1's cluster size, #4's K split) that the per-kernel
-# checks held against their plain versions, filled by plans_taken.
+# The launch plans (#1's cluster size, #4's K split, #3's K splits, #5's
+# tiles per CTA) that the per-kernel checks held against their plain
+# versions, filled by plans_taken.
 HELD_PLANS: set = set()
 
 
 @contextlib.contextmanager
 def plans_taken(into: set):
     """Record into ``into`` each launch plan the wrappers take for the
-    duration: ("fused_swin_block", C, hidden, heads, G) and
-    ("fused_ln_mlp", C, hidden, ks)."""
+    duration: ("fused_swin_block", C, hidden, heads, G), ("fused_ln_mlp",
+    C, hidden, ks), ("fused_ln_window_attention", C, heads, ws, ksq, ks)
+    and ("fused_dual_upsample4_conv_phase", C, out, T)."""
+    from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
 
-    block_plan, mlp_plan = wa.block_plan, wa.mlp_plan
+    block_plan, mlp_plan, wmsa_plan, up4_plan = wa.block_plan, wa.mlp_plan, wa.wmsa_plan, up.up4_plan
 
     def block(H, W, C, hidden, ws, heads):
         plan = block_plan(H, W, C, hidden, ws, heads)
@@ -1143,7 +1195,18 @@ def plans_taken(into: set):
         into.add(("fused_ln_mlp", C, hidden, plan["ks"]))
         return plan
 
-    with patched([(wa, "block_plan", block), (wa, "mlp_plan", mlp)]):
+    def wmsa(H, W, C, heads, ws):
+        plan = wmsa_plan(H, W, C, heads, ws)
+        into.add(("fused_ln_window_attention", C, heads, ws, plan["ksq"], plan["ks"]))
+        return plan
+
+    def head(C, out):
+        plan = up4_plan(C, out)
+        into.add(("fused_dual_upsample4_conv_phase", C, out, plan["T"]))
+        return plan
+
+    with patched([(wa, "block_plan", block), (wa, "mlp_plan", mlp), (wa, "wmsa_plan", wmsa),
+                  (up, "up4_plan", head)]):
         yield into
 
 

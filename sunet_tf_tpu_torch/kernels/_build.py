@@ -81,9 +81,12 @@ SIGNATURES = {
     "sunet_ln_mlp_bwd": [_P] * 15 + [_I] * 3 + [_P, _P],
     # M, C, hidden -> workspace bytes
     "sunet_ln_mlp_bwd_workspace": [_I] * 3,
-    # x, ctx, ln g/b, wqkv, bqkv, bias, mask, B, H, W, C, ws, heads, scale,
-    # stream
-    "sunet_ln_wmsa_ctx": [_P] * 8 + [_I] * 6 + [_F, _P],
+    # x, out, ln g/b, wqkv, bqkv, wproj, bproj, bias, mask, workspace, B, H,
+    # W, C, ws, heads, scale, the launch plan's K splits (qkv, proj), int*
+    # launches, stream
+    "sunet_ln_wmsa": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P, _P],
+    # M, C -> workspace bytes
+    "sunet_ln_wmsa_workspace": [_I] * 2,
     # A, W, bias, out, M, K, Nout, stream
     "sunet_linear_bias": [_P] * 4 + [_I] * 3 + [_P],
     # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks (the
@@ -92,8 +95,8 @@ SIGNATURES = {
     # M, C, hidden -> workspace bytes
     "sunet_ln_mlp_workspace": [_I] * 3,
     # x, out, wexp(16,C,C), wb1, bb1, wpf, wbf, wconv(3,3,C,out), alphas,
-    # B, H, W, C, out_ch, stream
-    "sunet_up4_conv_phase": [_P] * 9 + [_I] * 5 + [_P],
+    # B, H, W, C, out_ch, the launch plan's tiles per CTA, stream
+    "sunet_up4_conv_phase": [_P] * 9 + [_I] * 6 + [_P],
     # x, out (B, 4H, 4W, C), wexp(16,C,C), wb1, bb1, wpf, wbf, alphas, B, H,
     # W, C, stream
     "sunet_up4": [_P] * 8 + [_I] * 4 + [_P],

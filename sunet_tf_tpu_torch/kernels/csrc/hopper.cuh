@@ -158,6 +158,21 @@ __device__ inline void wgmma64(float (&d)[32], uint64_t a, uint64_t b, int scale
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D (64 x 16 fp32, 8 per thread) (+)= A @ B over 16 of K, B K-major (not
+// transposed: N rows of K, the layout of A); scale_d 0 overwrites D.
+__device__ inline void wgmma16_kmajor(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // Row and column within the 64 x 64 tile of accumulator i of thread t
 // (0..127) of the warpgroup.
 __device__ inline int acc_row(int t, int i) { return (t >> 5) * 16 + ((t & 31) >> 2) + ((i >> 1) & 1) * 8; }

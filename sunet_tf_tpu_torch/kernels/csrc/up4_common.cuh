@@ -1,13 +1,13 @@
-// Shared pieces of the x4 dual up-sample head's forward kernels: the
-// conv-fused phase-space head (up4_conv.cu, #5) and the split head that
-// writes the up-sampled map (up4.cu, #10).
+// Pieces of the x4 dual up-sample head's forward kernels: the split head
+// that writes the up-sampled map (up4.cu, #10) uses all of them, the
+// conv-fused phase-space head (up4_conv.cu, #5) the phase weights and PReLU.
 //
-// Both compute the head's 16 phase maps of a tile of low-res pixels with the
+// They compute the head's 16 phase maps of a tile of low-res pixels with the
 // JAX kernels' rounding points: pixel-shuffle branch round(prelu(x @
 // wexp[s])) @ wpf accumulated in fp32; bilinear branch round(prelu(x @ wb1 +
 // bb1)) @ wbf kept in fp32 (never rounded) through the separable half-pixel
-// x4 stencil; phase map = round(sum). Each caller decides where a phase map
-// goes (shared memory for #5's conv, the pixel-space output for #10).
+// x4 stencil; phase map = round(sum). The caller decides where a phase map
+// goes (#10: the pixel-space output).
 //
 // Everything here is static or a template, so several sources can include
 // the header.

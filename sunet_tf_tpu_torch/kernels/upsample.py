@@ -37,20 +37,30 @@ tensor -> kernel or raise.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from sunet_tf_tpu_torch.kernels import _build
-from sunet_tf_tpu_torch.kernels.window_attention import (BF16, _check_w,
-                                                         _check_x, exact_fp32,
-                                                         mm32)
+from sunet_tf_tpu_torch.kernels.window_attention import (BF16, SMEM_MAX, _a_bytes,
+                                                         _check_w, _check_x, _up,
+                                                         exact_fp32, mm32)
 
 # Half-pixel x4 phase weights: output row 4h+p samples input at
 # h + (2p-3)/8 -> taps (h-1, h) for p = 0, 1 and (h, h+1) for p = 2, 3.
 P4 = ((0.375, 0.625), (0.125, 0.875), (0.875, 0.125), (0.625, 0.375))
-# The kernel stages the 16 phase maps of a tile in shared memory: C <= 96.
+# The conv-fused head's backward (csrc/up4_conv_bwd.cu) stages a tile's 16
+# phase maps in shared memory: C <= 96.
 UP4_KERNEL_MAX_C = 96
 UP4_KERNEL_MAX_OUT = 8
+# The conv-fused head's forward (csrc/up4_conv.cu): a tile of UP4_TILE
+# low-res pixels per warpgroup, one or two warpgroups per CTA (up4_plan);
+# its shared memory holds C up to this width.
+UP4_CONV_KERNEL_MAX_C = 192
+UP4_TILE = (6, 8)
+_UP4_RING = (3, 12288)   # csrc/up4_conv.cu kRingS, kRingSlot
+_UP4_HEADER = 2048       # csrc/up4_conv.cu kHeader
 # Kernel launches one up4_conv_bwd call makes (csrc/up4_conv_bwd.cu).
 UP4_CONV_BWD_LAUNCHES = 25
 # The split head's kernels (csrc/up4.cu, up4_bwd.cu) keep one tile's working
@@ -142,6 +152,78 @@ def fused_dual_upsample4_conv_phase_reference(x, w_exp, alpha_p, w_b1, b_b1,
         o = F.conv2d(y.float().permute(0, 3, 1, 2),
                      wconv.float().permute(3, 2, 0, 1), padding=1)
         return _pixel_to_phase(o.permute(0, 2, 3, 1)).to(x.dtype)
+
+
+# ---------------------------------------------------------------- the
+# conv-fused forward's tiles (csrc/up4_conv.cu), in plain Python: the halo
+# of a tile, the rows of one subpixel's 64-row wgmma tile, the launch plan.
+
+
+def up4_halo_pixels() -> list:
+    """The halo pixels of a UP4_TILE tile, (y, x) in tile coordinates, in
+    the kernel's order (``pool_pixel``): the top row, the bottom row, the
+    left column, the right column, the corners TL, TR, BL, BR."""
+    TH, TW = UP4_TILE
+    return ([(-1, x) for x in range(TW)] + [(TH, x) for x in range(TW)]
+            + [(y, -1) for y in range(TH)] + [(y, TW) for y in range(TH)]
+            + [(-1, -1), (-1, TW), (TH, -1), (TH, TW)])
+
+
+def up4_halo_src(i: int, j: int, r: int) -> int:
+    """The halo pixel (index into :func:`up4_halo_pixels`) that row r of
+    subpixel (i, j)'s 64-row tile holds, -1 for none (``halo_src``): rows
+    below TH*TW are the tile's pixels; then the top halo row where i = 3 or
+    the bottom one where i = 0, the left halo column where j = 3 or the
+    right one where j = 0, and the corner where both hold."""
+    TH, TW = UP4_TILE
+    q = r - TH * TW
+    if q < TW:
+        return q if i == 3 else (TW + q if i == 0 else -1)
+    if q < TW + TH:
+        return 2 * TW + q - TW if j == 3 else (2 * TW + TH + q - TW if j == 0 else -1)
+    if q == TW + TH and i in (0, 3) and j in (0, 3):
+        return 2 * TW + 2 * TH + (i == 0) * 2 + (j == 0)
+    return -1
+
+
+def up4_tile_rows(i: int, j: int) -> list:
+    """(row, (y, x)) of every row of subpixel (i, j)'s 64-row tile that
+    holds a pixel: the tile's own, then the halo pixels whose phase (i, j)
+    the 3x3 conv reads."""
+    TH, TW = UP4_TILE
+    halo = up4_halo_pixels()
+    rows = [(r, (r // TW, r % TW)) for r in range(TH * TW)]
+    return rows + [(r, halo[up4_halo_src(i, j, r)]) for r in range(TH * TW, 64)
+                   if up4_halo_src(i, j, r) >= 0]
+
+
+def up4_smem(C: int, out: int, T: int) -> int:
+    """Dynamic shared memory of a CTA of csrc/up4_conv.cu with T warpgroups
+    (``smem_bytes``): slack, header, ring, the conv's weights (K-major, 9 *
+    out rows rounded up to 16), and per warpgroup the x rows of the tile and
+    of its halo, z / Y (64 x C each), xb over the 1-pixel halo region
+    (float32, rows of C + 4) and the tile's output sums (float32)."""
+    TH, TW = UP4_TILE
+    S, slot = _UP4_RING
+    conv = -(-C // 64) * _up(9 * out, 16) * 128
+    wg = (3 * _a_bytes(C) + _up((TH + 2) * (TW + 2) * (C + 4) * 4, 1024)
+          + _up(TH * TW * 16 * out * 4, 1024))
+    return 1024 + _UP4_HEADER + S * slot + conv + T * wg
+
+
+@functools.lru_cache(maxsize=None)
+def up4_plan(C: int, out: int) -> dict:
+    """Launch plan of csrc/up4_conv.cu: T, the tiles (warpgroups) per CTA,
+    2 where two fit SMEM_MAX, else 1; its shared memory. A function of C
+    and out alone (a tile is UP4_TILE pixels at any image size and batch).
+    Raises ValueError outside the design."""
+    if C % 16 or not 16 <= C <= UP4_CONV_KERNEL_MAX_C or not 1 <= out <= UP4_KERNEL_MAX_OUT:
+        raise ValueError(f"up4_plan: C={C}, out={out}: the kernel takes C a multiple of 16 "
+                         f"up to {UP4_CONV_KERNEL_MAX_C} and 1 <= out <= {UP4_KERNEL_MAX_OUT}")
+    T = next(T for T in (2, 1, 0) if T == 0 or up4_smem(C, out, T) <= SMEM_MAX)
+    if not T:
+        raise ValueError(f"up4_plan: C={C}, out={out}: one tile does not fit {SMEM_MAX} bytes")
+    return {"T": T, "smem": up4_smem(C, out, T)}
 
 
 def _stencil_x4_adjoint(gs: list, axis: int) -> torch.Tensor:
@@ -377,31 +459,38 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
         count.cpu += 1
         return fused_dual_upsample4_conv_phase_reference(
             x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv)
-    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv)
+    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_KERNEL_MAX_C,
+               tile=None)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
+    plan = up4_plan(C, out_ch)
+    # (16, C, C): subpixel s's expand weights are rows s*C .. of one matrix
     wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1).contiguous()
     alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
     out = torch.empty((B, H, W, 16 * out_ch), device=x.device, dtype=BF16)
     err = _build.library().sunet_up4_conv_phase(
         _build.ptr(x), _build.ptr(out), _build.ptr(wexp_s), _build.ptr(w_b1),
         _build.ptr(bb1), _build.ptr(wpf), _build.ptr(wbf), _build.ptr(wconv),
-        _build.ptr(alphas), B, H, W, C, out_ch, _build.stream())
+        _build.ptr(alphas), B, H, W, C, out_ch, plan["T"], _build.stream())
     _build.check(name, err)
     count.cuda += 1
     return out
 
 
-def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv):
+def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C,
+               tile=(2, 8)):
+    """The conv-fused head's kernels take C a multiple of 16 up to max_c,
+    1 <= out <= UP4_KERNEL_MAX_OUT and, where ``tile`` is given, (H, W)
+    multiples of it (the backward's tiles)."""
     _check_x(name, x)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
-    if C % 16 or C > UP4_KERNEL_MAX_C or not 1 <= out_ch <= UP4_KERNEL_MAX_OUT:
+    if C % 16 or C > max_c or not 1 <= out_ch <= UP4_KERNEL_MAX_OUT:
         raise ValueError(f"{name}: C={C}, out={out_ch}: the kernel takes C a "
-                         f"multiple of 16 up to {UP4_KERNEL_MAX_C} and "
+                         f"multiple of 16 up to {max_c} and "
                          f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
-    if H % 2 or W % 8:
-        raise ValueError(f"{name}: ({H},{W}) must be multiples of (2, 8)")
+    if tile and (H % tile[0] or W % tile[1]):
+        raise ValueError(f"{name}: ({H},{W}) must be multiples of {tile}")
     _check_w(name, x, w_exp=(w_exp, (C, 16 * C)), w_b1=(w_b1, (C, C)),
              wpf=(wpf, (C, C)), wbf=(wbf, (C, C)),
              wconv=(wconv, (3, 3, C, out_ch)))

@@ -11,8 +11,9 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   consecutive blocks with a bf16 cast at each seam; launches the block
   kernel K times (keeping the map on chip between blocks is open work).
 - :func:`fused_ln_window_attention` (JAX ``fused_ln_window_attention``):
-  LN -> W-MSA -> proj, no residual; two launches (per-head ctx, then the
-  projection). CUDA: ``csrc/ln_window_attention.cu``.
+  LN -> W-MSA -> proj, no residual; three launches (LN and the qkv product,
+  attention per (window, head), the projection; :func:`wmsa_plan`). CUDA:
+  ``csrc/ln_window_attention.cu`` (+ ``gemm_tile.cuh``).
 - :func:`fused_ln_mlp` (JAX ``fused_ln_mlp``): ``y + fc2(gelu(fc1(LN(y))))``.
   CUDA: ``csrc/ln_mlp.cu``, three launches (:func:`mlp_plan`).
 - :func:`fused_window_attention` (JAX ``fused_window_attention``): W-MSA
@@ -90,6 +91,9 @@ SWIN_BLOCK_BWD_RES_LAUNCHES = 35   # #8's sequence: ctx rounding for the recompu
 LN_WMSA_BWD_LAUNCHES = 19
 LN_MLP_BRANCH_LAUNCHES = 3
 LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
+# fused_ln_window_attention: LN + qkv, attention, projection
+# (csrc/ln_window_attention.cu)
+LN_WMSA_LAUNCHES = 3
 LN_MLP_BWD_LAUNCHES = 15
 # Widest C of the training sublayer kernels (the LN backward's rows).
 SPLIT_TRAIN_MAX_C = 768
@@ -100,8 +104,9 @@ def _pad128(v: int) -> int:
 
 
 # ---------------------------------------------------------------- launch plans
-# of the cluster kernels (csrc/swin_cluster.cu for #1 and #2, csrc/ln_mlp.cu
-# for #4): cluster size and shared-memory bytes, in plain Python. A plan
+# of the cluster kernels (csrc/swin_cluster.cu for #1 and #2; gemm_tile.cuh's
+# GEMM in csrc/ln_mlp.cu for #4 and csrc/ln_window_attention.cu for #3):
+# cluster size and shared-memory bytes, in plain Python. A plan
 # depends on one image's shape and not on the batch, so an image gives the
 # same bits at any batch. The C entry points take the cluster size alone
 # and lay out their shared memory from the same constants (the ring's
@@ -110,9 +115,10 @@ def _pad128(v: int) -> int:
 SMEM_MAX = 232448     # dynamic shared memory of one CTA on the H100
 CLUSTER_MAX = 8       # the portable thread-block cluster size
 FILL_CTAS = 96        # CTAs a launch aims at: most of the H100's 132 SMs
+WAVE_CTAS = 132       # one CTA per SM: the H100's SMs
 PLAN_BATCH = 4        # the batch whose launch a plan sizes to FILL_CTAS
 BLOCK_RING = (3, 24576)   # (slots, slot bytes): swin_cluster.cu kRingS, kRingSlot
-MLP_RING = (4, 16384)     # ln_mlp.cu kRingS, kRingSlot
+MLP_RING = (4, 16384)     # gemm_tile.cuh kGemmRingS, kGemmRingSlot
 _TILE = 64            # rows of a wgmma tile: one window, or 64 tokens
 _BOX = 64             # columns of a weight box
 _BOXES_PER_PRODUCT = 6   # 64-column boxes of one product (csrc/swin_cluster.cu kMaxBoxes)
@@ -228,38 +234,83 @@ def block_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict
 
 
 def mlp_smem(K: int) -> int:
-    """Shared-memory bytes of one GEMM launch of csrc/ln_mlp.cu over K rows
-    of W: slack, header, ring, the 64 x K A operand."""
+    """Shared-memory bytes of one launch of gemm_tile.cuh's GEMM over K
+    rows of W: slack, header, ring, the 64 x K A operand."""
     S, slot = MLP_RING
     return 1024 + 1024 + S * slot + _a_bytes(K)
+
+
+def _k_splits(M: int, K: int, ncols: int) -> list:
+    """(ks, shared-memory bytes, CTAs at PLAN_BATCH images of M rows) of
+    every K split gemm_tile.cuh's GEMM takes for a product of K rows of W
+    and ncols columns on 64 x 128 tiles: ks (its cluster size) a power of
+    two <= CLUSTER_MAX dividing K / 16 (and 128), its 64 x K/ks operand
+    within SMEM_MAX, its ring chunks a whole number of k16 steps."""
+    slot = MLP_RING[1]
+    ctas = -(-PLAN_BATCH * M // _TILE) * -(-ncols // 128)
+    splits, ks = [], 1
+    while ks <= CLUSTER_MAX:
+        if (K % (16 * ks) == 0 and mlp_smem(K // ks) <= SMEM_MAX
+                and _chunk_rows(slot, 2, K // ks)):
+            splits.append((ks, mlp_smem(K // ks), ctas * ks))
+        ks *= 2
+    return splits
+
+
+def _fill(splits: list) -> tuple:
+    """The smallest K split whose launch at PLAN_BATCH images has at least
+    FILL_CTAS CTAs, or the largest when none does; of those with at most
+    WAVE_CTAS CTAs (one CTA per SM, one wave) where any has, since a split
+    past it runs a second wave."""
+    if any(s[2] <= WAVE_CTAS for s in splits):
+        splits = [s for s in splits if s[2] <= WAVE_CTAS]
+    return next((s for s in splits if s[2] >= FILL_CTAS), splits[-1])
 
 
 @functools.lru_cache(maxsize=None)
 def mlp_plan(M: int, C: int, hidden: int) -> dict:
     """Launch plan of fused_ln_mlp's two products for images of M token
     rows each: fc1 on 64 x 128 tiles; fc2 on the same tiles times a K
-    split ks (its cluster size, a power of two <= CLUSTER_MAX dividing
-    hidden / 16 and 128), the smallest whose launch at PLAN_BATCH images
-    has at least FILL_CTAS CTAs, or the largest that fits. Raises
+    split ks (its cluster size, :func:`_k_splits`, :func:`_fill`). Raises
     ValueError on a shape outside the design."""
-    slot = MLP_RING[1]
     if M <= 0 or C % 16 or hidden % 16:
         raise ValueError(f"mlp_plan: M={M} rows per image, C={C}, hidden={hidden}: the kernel "
                          "takes M > 0 and multiples of 16")
-    if mlp_smem(C) > SMEM_MAX:
+    if mlp_smem(C) > SMEM_MAX or not _chunk_rows(MLP_RING[1], 2, C):
         raise ValueError(f"mlp_plan: C={C}: fc1's 64 x C operand does not fit {SMEM_MAX} bytes")
-    tiles, ncol = -(-PLAN_BATCH * M // _TILE), -(-C // 128)
-    plans = []
-    ks = 1
-    while ks <= CLUSTER_MAX:
-        if (hidden % (16 * ks) == 0 and mlp_smem(hidden // ks) <= SMEM_MAX
-                and _chunk_rows(slot, 2, C) and _chunk_rows(slot, 2, hidden // ks)):
-            plans.append({"ks": ks, "smem_fc1": mlp_smem(C), "smem_fc2": mlp_smem(hidden // ks),
-                          "ctas_fc1": tiles * -(-hidden // 128), "ctas_fc2": tiles * ncol * ks})
-        ks *= 2
-    if not plans:
+    splits = _k_splits(M, hidden, C)
+    if not splits:
         raise ValueError(f"mlp_plan: hidden={hidden}: no K split fits {SMEM_MAX} bytes")
-    return next((p for p in plans if p["ctas_fc2"] >= FILL_CTAS), plans[-1])
+    ks, smem, ctas = _fill(splits)
+    return {"ks": ks, "smem_fc1": mlp_smem(C), "smem_fc2": smem,
+            "ctas_fc1": -(-PLAN_BATCH * M // _TILE) * -(-hidden // 128), "ctas_fc2": ctas}
+
+
+@functools.lru_cache(maxsize=None)
+def wmsa_plan(H: int, W: int, C: int, heads: int, ws: int) -> dict:
+    """Launch plan of fused_ln_window_attention for (H, W, C) images: the K
+    splits of its qkv product (ksq) and of the projection (ks), each by
+    :func:`_fill` over :func:`_k_splits`, and the CTAs of
+    each launch at PLAN_BATCH images (the attention: one per window and
+    head). A function of one image's shape, never the batch. Raises
+    ValueError on a shape outside the design."""
+    N = ws * ws
+    why = None
+    if H % ws or W % ws:
+        why = f"({H},{W}) not divisible by the window"
+    elif N % 16 or N > _TILE:
+        why = f"window of {N} tokens (the kernel takes N % 16 == 0, N <= {_TILE})"
+    elif C % 16 or C % heads or C > 2048:
+        why = "C must be a multiple of 16 and of heads, at most 2048"
+    elif not _k_splits(H * W, C, 3 * C):
+        why = f"no K split of the {C}-deep products fits {SMEM_MAX} bytes"
+    if why:
+        raise ValueError(f"wmsa_plan: H={H}, W={W}, C={C}, heads={heads}, ws={ws}: {why}")
+    ksq, smem_qkv, ctas_qkv = _fill(_k_splits(H * W, C, 3 * C))
+    ks, smem_proj, ctas_proj = _fill(_k_splits(H * W, C, C))
+    return {"ksq": ksq, "ks": ks, "smem_qkv": smem_qkv, "smem_proj": smem_proj,
+            "ctas_qkv": ctas_qkv, "ctas_attn": PLAN_BATCH * (H // ws) * (W // ws) * heads,
+            "ctas_proj": ctas_proj}
 
 
 def bwd_residuals_enabled(C: int, num_heads: int, N: int) -> bool:
@@ -1125,11 +1176,12 @@ def fused_ln_window_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
                               scale: float) -> torch.Tensor:
     """LN + window partition + W-MSA + reverse + proj; x RAW (pre-LN) and
     already rolled by the caller. Returns the sublayer output before the
-    residual, NHWC, in x's dtype."""
+    residual, NHWC, in x's dtype. CUDA: ``csrc/ln_window_attention.cu``,
+    LN_WMSA_LAUNCHES launches (:func:`wmsa_plan`), each counted."""
     name = "fused_ln_window_attention"
     count = _build.counter(name)
     if x.device.type == "cpu":
-        count.cpu += 2  # stands in for the ctx and projection launches
+        count.cpu += LN_WMSA_LAUNCHES
         return fused_ln_window_attention_reference(
             x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias, mask,
             ws=ws, num_heads=num_heads, scale=scale)
@@ -1137,22 +1189,22 @@ def fused_ln_window_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     B, H, W, C = x.shape
     _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
     _check_window(name, H, W, C, ws, num_heads, bias, mask)
+    plan = wmsa_plan(H, W, C, num_heads, ws)
     dev = x.device
     f = lambda t: _f32(t, dev)
+    if bqkv is None:
+        bqkv = torch.zeros(3 * C, device=dev)
     lib = _build.library()
-    ctx = torch.empty_like(x)
-    args = [f(ln_scale), f(ln_bias), wqkv, f(bqkv), f(bias), f(mask)]
-    err = lib.sunet_ln_wmsa_ctx(
-        _build.ptr(x), _build.ptr(ctx), *[_build.ptr(a) for a in args],
-        B, H, W, C, ws, num_heads, float(scale), _build.stream())
-    _build.check(name, err)
-    count.cuda += 1
+    work = _workspace(lib.sunet_ln_wmsa_workspace, dev, B * H * W, C)
     out = torch.empty_like(x)
-    err = lib.sunet_linear_bias(
-        _build.ptr(ctx), _build.ptr(wproj), _build.ptr(f(bproj)),
-        _build.ptr(out), B * H * W, C, C, _build.stream())
+    args = [f(ln_scale), f(ln_bias), wqkv, f(bqkv), wproj, f(bproj), f(bias), f(mask)]
+    launches = _build.c_int(0)
+    err = lib.sunet_ln_wmsa(
+        _build.ptr(x), _build.ptr(out), *[_build.ptr(a) for a in args], _build.ptr(work),
+        B, H, W, C, ws, num_heads, float(scale), plan["ksq"], plan["ks"],
+        _build.byref(launches), _build.stream())
     _build.check(name, err)
-    count.cuda += 1
+    count.cuda += launches.value
     return out
 
 
@@ -1162,7 +1214,8 @@ def wmsa_core(xw, wqkv, bqkv, wproj, bproj, bias, mask, *, num_heads: int,
     T = B * nW windows in image-major order; bqkv may be None; mask (nW,
     N, N) additive or None, window t taking mask[t % nW]. Returns (T, N, C)
     in xw's dtype. CUDA: ``csrc/window_attention.cu`` (per-head ctx), then
-    the projection kernel of ``csrc/ln_window_attention.cu``."""
+    the projection kernel ``linear_bias_kernel`` of
+    ``csrc/ln_window_attention.cu``."""
     name = "wmsa_core"
     count = _build.counter(name)
     T, N, C = xw.shape

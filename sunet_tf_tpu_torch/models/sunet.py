@@ -292,7 +292,8 @@ class SUNet(nn.Module):
     def expected_launches(self, x_shape: tuple, train: bool = False) -> dict:
         """Kernel launches one fused forward of an input of ``x_shape``
         makes, per wrapper, as the router decides them: a chain of K blocks
-        launches the block kernel K times, LN+W-MSA launches two kernels,
+        launches the block kernel K times, LN+W-MSA launches three kernels
+        (``wa.LN_WMSA_LAUNCHES``), LN+MLP three,
         a block within the cap whose shape the block kernel does not take
         (``SwinBlock.takes_block_kernel``) the split kernels.
         ``train=True``: one training step, forward and backward, by the
@@ -322,7 +323,7 @@ class SUNet(nn.Module):
                             counts["fused_swin_block"] += 1
                             counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
                     elif blk.dim <= layers.ROUTE_TRAIN_SPLIT_MAX_C:
-                        counts["fused_ln_window_attention"] += 2
+                        counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
                         counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES
                         counts["ln_mlp_branch"] += wa.LN_MLP_BRANCH_LAUNCHES
                         counts["ln_mlp_bwd"] += wa.LN_MLP_BWD_LAUNCHES
@@ -353,7 +354,7 @@ class SUNet(nn.Module):
                         and blocks[i].takes_block_kernel()):
                     counts["fused_swin_block"] += 1
                 else:
-                    counts["fused_ln_window_attention"] += 2
+                    counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
                     counts["fused_ln_mlp"] += wa.LN_MLP_LAUNCHES
                 i += 1
         head = ("fused_dual_upsample4_conv_phase" if conv_fused_head(self.cfg.out_chans)

@@ -1,7 +1,8 @@
 """Where one launch of the cluster block kernel (#1, ``csrc/swin_cluster.cu``)
-spends its time, phase by phase, on the card.
+or of the conv-fused x4 head (#5, ``csrc/up4_conv.cu``) spends its time,
+phase by phase, on the card.
 
-    python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4]
+    python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4] [--kernel block|up4]
 
 Builds the kernels with ``-DSUNET_PHASE_CLOCK`` (a library of its own, beside
 the normal one), which makes thread 0 of every CTA record its SM clock at
@@ -14,6 +15,11 @@ the card's name and power limit (the launch's time is chip_smoke.py's and
 chip_ab.py's reading). The clocks are per SM (not comparable across SMs),
 so only differences within one CTA are used. These shares are the per-layer
 metric of #1's redesign (PERF.md, Layers): which phases to overlap next.
+``--kernel up4``: the x4 head at the default model's (64,64,96), out 1;
+thread 0 of every warpgroup (one tile each) adds its cycles per phase
+(setup, the bilinear branch, per subpixel the halo rows and x @ wexp[s],
+its PReLU epilogue, @ wpf, the stencil epilogue, the conv terms; the
+output), and the median over warpgroups of each is printed with its share.
 Refuses to run without a card.
 """
 
@@ -32,6 +38,8 @@ from sunet_tf_tpu_torch.kernels import window_attention as wa
 PHASES = ("x in", "LN1", "qkv", "attention", "ctx gather", "proj", "y gather", "LN2",
           "fc1", "fc2", "partials", "reduce + out")
 SHAPES = ((64, 96), (32, 192), (16, 384))
+UP4_PHASES = ("setup", "bilinear", "halo + x @ wexp", "PReLU epilogue", "@ wpf",
+              "stencil epilogue", "conv terms", "output")
 
 
 def block_args(B: int, H: int, C: int, gen) -> tuple:
@@ -46,13 +54,17 @@ def block_args(B: int, H: int, C: int, gen) -> tuple:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4)
-    B = ap.parse_args().batch
+    ap.add_argument("--kernel", choices=("block", "up4"), default="block")
+    args = ap.parse_args()
+    B = args.batch
     if not torch.cuda.is_available():
         raise SystemExit("block_phases: torch.cuda.is_available() is false")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi unavailable")
     lib = _build.use_variant(("SUNET_PHASE_CLOCK",))
+    if args.kernel == "up4":
+        return up4_phases(lib, B)
     lib.sunet_swin_block_phase_clock.argtypes = [ctypes.c_void_p]
     lib.sunet_swin_block_max_clusters.argtypes = [ctypes.c_int, ctypes.c_longlong]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -75,6 +87,36 @@ def main():
               f"of shared memory, {held} clusters held at once; per CTA {total:.0f} cycles")
         print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
                                for name, v in zip(PHASES, phase.tolist())))
+
+
+def up4_phases(lib, B: int):
+    """#5's cycles per phase and warpgroup at (64,64,96), out 1."""
+    from sunet_tf_tpu_torch.kernels import upsample as up
+
+    lib.sunet_up4_conv_phase_clock.argtypes = [ctypes.c_void_p]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    w = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+    H, C, out = 64, 96, 1
+    hp = (n(B, H, H, C).to(torch.bfloat16), w(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
+          w(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), w(C, C), w(C, C),
+          (n(3, 3, C, out) / (9 * C) ** 0.5).to(torch.bfloat16))
+    plan = up.up4_plan(C, out)
+    TH, TW = up.UP4_TILE
+    tiles = B * -(-H // TH) * -(-H // TW)
+    wgs = -(-tiles // plan["T"]) * plan["T"]
+    clocks = torch.zeros(wgs, len(UP4_PHASES), dtype=torch.int64, device="cuda")
+    _build.check("block_phases", lib.sunet_up4_conv_phase_clock(ctypes.c_void_p(clocks.data_ptr())))
+    up.fused_dual_upsample4_conv_phase(*hp)
+    torch.cuda.synchronize()
+    _build.check("block_phases", lib.sunet_up4_conv_phase_clock(None))
+    c = clocks[:tiles].cpu().double()
+    phase = c.median(0).values
+    total = float(c.sum(1).median())
+    print(f"up4 ({H},{H},{C}) out {out} batch {B}: {tiles} tiles, {plan['T']} per CTA, "
+          f"{plan['smem']} bytes of shared memory; per warpgroup {total:.0f} cycles")
+    print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
+                           for name, v in zip(UP4_PHASES, phase.tolist())))
 
 
 if __name__ == "__main__":

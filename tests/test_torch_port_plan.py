@@ -130,7 +130,7 @@ def test_router_sends_blocks_without_a_plan_to_the_split_kernels():
         ref = eager(x)
     calls = {k: _build.counter(k).cpu for k in want}
     assert calls == want
-    # the C=128 stage's two blocks: 2 + 3 launches each, and nothing on #1
-    assert want["fused_ln_window_attention"] == 4
+    # the C=128 stage's two blocks: LN_WMSA_LAUNCHES + 3 launches each, nothing on #1
+    assert want["fused_ln_window_attention"] == 2 * wa.LN_WMSA_LAUNCHES
     assert want["fused_ln_mlp"] == 2 * wa.LN_MLP_LAUNCHES
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

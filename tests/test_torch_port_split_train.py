@@ -123,7 +123,7 @@ def test_sublayer_trainables_route_through_the_wrappers():
     out = twa.LnWindowAttentionTrainable.apply(*leaves, _t(mask), kw["ws"], kw["num_heads"],
                                                kw["scale"])
     out.backward(_t(dout))
-    assert _build.counter("fused_ln_window_attention").cpu == 2
+    assert _build.counter("fused_ln_window_attention").cpu == twa.LN_WMSA_LAUNCHES
     assert _build.counter("ln_window_attention_bwd").cpu == twa.LN_WMSA_BWD_LAUNCHES
     t = [_t(a) for a in p]
     want = twa.ln_window_attention_bwd_reference(_t(x), _t(dout), *t[:5], t[6], _t(mask), **kw)

@@ -11,27 +11,31 @@ bf16, ``chip_smoke.block_params`` weights.
   (#1) at (64,64,96), (32,32,192) and (16,16,384), shift 0 and 4, inference
   and train form, and at batch 4 (shift 4); the residual route's block
   forward (#6: output and stored state) at (64,64,96) and (32,32,192), the
-  recompute block backward (#8) at the three widths, shift 0 and 4, the
   C=768 training sublayers of ``chip_smoke.sublayer_cases`` (#12, #13,
-  #14), the LN+MLP kernel (#4) at (8,8,768), batch 2 and 4, the conv-fused
-  x4 head's backward (#9) at (64,64,96), out 1 and 3, the split x4 head
-  (#10) at (64,64,96) (it shares ``up4_common.cuh`` with #5) and the
-  standalone W-MSA (#15) at (64,64,96), shift 0 and 4 (it shares
-  ``linear_bias_kernel`` with #3).
+  #14), the LN+MLP kernel (#4) at (8,8,768), batch 2 and 4, the LN+W-MSA
+  kernel (#3) at (8,8,768), batch 2 and 4, and at (16,16,768), shift 4
+  with the mask, the conv-fused x4 head (#5) at (64,64,96), out 1 and 3,
+  and out 1 at batch 4, its backward (#9) at (64,64,96), out 1 and 3, the
+  split x4 head (#10) and its backward (#11) at (64,64,96) and the
+  standalone W-MSA (#15) at (64,64,96), shift 0 and 4.
 - Against the plain version, both trees' readings printed (``PLAIN``
-  lines): the conv-fused x4 head (#5) at (64,64,96), out 1 and 3, batch 2,
-  and out 1 at batch 4; the LN+W-MSA kernel (#3) at (8,8,768), batch 2 and
-  4, and at (16,16,768), shift 4 with the mask. Their fp32 summation order
-  is a design choice of each tree, so their bits may differ.
+  lines): the block backward, the recompute form (#8) at (64,64,96),
+  (32,32,192) and (16,16,384) and the residual route's (#7) at the first
+  two, shift 0 and 4 (dx and the worst weight gradient). Their fp32
+  summation order is a design choice of each tree, so their bits may
+  differ; a kernel whose redesign lies between the two trees moves here.
 - Times (``TIME`` lines), each by this script's own ``time_ms`` and
   ``device_ms``, the same code for both trees: CUDA events, medians of 20,
   with the card spinning first so that the host's pace of launches does not
   count; and the device time of the wrapper's kernels from torch.profiler,
   mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4 and #3 at
-  (8,8,768) and #5 at (64,64,96) out 1, batch 2 and 4, #9, and the default
+  (8,8,768) and #5 at (64,64,96) out 1, batch 2 and 4, #9, #8 at the three
+  widths and #7 at C=96 and 192 (shift 4, batch 2 and 4), the default
   model's fused bf16 forward at 256x256 batch 4 (also paced by the host:
   events around each call with nothing queued ahead, as a caller who waits
-  on each call sees it). The trees run in turns (other, this, this, other).
+  on each call sees it), and its batch-4 training step (forward and
+  backward, no optimizer) on the residual route and with
+  ``ROUTE_TRAIN_RESID`` off: the profiler's device time per step. The trees run in turns (other, this, this, other).
 
 The other tree needs ``chip_smoke.block_params``,
 ``chip_smoke.sublayer_cases``, ``chip_smoke.split_head_args``,
@@ -102,10 +106,13 @@ def device_ms(fn, n=20):
                if ev.device_type == DeviceType.CUDA) / n / 1000
 
 
-def plain(name, got, ref):
-    d = (got.float() - ref.float()).abs()
-    print(f"PLAIN {name}: max|diff| {float(d.max()):.3e} mean|diff| {float(d.mean()):.3e} "
-          f"max|ref| {float(ref.float().abs().max()):.3e}", flush=True)
+def plain_grads(name, got, ref):
+    """dx's and the worst weight gradient's distance from the plain version."""
+    d = (got[0].float() - ref[0].float()).abs()
+    rel = max(float((g - r).abs().mean()) / max(float(r.abs().mean()), 1e-30)
+              for g, r in zip(got[1:], ref[1:]))
+    print(f"PLAIN {name}: dx max|diff| {float(d.max()):.3e} mean|diff| {float(d.mean()):.3e}; "
+          f"worst weight grad mean|diff|/mean|ref| {rel:.3e}", flush=True)
 
 
 def timed(name, fn):
@@ -130,11 +137,16 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
         case = f"({H},{H},{C}) shift {shift}"
         outs[f"fused_swin_block {case}"] = wa.fused_swin_block(*blk, **kw)
         outs[f"fused_swin_block train form {case}"] = wa.fused_swin_block(*blk, dp, **kw)
-        for i, g in enumerate(wa.swin_block_bwd(x, dout, *blk[1:], dp, **kw)):
-            outs[f"swin_block_bwd {case} output {i}"] = g
+        bargs = (x, dout, *blk[1:], dp)
+        plain_grads(f"swin_block_bwd {case}", wa.swin_block_bwd(*bargs, **kw),
+                    wa.swin_block_bwd_reference(*bargs, **kw))
         if C < 384:
-            for i, g in enumerate(wa.fused_swin_block_res(*blk, dp, **kw)):
+            res = wa.fused_swin_block_res(*blk, dp, **kw)
+            for i, g in enumerate(res):
                 outs[f"fused_swin_block_res {case} output {i}"] = g
+            rargs = (x, dout, *res[1:], *blk[1:-2], dp)
+            plain_grads(f"swin_block_bwd_res {case}", wa.swin_block_bwd_res(*rargs, **kw),
+                        wa.swin_block_bwd_res_reference(*rargs, **kw))
 for name, case, kernel, _, args, kw, _, _ in cs.sublayer_cases(gen):
     out = kernel(*args, **kw)
     for i, g in enumerate(out if isinstance(out, tuple) else (out,)):
@@ -146,8 +158,7 @@ for out_ch in (1, 3):
     hp = (n(B, H, H, C).to(torch.bfloat16), bw(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
           bw(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), bw(C, C), bw(C, C),
           (n(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16))
-    plain(f"fused_dual_upsample4_conv_phase out {out_ch}", up.fused_dual_upsample4_conv_phase(*hp),
-          up.fused_dual_upsample4_conv_phase_reference(*hp))
+    outs[f"fused_dual_upsample4_conv_phase out {out_ch}"] = up.fused_dual_upsample4_conv_phase(*hp)
     dout = n(B, H, H, 16 * out_ch).to(torch.bfloat16)
     for i, g in enumerate(up.up4_conv_bwd(*hp, dout)):
         outs[f"up4_conv_bwd out {out_ch} output {i}"] = g
@@ -170,6 +181,9 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
 # and a kernel with #5 and #3
 hp = cs.split_head_args(gen, B, 64, 64, 96)
 outs["fused_dual_upsample4 (64,64,96)"] = up.fused_dual_upsample4(*hp)
+dout = torch.randn(B, 256, 256, 96, device="cuda", generator=gen).to(torch.bfloat16)
+for i, g in enumerate(up.up4_bwd(*hp, dout)):
+    outs[f"up4_bwd (64,64,96) output {i}"] = g
 for shift in (0, 4):
     p = cs.block_params(96, heads, ws * ws, gen)
     x = torch.randn(B, 64, 64, 96, device="cuda", generator=gen).to(torch.bfloat16)
@@ -177,8 +191,8 @@ for shift in (0, 4):
             if shift else None)
     outs[f"wmsa_core (64,64,96) shift {shift}"] = wa.fused_window_attention(
         x, p[2], p[3], p[4], p[5], p[12], mask, ws=ws, num_heads=heads, scale=scale)
-# the redesigned kernels against their plain versions: #3 at the main
-# path's (8,8,768), batch 2 and 4, and with the SW mask; #5 at batch 4
+# #3 at the main path's (8,8,768), batch 2 and 4, and with the SW mask; #5
+# at batch 4
 for Bt, H, shift in ((2, 8, 0), (4, 8, 0), (2, 16, 4)):
     p = cs.block_params(768, heads, ws * ws, gen)
     x = torch.randn(Bt, H, H, 768, device="cuda", generator=gen).to(torch.bfloat16)
@@ -186,9 +200,8 @@ for Bt, H, shift in ((2, 8, 0), (4, 8, 0), (2, 16, 4)):
             if shift else None)
     args = (x, *p[0:6], p[12], mask)
     kw = dict(ws=ws, num_heads=heads, scale=scale)
-    plain(f"fused_ln_window_attention batch {Bt} ({H},{H},768) shift {shift}",
-          wa.fused_ln_window_attention(*args, **kw),
-          wa.fused_ln_window_attention_reference(*args, **kw))
+    outs[f"fused_ln_window_attention batch {Bt} ({H},{H},768) shift {shift}"] = (
+        wa.fused_ln_window_attention(*args, **kw))
     if not shift:
         timed(f"fused_ln_window_attention batch {Bt} ({H},{H},768)",
               lambda: wa.fused_ln_window_attention(*args, **kw))
@@ -199,9 +212,8 @@ for Bt in (2, 4):
           torch.full((1,), 0.2, device="cuda"), bw(C, C), bw(C, C),
           (n(3, 3, C, 1) / (9 * C) ** 0.5).to(torch.bfloat16))
     if Bt == 4:
-        plain("fused_dual_upsample4_conv_phase batch 4 out 1",
-              up.fused_dual_upsample4_conv_phase(*hp),
-              up.fused_dual_upsample4_conv_phase_reference(*hp))
+        outs["fused_dual_upsample4_conv_phase batch 4 out 1"] = (
+            up.fused_dual_upsample4_conv_phase(*hp))
     timed(f"fused_dual_upsample4_conv_phase batch {Bt} out 1",
           lambda: up.fused_dual_upsample4_conv_phase(*hp))
 for Bt in (2, 4):
@@ -216,6 +228,25 @@ for Bt in (2, 4):
                    None)
             timed(f"fused_swin_block batch {Bt} ({H},{H},{C})",
                   lambda: wa.fused_swin_block(*blk, ws=ws, num_heads=heads, scale=scale))
+# the block backward (#8 recompute form at the three widths, #7 at C=96 and
+# 192), batch 2 and 4
+for Bt in (2, 4):
+    dpt = torch.full((Bt, 2), 1 / 0.9, device="cuda")
+    for H, C in ((64, 96), (32, 192), (16, 384)):
+        p = cs.block_params(C, heads, ws * ws, gen)
+        x = torch.randn(Bt, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        dout = torch.randn(Bt, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
+        mask = torch.as_tensor(shift_attn_mask(H, H, ws, 4), device="cuda")
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=4)
+        blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12], mask)
+        bargs = (x, dout, *blk[1:], dpt)
+        timed(f"swin_block_bwd batch {Bt} ({H},{H},{C})",
+              lambda: wa.swin_block_bwd(*bargs, **kw))
+        if C < 384:
+            res = wa.fused_swin_block_res(*blk, dpt, **kw)
+            rargs = (x, dout, *res[1:], *blk[1:-2], dpt)
+            timed(f"swin_block_bwd_res batch {Bt} ({H},{H},{C})",
+                  lambda: wa.swin_block_bwd_res(*rargs, **kw))
 model = build_model(Config(), device="cuda", backend="fused", seed=0)
 img = torch.rand(4, 256, 256, 3, device="cuda", generator=gen)
 with torch.inference_mode():
@@ -223,6 +254,24 @@ with torch.inference_mode():
     print(f"TIME forward batch 4 (Config(), 256x256, fused bf16): {time_ms(fwd, 10):.4f} ms "
           f"events, {time_ms(fwd, 10, device=False):.4f} ms paced by the host, "
           f"{device_ms(fwd, 5):.4f} ms device", flush=True)
+# the training step's device time on both routes (batch 4: forward,
+# backward, no optimizer), by the profiler's kernel durations
+from sunet_tf_tpu_torch.models import layers
+model.train().requires_grad_(True)
+sgen = torch.Generator(device="cuda")
+
+
+def train_step():
+    sgen.manual_seed(0)
+    model.zero_grad(set_to_none=True)
+    model(img, sgen).float().square().mean().backward()
+
+
+for resid in (True, False):
+    layers.ROUTE_TRAIN_RESID = resid
+    print(f"TIME train step batch 4 ({'residual route' if resid else 'ROUTE_TRAIN_RESID off'}):"
+          f" {device_ms(train_step, 3):.4f} ms device busy", flush=True)
+layers.ROUTE_TRAIN_RESID = True
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''
 

@@ -77,17 +77,41 @@ MUTANTS = {
   return 0.5f * (1.f + t) +
          0.5f * v * (1.f - t * t) * 0.7978845608028654f * (1.f + 0.134145f * v * v);
 }"""),
-    "dp_missing_from_dm": ("train_common.cuh",
-                           "const float s2 = dp ? dp[2 * (r / (H * W)) + 1] : 1.f;",
-                           "const float s2 = 1.f;"),
+    # the block backward's dm = round(s2 * dout) gathered in its A load
+    "dp_missing_from_dm": ("block_bwd_hopper.cuh",
+                           "if (kA == kADm) ri.scale[r] = a.dp[2 * (row / hw) + 1];   // s2",
+                           "if (kA == kADm) ri.scale[r] = 1.f;   // s2"),
     # every LN backward, the 12- and the 24-column (C=768) instances
     "ln_bwd_no_mean": ("train_common.cuh", "    m1 = warp_sum(m1) / C;\n", "    m1 = 0.f;\n"),
     "ds_no_rowsum": ("attn_train.cuh", "const float ds = p * (sm.s[i * ld + j] - sm.rd[i]);",
                      "const float ds = p * sm.s[i * ld + j];"),
-    # the residual route's attention backward without the rowsum_head(t) term
-    "res_de_no_rowsum": ("attn_train.cuh",
-                         "const float ds = sm.p[i * ld + j] * (sm.s[i * ld + j] - sm.rd[i]);",
-                         "const float ds = sm.p[i * ld + j] * sm.s[i * ld + j];"),
+    # the residual route's attention backward (#7) without the
+    # rowsum_head(t) term
+    "res_de_no_rowsum": ("block_bwd_hopper.cuh",
+                         "dpv[nt][u] = s[nt][u] * (dpv[nt][u] - (u < 2 ? rd0 : rd1));",
+                         "dpv[nt][u] = s[nt][u] * (dpv[nt][u] - (kMode == kAttnBwd ? "
+                         "(u < 2 ? rd0 : rd1) : 0.f));"),
+    # the block backward's mechanisms (#7 and #8, csrc/block_bwd_hopper.cuh):
+    # the weight-gradient launch without dw2's last token chunk; without the
+    # column sums of dm and dattn (b2's and bproj's gradients); the
+    # tensor-core attention backward with the last head's dk zeroed; the LN
+    # backward epilogues with the last cluster rank's row sums left out (at
+    # G = 1, C=96, the only one)
+    "wgrad_chunk_dropped": (
+        "block_bwd_hopper.cuh",
+        "if (mm < p.M && nn < p.N) out[(size_t)mm * p.N + nn] = acc[i];",
+        "if (mm < p.M && nn < p.N) out[(size_t)mm * p.N + nn] = "
+        "(pi == 0 && ch == a.nchunks - 1) ? 0.f : acc[i];"),
+    "wgrad_bias_colsum_dropped": ("block_bwd_hopper.cuh",
+                                  "        cs += bf(*reinterpret_cast<const bf16*>(",
+                                  "        cs += 0.f * bf(*reinterpret_cast<const bf16*>("),
+    "attn_tc_head_dk_zeroed": (
+        "block_bwd_hopper.cuh", "        store(1, dt, ok, row0);   // dk\n",
+        "        if (hh == a.heads - 1) ok[0] = ok[1] = ok[2] = ok[3] = 0.f;\n"
+        "        store(1, dt, ok, row0);   // dk\n"),
+    "ln_rank_sum_dropped": ("block_bwd_hopper.cuh",
+                            "for (int q = 0; q < G; ++q) {   // LN row sums in rank order",
+                            "for (int q = 0; q < G - 1; ++q) {   // LN row sums in rank order"),
     # the residual forward's row sum over the unrounded exponentials (the
     # port's inference form) instead of JAX's rounded ones
     "res_den_unrounded": ("common.cuh", "        sum += bf(eb);\n", "        sum += e;\n"),

@@ -20,7 +20,9 @@
    split x4 head (#10, also on a map that is not a multiple of its tile)
    and the standalone W-MSA (#15, with one PyTorch call for the same
    function timed beside it). The training kernels: the block kernel's
-   train form (drop-path scales), the block backward, the x4 head backward,
+   train form (drop-path scales), the block backward (also at batch 4: the
+   residual route's at C=96 and 192, the recompute form's at C=384, the
+   default route's rule), the x4 head backward,
    the C=768 sublayers (the LN+W-MSA backward, the LN+MLP branch and its
    backward), the residual route of the C=96/192 blocks (the block forward
    that stores the softmax state, output and state held against the plain
@@ -730,6 +732,42 @@ def train_kernel_phases(results: dict):
                   "deterministic)")
             record_time(results, "swin_block_bwd_res", case, got_fn, ref_fn,
                         block_bwd_res_cost(B, H, C, ws, heads), mx, mean)
+
+    # the block backward at batch 4, the training step's grid, by the default
+    # route's rule: #7 at C=96 and C=192, #8 at C=384; its own generator, so
+    # that the other kernels' cases keep their inputs
+    bgen = torch.Generator(device="cuda").manual_seed(4324)
+    dp4 = torch.tensor([[1 / 0.9, 1 / 0.9], [1 / 0.9, 0.0], [0.0, 1 / 0.9], [1 / 0.9, 1 / 0.9]],
+                       device="cuda")
+    for H, C, shift, res in ((64, 96, 4, True), (32, 192, 0, True), (16, 384, 4, False)):
+        p = block_params(C, heads, N, bgen)
+        x = torch.randn(4, H, H, C, device="cuda", generator=bgen).to(torch.bfloat16)
+        dout = torch.randn(4, H, H, C, device="cuda", generator=bgen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+        case = f"batch 4 ({H},{H},{C}) shift {shift}"
+        if res:
+            name = "swin_block_bwd_res"
+            _, *state = wa.fused_swin_block_res(x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8],
+                                                p[9], p[10], p[11], p[12], mask, dp4, **kw)
+            args = (x, dout, *state, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
+                    p[11], dp4)
+            got_fn = lambda: wa.swin_block_bwd_res(*args, **kw)
+            ref_fn = lambda: wa.swin_block_bwd_res_reference(*args, **kw)
+            cost = block_bwd_res_cost(4, H, C, ws, heads)
+        else:
+            name = "swin_block_bwd"
+            args = (x, dout, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11],
+                    p[12], mask, dp4)
+            got_fn = lambda: wa.swin_block_bwd(*args, **kw)
+            ref_fn = lambda: wa.swin_block_bwd_reference(*args, **kw)
+            cost = block_bwd_cost(4, H, C)
+        got = got_fn()
+        mx, mean = compare_grads(f"{name} {case}", got, ref_fn(), BLOCK_GRADS)
+        check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
+              f"{name} {case}: two runs differ (the reductions must be deterministic)")
+        record_time(results, name, case, got_fn, ref_fn, cost, mx, mean)
 
     H, C, out_ch = 64, 96, 1
     n = lambda *s: torch.randn(*s, device="cuda", generator=gen)

@@ -1,10 +1,7 @@
-// The per-(head, window) attention forward and backward of the training
-// kernels (the block backward and the LN+W-MSA backward): both recompute
-// the softmax P on chip from the (T, 3C) qkv matrix of window-major token
-// rows, in float32, one head of one window per step; and the residual
-// route's attention backward (the block backward from residuals), which
-// loads the softmax state that the forward stored instead. Static
-// kernels, as in train_common.cuh.
+// The per-(head, window) attention forward and backward of the LN+W-MSA
+// backward (#12): both recompute the softmax P on chip from the (T, 3C)
+// qkv matrix of window-major token rows, in float32, one head of one
+// window per step. Static kernels, as in train_common.cuh.
 #pragma once
 
 #include "train_common.cuh"
@@ -175,94 +172,6 @@ static __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Attention backward from the residual route's stored state, per (head,
-// chunk of windows): grid (heads, chunks). It computes JAX's blockdiag
-// _attn_core_bwd with recip=True from e = eb (the forward's rounded
-// exponentials, (nwin, heads, N, N)), rden = 1/den ((nwin, heads, N)) and
-// ctx_f = num * rden ((T, C) fp32), and reads neither the rel-pos bias nor
-// the mask: dn = dctx * rden (dctx the fp32 cotangent of ctx); de =
-// round(dn) v^T - rowsum_head(round(dn * ctx_f)); ds = e * de; dq =
-// round(ds) k * scale; dk = round(ds)^T round(q*scale); dv = e^T
-// round(dn). Outputs as attn_bwd_kernel's.
-static __global__ void __launch_bounds__(kThreads)
-    attn_bwd_res_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dctx,
-                        const bf16* __restrict__ eb, const float* __restrict__ rden,
-                        const float* __restrict__ ctxf, float* __restrict__ dqkv,
-                        bf16* __restrict__ dqkv_b, float* __restrict__ part, int C, int d,
-                        int N, int nwin, int wpc, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const AttnSmem sm = carve_attn(smem, N, d);   // o: round(dn); p: e; s: de, then ds
-  const int hh = blockIdx.x, heads = gridDim.x, tid = threadIdx.x, warp = tid >> 5,
-            lane = tid & 31, ld = N + 1;
-  float db[16];   // this thread's entries e = tid + r*kThreads of ds summed (N*N <= 4096)
-#pragma unroll
-  for (int r = 0; r < 16; ++r) db[r] = 0.f;
-  const int w0 = blockIdx.y * wpc, w1 = min(nwin, w0 + wpc);
-  for (int wg = w0; wg < w1; ++wg) {
-    const size_t row0 = (size_t)wg * N;
-    const float* rd = rden + ((size_t)wg * heads + hh) * N;
-    const bf16* ew = eb + ((size_t)wg * heads + hh) * N * N;
-    for (int i = tid; i < N * d; i += kThreads) {
-      const int t = i / d, c = i % d;
-      const size_t base = (row0 + t) * 3 * C + hh * d + c;
-      sm.q[i] = tobf(bf(qkv[base]) * scale);
-      sm.k[i] = qkv[base + C];
-      sm.v[i] = qkv[base + 2 * C];
-      sm.o[i] = tobf(dctx[(row0 + t) * C + hh * d + c] * rd[t]);
-    }
-    for (int e = tid; e < N * N; e += kThreads) sm.p[(e / N) * ld + e % N] = bf(ew[e]);
-    for (int i = warp; i < N; i += kWarps) {
-      const size_t r = (row0 + i) * C + hh * d;
-      float t = 0.f;
-      for (int c = lane; c < d; c += 32) t += bf(tobf(dctx[r + c] * rd[i] * ctxf[r + c]));
-      t = warp_sum(t);
-      if (lane == 0) sm.rd[i] = t;
-    }
-    __syncthreads();
-    for (int e = tid; e < N * N; e += kThreads) {
-      const int i = e / N, j = e % N;
-      float s = 0.f;
-      for (int c = 0; c < d; ++c) s += bf(sm.o[i * d + c]) * bf(sm.v[j * d + c]);
-      sm.s[i * ld + j] = s;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int e = tid + r * kThreads;
-      if (e >= N * N) break;
-      const int i = e / N, j = e % N;
-      const float ds = sm.p[i * ld + j] * (sm.s[i * ld + j] - sm.rd[i]);
-      db[r] += ds;
-      sm.s[i * ld + j] = bf(tobf(ds));
-    }
-    __syncthreads();
-    for (int e = tid; e < N * d; e += kThreads) {
-      const int i = e / d, c = e % d;   // token i, channel c
-      float aq = 0.f, ak = 0.f, av = 0.f;
-      for (int j = 0; j < N; ++j) {
-        aq += sm.s[i * ld + j] * bf(sm.k[j * d + c]);
-        ak += sm.s[j * ld + i] * bf(sm.q[j * d + c]);
-        av += sm.p[j * ld + i] * bf(sm.o[j * d + c]);
-      }
-      aq *= scale;
-      const size_t o = (row0 + i) * 3 * C + hh * d + c;
-      dqkv[o] = aq;
-      dqkv[o + C] = ak;
-      dqkv[o + 2 * C] = av;
-      dqkv_b[o] = tobf(aq);
-      dqkv_b[o + C] = tobf(ak);
-      dqkv_b[o + 2 * C] = tobf(av);
-    }
-    __syncthreads();
-  }
-  float* out = part + ((size_t)blockIdx.y * gridDim.x + hh) * N * N;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int e = tid + r * kThreads;
-    if (e < N * N) out[e] = db[r];
-  }
-}
-
 // Window chunks of the attention backward: ~2 CTAs per SM over all heads.
 inline int attn_wpc(int nwin, int heads) {
   const int chunks = std::max(1, std::min(nwin, 264 / heads));
@@ -298,23 +207,6 @@ inline cudaError_t attn_bwd(const bf16* qkv, const bf16* dctx, const float* bias
   SUNET_TRY(set_smem(attn_bwd_kernel, smem));
   attn_bwd_kernel<<<dim3(heads, chunks), kThreads, smem, st>>>(
       qkv, dctx, bias, mask, dqkv, dqkv_b, part, C, d, N, nW, nwin, wpc, scale);
-  SUNET_TRY(launched(launches));
-  return reduce_splits(part, dbias, chunks, (size_t)heads * N * N, (size_t)heads * N * N, st,
-                       launches);
-}
-
-// The residual route's dqkv (fp32 and bf16) and dbias (h, N, N) from the
-// fp32 dctx and the stored eb, rden and ctx_f; part as attn_bwd's.
-inline cudaError_t attn_bwd_res(const bf16* qkv, const float* dctx, const bf16* eb,
-                                const float* rden, const float* ctxf, float* dqkv,
-                                bf16* dqkv_b, float* part, float* dbias, int T, int C, int heads,
-                                int N, float scale, cudaStream_t st, int* launches) {
-  const int d = C / heads, nwin = T / N;
-  const int wpc = attn_wpc(nwin, heads), chunks = attn_chunks(nwin, heads);
-  const size_t smem = attn_smem_bytes(N, d);
-  SUNET_TRY(set_smem(attn_bwd_res_kernel, smem));
-  attn_bwd_res_kernel<<<dim3(heads, chunks), kThreads, smem, st>>>(
-      qkv, dctx, eb, rden, ctxf, dqkv, dqkv_b, part, C, d, N, nwin, wpc, scale);
   SUNET_TRY(launched(launches));
   return reduce_splits(part, dbias, chunks, (size_t)heads * N * N, (size_t)heads * N * N, st,
                        launches);

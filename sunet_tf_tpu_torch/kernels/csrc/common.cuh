@@ -53,6 +53,24 @@ __device__ inline float warp_max(float v) {
 __device__ inline float bf(bf16 v) { return __bfloat162float(v); }
 __device__ inline bf16 tobf(float v) { return __float2bfloat16(v); }
 
+// Two bf16 (lo, hi) in one 32-bit register, and a 32-bit load of two.
+__device__ inline uint32_t pack_bf2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(tobf(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(tobf(hi)) << 16);
+}
+__device__ inline uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+
+// d (16x8 fp32) += a (16x16 bf16, row) @ b (16x8 bf16, col): the mma.sync
+// tile of the per-(window, head) attention kernels (#1, #3, the block
+// backward).
+__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Hand each element (row, col, value) of a 16x16 accumulator to f, through
 // the warp's fp32 staging tile.
 template <class F>

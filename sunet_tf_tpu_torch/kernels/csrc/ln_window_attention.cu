@@ -51,22 +51,6 @@ constexpr int kVtLd = kTok + kPad;  // row stride of the v chunk, transposed
 constexpr int kNt = kTok / 8;       // 8-column tiles of a score row
 constexpr int kDt = kDc / 8;        // 8-column tiles of a head chunk
 
-__device__ inline uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-__device__ inline uint32_t pack_bf2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(tobf(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(tobf(hi)) << 16);
-}
-
-// d (16x8 fp32) += a (16x16 bf16, row) @ b (16x8 bf16, col).
-__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 struct AttnArgs {
   const bf16* qkv;     // (M, 3C): q (scaled, rounded), k, v
   bf16* ctx;           // (M, C)

@@ -93,7 +93,7 @@ cudaError_t ln_wmsa_bwd(const WmsaBwdArgs& a, const WmsaBwdWork& w, cudaStream_t
   SUNET_TRY(attn_fwd(w.qkv, w.ctx, a.bias, a.mask, T, C, a.heads, N, nW, a.scale, st, n));
 
   // ---- projection, attention, qkv and LN backward
-  SUNET_TRY(gather_rows(a.dout, nullptr, w.doutw, T, C, a.H, a.W, a.ws, 0, st, n));
+  SUNET_TRY(gather_rows(a.dout, w.doutw, T, C, a.H, a.W, a.ws, 0, st, n));
   SUNET_TRY(weight_grad(w.ctx, C, w.doutw, C, C, C, T, w.part, a.dwproj, st, n));
   SUNET_TRY(colsum(w.doutw, T, C, w.part, a.dbproj, st, n));
   SUNET_TRY((gemm<false, true>(w.doutw, C, a.wproj, C, T, C, C, 1, EpiBf16{w.dctx, C}, nullptr,
@@ -104,8 +104,7 @@ cudaError_t ln_wmsa_bwd(const WmsaBwdArgs& a, const WmsaBwdWork& w, cudaStream_t
   SUNET_TRY(colsum(w.dqkv, T, 3 * C, w.part, a.dbqkv, st, n));
   SUNET_TRY((gemm<false, true>(w.dqkv_b, 3 * C, a.wqkv, 3 * C, T, C, 3 * C, 1,
                                EpiF32{w.du, C, 0}, nullptr, st, n)));
-  SUNET_TRY(ln_bwd<false>(w.du, w.xw, w.st, a.g, nullptr, nullptr, nullptr, nullptr, nullptr,
-                          a.dx, w.part, T, C, a.H, a.W, a.ws, 0, st, n));
+  SUNET_TRY(ln_bwd(w.du, w.xw, w.st, a.g, a.dx, w.part, T, C, a.H, a.W, a.ws, 0, st, n));
   return ln_param_grads(w.part, a.dg, a.db, T, C, st, n);
 }
 

@@ -11,29 +11,28 @@
 //
 // What bounds it on Hopper: the products. Forward recompute plus backward
 // is ~3x the block's forward work: at (64,64,96) batch 2 about 5.4 GFLOP
-// (5 us at the 989 TFLOP/s bf16 peak) against ~20 MB of activations and
+// (5.5 us at the 989 TFLOP/s bf16 peak) against ~20 MB of activations and
 // intermediates, which stay in the 50 MB L2 at these shapes (HBM bound
-// ~6 us at 3.35 TB/s).
+// ~6 us at 3.35 TB/s). Each launch is short, so its ramp and the latency
+// of its serial phases count as much as either.
 //
-// Design, first version (right and simple): one 64-token window's backward
-// live set (x, LN1(x), q/k/v, ctx, y, LN2(y), the fp32 fc1 pre-activation,
-// 384 KB at C=384, and their gradients) does not fit one CTA's 227 KB, so
-// the block runs as a fixed sequence of launches over all B*H*W tokens in
-// window-major (rolled) order, with the per-token intermediates in device
-// memory: row kernels (LayerNorm forward and backward, the dout gather), a
-// tiled bf16 tensor-core GEMM (train_common.cuh) for every product with its
-// elementwise step in the epilogue, and a per-(head, window) attention
-// kernel that recomputes P on chip. The SW roll is load/store addressing
-// (token_offset) on x, dout and dx. Weight grads sum over tokens in fixed
-// chunks, then in a fixed order (deterministic). Fusing the sequence back
-// into fewer, larger kernels (wgmma, TMA) is later work.
+// Design (swin_block_bwd.cuh, kernels in block_bwd_hopper.cuh): 11
+// launches, every token-row product on hopper.cuh's wgmma + TMA mainloop
+// with the LN forward in its A load and the LN backward in a cluster
+// epilogue, the attention forward and backward per (head, window) on
+// mma.sync, the four weight gradients in one launch of token-chunk
+// partials, and one launch that sums every partial in a fixed order.
+// Device time on the H100 (700 W), batch 2: 0.26 ms at (64,64,96), 0.19 ms
+// at (32,32,192) and (16,16,384); 35 launches took 0.64 / 0.47 / 0.55 ms
+// (PERF.md).
 #include "swin_block_bwd.cuh"
 
 using namespace sunet;
 
 extern "C" size_t sunet_swin_block_bwd_workspace(int B, int H, int W, int C, int hidden, int ws,
                                                  int heads) {
-  return carve_bwd(nullptr, B * H * W, C, hidden, heads, ws * ws, false).bytes;
+  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0) return 0;
+  return carve_bwd(nullptr, B, H, W, C, hidden, ws, heads, false).bytes;
 }
 
 extern "C" int sunet_swin_block_bwd(
@@ -44,9 +43,7 @@ extern "C" int sunet_swin_block_bwd(
     void* dwproj, void* dbproj, void* dg2, void* db2, void* dw1, void* dbm1, void* dw2,
     void* dbm2, void* dbias, void* work, int B, int H, int W, int C, int hidden, int ws,
     int heads, int shift, float scale, int* launches, void* stream) {
-  const int N = ws * ws;
-  if (N > 64 || C % 32 || C > kLnMaxC || C % heads || hidden % 16 || H % ws || W % ws ||
-      dp == nullptr)
+  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0 || dp == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdArgs a{(const bf16*)x,     (const bf16*)dout,  (const float*)g1,   (const float*)be1,
             (const bf16*)wqkv,  (const float*)bqkv, (const bf16*)wproj, (const float*)bproj,
@@ -58,7 +55,7 @@ extern "C" int sunet_swin_block_bwd(
             (float*)dw2,        (float*)dbm2,       (float*)dbias,      B,
             H,                  W,                  C,                  hidden,
             ws,                 heads,              shift,              scale};
-  const BwdWork w = carve_bwd((unsigned char*)work, B * H * W, C, hidden, heads, N, false);
+  const BwdWork w = carve_bwd((unsigned char*)work, B, H, W, C, hidden, ws, heads, false);
   *launches = 0;
   return (int)block_bwd<false>(a, w, (cudaStream_t)stream, launches);
 }

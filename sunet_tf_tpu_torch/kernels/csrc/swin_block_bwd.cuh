@@ -1,10 +1,47 @@
 // The whole Swin block's backward as a fixed sequence of launches, shared
-// by the recompute form (swin_block_bwd.cu, kRes unset) and the residual
-// route (swin_block_bwd_res.cu, kRes set); the sources' notes say what each
-// replaces and how it is built.
+// by the recompute form (swin_block_bwd.cu, kRes unset: 11 launches) and
+// the residual route (swin_block_bwd_res.cu, kRes set: 10 launches); the
+// kernels are in block_bwd_hopper.cuh, and the sources' notes say what each
+// form replaces.
+//
+// What bounds it on the H100: the products. The forward recompute and the
+// backward are ~5.4 GFLOP at (64,64,96) batch 2 (5.5 us at the 989 TFLOP/s
+// bf16 peak) against ~20 MB of activations, intermediates and weights
+// (6 us at 3.35 TB/s); every launch is short, so the sequence's length and
+// each launch's ramp count as much as either.
+//
+// Design: every token-row product on the wgmma + TMA mainloop, with its
+// elementwise step, its LayerNorm (forward in the A load, backward in the
+// epilogue) and its gather in the same launch:
+//   1. LN1 + qkv (the LN of x gathered in window order in the A load; the
+//      first column tile also writes LN1(x), the gathered x and the stats);
+//   2. (recompute form) the attention forward, ctx = round(round(P) @ v);
+//   3. proj + residual: y = round(x + s1 (ctx wproj + bproj)); on the
+//      residual route A = round(ctx_f), also written as ctx;
+//   4. LN2 + fc1: a = yn w1 + b1 (fp32) and round(gelu(a));
+//   5. dm w2^T, dm = round(s2 dout) gathered in the A load: da = .. gelu'(a),
+//      round(da), and da's column partials (b1's gradient);
+//   6. dab w1^T and the LN2 backward on a cluster of ceil(C/128) CTAs per
+//      64 rows: dy = dout + LN2^T(..), dattn = round(s1 dy);
+//   7. dattn wproj^T: dctx, rounded (recompute form) or fp32 (residual);
+//   8. the attention backward on tensor cores, dqkv rounded, with the
+//      rel-pos bias and qkv bias partials;
+//   9. dqkv wqkv^T and the LN1 backward (cluster as 6): dx = round(dy +
+//      LN1^T(..)) at the token's place in the map;
+//  10. the four weight gradients in one launch, in token chunks, with the
+//      column sums of dm and dattn (b2's and bproj's gradients);
+//  11. every partial summed in chunk order.
+// The SW roll is load/store addressing (token_offset) on x, dout and dx.
+// The sums are in fixed order: the same bits on every run. Chunks and plans
+// are functions of one image's shape (kernels/window_attention.py::
+// block_bwd_plan mirrors them). On the H100 (700 W) a batch-2 call takes
+// 0.19-0.28 ms of device time at the default model's widths (35 launches
+// took 0.41-0.64 ms); the attention, the A loads the CTAs compute and the
+// LN epilogues hold most of it (`python -m
+// sunet_tf_tpu_torch.tools.bwd_launches`, PERF.md).
 #pragma once
 
-#include "attn_train.cuh"
+#include "block_bwd_hopper.cuh"
 
 namespace sunet {
 
@@ -31,30 +68,53 @@ struct BwdArgs {
   const float *rden = nullptr, *ctxf = nullptr;
 };
 
-// y = round(x + s1[b] * (acc + bproj)): the attention branch's residual.
-struct EpiResid {
-  bf16* y;
-  const bf16* x;
-  const float *bproj, *dp;
-  int C, hw;
-  __device__ float operator()(int m, int n, float v, int) const {
-    const size_t e = (size_t)m * C + n;
-    y[e] = tobf(bf(x[e]) + dp[2 * (m / hw)] * (v + bproj[n]));
-    return 0.f;
-  }
+// Whether the kernels take the shape: windows of N = ws^2 <= 64 tokens, N
+// a multiple of 16; C a multiple of 16 up to 768 (a cluster of at most 6
+// CTAs owns a row); head dim even and at most 64; hidden a multiple of 16.
+inline bool bwd_takes(int H, int W, int C, int hidden, int ws, int heads) {
+  const int N = ws * ws;
+  return ws > 0 && N <= 64 && N % 16 == 0 && C % 16 == 0 && C <= 768 && heads > 0 &&
+         C % heads == 0 && C / heads <= 64 && (C / heads) % 2 == 0 && hidden % 16 == 0 &&
+         hidden > 0 && H % ws == 0 && W % ws == 0;
+}
+
+// The plan (kernels/window_attention.py::block_bwd_plan): tokens per chunk
+// of the weight-gradient launch (~kFillCtas CTAs) and windows per chunk of
+// the attention (~kAttnFillCtas CTAs), at kPlanBatch images of this shape.
+struct BwdPlan {
+  int chunk, nchunks;   // weight gradients: tokens per chunk (a multiple of 64), chunks
+  int wpc, achunks;     // attention: windows per chunk, chunks
+  int rtiles;           // 64-row tiles
 };
 
-// The workspace: per-token intermediates and the partials of the token
+inline BwdPlan bwd_plan(int B, int H, int W, int C, int hidden, int ws, int heads) {
+  const int hw = H * W, T = B * hw, nW = (H / ws) * (W / ws);
+  const int tiles = bb::wg_tiles(hidden, C) + bb::wg_tiles(C, hidden) + bb::wg_tiles(C, C) +
+                    bb::wg_tiles(C, 3 * C);
+  const int per = std::max(1, (bb::kFillCtas + tiles - 1) / tiles);
+  BwdPlan p;
+  p.chunk = 64 * (((bb::kPlanBatch * hw + 63) / 64 + per - 1) / per);
+  p.nchunks = (T + p.chunk - 1) / p.chunk;
+  const int achunks_plan = std::max(1, bb::kAttnFillCtas / heads);
+  p.wpc = (bb::kPlanBatch * nW + achunks_plan - 1) / achunks_plan;
+  p.achunks = (B * nW + p.wpc - 1) / p.wpc;
+  p.rtiles = (T + 63) / 64;
+  return p;
+}
+
+// The workspace: per-token intermediates and the partials of the
 // reductions. With p == nullptr only measures.
 struct BwdWork {
-  bf16 *xw, *u, *qkv, *ctx, *y, *yn, *h1, *dm, *dab, *dattn, *dctx, *dqkv_b;
-  float *st1, *st2, *a, *da, *dyn, *dy, *dqkv, *du, *dctxf, *part;
+  bf16 *xw, *u, *qkv, *ctx, *y, *yn, *h1, *dm, *dab, *dattn, *dctxb, *dqkv;
+  float *st1, *st2, *a, *dy, *dctxf;
+  float *pw[bb::kWgProducts], *pb2, *pbproj, *pb1, *pln2, *pln1, *pqkv, *pbias;
   size_t bytes;
 };
 
-// res: the residual route's workspace (dctx in fp32 instead of bf16).
-inline BwdWork carve_bwd(unsigned char* p, int T, int C, int hidden, int heads, int N,
-                         bool res) {
+inline BwdWork carve_bwd(unsigned char* p, int B, int H, int W, int C, int hidden, int ws,
+                         int heads, bool res) {
+  const BwdPlan pl = bwd_plan(B, H, W, C, hidden, ws, heads);
+  const int T = B * H * W, N = ws * ws;
   Carve cv{p};
   BwdWork w;
   const size_t tc = (size_t)T * C, th = (size_t)T * hidden;
@@ -68,92 +128,168 @@ inline BwdWork carve_bwd(unsigned char* p, int T, int C, int hidden, int heads, 
   w.dm = cv.take<bf16>(tc);
   w.dab = cv.take<bf16>(th);
   w.dattn = cv.take<bf16>(tc);
-  w.dctx = res ? nullptr : cv.take<bf16>(tc);
-  w.dqkv_b = cv.take<bf16>(3 * tc);
+  w.dctxb = res ? nullptr : cv.take<bf16>(tc);
+  w.dqkv = cv.take<bf16>(3 * tc);
   w.st1 = cv.take<float>(2 * (size_t)T);
   w.st2 = cv.take<float>(2 * (size_t)T);
   w.a = cv.take<float>(th);
-  w.da = cv.take<float>(th);
-  w.dyn = cv.take<float>(tc);
   w.dy = cv.take<float>(tc);
-  w.dqkv = cv.take<float>(3 * tc);
-  w.du = cv.take<float>(tc);
   w.dctxf = res ? cv.take<float>(tc) : nullptr;
-  // partials: the largest of the weight-grad splits, the column sums, the
-  // LN parameter sums and the rel-pos bias chunks
-  size_t part = 0;
-  const int dims[4][2] = {{hidden, C}, {C, hidden}, {C, C}, {C, 3 * C}};
-  for (auto& mn : dims)
-    part = std::max(part, (size_t)gemm_splits(mn[0], mn[1], T) * mn[0] * mn[1]);
-  part = std::max(part, (size_t)((T + kColRows - 1) / kColRows) * 3 * C);
-  part = std::max(part, (size_t)std::max(hidden, 3 * C) * ((T + kColRows - 1) / kColRows));
-  part = std::max(part, (size_t)ln_ctas(T) * 2 * C);
-  const int nwin = T / N;
-  part = std::max(part, (size_t)attn_chunks(nwin, heads) * heads * N * N);
-  w.part = cv.take<float>(part);
+  const int mn[bb::kWgProducts][2] = {{hidden, C}, {C, hidden}, {C, C}, {C, 3 * C}};
+  for (int i = 0; i < bb::kWgProducts; ++i)
+    w.pw[i] = cv.take<float>((size_t)pl.nchunks * mn[i][0] * mn[i][1]);
+  w.pb2 = cv.take<float>((size_t)pl.nchunks * C);
+  w.pbproj = cv.take<float>((size_t)pl.nchunks * C);
+  w.pb1 = cv.take<float>((size_t)pl.rtiles * hidden);
+  w.pln2 = cv.take<float>((size_t)pl.rtiles * 2 * C);
+  w.pln1 = cv.take<float>((size_t)pl.rtiles * 2 * C);
+  w.pqkv = cv.take<float>((size_t)pl.achunks * 3 * C);
+  w.pbias = cv.take<float>((size_t)pl.achunks * heads * N * N);
   w.bytes = cv.used;
   return w;
 }
 
 // The launch sequence. kRes: the residual route (swin_block_bwd_res.cu):
-// ctx = round(ctx_f) in place of the attention recompute, dctx kept in fp32,
-// and the attention backward from the stored state.
+// ctx = round(ctx_f) in proj's A load in place of the attention recompute,
+// dctx kept in fp32, and the attention backward from the stored state.
 template <bool kRes>
 cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* n) {
+  using namespace bb;
   const int T = a.B * a.H * a.W, C = a.C, Hd = a.hidden, N = a.ws * a.ws;
-  const int nW = (a.H / a.ws) * (a.W / a.ws), hw = a.H * a.W;
+  const int nW = (a.H / a.ws) * (a.W / a.ws);
+  const BwdPlan pl = bwd_plan(a.B, a.H, a.W, C, Hd, a.ws, a.heads);
+  TokArgs base;
+  memset(&base, 0, sizeof(base));
+  base.T = T;
+  base.C = C;
+  base.H = a.H;
+  base.W = a.W;
+  base.ws = a.ws;
+  base.shift = a.shift;
+  base.dp = a.dp;
 
   // ---- forward recompute
-  SUNET_TRY(ln_fwd(a.x, true, w.xw, w.u, w.st1, a.g1, a.be1, T, C, a.H, a.W, a.ws, a.shift, st,
-                   n));
-  SUNET_TRY((gemm<false, false>(w.u, C, a.wqkv, 3 * C, T, 3 * C, C, 1,
-                                EpiBias{w.qkv, a.bqkv, 3 * C}, nullptr, st, n)));
-  if constexpr (kRes)
-    SUNET_TRY(round_rows(a.ctxf, w.ctx, (size_t)T * C, st, n));
-  else
-    SUNET_TRY(attn_fwd(w.qkv, w.ctx, a.bias, a.mask, T, C, a.heads, N, nW, a.scale, st, n));
-  SUNET_TRY((gemm<false, false>(w.ctx, C, a.wproj, C, T, C, C, 1,
-                                EpiResid{w.y, w.xw, a.bproj, a.dp, C, hw}, nullptr, st, n)));
-  SUNET_TRY(ln_fwd(w.y, false, nullptr, w.yn, w.st2, a.g2, a.be2, T, C, a.H, a.W, a.ws, a.shift,
-                   st, n));
-  SUNET_TRY((gemm<false, false>(w.yn, C, a.w1, Hd, T, Hd, C, 1, EpiFc1{w.a, w.h1, a.b1, Hd},
-                                nullptr, st, n)));
+  {
+    TokArgs t = base;
+    t.K = C, t.N = 3 * C, t.src = a.x, t.lg = a.g1, t.lb = a.be1;
+    t.side0 = w.u, t.side1 = w.xw, t.stats = w.st1, t.bias = a.bqkv, t.ob = w.qkv;
+    SUNET_TRY((tok_gemm<kALn1, false, kEQkv>(t, nullptr, a.wqkv, C, 3 * C, st, n)));
+  }
+  AttnArgs at;
+  memset(&at, 0, sizeof(at));
+  at.qkv = w.qkv;
+  at.C = C, at.heads = a.heads, at.d = C / a.heads, at.N = N, at.nW = nW, at.nwin = T / N;
+  at.scale = a.scale;
+  at.bias = a.bias, at.mask = a.mask;
+  if constexpr (!kRes) {
+    AttnArgs f = at;
+    f.ctx = w.ctx, f.wpc = 1;
+    SUNET_TRY(attn_tc<kAttnFwd>(f, st, n));
+  }
+  {
+    TokArgs t = base;
+    t.K = C, t.N = C, t.bias = a.bproj, t.rows = w.xw, t.ob = w.y;
+    if constexpr (kRes) {
+      t.srcf = a.ctxf, t.side0 = w.ctx;
+      SUNET_TRY((tok_gemm<kARound, false, kEProj>(t, nullptr, a.wproj, C, C, st, n)));
+    } else {
+      SUNET_TRY((tok_gemm<kATma, false, kEProj>(t, w.ctx, a.wproj, C, C, st, n)));
+    }
+  }
+  {
+    TokArgs t = base;
+    t.K = C, t.N = Hd, t.src = w.y, t.lg = a.g2, t.lb = a.be2, t.side0 = w.yn, t.stats = w.st2;
+    t.bias = a.b1, t.of = w.a, t.ob = w.h1;
+    SUNET_TRY((tok_gemm<kALn2, false, kEFc1>(t, nullptr, a.w1, C, Hd, st, n)));
+  }
 
   // ---- MLP sublayer
-  SUNET_TRY(gather_rows(a.dout, a.dp, w.dm, T, C, a.H, a.W, a.ws, a.shift, st, n));
-  SUNET_TRY(weight_grad(w.h1, Hd, w.dm, C, Hd, C, T, w.part, a.dw2, st, n));
-  SUNET_TRY(colsum(w.dm, T, C, w.part, a.dbm2, st, n));
-  SUNET_TRY((gemm<false, true>(w.dm, C, a.w2, C, T, Hd, C, 1, EpiDa{w.da, w.dab, w.a, Hd},
-                               nullptr, st, n)));
-  SUNET_TRY(weight_grad(w.yn, C, w.dab, Hd, C, Hd, T, w.part, a.dw1, st, n));
-  SUNET_TRY(colsum(w.da, T, Hd, w.part, a.dbm1, st, n));
-  SUNET_TRY((gemm<false, true>(w.dab, Hd, a.w1, Hd, T, C, Hd, 1, EpiF32{w.dyn, C, 0}, nullptr,
-                               st, n)));
-  SUNET_TRY(ln_bwd<true>(w.dyn, w.y, w.st2, a.g2, a.dout, nullptr, a.dp, w.dy, w.dattn, nullptr,
-                         w.part, T, C, a.H, a.W, a.ws, a.shift, st, n));
-  SUNET_TRY(ln_param_grads(w.part, a.dg2, a.db2, T, C, st, n));
+  {
+    TokArgs t = base;
+    t.K = C, t.N = Hd, t.src = a.dout, t.side0 = w.dm, t.aux = w.a, t.ob = w.dab, t.part = w.pb1;
+    SUNET_TRY((tok_gemm<kADm, true, kEDa>(t, nullptr, a.w2, Hd, C, st, n)));
+  }
+  {
+    TokArgs t = base;
+    t.K = Hd, t.N = C, t.lg = a.g2, t.stats = w.st2, t.rows = w.y, t.dout = a.dout;
+    t.of = w.dy, t.ob = w.dattn, t.part = w.pln2;
+    SUNET_TRY((tok_gemm<kATma, true, kELn2>(t, w.dab, a.w1, C, Hd, st, n)));
+  }
 
   // ---- attention sublayer
-  SUNET_TRY(weight_grad(w.ctx, C, w.dattn, C, C, C, T, w.part, a.dwproj, st, n));
-  SUNET_TRY(colsum(w.dattn, T, C, w.part, a.dbproj, st, n));
-  if constexpr (kRes) {
-    SUNET_TRY((gemm<false, true>(w.dattn, C, a.wproj, C, T, C, C, 1, EpiF32{w.dctxf, C, 0},
-                                 nullptr, st, n)));
-    SUNET_TRY(attn_bwd_res(w.qkv, w.dctxf, a.eb, a.rden, a.ctxf, w.dqkv, w.dqkv_b, w.part,
-                           a.dbias, T, C, a.heads, N, a.scale, st, n));
-  } else {
-    SUNET_TRY((gemm<false, true>(w.dattn, C, a.wproj, C, T, C, C, 1, EpiBf16{w.dctx, C},
-                                 nullptr, st, n)));
-    SUNET_TRY(attn_bwd(w.qkv, w.dctx, a.bias, a.mask, w.dqkv, w.dqkv_b, w.part, a.dbias, T, C,
-                       a.heads, N, nW, a.scale, st, n));
+  {
+    TokArgs t = base;
+    t.K = C, t.N = C;
+    if constexpr (kRes) {
+      t.of = w.dctxf;
+      SUNET_TRY((tok_gemm<kATma, true, kEDctxF>(t, w.dattn, a.wproj, C, C, st, n)));
+    } else {
+      t.ob = w.dctxb;
+      SUNET_TRY((tok_gemm<kATma, true, kEDctxB>(t, w.dattn, a.wproj, C, C, st, n)));
+    }
   }
-  SUNET_TRY(weight_grad(w.u, C, w.dqkv_b, 3 * C, C, 3 * C, T, w.part, a.dwqkv, st, n));
-  SUNET_TRY(colsum(w.dqkv, T, 3 * C, w.part, a.dbqkv, st, n));
-  SUNET_TRY((gemm<false, true>(w.dqkv_b, 3 * C, a.wqkv, 3 * C, T, C, 3 * C, 1,
-                               EpiF32{w.du, C, 0}, nullptr, st, n)));
-  SUNET_TRY(ln_bwd<false>(w.du, w.xw, w.st1, a.g1, nullptr, w.dy, nullptr, nullptr, nullptr, a.dx,
-                          w.part, T, C, a.H, a.W, a.ws, a.shift, st, n));
-  return ln_param_grads(w.part, a.dg1, a.db1, T, C, st, n);
+  at.dqkv = w.dqkv, at.pbias = w.pbias, at.pqkv = w.pqkv, at.wpc = pl.wpc;
+  if constexpr (kRes) {
+    at.dctxf = w.dctxf, at.eb = a.eb, at.rden = a.rden, at.ctxf = a.ctxf;
+    SUNET_TRY(attn_tc<kAttnBwdRes>(at, st, n));
+  } else {
+    at.dctxb = w.dctxb;
+    SUNET_TRY(attn_tc<kAttnBwd>(at, st, n));
+  }
+  {
+    TokArgs t = base;
+    t.K = 3 * C, t.N = C, t.lg = a.g1, t.stats = w.st1, t.rows = w.xw, t.aux = w.dy;
+    t.ob = a.dx, t.part = w.pln1;
+    SUNET_TRY((tok_gemm<kATma, true, kELn1>(t, w.dqkv, a.wqkv, C, 3 * C, st, n)));
+  }
+
+  // ---- the weight gradients: dw2 = h1^T dm (and b2's), dw1 = yn^T dab,
+  // dwproj = ctx^T dattn (and bproj's), dwqkv = u^T dqkv
+  {
+    WgArgs g;
+    WgMaps m;
+    const bf16* xs[kWgProducts] = {w.h1, w.yn, w.ctx, w.u};
+    const bf16* ds[kWgProducts] = {w.dm, w.dab, w.dattn, w.dqkv};
+    const int mn[kWgProducts][2] = {{Hd, C}, {C, Hd}, {C, C}, {C, 3 * C}};
+    float* pbs[kWgProducts] = {w.pb2, nullptr, w.pbproj, nullptr};
+    int first = 0;
+    for (int i = 0; i < kWgProducts; ++i) {
+      g.p[i] = WgProduct{mn[i][0], mn[i][1], (mn[i][0] + 63) / 64, first, w.pw[i], pbs[i]};
+      first += wg_tiles(mn[i][0], mn[i][1]) * pl.nchunks;
+      SUNET_TRY(hop::weight_map(&m.x[i], xs[i], T, mn[i][0], 64));
+      SUNET_TRY(hop::weight_map(&m.d[i], ds[i], T, mn[i][1], 64));
+    }
+    g.T = T, g.chunk = pl.chunk, g.nchunks = pl.nchunks;
+    SUNET_TRY(hop::launch_cluster(wgrad_kernel, dim3(first), kThr, wgrad_smem(), st, 1, g, m));
+    SUNET_TRY(launched(n));
+  }
+
+  // ---- every partial, summed in order
+  SumArgs s;
+  const long long hn = (long long)a.heads * N * N;
+  const SumSeg segs[kSumSegs] = {
+      {w.pw[0], a.dw2, pl.nchunks, Hd * C, (long long)Hd * C},
+      {w.pw[1], a.dw1, pl.nchunks, C * Hd, (long long)C * Hd},
+      {w.pw[2], a.dwproj, pl.nchunks, C * C, (long long)C * C},
+      {w.pw[3], a.dwqkv, pl.nchunks, 3 * C * C, 3LL * C * C},
+      {w.pb2, a.dbm2, pl.nchunks, C, C},
+      {w.pbproj, a.dbproj, pl.nchunks, C, C},
+      {w.pb1, a.dbm1, pl.rtiles, Hd, Hd},
+      {w.pqkv, a.dbqkv, pl.achunks, 3 * C, 3 * C},
+      {w.pln2, a.dg2, pl.rtiles, C, 2 * C},
+      {w.pln2 + C, a.db2, pl.rtiles, C, 2 * C},
+      {w.pln1, a.dg1, pl.rtiles, C, 2 * C},
+      {w.pln1 + C, a.db1, pl.rtiles, C, 2 * C},
+      {w.pbias, a.dbias, pl.achunks, (int)hn, hn}};
+  s.total[0] = s.total[1] = 0;
+  for (int i = 0; i < kSumSegs; ++i) {
+    s.s[i] = segs[i];
+    s.total[segs[i].S >= kSumWarpS] += segs[i].L;
+  }
+  const long long blocks = std::max((s.total[0] + kThr - 1) / kThr,
+                                    (s.total[1] + kThr / 32 - 1) / (kThr / 32));
+  sum_kernel<<<(int)std::min<long long>(blocks, 2048), kThr, 0, st>>>(s);
+  return launched(n);
 }
 
 }  // namespace sunet

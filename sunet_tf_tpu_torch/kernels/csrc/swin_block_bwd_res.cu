@@ -14,8 +14,9 @@
 // bias and the mask are not read. Rounding points as the JAX kernel: the
 // attention output is round(ctx_f) @ wproj; dctx = dattn wproj^T stays in
 // fp32; the attention backward is JAX's blockdiag form with the stored
-// reciprocal (attn_bwd_res_kernel in attn_train.cuh). The plain version
-// is swin_block_bwd_res_reference in kernels/window_attention.py.
+// reciprocal (attn_tc_kernel<kAttnBwdRes> in block_bwd_hopper.cuh). The
+// plain version is swin_block_bwd_res_reference in
+// kernels/window_attention.py.
 //
 // What bounds it on Hopper: the recompute form's products less its
 // attention recompute, at (64,64,96) batch 2 about 5.2 GFLOP (5.3 us at the
@@ -24,17 +25,19 @@
 // the two about even.
 //
 // Design: the recompute form's launch sequence (swin_block_bwd.cuh) with
-// the attention recompute replaced by one rounding pass over ctx_f and the
-// P-based attention backward by the kernel that loads e and rden: 35
-// launches, weight grads in fixed token chunks summed in a fixed order (the
-// same bits on every run).
+// no attention forward (proj's A load rounds ctx_f, and writes it as ctx
+// for dwproj) and the attention backward reading e, rden and ctx_f: 10
+// launches, the same bits on every run. Device time on the H100 (700 W):
+// 0.26 ms at (64,64,96), 0.19 ms at (32,32,192) at batch 2, 0.40 / 0.28 ms
+// at batch 4; 35 launches took 0.50 / 0.41 ms at batch 2 (PERF.md).
 #include "swin_block_bwd.cuh"
 
 using namespace sunet;
 
 extern "C" size_t sunet_swin_block_bwd_res_workspace(int B, int H, int W, int C, int hidden,
                                                      int ws, int heads) {
-  return carve_bwd(nullptr, B * H * W, C, hidden, heads, ws * ws, true).bytes;
+  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0) return 0;
+  return carve_bwd(nullptr, B, H, W, C, hidden, ws, heads, true).bytes;
 }
 
 extern "C" int sunet_swin_block_bwd_res(
@@ -45,9 +48,8 @@ extern "C" int sunet_swin_block_bwd_res(
     void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dg2, void* db2, void* dw1,
     void* dbm1, void* dw2, void* dbm2, void* dbias, void* work, int B, int H, int W, int C,
     int hidden, int ws, int heads, int shift, float scale, int* launches, void* stream) {
-  const int N = ws * ws;
-  if (N > 64 || C % 32 || C > kLnMaxC || C % heads || hidden % 16 || H % ws || W % ws ||
-      dp == nullptr || eb == nullptr || rden == nullptr || ctxf == nullptr)
+  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0 || dp == nullptr || eb == nullptr ||
+      rden == nullptr || ctxf == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdArgs a{(const bf16*)x,     (const bf16*)dout,  (const float*)g1,   (const float*)be1,
             (const bf16*)wqkv,  (const float*)bqkv, (const bf16*)wproj, (const float*)bproj,
@@ -60,7 +62,7 @@ extern "C" int sunet_swin_block_bwd_res(
             H,                  W,                  C,                  hidden,
             ws,                 heads,              shift,              scale,
             (const bf16*)eb,    (const float*)rden, (const float*)ctxf};
-  const BwdWork w = carve_bwd((unsigned char*)work, B * H * W, C, hidden, heads, N, true);
+  const BwdWork w = carve_bwd((unsigned char*)work, B, H, W, C, hidden, ws, heads, true);
   *launches = 0;
   return (int)block_bwd<true>(a, w, (cudaStream_t)stream, launches);
 }

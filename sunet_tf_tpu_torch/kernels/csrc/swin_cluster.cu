@@ -198,22 +198,6 @@ __device__ inline void copy16(unsigned char* dst, Src src, int n, Off off) {
   }
 }
 
-__device__ inline uint32_t pack_bf2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(tobf(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(tobf(hi)) << 16);
-}
-
-__device__ inline uint32_t ld32(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
-
-// d (16x8 fp32) += a (16x16 bf16, row) @ b (16x8 bf16, col).
-__device__ inline void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One head's attention for the 16 query rows i0.. of a window of N tokens,
 // by one warp, in registers (mma.sync m16n8k16): s = q k^T + bias (+ mask)
 // in fp32 (q already scaled and rounded), e = exp(s - rowmax), P =

@@ -327,58 +327,34 @@ inline cudaError_t ln_fwd(const bf16* src, bool gather, bf16* copy, bf16* out, f
   return launched(launches);
 }
 
-// dst = round(s * src), src gathered into window-major rows; s = dp[2b+1]
-// (image b's MLP-branch drop-path scale), or 1 when dp is null.
-static __global__ void gather_kernel(const bf16* __restrict__ src, const float* __restrict__ dp,
-                                     bf16* __restrict__ dst, int T, int C, int H, int W, int ws,
-                                     int shift) {
+// dst = src gathered into window-major rows.
+static __global__ void gather_kernel(const bf16* __restrict__ src, bf16* __restrict__ dst, int T,
+                                     int C, int H, int W, int ws, int shift) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= T) return;
   const bf16* s = src + token_offset(r, H, W, C, ws, shift);
-  const float s2 = dp ? dp[2 * (r / (H * W)) + 1] : 1.f;
-  for (int c = lane; c < C; c += 32) dst[(size_t)r * C + c] = tobf(s2 * bf(s[c]));
+  for (int c = lane; c < C; c += 32) dst[(size_t)r * C + c] = s[c];
 }
 
-inline cudaError_t gather_rows(const bf16* src, const float* dp, bf16* dst, int T, int C, int H, int W,
-                          int ws, int shift, cudaStream_t st, int* launches) {
-  gather_kernel<<<(T + kWarps - 1) / kWarps, kThreads, 0, st>>>(src, dp, dst, T, C, H, W, ws,
-                                                               shift);
+inline cudaError_t gather_rows(const bf16* src, bf16* dst, int T, int C, int H, int W, int ws,
+                               int shift, cudaStream_t st, int* launches) {
+  gather_kernel<<<(T + kWarps - 1) / kWarps, kThreads, 0, st>>>(src, dst, T, C, H, W, ws, shift);
   return launched(launches);
 }
 
-// dst = round(src), n values.
-static __global__ void round_kernel(const float* __restrict__ src, bf16* __restrict__ dst,
-                                    size_t n) {
-  for (size_t i = blockIdx.x * (size_t)kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads)
-    dst[i] = tobf(src[i]);
-}
-
-inline cudaError_t round_rows(const float* src, bf16* dst, size_t n, cudaStream_t st,
-                              int* launches) {
-  const int blocks = (int)std::min<size_t>((n + kThreads - 1) / kThreads, 1024);
-  round_kernel<<<blocks, kThreads, 0, st>>>(src, dst, n);
-  return launched(launches);
-}
-
-// LayerNorm backward over T rows, kCols columns per lane (C <= 32*kCols):
-// xhat from x (the token matrix's rows, bf16) and its stats, dxhat = d *
-// g, t = inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)). kLn2 (the
-// block's LN2): res = dout (gathered) + t, writes dy = res (fp32) and
-// dattn = round(s1[b] * res). Otherwise: dx = round(base + t) at the row's
-// place in the NHWC map (row_offset), base = dy_in, or 0 when dy_in is null
-// (a sublayer's LN, whose residual autograd adds outside). Both write
-// per-CTA partials of dg = sum d*xhat and db = sum d as part[cta][0:C) and
-// part[cta][C:2C).
-template <bool kLn2, int kCols>
+// LayerNorm backward over T rows of a sublayer's LN (whose residual
+// autograd adds outside), kCols columns per lane (C <= 32*kCols): xhat from
+// x (the token matrix's rows, bf16) and its stats, dxhat = d * g, dx =
+// round(inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))) at the row's
+// place in the NHWC map (row_offset), and per-CTA partials of dg = sum
+// d*xhat and db = sum d as part[cta][0:C) and part[cta][C:2C).
+template <int kCols>
 __global__ void __launch_bounds__(kThreads)
     ln_bwd_kernel(const float* __restrict__ d, const bf16* __restrict__ x,
                   const float* __restrict__ stats, const float* __restrict__ g,
-                  const bf16* __restrict__ dout, const float* __restrict__ dy_in,
-                  const float* __restrict__ dp, float* __restrict__ dy_out,
-                  bf16* __restrict__ dattn, bf16* __restrict__ dx, float* __restrict__ part,
-                  int T, int C, int H, int W, int ws, int shift) {
+                  bf16* __restrict__ dx, float* __restrict__ part, int T, int C, int H, int W,
+                  int ws, int shift) {
   __shared__ float red[kWarps][kCols * 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float pdg[kCols], pdb[kCols];
@@ -407,19 +383,11 @@ __global__ void __launch_bounds__(kThreads)
     m1 = warp_sum(m1) / C;
     m2 = warp_sum(m2) / C;
     const size_t off = row_offset(r, H, W, C, ws, shift);
-    const float s1 = kLn2 ? dp[2 * (r / (H * W))] : 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = lane + 32 * j;
       if (c >= C) continue;
-      const float t = inv * (dv[j] * g[c] - m1 - xh[j] * m2);
-      if (kLn2) {
-        const float res = bf(dout[off + c]) + t;
-        dy_out[(size_t)r * C + c] = res;
-        dattn[(size_t)r * C + c] = tobf(s1 * res);
-      } else {
-        dx[off + c] = tobf((dy_in ? dy_in[(size_t)r * C + c] : 0.f) + t);
-      }
+      dx[off + c] = tobf(inv * (dv[j] * g[c] - m1 - xh[j] * m2));
     }
   }
   // the CTA's dg, then its db, through one buffer (warps summed in order)
@@ -444,17 +412,15 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launches the LN backward with the fewest columns per lane that hold C.
-template <bool kLn2>
 inline cudaError_t ln_bwd(const float* d, const bf16* x, const float* stats, const float* g,
-                          const bf16* dout, const float* dy_in, const float* dp, float* dy_out,
-                          bf16* dattn, bf16* dx, float* part, int T, int C, int H, int W, int ws,
-                          int shift, cudaStream_t st, int* launches) {
+                          bf16* dx, float* part, int T, int C, int H, int W, int ws, int shift,
+                          cudaStream_t st, int* launches) {
   if (C <= 12 * 32)
-    ln_bwd_kernel<kLn2, 12><<<ln_ctas(T), kThreads, 0, st>>>(
-        d, x, stats, g, dout, dy_in, dp, dy_out, dattn, dx, part, T, C, H, W, ws, shift);
+    ln_bwd_kernel<12><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C, H, W,
+                                                       ws, shift);
   else if (C <= kLnMaxC)
-    ln_bwd_kernel<kLn2, kLnMaxC / 32><<<ln_ctas(T), kThreads, 0, st>>>(
-        d, x, stats, g, dout, dy_in, dp, dy_out, dattn, dx, part, T, C, H, W, ws, shift);
+    ln_bwd_kernel<kLnMaxC / 32><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C,
+                                                                 H, W, ws, shift);
   else
     return cudaErrorInvalidValue;
   return launched(launches);

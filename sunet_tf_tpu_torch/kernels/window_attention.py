@@ -84,10 +84,14 @@ BF16 = torch.bfloat16
 BLOCK_KERNEL_MAX_C = 384
 # Kernel launches one call of each training wrapper makes (the forward
 # recompute, the backward products and the token reductions of
-# csrc/swin_block_bwd.cu, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; LN and the two
-# products of ln_mlp_branch.cu).
-SWIN_BLOCK_BWD_LAUNCHES = 35
-SWIN_BLOCK_BWD_RES_LAUNCHES = 35   # #8's sequence: ctx rounding for the recompute
+# csrc/swin_block_bwd.cuh, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; LN and the two
+# products of ln_mlp_branch.cu). The block backward: LN1 + qkv, the
+# attention forward, proj, LN2 + fc1, dm w2^T, dab w1^T + the LN2 backward,
+# dctx, the attention backward, dqkv wqkv^T + the LN1 backward, the weight
+# gradients, the sums; the residual route reads ctx from its residuals and
+# skips the attention forward.
+SWIN_BLOCK_BWD_LAUNCHES = 11
+SWIN_BLOCK_BWD_RES_LAUNCHES = 10
 LN_WMSA_BWD_LAUNCHES = 19
 LN_MLP_BRANCH_LAUNCHES = 3
 LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
@@ -128,6 +132,10 @@ _CONSUMER_WGS = 3     # warpgroups of the block kernel (csrc/swin_cluster.cu kWG
 
 def _up(v: int, a: int) -> int:
     return -(-v // a) * a
+
+
+def _cdiv(v: int, a: int) -> int:
+    return -(-v // a)
 
 
 def _boxes(cols: int) -> int:
@@ -311,6 +319,144 @@ def wmsa_plan(H: int, W: int, C: int, heads: int, ws: int) -> dict:
     return {"ksq": ksq, "ks": ks, "smem_qkv": smem_qkv, "smem_proj": smem_proj,
             "ctas_qkv": ctas_qkv, "ctas_attn": PLAN_BATCH * (H // ws) * (W // ws) * heads,
             "ctas_proj": ctas_proj}
+
+
+# The block backward's kernels (csrc/block_bwd_hopper.cuh, the launch
+# sequence in csrc/swin_block_bwd.cuh): token GEMMs on 64-row x 128-column
+# tiles with a ring of (A box, two B boxes) of 64 x 64 bf16, the LN
+# backward epilogues on a cluster of ceil(C / 128) CTAs per row tile, the
+# weight gradients in token chunks, the attention per (head, chunk of
+# windows) on four warps.
+BWD_RING = (3, 3 * 8192)   # block_bwd_hopper.cuh kRingS, kSlot
+_BWD_HEAD = 4096           # kHead: barriers, the LN row sums, the rows' RowInfo
+_BWD_COLS = 128            # kCols: output columns of a token-GEMM CTA
+BWD_FILL_CTAS = 264        # kFillCtas: CTAs the weight-gradient launch aims at (2 per SM)
+BWD_ATTN_FILL_CTAS = 528   # kAttnFillCtas: CTAs the attention backward aims at (4 per SM)
+BWD_MAX_C = 768            # a cluster of at most 6 CTAs owns a row
+BWD_MAX_HEAD_DIM = 64      # the attention's operands: 64 x 64 tiles
+
+
+def _bwd_tok_smem(K: int, a_in_smem: bool) -> int:
+    """Shared-memory bytes of one token GEMM of the block backward
+    (``bb::tok_smem``): slack, header, ring, and A (64 x K) when the CTA
+    computes it (the LN, dm and round(ctx_f) A loads)."""
+    S, slot = BWD_RING
+    return 1024 + _BWD_HEAD + S * slot + (_a_bytes(K) if a_in_smem else 0)
+
+
+def _attn_smem(N: int, d: int) -> tuple:
+    """(forward, backward) shared-memory bytes of the block backward's
+    attention (``bb::attn_layout``): q, k (and v, dctx) as N rows of dp + 8
+    bf16, k^T (v^T), q^T and dctx^T as dp rows of N + 8, round(P)^T and
+    round(ds)^T as N rows of N + 8, then the backwards' floats; dp is the
+    head dim rounded up to 16."""
+    dp = _up(d, 16)
+    rd, tn, nn = (_pad128(N * (dp + 8) * 2), _pad128(dp * (N + 8) * 2),
+                  _pad128(N * (N + 8) * 2))
+    fwd = 2 * rd + tn
+    return fwd, fwd + 2 * rd + 2 * tn + 2 * nn + (64 * 32 + 4 * 3 * 64 + 3 * 64) * 4
+
+
+def _bwd_products(C: int, hidden: int) -> tuple:
+    """(M, N) of the block's four weight gradients in the weight-gradient
+    launch's order: dw2, dw1, dwproj, dwqkv."""
+    return ((hidden, C), (C, hidden), (C, C), (C, 3 * C))
+
+
+def _wg_tiles(M: int, N: int) -> int:
+    """64 x 128 output tiles of an M x N weight gradient."""
+    return _cdiv(M, _TILE) * _cdiv(N, _BWD_COLS)
+
+
+def _bwd_width_why(C: int, hidden: int, heads: int) -> Optional[str]:
+    if C % 16 or hidden % 16 or hidden <= 0:
+        return f"C={C} and hidden={hidden} must be multiples of 16"
+    if C > BWD_MAX_C:
+        return f"C={C} above {BWD_MAX_C} (a cluster of at most 6 CTAs owns a row)"
+    if heads <= 0 or C % heads:
+        return f"C={C} not divisible by {heads} heads"
+    if C // heads > BWD_MAX_HEAD_DIM:
+        return f"head dim {C // heads} above {BWD_MAX_HEAD_DIM}"
+    if (C // heads) % 2:
+        return f"head dim {C // heads} is odd (the attention loads column pairs)"
+    return None
+
+
+def block_bwd_why(C: int, hidden: int, heads: int, ws: int) -> Optional[str]:
+    """Why the block backward's kernels do not take a block of width C, MLP
+    width ``hidden``, ``heads`` heads and window ``ws`` (None when they do).
+    The window's rule is every window kernel's (``_check_window``)."""
+    N = ws * ws
+    if N % 16 or N > _TILE or N == 0:
+        return f"window {ws} gives {N} tokens; the kernel takes 16, 32, 48 or 64"
+    return _bwd_width_why(C, hidden, heads)
+
+
+def block_bwd_takes(C: int, hidden: int, heads: int) -> bool:
+    """Whether the block backward's kernels take a block of width C, MLP
+    width ``hidden`` and ``heads`` heads (the router's question: the
+    window's rule is every window kernel's, the split kernels' too)."""
+    return _bwd_width_why(C, hidden, heads) is None
+
+
+@functools.lru_cache(maxsize=None)
+def block_bwd_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
+    """Launch plan of the block backward (#7, #8) for (H, W, C) images, a
+    function of one image's shape (``bwd_plan`` in csrc/swin_block_bwd.cuh
+    mirrors it): the LN backward epilogues' cluster size G (CTAs per 64
+    rows), the 128-column tiles per CTA of the two products whose A is a
+    LayerNorm (LN1 + qkv, LN2 + fc1: the LN computed once for as many tiles
+    as keep ~BWD_FILL_CTAS CTAs at PLAN_BATCH images), the
+    weight-gradient launch's tokens per chunk (a multiple of
+    64, ~BWD_FILL_CTAS CTAs at PLAN_BATCH images) and 64 x 128 tiles per
+    product, the attention's windows per chunk (~BWD_ATTN_FILL_CTAS CTAs
+    over the heads at PLAN_BATCH images) and each launch's shared-memory
+    bytes.
+    Raises ValueError on a shape outside the design, with the wrappers'
+    reason."""
+    why = block_bwd_why(C, hidden, heads, ws)
+    if why is None and (H % ws or W % ws):
+        why = f"({H},{W}) not divisible by window {ws}"
+    if why:
+        raise ValueError(f"block_bwd_plan: H={H}, W={W}, C={C}, hidden={hidden}, ws={ws}, "
+                         f"heads={heads}: {why}")
+    hw, nW = H * W, (H // ws) * (W // ws)
+    tiles = tuple(_wg_tiles(M, N) for M, N in _bwd_products(C, hidden))
+    per = max(1, _cdiv(BWD_FILL_CTAS, sum(tiles)))
+    chunk = _TILE * _cdiv(_cdiv(PLAN_BATCH * hw, _TILE), per)
+    wpc = _cdiv(PLAN_BATCH * nW, max(1, BWD_ATTN_FILL_CTAS // heads))
+    rows = _cdiv(PLAN_BATCH * hw, _TILE)
+    tpc = {name: min(t, max(1, _cdiv(t * rows, BWD_FILL_CTAS)))
+           for name, t in (("qkv", _cdiv(3 * C, _BWD_COLS)), ("fc1", _cdiv(hidden, _BWD_COLS)))}
+    smem = {"gemm_a_in_smem": _bwd_tok_smem(C, True), "gemm_a_by_tma": _bwd_tok_smem(0, False),
+            "wgrad": _bwd_tok_smem(0, False)}
+    smem["attn_fwd"], smem["attn"] = _attn_smem(ws * ws, C // heads)
+    return {"G": _cdiv(C, _BWD_COLS), "chunk_tokens": chunk, "wgrad_tiles": tiles,
+            "windows_per_chunk": wpc, "tiles_per_cta": tpc, "smem": smem}
+
+
+def block_bwd_wgrad_table(H: int, W: int, C: int, hidden: int, ws: int, heads: int,
+                          B: int) -> list:
+    """The weight-gradient launch's table at batch B, CTA by CTA, as
+    ``bb::wgrad_kernel`` decodes blockIdx.x: (product, 64-row tile of M,
+    128-column tile of N, token chunk); products in order, then tiles (the
+    row tile fastest), then chunks, the chunk fastest."""
+    plan = block_bwd_plan(H, W, C, hidden, ws, heads)
+    nch = _cdiv(B * H * W, plan["chunk_tokens"])
+    firsts, first = [], 0
+    for t in plan["wgrad_tiles"]:
+        firsts.append(first)
+        first += t * nch
+    table = []
+    for bid in range(first):
+        p = 0
+        while p + 1 < len(firsts) and bid >= firsts[p + 1]:
+            p += 1
+        local = bid - firsts[p]
+        ch, tile = local % nch, local // nch
+        mt = _cdiv(_bwd_products(C, hidden)[p][0], _TILE)
+        table.append((p, tile % mt, tile // mt, ch))
+    return table
 
 
 def bwd_residuals_enabled(C: int, num_heads: int, N: int) -> bool:
@@ -880,6 +1026,12 @@ def _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
                          f"expected {(B, 2)}")
 
 
+def _check_bwd_design(name: str, C: int, hidden: int, heads: int, ws: int):
+    why = block_bwd_why(C, hidden, heads, ws)
+    if why:
+        raise ValueError(f"{name}: {why}")
+
+
 def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
                   mask, dp=None, *, ws: int, num_heads: int, scale: float,
                   shift: int, res: bool = False):
@@ -943,8 +1095,9 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
     """Backward of :func:`fused_swin_block` (JAX ``_block_bwd_impl``, the
     recompute form): x UNROLLED as in the forward, dout its cotangent.
     Returns (dx, then float32 grads of ln1 g/b, wqkv, bqkv, wproj, bproj,
-    ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd.cu``, a
-    fixed sequence of launches, each counted."""
+    ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd.cu``, the
+    SWIN_BLOCK_BWD_LAUNCHES launches of ``csrc/swin_block_bwd.cuh``
+    (:func:`block_bwd_plan`), each counted."""
     name = "swin_block_bwd"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -957,6 +1110,7 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
                  shift, drop_path_scale)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
+    _check_bwd_design(name, C, hidden, num_heads, ws)
     dev = x.device
     f = lambda t: _f32(t, dev)
     dout = dout.to(BF16).contiguous()
@@ -1065,8 +1219,9 @@ def swin_block_bwd_res(x, dout, eb, rden, ctx, ln1, wqkv, bqkv, wproj, bproj, ln
     from x (unrolled, as in the forward), its output's cotangent ``dout``
     and the forward's residuals eb, rden and ctx; no rel-pos bias or mask.
     Returns (dx, then float32 grads of ln1 g/b, wqkv, bqkv, wproj, bproj,
-    ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd_res.cu``, a
-    fixed sequence of launches, each counted."""
+    ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd_res.cu``, the
+    SWIN_BLOCK_BWD_RES_LAUNCHES launches of ``csrc/swin_block_bwd.cuh``
+    (:func:`block_bwd_plan`), each counted."""
     name = "swin_block_bwd_res"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -1080,6 +1235,7 @@ def swin_block_bwd_res(x, dout, eb, rden, ctx, ln1, wqkv, bqkv, wproj, bproj, ln
     dout = _check_dout(name, x, dout)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
+    _check_bwd_design(name, C, hidden, num_heads, ws)
     dev = x.device
     f = lambda t: _f32(t, dev)
     dp = (torch.ones(B, 2, device=dev) if drop_path_scale is None

@@ -29,12 +29,14 @@ stochastic-depth scales from it. On the fused route a block trains by its
 width, a routing rule of the configuration and never a reaction to a kernel
 failing:
 
-- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384), where the attention takes JAX's
-  blockdiag layout (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8
-  heads) and ``ROUTE_TRAIN_RESID`` is set: ``SwinBlockTrainableRes``, the
-  residual route, JAX's default there (``swin_block_trainable_res``): the
-  block kernel's residual form stores the softmax state and
-  ``swin_block_bwd_res`` differentiates it without recomputing it;
+- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape the block backward's
+  kernels take (``wa.block_bwd_takes``: an even head dim up to 64), where
+  the attention takes JAX's blockdiag layout (``wa.bwd_residuals_enabled``:
+  C=96 and 192 at WIN 8, 8 heads) and ``ROUTE_TRAIN_RESID`` is set:
+  ``SwinBlockTrainableRes``, the residual route, JAX's default there
+  (``swin_block_trainable_res``): the block kernel's residual form stores
+  the softmax state and ``swin_block_bwd_res`` differentiates it without
+  recomputing it;
 - other C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` that the block kernel takes
   (``wa.block_kernel_takes``): ``SwinBlockTrainable``, the block kernel
   forward and ``swin_block_bwd`` backward, which recomputes the attention
@@ -319,8 +321,10 @@ class SwinBlock(nn.Module):
     def trains_on_block_kernels(self) -> bool:
         """Whether training takes the block kernels (the residual route or
         the recompute one) rather than the sublayer kernels."""
-        return self.dim <= ROUTE_TRAIN_BLOCK_MAX_C and (
-            self.trains_on_residuals() or self.takes_block_kernel())
+        return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C
+                and wa.block_bwd_takes(self.dim, self.mlp.fc1.out_features,
+                                       self.attn.num_heads)
+                and (self.trains_on_residuals() or self.takes_block_kernel()))
 
     def trains_on_residuals(self) -> bool:
         """Whether training takes the residual route (when the block trains

@@ -1,0 +1,101 @@
+"""Where one call of the whole-block backward (#8 ``swin_block_bwd``, #7
+``swin_block_bwd_res``; ``csrc/swin_block_bwd.cuh``) spends its device time,
+launch by launch, on the card.
+
+    python -m sunet_tf_tpu_torch.tools.bwd_launches [--batch 2,4] [--shift 4]
+
+Runs each form at the default model's block widths, (64,64,96),
+(32,32,192) and (16,16,384) for #8 and the first two for #7 (the widths the
+default training route sends there), window 8, 8 heads, QK_SCALE 8,
+drop-path scales 1/0.9, bf16, seeded weights, and prints per case the
+device time of each of its launches (torch.profiler, mean over 5 calls
+after 3 warm-up calls, in launch order), their sum (the device-busy time of
+a call) and the launch count, beside the card's name and power limit.
+These are the per-layer metric of the redesign (PERF.md, Layers): which
+launch to shorten next. Refuses to run without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import re
+import subprocess
+
+import torch
+
+from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+SHAPES = ((64, 96, True), (32, 192, True), (16, 384, False))   # H, C, also on #7
+
+
+def block_args(B: int, H: int, C: int, gen) -> tuple:
+    """x, dout and the block's parameters (ln1, wqkv, bqkv, wproj, bproj,
+    ln2, w1, b1, w2, b2, rel-pos bias), unit-scale inputs, weights ~ N(0,
+    1/fan_in)."""
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    w = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+    return (n(B, H, H, C).to(torch.bfloat16), n(B, H, H, C).to(torch.bfloat16),
+            (1 + 0.1 * n(C), 0.1 * n(C)), w(C, 3 * C), 0.1 * n(3 * C), w(C, C), 0.1 * n(C),
+            (1 + 0.1 * n(C), 0.1 * n(C)), w(C, 4 * C), 0.1 * n(4 * C), w(4 * C, C), 0.1 * n(C),
+            n(8, 64, 64))
+
+
+def launches(fn, calls: int = 5) -> list:
+    """[(kernel name, mean device us per call)] of fn's launches, in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    per = len(evs) // calls
+    tot = collections.defaultdict(float)
+    for i, e in enumerate(evs[:per * calls]):
+        tot[i % per] += (e.time_range.end - e.time_range.start) / calls
+    names = [re.sub(r"^void |sunet::bb::|\(.*$", "", evs[i].name) for i in range(per)]
+    return [(names[i], tot[i]) for i in range(per)]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", default="2,4")
+    ap.add_argument("--shift", type=int, default=4)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bwd_launches: torch.cuda.is_available() is false")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    print(f"card: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else 'unknown'}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ws, heads, scale, shift = 8, 8, 8.0, args.shift
+    for B in (int(b) for b in args.batch.split(",")):
+        dp = torch.full((B, 2), 1 / 0.9, device="cuda")
+        for H, C, res in SHAPES:
+            x, dout, *p = block_args(B, H, C, gen)
+            mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                    if shift else None)
+            kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+            cases = [("#8 swin_block_bwd", lambda: wa.swin_block_bwd(
+                x, dout, *p, mask, dp, **kw))]
+            if res:
+                _, *st = wa.fused_swin_block_res(x, *p, mask, dp, **kw)
+                cases.append(("#7 swin_block_bwd_res", lambda: wa.swin_block_bwd_res(
+                    x, dout, *st, *p[:-1], dp, **kw)))
+            for name, fn in cases:
+                got = launches(fn)
+                print(f"{name} batch {B} ({H},{H},{C}) shift {shift}: {len(got)} launches, "
+                      f"{sum(t for _, t in got) / 1000:.4f} ms device busy")
+                for kname, t in got:
+                    print(f"  {t:9.2f} us  {kname}")
+
+
+if __name__ == "__main__":
+    main()

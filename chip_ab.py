@@ -9,28 +9,32 @@ bf16, ``chip_smoke.block_params`` weights.
 
 - Bit for bit (the exit code is 1 where one differs): the block kernel
   (#1) at (64,64,96), (32,32,192) and (16,16,384), shift 0 and 4, inference
-  and train form, and at batch 4 (shift 4); the residual route's block
-  forward (#6: output and stored state) at (64,64,96) and (32,32,192), the
-  C=768 training sublayers of ``chip_smoke.sublayer_cases`` (#12, #13,
-  #14), the LN+MLP kernel (#4) at (8,8,768), batch 2 and 4, the LN+W-MSA
+  and train form, and at batch 4 (shift 4); the block backward, the
+  recompute form (#8) at the three widths and the residual route's (#7) at
+  the first two, shift 0 and 4, #7 from the plain version's stored state
+  (the same input in both trees); the LN+MLP branch and its backward (#13,
+  #14) of ``chip_smoke.sublayer_cases``, the LN+MLP kernel (#4) at
+  (8,8,768), batch 2 and 4, the LN+W-MSA
   kernel (#3) at (8,8,768), batch 2 and 4, and at (16,16,768), shift 4
   with the mask, the conv-fused x4 head (#5) at (64,64,96), out 1 and 3,
   and out 1 at batch 4, its backward (#9) at (64,64,96), out 1 and 3, the
   split x4 head (#10) and its backward (#11) at (64,64,96) and the
   standalone W-MSA (#15) at (64,64,96), shift 0 and 4.
 - Against the plain version, both trees' readings printed (``PLAIN``
-  lines): the block backward, the recompute form (#8) at (64,64,96),
-  (32,32,192) and (16,16,384) and the residual route's (#7) at the first
-  two, shift 0 and 4 (dx and the worst weight gradient). Their fp32
-  summation order is a design choice of each tree, so their bits may
-  differ; a kernel whose redesign lies between the two trees moves here.
+  lines): the residual route's block forward (#6: output and stored state)
+  at (64,64,96) and (32,32,192), shift 0 and 4, and the LN+W-MSA backward
+  (#12) of ``chip_smoke.sublayer_cases`` (dx and the worst weight
+  gradient). Their fp32 summation order is a design choice of each tree,
+  so their bits may differ; a kernel whose redesign lies between the two
+  trees moves here.
 - Times (``TIME`` lines), each by this script's own ``time_ms`` and
   ``device_ms``, the same code for both trees: CUDA events, medians of 20,
   with the card spinning first so that the host's pace of launches does not
   count; and the device time of the wrapper's kernels from torch.profiler,
-  mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4 and #3 at
-  (8,8,768) and #5 at (64,64,96) out 1, batch 2 and 4, #9, #8 at the three
-  widths and #7 at C=96 and 192 (shift 4, batch 2 and 4), the default
+  mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4, #13, #14
+  and #3 at (8,8,768) and #5 at (64,64,96) out 1, batch 2 and 4, #9, #8 at
+  the three widths and #6 and #7 at C=96 and 192 (shift 4, batch 2 and 4),
+  #12 at (8,8,768) (batch 2 and 4) and at (16,16,768) shift 4, the default
   model's fused bf16 forward at 256x256 batch 4 (also paced by the host:
   events around each call with nothing queued ahead, as a caller who waits
   on each call sees it), and its batch-4 training step (forward and
@@ -106,6 +110,14 @@ def device_ms(fn, n=20):
                if ev.device_type == DeviceType.CUDA) / n / 1000
 
 
+def plain_outs(name, got, ref):
+    """Each output's distance from the plain version."""
+    print(f"PLAIN {name}: " + "; ".join(
+        f"output {i} max|diff| {float((g.float() - r.float()).abs().max()):.3e} mean|diff| "
+        f"{float((g.float() - r.float()).abs().mean()):.3e}" for i, (g, r) in
+        enumerate(zip(got, ref))), flush=True)
+
+
 def plain_grads(name, got, ref):
     """dx's and the worst weight gradient's distance from the plain version."""
     d = (got[0].float() - ref[0].float()).abs()
@@ -138,17 +150,21 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
         outs[f"fused_swin_block {case}"] = wa.fused_swin_block(*blk, **kw)
         outs[f"fused_swin_block train form {case}"] = wa.fused_swin_block(*blk, dp, **kw)
         bargs = (x, dout, *blk[1:], dp)
-        plain_grads(f"swin_block_bwd {case}", wa.swin_block_bwd(*bargs, **kw),
-                    wa.swin_block_bwd_reference(*bargs, **kw))
+        for i, g in enumerate(wa.swin_block_bwd(*bargs, **kw)):
+            outs[f"swin_block_bwd {case} output {i}"] = g
         if C < 384:
-            res = wa.fused_swin_block_res(*blk, dp, **kw)
-            for i, g in enumerate(res):
-                outs[f"fused_swin_block_res {case} output {i}"] = g
-            rargs = (x, dout, *res[1:], *blk[1:-2], dp)
-            plain_grads(f"swin_block_bwd_res {case}", wa.swin_block_bwd_res(*rargs, **kw),
-                        wa.swin_block_bwd_res_reference(*rargs, **kw))
-for name, case, kernel, _, args, kw, _, _ in cs.sublayer_cases(gen):
+            ref = wa.fused_swin_block_res_reference(*blk, dp, **kw)
+            plain_outs(f"fused_swin_block_res {case}", wa.fused_swin_block_res(*blk, dp, **kw),
+                       ref)
+            rargs = (x, dout, *ref[1:], *blk[1:-2], dp)
+            for i, g in enumerate(wa.swin_block_bwd_res(*rargs, **kw)):
+                outs[f"swin_block_bwd_res {case} output {i}"] = g
+for name, case, kernel, plain, args, kw, _, _ in cs.sublayer_cases(gen):
     out = kernel(*args, **kw)
+    if name == "ln_window_attention_bwd":
+        plain_grads(f"{name} {case}", out, plain(*args, **kw))
+        timed(f"{name} {case}", lambda: kernel(*args, **kw))
+        continue
     for i, g in enumerate(out if isinstance(out, tuple) else (out,)):
         outs[f"{name} {case} output {i}"] = g
 n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
@@ -223,6 +239,10 @@ for Bt in (2, 4):
         if C == 768:
             timed(f"fused_ln_mlp batch {Bt} ({H},{H},{C})",
                   lambda: wa.fused_ln_mlp(x, p[6:8], *p[8:12]))
+            timed(f"ln_mlp_branch batch {Bt} ({H},{H},{C})",
+                  lambda: wa.ln_mlp_branch(x, p[6:8], *p[8:12]))
+            timed(f"ln_mlp_bwd batch {Bt} ({H},{H},{C})",
+                  lambda: wa.ln_mlp_bwd(x, x, p[6:8], *p[8:11]))
         else:
             blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12],
                    None)
@@ -247,6 +267,15 @@ for Bt in (2, 4):
             rargs = (x, dout, *res[1:], *blk[1:-2], dpt)
             timed(f"swin_block_bwd_res batch {Bt} ({H},{H},{C})",
                   lambda: wa.swin_block_bwd_res(*rargs, **kw))
+            timed(f"fused_swin_block_res batch {Bt} ({H},{H},{C})",
+                  lambda: wa.fused_swin_block_res(*blk, dpt, **kw))
+# the LN+W-MSA backward (#12) at the main path's (8,8,768), batch 4
+p = cs.block_params(768, heads, ws * ws, gen)
+x = torch.randn(4, 8, 8, 768, device="cuda", generator=gen).to(torch.bfloat16)
+dout = torch.randn(4, 8, 8, 768, device="cuda", generator=gen).to(torch.bfloat16)
+wargs = (x, dout, *p[0:5], p[12], None)
+timed("ln_window_attention_bwd batch 4 (8,8,768)",
+      lambda: wa.ln_window_attention_bwd(*wargs, ws=ws, num_heads=heads, scale=scale))
 model = build_model(Config(), device="cuda", backend="fused", seed=0)
 img = torch.rand(4, 256, 256, 3, device="cuda", generator=gen)
 with torch.inference_mode():

@@ -79,12 +79,22 @@ MUTANTS = {
 }"""),
     # the block backward's dm = round(s2 * dout) gathered in its A load
     "dp_missing_from_dm": ("block_bwd_hopper.cuh",
-                           "if (kA == kADm) ri.scale[r] = a.dp[2 * (row / hw) + 1];   // s2",
-                           "if (kA == kADm) ri.scale[r] = 1.f;   // s2"),
+                           "if (kA == kADm) ri.scale[r] = a.dp ? a.dp[2 * (row / hw) + 1] : 1.f;",
+                           "if (kA == kADm) ri.scale[r] = 1.f;"),
     # every LN backward, the 12- and the 24-column (C=768) instances
     "ln_bwd_no_mean": ("train_common.cuh", "    m1 = warp_sum(m1) / C;\n", "    m1 = 0.f;\n"),
-    "ds_no_rowsum": ("attn_train.cuh", "const float ds = p * (sm.s[i * ld + j] - sm.rd[i]);",
-                     "const float ds = p * sm.s[i * ld + j];"),
+    # the recompute form's attention backward (#8, and #12 on the same
+    # kernel) without the rowsum(dP * P) term
+    "ds_no_rowsum": ("block_bwd_hopper.cuh",
+                     "dpv[nt][u] = s[nt][u] * (dpv[nt][u] - (u < 2 ? rd0 : rd1));",
+                     "dpv[nt][u] = s[nt][u] * (dpv[nt][u] - (kMode == kAttnBwd ? 0.f : "
+                     "(u < 2 ? rd0 : rd1)));"),
+    # the attention backward's dq without its second group of eight
+    # 8-column tiles (head dims above 64: #12 at C=768, head dim 96)
+    "dq_second_group_dropped": ("block_bwd_hopper.cuh",
+                                "        for (int u = 0; u < 4; ++u) o[u] *= a.scale;\n",
+                                "        for (int u = 0; u < 4; ++u) o[u] *= dt >= kGroupTiles && "
+                                "dt < 2 * kGroupTiles ? 0.f : a.scale;\n"),
     # the residual route's attention backward (#7) without the
     # rowsum_head(t) term
     "res_de_no_rowsum": ("block_bwd_hopper.cuh",
@@ -106,15 +116,29 @@ MUTANTS = {
                                   "        cs += bf(*reinterpret_cast<const bf16*>(",
                                   "        cs += 0.f * bf(*reinterpret_cast<const bf16*>("),
     "attn_tc_head_dk_zeroed": (
-        "block_bwd_hopper.cuh", "        store(1, dt, ok, row0);   // dk\n",
-        "        if (hh == a.heads - 1) ok[0] = ok[1] = ok[2] = ok[3] = 0.f;\n"
-        "        store(1, dt, ok, row0);   // dk\n"),
+        "block_bwd_hopper.cuh", "          store(1, t0 + j, ok[j], row0);   // dk\n",
+        "          if (hh == a.heads - 1) ok[j][0] = ok[j][1] = ok[j][2] = ok[j][3] = 0.f;\n"
+        "          store(1, t0 + j, ok[j], row0);   // dk\n"),
     "ln_rank_sum_dropped": ("block_bwd_hopper.cuh",
                             "for (int q = 0; q < G; ++q) {   // LN row sums in rank order",
                             "for (int q = 0; q < G - 1; ++q) {   // LN row sums in rank order"),
-    # the residual forward's row sum over the unrounded exponentials (the
-    # port's inference form) instead of JAX's rounded ones
-    "res_den_unrounded": ("common.cuh", "        sum += bf(eb);\n", "        sum += e;\n"),
+    # the residual forward (#6, the cluster kernel's residual form): the row
+    # sum over the unrounded exponentials (the inference form) instead of
+    # JAX's rounded ones; the last cluster rank's eb stored as zeros (at
+    # C=192, G=2: its heads' state dropped)
+    "res_den_unrounded": ("swin_cluster.cu",
+                          "      for (int u = 0; u < 4; ++u) s[nt][u] = bf(tobf(s[nt][u]));\n",
+                          "      for (int u = 0; u < 4; ++u) s[nt][u] = s[nt][u];\n"),
+    "res_eb_rank_dropped": (
+        "swin_cluster.cu",
+        "      *reinterpret_cast<uint32_t*>(res.eb + (i0 + g) * N + j) = pack_bf2(s[nt][0], s[nt][1]);",
+        "      const bool last = cooperative_groups::this_cluster().num_blocks() > 1 &&\n"
+        "          cooperative_groups::this_cluster().block_rank() + 1 ==\n"
+        "              cooperative_groups::this_cluster().num_blocks();\n"
+        "      *reinterpret_cast<uint32_t*>(res.eb + (i0 + g) * N + j) =\n"
+        "          last ? 0u : pack_bf2(s[nt][0], s[nt][1]);\n"
+        "      if (last) *reinterpret_cast<uint32_t*>(res.eb + (i0 + g + 8) * N + j) = 0u;\n"
+        "      else"),
     # the PReLU derivative and the stencil adjoint of both x4-head backwards
     # (#9 and #11, through up4_bwd.cuh)
     "up4_prelu_slope_ignored": (

@@ -16,7 +16,9 @@
    stated tolerance), the median device time of each over 20
    CUDA-event-timed runs after warm-up (the card spins first, so the host's
    pace of launches does not count), and the kernel's bound (bytes or operations over
-   the card's published peak rates). The forward kernels also include the
+   the card's published peak rates); where a call launches several kernels
+   (#12), its launches per call against the wrapper's constant. The forward
+   kernels also include the
    split x4 head (#10, also on a map that is not a multiple of its tile)
    and the standalone W-MSA (#15, with one PyTorch call for the same
    function timed beside it). The training kernels: the block kernel's
@@ -24,10 +26,13 @@
    residual route's at C=96 and 192, the recompute form's at C=384, the
    default route's rule), the x4 head backward,
    the C=768 sublayers (the LN+W-MSA backward, the LN+MLP branch and its
-   backward), the residual route of the C=96/192 blocks (the block forward
-   that stores the softmax state, output and state held against the plain
-   version, and the backward from that state), and the split head's
-   backward (#11), dx and every weight grad held against the plain version.
+   backward; the LN+W-MSA backward also at batch 4 and at C=384 with 2
+   heads, head dim 192), the residual route of the C=96/192 blocks (the
+   block forward that stores the softmax state, at shift 0 and 4, batch 2
+   and 4 on the main path's cluster sizes, output and state held against
+   the plain version, and the backward from that state), and the split
+   head's backward (#11), dx and every weight grad held against the plain
+   version.
 4. The inference slice: the default SUNet (99,681,993 parameters, seeded
    weights) at 256x256 batch 4 through backend="fused"; the kernels' launch
    counts must equal the router's prediction, and every launch plan it
@@ -41,7 +46,8 @@
    batch and drop-path draws (loss and every parameter's gradient), launch
    counts equal to ``expected_launches(train=True)`` with every block on a
    kernel route (C=96/192 the residual route, C=384 the block kernels with
-   the recompute backward, the C=768 stage the two sublayer kernels), and
+   the recompute backward, the C=768 stage the two sublayer kernels) and
+   every launch plan held by 3., and
    the same step with ``ROUTE_TRAIN_RESID`` off (every C <= 384 block on
    the recompute backward), both held against float32 eager; train-step
    times, peak memory and a profiler trace of one step of each fused route;
@@ -163,7 +169,7 @@ REPLACES = {
     "fused_dual_upsample4_conv_phase": ("sunet_tf_tpu/kernels/upsample.py:589",
                                         "sunet_tf_tpu_torch/kernels/csrc/up4_conv.cu"),
     "swin_block_bwd": (f"{WA}:2031", "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd.cu"),
-    "fused_swin_block_res": (f"{WA}:2315", "sunet_tf_tpu_torch/kernels/csrc/swin_block.cu"),
+    "fused_swin_block_res": (f"{WA}:2315", "sunet_tf_tpu_torch/kernels/csrc/swin_cluster.cu"),
     "swin_block_bwd_res": (f"{WA}:2535",
                            "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd_res.cu"),
     "ln_window_attention_bwd": (f"{WA}:346", "sunet_tf_tpu_torch/kernels/csrc/ln_wmsa_bwd.cu"),
@@ -631,12 +637,28 @@ def sublayer_cases(gen, B: int = 2, ws: int = 8, heads: int = 8, scale: float = 
     return cases
 
 
+def launches_per_call(name: str, fn, want: int):
+    """One call of ``fn`` launches ``want`` kernels of wrapper ``name``."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    before = _build.counter(name).cuda
+    fn()
+    got = _build.counter(name).cuda - before
+    print(f"    launches per call {got} (the wrapper's constant {want}) "
+          f"{'ok' if got == want else 'FAIL'}")
+    check(got == want, f"{name}: {got} launches per call, expected {want}")
+
+
 def train_kernel_phases(results: dict):
     """The training kernels: #1's train form, #8, the residual route's #6
     and #7, #9 and the C=768 sublayers #12, #13, #14 against their plain
     versions."""
     import torch
 
+    from sunet_tf_tpu_torch.kernels import _build
     from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
     from sunet_tf_tpu_torch.ops.window import shift_attn_mask
@@ -789,6 +811,8 @@ def train_kernel_phases(results: dict):
     record_time(results, "up4_conv_bwd", case, got_fn, ref_fn, up4_bwd_cost(B, H, C, out_ch),
                 mx, mean)
 
+    per_call = {"ln_mlp_branch": wa.LN_MLP_BRANCH_LAUNCHES, "ln_mlp_bwd": wa.LN_MLP_BWD_LAUNCHES,
+                "ln_window_attention_bwd": wa.LN_WMSA_BWD_LAUNCHES}
     for name, case, kernel, plain, args, kw, cost, labels in sublayer_cases(gen, B, ws, heads,
                                                                           scale):
         got_fn = lambda: kernel(*args, **kw)
@@ -800,8 +824,70 @@ def train_kernel_phases(results: dict):
             mx, mean = compare_grads(f"{name} {case}", got, ref_fn(), labels)
             check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
                   f"{name} {case}: two runs differ (the reductions must be deterministic)")
+        launches_per_call(name, got_fn, per_call[name])
         record_time(results, name, case, got_fn, ref_fn, cost, mx, mean)
     print("  the sublayer backward kernels: two runs equal bit for bit")
+
+    # the residual forward (#6) on the main path's grid, shift 0 and 4 at
+    # batch 2 and 4 with the cluster size of each width asserted, and the
+    # LN+W-MSA backward (#12) on the main path's batch 4 and at C=384 with 2
+    # heads (head dim 192, which the block backward refuses), its workspace
+    # against the Python mirror; their own generator, so that the other
+    # kernels' cases keep their inputs
+    ngen = torch.Generator(device="cuda").manual_seed(4325)
+    dpb = {2: dp, 4: torch.tensor([[1 / 0.9, 1 / 0.9], [1 / 0.9, 0.0], [0.0, 1 / 0.9],
+                                   [1 / 0.9, 1 / 0.9]], device="cuda")}
+    for Bc, H, C, shift, G in ((2, 64, 96, 0, 1), (2, 32, 192, 4, 2), (4, 64, 96, 0, 1),
+                               (4, 64, 96, 4, 1), (4, 32, 192, 0, 2), (4, 32, 192, 4, 2)):
+        plan = wa.block_plan(H, H, C, 4 * C, ws, heads)
+        check(plan["G"] == G, f"fused_swin_block_res ({H},{H},{C}): plan {plan}, expected G={G}")
+        p = block_params(C, heads, N, ngen)
+        x = torch.randn(Bc, H, H, C, device="cuda", generator=ngen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        args = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11],
+                p[12], mask, dpb[Bc])
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+        case = f"batch {Bc} ({H},{H},{C}) shift {shift}, G={G}"
+        got_fn = lambda: wa.fused_swin_block_res(*args, **kw)
+        ref_fn = lambda: wa.fused_swin_block_res_reference(*args, **kw)
+        got, ref = got_fn(), ref_fn()
+        mx, mean = compare(f"fused_swin_block_res {case} out", got[0], ref[0])
+        check_res_state(f"fused_swin_block_res {case}", got[1:], ref[1:], x, p, mask, ws=ws,
+                        heads=heads, scale=scale, shift=shift)
+        check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
+              f"fused_swin_block_res {case}: two runs differ")
+        launches_per_call("fused_swin_block_res", got_fn, 1)
+        record_time(results, "fused_swin_block_res", case, got_fn, ref_fn,
+                    block_res_cost(Bc, H, C, ws, heads), mx, mean)
+    print("  the residual forward: output and state of two runs equal bit for bit")
+    lib = _build.library()
+    for Bc, H, C, hc, shift in ((4, 8, 768, 8, 0), (2, 16, 384, 2, 0), (2, 16, 384, 2, 4)):
+        plan = wa.ln_wmsa_bwd_plan(H, H, C, ws, hc)
+        work = wa.ln_wmsa_bwd_workspace(Bc, H, H, C, ws, hc)
+        got_work = lib.sunet_ln_wmsa_bwd_workspace(Bc, H, H, C, ws, hc)
+        check(work == got_work, f"ln_window_attention_bwd ({H},{H},{C}): workspace {got_work} "
+              f"bytes, the Python mirror {work}")
+        p = block_params(C, hc, N, ngen)
+        x = torch.randn(Bc, H, H, C, device="cuda", generator=ngen).to(torch.bfloat16)
+        dout = torch.randn(Bc, H, H, C, device="cuda", generator=ngen).to(torch.bfloat16)
+        mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                if shift else None)
+        args = (x, dout, *p[0:5], p[12], mask)
+        kw = dict(ws=ws, num_heads=hc, scale=scale)
+        case = (f"batch {Bc} ({H},{H},{C}) shift {shift}, {hc} heads (head dim {C // hc}), "
+                f"{plan['chunk_tokens']} tokens per chunk")
+        name = "ln_window_attention_bwd"
+        got_fn = lambda: wa.ln_window_attention_bwd(*args, **kw)
+        ref_fn = lambda: wa.ln_window_attention_bwd_reference(*args, **kw)
+        got = got_fn()
+        mx, mean = compare_grads(f"{name} {case}", got, ref_fn(), WMSA_GRADS)
+        check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
+              f"{name} {case}: two runs differ (the reductions must be deterministic)")
+        launches_per_call(name, got_fn, wa.LN_WMSA_BWD_LAUNCHES)
+        record_time(results, name, case, got_fn, ref_fn,
+                    ln_wmsa_bwd_cost(Bc, H, C, ws, hc, masked=shift > 0), mx, mean)
+    print("  the LN+W-MSA backward: workspace equal to the mirror, two runs equal bit for bit")
 
     # the split head's backward (#11), pixel-space dout: the main path's
     # (64,64,96), and a map whose H and W are not multiples of 4 and 8; its
@@ -1140,8 +1226,8 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
 
 def trace_step(fn, label: str) -> dict:
     """Device time of one call of ``fn`` by kernel, from torch.profiler: the
-    port's kernels by name (the residual form of the block kernel by its
-    column-tile count MC; the backward's GEMMs by their operand layouts),
+    port's kernels by name (the block kernel's two forms by their template
+    flag; the backward's GEMMs by their operand layouts),
     everything else as plain torch ops; the device's busy share of the
     call's CUDA-event time."""
     import re
@@ -1206,26 +1292,43 @@ def patched(patches: list):
             setattr(m, a, v)
 
 
-# The launch plans (#1's cluster size, #4's K split, #3's K splits, #5's
-# tiles per CTA) that the per-kernel checks held against their plain
-# versions, filled by plans_taken.
+# The launch plans (#1's and #6's cluster size, #4's K split, #3's K
+# splits, #5's tiles per CTA, #12's chunks) that the per-kernel checks held
+# against their plain versions, filled by plans_taken.
 HELD_PLANS: set = set()
 
 
 @contextlib.contextmanager
 def plans_taken(into: set):
     """Record into ``into`` each launch plan the wrappers take for the
-    duration: ("fused_swin_block", C, hidden, heads, G), ("fused_ln_mlp",
-    C, hidden, ks), ("fused_ln_window_attention", C, heads, ws, ksq, ks)
-    and ("fused_dual_upsample4_conv_phase", C, out, T)."""
+    duration: ("fused_swin_block" or "fused_swin_block_res", C, hidden,
+    heads, G), ("fused_ln_mlp", C, hidden, ks), ("fused_ln_window_attention",
+    C, heads, ws, ksq, ks), ("ln_window_attention_bwd", C, heads, ws, tokens
+    per chunk, windows per chunk) and ("fused_dual_upsample4_conv_phase",
+    C, out, T)."""
     from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
 
     block_plan, mlp_plan, wmsa_plan, up4_plan = wa.block_plan, wa.mlp_plan, wa.wmsa_plan, up.up4_plan
+    launch_block, wmsa_bwd_plan = wa._launch_block, wa.ln_wmsa_bwd_plan
+    form = ["fused_swin_block"]   # the block kernel's form being launched
+
+    def launch(*args, res=False, **kw):
+        form[0] = "fused_swin_block_res" if res else "fused_swin_block"
+        try:
+            return launch_block(*args, res=res, **kw)
+        finally:
+            form[0] = "fused_swin_block"
 
     def block(H, W, C, hidden, ws, heads):
         plan = block_plan(H, W, C, hidden, ws, heads)
-        into.add(("fused_swin_block", C, hidden, heads, plan["G"]))
+        into.add((form[0], C, hidden, heads, plan["G"]))
+        return plan
+
+    def wmsa_bwd(H, W, C, ws, heads):
+        plan = wmsa_bwd_plan(H, W, C, ws, heads)
+        into.add(("ln_window_attention_bwd", C, heads, ws, plan["chunk_tokens"],
+                  plan["windows_per_chunk"]))
         return plan
 
     def mlp(M, C, hidden):
@@ -1244,7 +1347,8 @@ def plans_taken(into: set):
         return plan
 
     with patched([(wa, "block_plan", block), (wa, "mlp_plan", mlp), (wa, "wmsa_plan", wmsa),
-                  (up, "up4_plan", head)]):
+                  (up, "up4_plan", head), (wa, "_launch_block", launch),
+                  (wa, "ln_wmsa_bwd_plan", wmsa_bwd)]):
         yield into
 
 
@@ -1384,13 +1488,13 @@ def train_gate(cfg, task: str, inp, tar, fused: tuple) -> dict:
     for be in fused:
         with train_route(be):
             want[be] = models[be].expected_launches(tuple(inp.shape), train=True)
-    step, grads = {}, {}
+    step, grads, plans = {}, {}, {}
     for be, m in models.items():
         m.train().requires_grad_(True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_counts()
-        with train_route(be), wa.exact_fp32():
+        with train_route(be), wa.exact_fp32(), plans_taken(set()) as plans[be]:
             loss, _, _ = loss_and_metrics(m, inp, tar, step_generators(0, 0, "cuda")[1],
                                           valid, task)
             loss.backward()
@@ -1419,6 +1523,11 @@ def train_gate(cfg, task: str, inp, tar, fused: tuple) -> dict:
         check(on_res + on_block + on_split == len(blocks),
               f"{be}: a block trained on eager autograd")
         check(not any(step[be]["cpu"].values()), f"{be}: plain versions ran in training")
+        print(f"  {be}: launch plans: {sorted(plans[be])}")
+        if HELD_PLANS:   # the per-kernel checks ran in this process
+            check(plans[be] <= HELD_PLANS, f"{be}: launch plans of the training step that no "
+                  "per-kernel check held against its plain version: "
+                  f"{sorted(plans[be] - HELD_PLANS)}")
     for be in ("eager_fp32", *NOISE_ROUTES):
         check(not any(step[be]["launches"].values()), f"{be} route launched kernels")
     ref = grads["eager_fp32"]

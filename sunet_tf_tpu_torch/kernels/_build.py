@@ -44,8 +44,8 @@ SIGNATURES = {
     # scale, the launch plan's cluster size G, stream
     "sunet_swin_block": [_P] * 17 + [_I] * 8 + [_F, _I, _P],
     # sunet_swin_block's pointers, then eb, rden, ctx_f; B, H, W, C, hidden,
-    # ws, heads, shift, scale, stream
-    "sunet_swin_block_res": [_P] * 20 + [_I] * 8 + [_F, _P],
+    # ws, heads, shift, scale, the launch plan's cluster size G, stream
+    "sunet_swin_block_res": [_P] * 20 + [_I] * 8 + [_F, _I, _P],
     # x, dout, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
     # bias, mask, dp, dx, 13 grads (ln1 g/b, wqkv, bqkv, wproj, bproj, ln2
     # g/b, w1, b1, w2, b2, bias), workspace, B, H, W, C, hidden, ws, heads,

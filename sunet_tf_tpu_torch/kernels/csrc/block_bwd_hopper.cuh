@@ -1,6 +1,7 @@
 // The kernels of the whole Swin block's backward (swin_block_bwd.cuh's
 // launch sequence, shared by #8 swin_block_bwd.cu and #7
-// swin_block_bwd_res.cu):
+// swin_block_bwd_res.cu) and of the LN+W-MSA sublayer's backward (#12,
+// ln_wmsa_bwd.cu, the attention half of the same sequence):
 //
 // - tok_gemm: out (T x N) = epilogue(A (T x K) @ B (K x N)) over the
 //   window-major token rows, one CTA per 64 rows x 128 columns, on
@@ -14,7 +15,8 @@
 //   (A box, two B boxes) runs ahead of the products. The fp32 tile then
 //   sits in shared memory (the ring's place) for the epilogue, which writes
 //   rows coalesced and forms per-row-tile column partials where a bias
-//   gradient needs them. The LayerNorm backward epilogues (kELn2, kELn1):
+//   gradient needs them. The LayerNorm backward epilogues (kELn2, kELn1,
+//   kELn1NoRes):
 //   the ceil(C / 128) CTAs of a row tile form a cluster that owns all C
 //   columns; each CTA's part of the two row sums meets the others' in
 //   distributed shared memory, summed in rank order (the same bits every
@@ -30,7 +32,12 @@
 //   db), the rel-pos bias gradient).
 // - attn_tc_kernel: the attention of one head over one window at a time,
 //   on mma.sync m16n8k16 in registers, four warps of 16 query rows; the
-//   head dim is zero-padded to the k16 step. kAttnFwd recomputes ctx =
+//   head dim is zero-padded to the k16 step. The products over the head
+//   dim (q k^T, dctx v^T) step through it by k16; those that produce its
+//   columns (ctx, dq, dk, dv) by 8-column tiles, dk and dv eight tiles (64
+//   columns) at a time on fragments of round(ds)^T and round(P)^T loaded
+//   once per group, so a head dim is bounded by shared memory alone (192
+//   at N=64: C=384 with 2 heads). kAttnFwd recomputes ctx =
 //   round(round(P) @ v); kAttnBwd (the recompute form) recomputes P from
 //   q, k, the rel-pos bias and the mask; kAttnBwdRes (the residual route)
 //   reads the forward's e, rden and ctx_f. dP, dq, dk and dv are all
@@ -66,14 +73,19 @@ static_assert(2 * 64 * kCsLd * 4 <= kRingS * kSlot,
               "the output tile and the LN epilogues' xhat tile take the ring's place");
 
 // A operand of a token GEMM: the LayerNorm of x's rows gathered in window
-// order (LN1), of the y rows (LN2), round(s2 * dout) gathered (dm),
-// round(ctx_f), or a token matrix by TMA.
+// order (LN1), of the y rows (LN2), round(s2 * dout) gathered (dm; s2 = 1
+// without drop-path scales, #12's dout), round(ctx_f), or a token matrix
+// by TMA.
 enum AMode { kALn1, kALn2, kADm, kARound, kATma };
 // Epilogues: qkv = round(s + bqkv); y = round(xw + s1 (s + bproj)); fc1's a
 // = s + b1 and round(gelu(a)); da = s gelu'(a) rounded, with its column
 // partials; the LN2 backward (dy, dattn); dctx rounded or fp32; the LN1
-// backward (dx).
-enum EMode { kEQkv, kEProj, kEFc1, kEDa, kELn2, kEDctxB, kEDctxF, kELn1 };
+// backward (dx), with the residual's dy (the block) or without it (#12).
+enum EMode { kEQkv, kEProj, kEFc1, kEDa, kELn2, kEDctxB, kEDctxF, kELn1, kELn1NoRes };
+
+__host__ __device__ constexpr bool ln_bwd_epilogue(int e) {
+  return e == kELn1 || e == kELn2 || e == kELn1NoRes;
+}
 
 struct TokArgs {
   int T, K, N;              // token rows, depth, output columns
@@ -116,14 +128,14 @@ __device__ inline void row_setup(const TokArgs& a, RowInfo& ri, long long r0, in
   const int r = threadIdx.x;
   if (r >= 64) return;
   const int row = (int)(r0 + r), hw = a.H * a.W;
-  const bool gather = kA == kALn1 || kA == kADm || kE == kELn1 || kE == kELn2;
+  const bool gather = kA == kALn1 || kA == kADm || ln_bwd_epilogue(kE);
   ri.off[r] = r >= valid ? -1LL
               : gather   ? (long long)token_offset(row, a.H, a.W, a.C, a.ws, a.shift)
                          : (long long)row * a.K;
   if (r < valid) {
-    if (kA == kADm) ri.scale[r] = a.dp[2 * (row / hw) + 1];   // s2
+    if (kA == kADm) ri.scale[r] = a.dp ? a.dp[2 * (row / hw) + 1] : 1.f;   // s2
     if (kE == kEProj || kE == kELn2) ri.scale[r] = a.dp[2 * (row / hw)];   // s1
-    if (kE == kELn1 || kE == kELn2) {
+    if (ln_bwd_epilogue(kE)) {
       ri.mean[r] = a.stats[2 * (size_t)row];
       ri.inv[r] = a.stats[2 * (size_t)row + 1];
     }
@@ -223,10 +235,11 @@ __device__ inline void tok_load_a(const TokArgs& a, unsigned char* as, const Row
 // The LayerNorm backward over the CTA's columns of its 64 rows, the fp32
 // products d (= dyn or du) in cs, xhat staged in xs: t = inv (d g -
 // mean(d g) - xhat mean(d g xhat)), the two means over all C columns from
-// every rank's row sums. kLn2: dy = dout + t (fp32), dattn = round(s1 dy);
-// else dx = round(dy + t) at the token's place in the map. Then this row
-// tile's parts of dg = sum d xhat and db = sum d.
-template <bool kLn2>
+// every rank's row sums. kELn2: dy = dout + t (fp32), dattn = round(s1 dy);
+// kELn1: dx = round(dy + t) at the token's place in the map; kELn1NoRes:
+// dx = round(t) there. Then this row tile's parts of dg = sum d xhat and
+// db = sum d.
+template <int kE>
 __device__ inline void ln_epilogue(const TokArgs& a, const float* cs, float* xs, float* rs,
                                    float* mrow, const RowInfo& ri, long long r0, int valid,
                                    int n0) {
@@ -281,12 +294,14 @@ __device__ inline void ln_epilogue(const TokArgs& a, const float* cs, float* xs,
     const size_t e = (size_t)(r0 + r) * C + col, off = (size_t)ri.off[r] + col;
     const float t = ri.inv[r] * (cs[r * kCsLd + c] * a.lg[col] - mrow[2 * r] -
                                  xs[r * kCsLd + c] * mrow[2 * r + 1]);
-    if constexpr (kLn2) {
+    if constexpr (kE == kELn2) {
       const float res = bf(a.dout[off]) + t;
       a.of[e] = res;
       a.ob[e] = tobf(ri.scale[r] * res);
-    } else {
+    } else if constexpr (kE == kELn1) {
       a.ob[off] = tobf(a.aux[e] + t);
+    } else {
+      a.ob[off] = tobf(t);
     }
   }
   if (tid < kCols && n0 + tid < C) {
@@ -304,8 +319,8 @@ __device__ inline void ln_epilogue(const TokArgs& a, const float* cs, float* xs,
 template <int kE>
 __device__ inline void tok_epilogue(const TokArgs& a, float* cs, float* xs, float* rs, float* mrow,
                                     const RowInfo& ri, long long r0, int valid, int n0) {
-  if constexpr (kE == kELn1 || kE == kELn2) {
-    ln_epilogue<kE == kELn2>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
+  if constexpr (ln_bwd_epilogue(kE)) {
+    ln_epilogue<kE>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
   } else {
     const int tid = threadIdx.x, N = a.N;
 #pragma unroll 8
@@ -456,7 +471,7 @@ inline cudaError_t tok_gemm(const TokArgs& a, const void* amat, const void* w, i
   if (kA == kATma) SUNET_TRY(hop::weight_map(&ma, amat, a.T, a.K, 64));
   SUNET_TRY(hop::weight_map(&mb, w, wrows, wcols, 64));
   const int tiles = (a.N + kCols - 1) / kCols;
-  const bool ln = kE == kELn1 || kE == kELn2;
+  const bool ln = ln_bwd_epilogue(kE);
   TokArgs t = a;
   t.tpc = kA == kALn1 || kA == kALn2 ? tok_tiles_per_cta(tiles, a.H * a.W) : 1;
   SUNET_TRY(hop::launch_cluster(tok_gemm_kernel<kA, kBK, kE>,
@@ -478,6 +493,7 @@ struct WgProduct {
 
 struct WgArgs {
   WgProduct p[kWgProducts];
+  int np;                  // products in p (the block's four, #12's two)
   int T, chunk, nchunks;   // tokens, tokens per chunk (a multiple of 64), chunks
 };
 
@@ -502,7 +518,7 @@ static __global__ void __launch_bounds__(kThr, 1)
   unsigned char* ring = base + kHead;
   const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & 127;
   int pi = 0;
-  while (pi + 1 < kWgProducts && (int)blockIdx.x >= a.p[pi + 1].first) ++pi;
+  while (pi + 1 < a.np && (int)blockIdx.x >= a.p[pi + 1].first) ++pi;
   const WgProduct& p = a.p[pi];
   const int local = (int)blockIdx.x - p.first;
   const int ch = local % a.nchunks, tile = local / a.nchunks;
@@ -628,6 +644,7 @@ static __global__ void __launch_bounds__(kThr) sum_kernel(const __grid_constant_
 // ---------------------------------------------------------------- attention
 
 constexpr int kAThr = 128;           // four warps, one per 16 rows of a window
+constexpr int kGroupTiles = 8;       // 8-column tiles of dk and dv per pass over the fragments
 constexpr int kAttnFillCtas = 528;   // CTAs the backward aims at (4 per SM)
 
 enum AttnMode { kAttnFwd, kAttnBwd, kAttnBwdRes };
@@ -650,7 +667,8 @@ struct AttnArgs {
 // to 16 (dp): q, k (and v, dctx) as N rows of dp + 8; k^T (v^T in the
 // forward), q^T and dctx^T as dp rows of N + 8; round(P)^T and round(ds)^T
 // as N rows of N + 8; then the backwards' floats (the residual route's
-// per-pair t sums, the window's column sums per warp, the chunk's).
+// per-pair t sums for a head dim up to 64, the window's dp column sums per
+// warp, the chunk's).
 // kernels/window_attention.py::block_bwd_plan mirrors it.
 struct AttnLayout {
   int ldd, ldn;   // row strides (elements) of the N x dp and the dp x N, N x N matrices
@@ -674,7 +692,7 @@ __host__ __device__ inline AttnLayout attn_layout(int N, int dp) {
   l.pt = l.ot + tn;
   l.dst = l.pt + nn;
   l.fl = l.dst + nn;
-  l.bytes = l.fl + (size_t)(64 * 32 + 4 * 3 * 64 + 3 * 64) * 4;
+  l.bytes = l.fl + (size_t)(64 * 32 + 4 * 3 * dp + 3 * dp) * 4;
   return l;
 }
 
@@ -713,8 +731,8 @@ __global__ void __launch_bounds__(kAThr) attn_tc_kernel(const AttnArgs a) {
   bf16* PT = reinterpret_cast<bf16*>(sm_raw + L.pt);    // round(P)^T (e^T, residual route)
   bf16* dsT = reinterpret_cast<bf16*>(sm_raw + L.dst);  // round(ds)^T
   float* tpair = reinterpret_cast<float*>(sm_raw + L.fl);   // residual route: t per column pair
-  float* red = tpair + 64 * 32;                 // [warp][q, k, v][column] of one window
-  float* colacc = red + 4 * 3 * 64;             // [q, k, v][column] over the chunk
+  float* red = tpair + 64 * 32;                 // [warp][q, k, v][dp columns] of one window
+  float* colacc = red + 4 * 3 * dp;             // [q, k, v][dp columns] over the chunk
   const int i0 = warp * 16;
   const bool strip = i0 < N;
   const int w0 = blockIdx.y * a.wpc, w1 = min(a.nwin, w0 + a.wpc);
@@ -723,7 +741,7 @@ __global__ void __launch_bounds__(kAThr) attn_tc_kernel(const AttnArgs a) {
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) db[nt][0] = db[nt][1] = db[nt][2] = db[nt][3] = 0.f;
   if constexpr (kMode != kAttnFwd)
-    for (int i = tid; i < 3 * 64; i += kAThr) colacc[i] = 0.f;
+    for (int i = tid; i < 3 * dp; i += kAThr) colacc[i] = 0.f;
   float bsv[8][4];   // the recompute forms: this thread's rel-pos bias entries
   if constexpr (kMode != kAttnBwdRes) {
     const float* bh = a.bias + (size_t)hh * N * N;
@@ -753,8 +771,8 @@ __global__ void __launch_bounds__(kAThr) attn_tc_kernel(const AttnArgs a) {
     *reinterpret_cast<uint32_t*>(a.dqkv + e) = pack_bf2(o[0], o[1]);
     *reinterpret_cast<uint32_t*>(a.dqkv + e + 8 * 3 * (size_t)C) = pack_bf2(o[2], o[3]);
     if (g == 0) {
-      red[(warp * 3 + mat) * 64 + c] = v0;
-      red[(warp * 3 + mat) * 64 + c + 1] = v1;
+      red[(warp * 3 + mat) * dp + c] = v0;
+      red[(warp * 3 + mat) * dp + c + 1] = v1;
     }
   };
 
@@ -1035,29 +1053,41 @@ __global__ void __launch_bounds__(kAThr) attn_tc_kernel(const AttnArgs a) {
     }
     __syncthreads();   // round(ds)^T and round(P)^T are whole
     if (strip) {   // rows j = i0 .. i0 + 15: dk = round(ds)^T round(q scale), dv = P^T dctx
-      for (int dt = 0; dt * 8 < dp; ++dt) {
-        float ok[4] = {0.f, 0.f, 0.f, 0.f}, ov[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int t0 = 0; t0 * 8 < dp; t0 += kGroupTiles) {   // eight column tiles at a time
+        float ok[kGroupTiles][4], ov[kGroupTiles][4];
+#pragma unroll
+        for (int j = 0; j < kGroupTiles; ++j)
+          ok[j][0] = ok[j][1] = ok[j][2] = ok[j][3] = ov[j][0] = ov[j][1] = ov[j][2] = ov[j][3] = 0.f;
 #pragma unroll
         for (int kt = 0; kt < 4; ++kt) {
           if (kt * 16 >= N) break;
           uint32_t fd[4], fp[4];
           frag_a(fd, dsT, ldn, i0, kt * 16, g, t2);
           frag_a(fp, PT, ldn, i0, kt * 16, g, t2);
-          const bf16* qb = qT + (dt * 8 + g) * ldn + kt * 16 + t2;
-          const bf16* ob = oT + (dt * 8 + g) * ldn + kt * 16 + t2;
-          mma16816(ok, fd, ld32(qb), ld32(qb + 8));
-          mma16816(ov, fp, ld32(ob), ld32(ob + 8));
+#pragma unroll
+          for (int j = 0; j < kGroupTiles; ++j) {
+            const int dt = t0 + j;
+            if (dt * 8 >= dp) break;
+            const bf16* qb = qT + (dt * 8 + g) * ldn + kt * 16 + t2;
+            const bf16* ob = oT + (dt * 8 + g) * ldn + kt * 16 + t2;
+            mma16816(ok[j], fd, ld32(qb), ld32(qb + 8));
+            mma16816(ov[j], fp, ld32(ob), ld32(ob + 8));
+          }
         }
-        store(1, dt, ok, row0);   // dk
-        store(2, dt, ov, row0);   // dv
+#pragma unroll
+        for (int j = 0; j < kGroupTiles; ++j) {
+          if ((t0 + j) * 8 >= dp) break;
+          store(1, t0 + j, ok[j], row0);   // dk
+          store(2, t0 + j, ov[j], row0);   // dv
+        }
       }
     }
     __syncthreads();   // red is whole; the operands may be overwritten
-    for (int i = tid; i < 3 * 64; i += kAThr) {
-      const int c = i % 64;
+    for (int i = tid; i < 3 * dp; i += kAThr) {
+      const int c = i % dp;
       if (c >= d) continue;
       float v = 0.f;
-      for (int w = 0; w * 16 < N; ++w) v += red[(w * 3 + i / 64) * 64 + c];   // warps in order
+      for (int w = 0; w * 16 < N; ++w) v += red[(w * 3 + i / dp) * dp + c];   // warps in order
       colacc[i] += v;
     }
   }
@@ -1074,9 +1104,9 @@ __global__ void __launch_bounds__(kAThr) attn_tc_kernel(const AttnArgs a) {
         out[ib * N + j + 1] = db[nt][3];
       }
     }
-    for (int i = tid; i < 3 * 64; i += kAThr) {
-      const int c = i % 64;
-      if (c < d) a.pqkv[(size_t)blockIdx.y * 3 * C + (i / 64) * C + hh * d + c] = colacc[i];
+    for (int i = tid; i < 3 * dp; i += kAThr) {
+      const int c = i % dp;
+      if (c < d) a.pqkv[(size_t)blockIdx.y * 3 * C + (i / dp) * C + hh * d + c] = colacc[i];
     }
   }
 }

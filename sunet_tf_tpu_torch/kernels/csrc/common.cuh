@@ -1,7 +1,7 @@
 // Shared pieces of the SUNet Hopper kernels: bf16 tensor-core tiles
 // (nvcuda::wmma 16x16x16, fp32 accumulation), per-warp staging, warp
-// reductions, row LayerNorm, one head of windowed attention and the
-// LN'd-rows MLP. Every kernel runs 8 warps (256 threads) per CTA.
+// reductions and one head of windowed attention. The wmma kernels run 8
+// warps (256 threads) per CTA.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,8 +10,6 @@
 #include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace sunet {
 
 using namespace nvcuda;
@@ -19,13 +17,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kHC = 128;                // MLP hidden columns per chunk
 // Shared-memory matrices pad each row by 16 bytes (8 bf16, 4 floats): with
 // row strides that are multiples of 128 bytes, the 8 rows an ldmatrix phase
 // reads would all fall in the same banks.
 constexpr int kPad = 8;
 constexpr int kPadF = 4;
-constexpr int kHB = kHC + kPad;         // row stride of the MLP hidden chunk
 constexpr int kBtLd = 16 + kPad;        // row stride of a warp's staged B tile
 constexpr int kStgLd = 16 + kPadF;      // row stride of a warp's fp32 staging tile
 constexpr size_t kMaxSmem = 232448;     // dynamic shared memory per block (H100)
@@ -175,32 +171,6 @@ __device__ inline void zero(FragC (&acc)[T]) {
   for (int i = 0; i < T; ++i) wmma::fill_fragment(acc[i], 0.f);
 }
 
-// Column tiles warp, warp + kWarps, ... below n: how many this warp owns.
-__device__ inline int owned(int n, int warp) { return (n - warp + kWarps - 1) / kWarps; }
-
-// LayerNorm of R rows of C channels (row stride ld), fp32 statistics, eps
-// 1e-5, one warp per row: dst = round((x - mean) * inv * g + b). dst may
-// alias src.
-__device__ inline void layer_norm_rows(const bf16* src, bf16* dst, int ld, int R,
-                                       int C, const float* __restrict__ g,
-                                       const float* __restrict__ b, int warp,
-                                       int lane) {
-  for (int r = warp; r < R; r += kWarps) {
-    const bf16* s = src + (size_t)r * ld;
-    float sum = 0.f;
-    for (int c = lane; c < C; c += 32) sum += bf(s[c]);
-    const float mean = warp_sum(sum) / C;
-    float sq = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = bf(s[c]) - mean;
-      sq += d * d;
-    }
-    const float inv = rsqrtf(warp_sum(sq) / C + 1e-5f);
-    bf16* o = dst + (size_t)r * ld;
-    for (int c = lane; c < C; c += 32) o[c] = tobf((bf(s[c]) - mean) * inv * g[c] + b[c]);
-  }
-}
-
 // Shared-memory working set of one attention head (N tokens, head dim
 // padded to dp): q, k, v (N x dp bf16, row stride ldq), scores (N x N fp32,
 // stride lds), exponentials (N x N bf16, stride ldp), row denominators.
@@ -246,32 +216,19 @@ __device__ inline void carve_warp(unsigned char* p, int warp, bf16*& bt, float*&
   stg = reinterpret_cast<float*>(p + (size_t)kWarps * 16 * kBtLd * 2) + warp * 16 * kStgLd;
 }
 
-// The attention state that the training forward of the residual route
-// (fused_swin_block_res) stores for its backward, for one window: the
-// per-head exponentials eb (heads x N x N bf16), the reciprocal row sums
-// rden (heads x N) and the float32 context ctx (N rows of C).
-struct AttnRes {
-  bf16* eb;
-  float* rden;
-  float* ctx;
-};
-
 // One head hh of windowed attention over N tokens whose LN'd rows are xn
 // (N x C bf16, shared, row stride ldx). qkv = round(xn @ wqkv + bqkv); q = round(q * scale);
 // s = q k^T + bias[hh] (+ mask); e = exp(s - rowmax); ctx = round((e_bf16 @
 // v) / sum(e)). Calls store(token, channel, ctx) for the head's d channels.
-// kRes (the JAX residual kernel _block_fwd_res_kernel): the row sum is
-// taken over the rounded exponentials, rden = 1/max(sum, 1e-37), ctx_f =
-// (e_bf16 @ v) * rden, ctx = round(ctx_f), and eb, rden and ctx_f go to
-// `res`. Ends with a block barrier.
-template <bool kRes = false, class Store>
+// Ends with a block barrier.
+template <class Store>
 __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, int hh,
                           const bf16* __restrict__ wqkv,
                           const float* __restrict__ bqkv,
                           const float* __restrict__ bias,
                           const float* __restrict__ mask, float scale,
                           const HeadSmem& sm, bf16* bt, float* stg, int warp,
-                          int lane, Store store, AttnRes res = AttnRes{}) {
+                          int lane, Store store) {
   const int rt_n = N / 16, ct_n = dp / 16;
   // q/k/v column tile x group of row tiles per work item: all row tiles,
   // or half of them where that would leave warps idle (small heads)
@@ -332,25 +289,11 @@ __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, 
     float sum = 0.f;
     for (int j = lane; j < N; j += 32) {
       const float e = expf(si[j] - m);
-      if constexpr (kRes) {
-        const bf16 eb = tobf(e);
-        sum += bf(eb);
-        sm.p[i * sm.ldp + j] = eb;
-        res.eb[((size_t)hh * N + i) * N + j] = eb;
-      } else {
-        sum += e;
-        sm.p[i * sm.ldp + j] = tobf(e);
-      }
+      sum += e;
+      sm.p[i * sm.ldp + j] = tobf(e);
     }
     sum = warp_sum(sum);
-    if constexpr (kRes) {
-      if (lane == 0) {   // den holds the reciprocal
-        sm.den[i] = 1.f / fmaxf(sum, 1e-37f);
-        res.rden[hh * N + i] = sm.den[i];
-      }
-    } else if (lane == 0) {
-      sm.den[i] = fmaxf(sum, 1e-37f);
-    }
+    if (lane == 0) sm.den[i] = fmaxf(sum, 1e-37f);
   }
   __syncthreads();
   for (int t = warp; t < rt_n * ct_n; t += kWarps) {
@@ -366,86 +309,10 @@ __device__ void attn_head(const bf16* xn, int ldx, int C, int N, int d, int dp, 
     }
     epilogue(acc, stg, lane, [&](int r, int c, float v) {
       const int col = ct * 16 + c;
-      if constexpr (kRes) {
-        if (col < d) {
-          const float cf = v * sm.den[rt * 16 + r];
-          res.ctx[(size_t)(rt * 16 + r) * C + hh * d + col] = cf;
-          store(rt * 16 + r, hh * d + col, tobf(cf));
-        }
-      } else if (col < d) {
-        store(rt * 16 + r, hh * d + col, tobf(v / sm.den[rt * 16 + r]));
-      }
+      if (col < d) store(rt * 16 + r, hh * d + col, tobf(v / sm.den[rt * 16 + r]));
     });
   }
   __syncthreads();
-}
-
-// MLP over R rows (R % 16 == 0, R <= 16*MR): out = round(y + s2*(gelu(yn @
-// w1 + b1) @ w2 + b2)), s2 the branch's drop-path scale (1 at inference), the fc1 output rounded to bf16 after an exact-erf GELU
-// in fp32. yn, y: R x C bf16 (shared, row stride ldy); hbuf: R x kHC bf16
-// (shared, row stride kHB). The
-// hidden dimension is walked in kHC-column chunks; warp w computes fc1
-// column tile w of a chunk and owns fc2 output column tiles w, w + 8, ...
-// (at most MC) for all rows, their sums held in registers across chunks.
-// Calls store(row, channel, value).
-template <int MR, int MC, class Store>
-__device__ void mlp_rows(const bf16* yn, const bf16* y, int ldy, bf16* hbuf, int R, int C,
-                         int hidden, const bf16* __restrict__ w1,
-                         const float* __restrict__ b1, const bf16* __restrict__ w2,
-                         const float* __restrict__ b2, float s2, bf16* bt, float* stg,
-                         int warp, int lane, Store store) {
-  const int rt_n = R / 16, nc = owned(C / 16, warp);
-  FragC acc[MR * MC];
-  zero(acc);
-  for (int h0 = 0; h0 < hidden; h0 += kHC) {
-    const int hct = min(kHC, hidden - h0) / 16;
-    if (warp < hct) {
-      FragC a1[MR];
-      zero(a1);
-      const int c0 = h0 + warp * 16;
-      mma_block<MR, 1>(a1, yn, ldy, rt_n, w1, hidden, 0, c0, 0, 1, 16, C, bt, lane);
-#pragma unroll
-      for (int i = 0; i < MR; ++i) {
-        if (i >= rt_n) continue;
-        epilogue(a1[i], stg, lane, [&](int r, int c, float v) {
-          v += b1[c0 + c];
-          hbuf[(i * 16 + r) * kHB + warp * 16 + c] =
-              tobf(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
-        });
-      }
-    }
-    __syncthreads();
-    if (nc > 0)
-      mma_block<MR, MC>(acc, hbuf, kHB, rt_n, w2, C, h0, warp * 16, kWarps * 16, nc,
-                        16, hct * 16, bt, lane);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < MR; ++i) {
-#pragma unroll
-    for (int j = 0; j < MC; ++j) {
-      if (i >= rt_n || j >= nc) continue;
-      const int ct = warp + j * kWarps;
-      epilogue(acc[i * MC + j], stg, lane, [&](int r, int c, float v) {
-        const int row = i * 16 + r, col = ct * 16 + c;
-        store(row, col, tobf(bf(y[row * ldy + col]) + s2 * (v + b2[col])));
-      });
-    }
-  }
-}
-
-// Instantiate kernel<MC> for the smallest MC in {1, 2, 3, 6} (6 only when
-// MaxMC allows it) that holds `need` column tiles per warp; returns the
-// launch status.
-template <int MaxMC, class Launch>
-inline cudaError_t dispatch_mc(int need, Launch launch) {
-  if (need <= 1) return launch(std::integral_constant<int, 1>());
-  if (need <= 2) return launch(std::integral_constant<int, 2>());
-  if (need <= 3) return launch(std::integral_constant<int, 3>());
-  if constexpr (MaxMC >= 6) {
-    if (need <= 6) return launch(std::integral_constant<int, 6>());
-  }
-  return cudaErrorInvalidValue;
 }
 
 template <class Kernel>

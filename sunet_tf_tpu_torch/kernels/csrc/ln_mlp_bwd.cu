@@ -93,7 +93,7 @@ extern "C" int sunet_ln_mlp_bwd(const void* y, const void* dout, const void* g, 
     SUNET_TRY(colsum(w.da, T, Hd, w.part, (float*)db1, st, n));
     SUNET_TRY((gemm<false, true>(w.dab, Hd, w1b, Hd, T, C, Hd, 1, EpiF32{w.dyn, C, 0}, nullptr,
                                  st, n)));
-    SUNET_TRY(ln_bwd(w.dyn, yb, w.st, gf, (bf16*)dy, w.part, T, C, 0, 0, 0, 0, st, n));
+    SUNET_TRY(ln_bwd(w.dyn, yb, w.st, gf, (bf16*)dy, w.part, T, C, st, n));
     return ln_param_grads(w.part, (float*)dg, (float*)db, T, C, st, n);
   };
   return (int)run();

@@ -2,7 +2,8 @@
 // by the recompute form (swin_block_bwd.cu, kRes unset: 11 launches) and
 // the residual route (swin_block_bwd_res.cu, kRes set: 10 launches); the
 // kernels are in block_bwd_hopper.cuh, and the sources' notes say what each
-// form replaces.
+// form replaces. The LN+W-MSA backward (ln_wmsa_bwd.cu, #12) runs the
+// attention half of the same sequence on the same plan's chunks.
 //
 // What bounds it on the H100: the products. The forward recompute and the
 // backward are ~5.4 GFLOP at (64,64,96) batch 2 (5.5 us at the 989 TFLOP/s
@@ -87,10 +88,10 @@ struct BwdPlan {
   int rtiles;           // 64-row tiles
 };
 
-inline BwdPlan bwd_plan(int B, int H, int W, int C, int hidden, int ws, int heads) {
+// The chunks of a plan whose weight-gradient launch has `tiles` 64 x 128
+// output tiles (kernels/window_attention.py::_bwd_chunks mirrors them).
+inline BwdPlan bwd_chunks(int B, int H, int W, int ws, int heads, int tiles) {
   const int hw = H * W, T = B * hw, nW = (H / ws) * (W / ws);
-  const int tiles = bb::wg_tiles(hidden, C) + bb::wg_tiles(C, hidden) + bb::wg_tiles(C, C) +
-                    bb::wg_tiles(C, 3 * C);
   const int per = std::max(1, (bb::kFillCtas + tiles - 1) / tiles);
   BwdPlan p;
   p.chunk = 64 * (((bb::kPlanBatch * hw + 63) / 64 + per - 1) / per);
@@ -100,6 +101,12 @@ inline BwdPlan bwd_plan(int B, int H, int W, int C, int hidden, int ws, int head
   p.achunks = (B * nW + p.wpc - 1) / p.wpc;
   p.rtiles = (T + 63) / 64;
   return p;
+}
+
+inline BwdPlan bwd_plan(int B, int H, int W, int C, int hidden, int ws, int heads) {
+  return bwd_chunks(B, H, W, ws, heads,
+                    bb::wg_tiles(hidden, C) + bb::wg_tiles(C, hidden) + bb::wg_tiles(C, C) +
+                        bb::wg_tiles(C, 3 * C));
 }
 
 // The workspace: per-token intermediates and the partials of the
@@ -259,13 +266,14 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
       SUNET_TRY(hop::weight_map(&m.x[i], xs[i], T, mn[i][0], 64));
       SUNET_TRY(hop::weight_map(&m.d[i], ds[i], T, mn[i][1], 64));
     }
-    g.T = T, g.chunk = pl.chunk, g.nchunks = pl.nchunks;
+    g.np = kWgProducts, g.T = T, g.chunk = pl.chunk, g.nchunks = pl.nchunks;
     SUNET_TRY(hop::launch_cluster(wgrad_kernel, dim3(first), kThr, wgrad_smem(), st, 1, g, m));
     SUNET_TRY(launched(n));
   }
 
   // ---- every partial, summed in order
   SumArgs s;
+  memset(&s, 0, sizeof(s));
   const long long hn = (long long)a.heads * N * N;
   const SumSeg segs[kSumSegs] = {
       {w.pw[0], a.dw2, pl.nchunks, Hd * C, (long long)Hd * C},

@@ -7,7 +7,7 @@
 // when its attention takes the blockdiag layout in both directions (C=96
 // and C=192 of the default model). From x (unrolled), dout, the block's
 // weights and the forward's eb (B*nW, heads, N, N) bf16, rden (B*nW,
-// heads, N) and ctx_f (T, C) fp32 (swin_block.cu's kRes form, window-major
+// heads, N) and ctx_f (T, C) fp32 (swin_cluster.cu's kRes form, window-major
 // rolled token order), it returns dx and the float32 grads of the 12 block
 // parameters and of the (h, N, N) rel-pos bias. It recomputes LN1 and qkv
 // (q, k and v are still needed) but no scores and no softmax; the rel-pos

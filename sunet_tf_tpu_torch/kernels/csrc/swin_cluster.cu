@@ -6,12 +6,21 @@
 // -> proj -> residual -> LN2 -> fc1 -> erf GELU -> fc2 -> residual, with the
 // train form's per-image drop-path pair dp[b] = (s1, s2): y = round(x +
 // s1*attn), out = round(y + s2*mlp). The rounding points are the JAX
-// kernel's (_block_body) and swin_block.cu's: LN1 rounded; q, k, v rounded
-// (q after the scale); fp32 scores + bias + mask, exact row-max softmax, P
-// rounded, ctx = round((P @ v) / sum); y rounded; LN2 rounded; h =
-// round(gelu_erf(fc1 + b1)); out = round(y + s2*(fc2 + b2)). Only the order
-// of the fp32 sums differs from swin_block.cu (which now serves the
-// residual form, #6, alone).
+// kernel's (_block_body): LN1 rounded; q, k, v rounded (q after the scale);
+// fp32 scores + bias + mask, exact row-max softmax, P rounded, ctx =
+// round((P @ v) / sum); y rounded; LN2 rounded; h = round(gelu_erf(fc1 +
+// b1)); out = round(y + s2*(fc2 + b2)).
+//
+// Also replaces fused_swin_block_res (its kernel _block_fwd_res_kernel), the
+// residual route's training forward, as the compile-time variant kRes of the
+// same kernel: each head's exponentials are rounded to bf16 before the row
+// sum (den = sum round(e)), rden = 1 / max(den, 1e-37), ctx_f = (round(e) @
+// v) * rden, the block goes on from round(ctx_f), and the attention state
+// that swin_block_bwd_res.cu differentiates is stored straight from the
+// warps' registers in window-major (rolled) order: eb (B*nW, heads, N, N)
+// bf16 (the P@V A fragment's packed pairs), rden (B*nW, heads, N) and ctx_f
+// (B*H*W, C) float32; window wg = b*nW + win. Each rank stores its own
+// heads' rows and columns.
 //
 // What bounds it on Hopper: a 64-token window holds 4-16 MFLOP per head
 // slice against 0.2-1.8 MB of bf16 weights, which every window reads from
@@ -20,13 +29,18 @@
 // cluster, each CTA runs its phases (LayerNorm, four products and their
 // epilogues, attention, the seams) one after another on 12 warps: the
 // latency of their dependent chains bounds it now, not the tensor cores or
-// L2 (phase by phase: sunet_tf_tpu_torch/tools/block_phases.py).
+// L2 (phase by phase: sunet_tf_tpu_torch/tools/block_phases.py). The
+// residual form adds the stores of its state, ~9 KB per head-window at
+// N=64 (23 MB at (64,64,96) batch 4), to the HBM traffic: they leave the
+// registers as 4- and 8-byte stores beside the attention's products, and
+// the L2 merges them into whole sectors before they reach HBM.
 //
 // Design:
 // - A cluster of G CTAs per window (G from the launch plan, kernels/
 //   window_attention.py::block_plan, from one image's shape so that a
 //   batch-4 launch fills the card: 1 at C=96, 2 at C=192, 8 at C=384 for
-//   the default model's images, at any batch). Rank r owns heads
+//   the default model's images, at any batch; the residual form takes the
+//   same plan). Rank r owns heads
 //   [r*h/G, (r+1)*h/G): its q, k, v columns (cg = C/G of each), its cg
 //   columns of proj and of the output, hg = hidden/G columns of fc1, and the
 //   split-K partial of fc2 over those hg rows of w2.
@@ -41,15 +55,15 @@
 //   columns before proj; the same for y before LN2. The fc2 partials (64 x
 //   C fp32 each) are reduced per output column slice in rank order 0..G-1,
 //   then b2, s2 and y are applied and rounded once: the same bits every run.
-//   Nothing between x and out leaves the cluster.
+//   Nothing between x and out leaves the cluster but the residual form's
+//   state.
 // - Per-head attention: one warp per (head, 16-row strip), scores, softmax
 //   and P in registers (mma.sync m16n8k16; d padded to 16 inside the head
 //   only), so the heads need no block barrier between them.
 // - The epilogues hand the sums through a staging tile to rolled loops;
 //   the per-column arithmetic of the q/k/v epilogue (head, offset) is a
 //   table built once per CTA.
-// - The SW roll and the window partition are load/store addressing, as in
-//   swin_block.cu.
+// - The SW roll and the window partition are load/store addressing.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -102,6 +116,9 @@ struct ClusterArgs {
   int B, H, W, C, hidden, ws, heads, shift;
   float scale;
   int G;
+  // the residual form's state (kRes), whole-batch bases; null in #1
+  bf16* eb;
+  float *rden, *ctxf;
 };
 
 struct WeightMaps {
@@ -138,8 +155,8 @@ __host__ __device__ inline BlockCarve block_carve(int C, int hidden, int heads, 
 }
 
 // LayerNorm of rows t < N of xs (row stride ldx) into dst in the swizzled
-// K-major layout; the arithmetic of common.cuh's layer_norm_rows, one warp
-// per row, each lane's g and b in registers.
+// K-major layout: fp32 statistics, eps 1e-5, one warp per row, each lane's
+// g and b in registers.
 constexpr int kLnPer = kMaxBoxes * 64 / 32;   // columns per lane at C = 384
 __device__ __noinline__ void ln_rows_kmajor(const bf16* xs, int ldx, unsigned char* dst, int N,
                                             int C, const float* __restrict__ g,
@@ -203,13 +220,23 @@ __device__ inline void copy16(unsigned char* dst, Src src, int n, Off off) {
 // in fp32 (q already scaled and rounded), e = exp(s - rowmax), P =
 // round(e), ctx = round((P @ v) / sum(e)); calls store(row, col, ctx) for
 // the head's d columns. q, k: (tokens, dp) rows of stride ld, zero past d;
-// vt: v transposed, (dp, tokens) rows of stride kVtLd.
+// vt: v transposed, (dp, tokens) rows of stride kVtLd. kRes (the residual
+// form): the row sum is over round(e), ctx_f = (P @ v) * rden with rden =
+// 1 / max(sum, 1e-37), ctx = round(ctx_f), and eb, rden and ctx_f go to
+// `res` (this head of this window).
+struct ResHead {
+  bf16* eb;      // N x N
+  float* rden;   // N
+  float* ctxf;   // the head's first column of the window's first row, rows C apart
+  int ldc;
+};
 constexpr int kMaxNt = kTile / 8;      // 8-column tiles of a score row
 constexpr int kMaxDt = kTile / 8;      // 8-column tiles of a head (d <= 64)
-template <class Store>
+template <bool kRes, class Store>
 __device__ inline void attn_strip(const bf16* q, const bf16* k, const bf16* vt, int ld, int d,
                                   int N, int i0, const float* __restrict__ bias,
-                                  const float* __restrict__ mask, int lane, Store store) {
+                                  const float* __restrict__ mask, int lane, Store store,
+                                  const ResHead& res) {
   const int g = lane >> 2, t2 = (lane & 3) * 2, dp = align_up(d, 16);
   float s[kMaxNt][4];
 #pragma unroll
@@ -260,6 +287,13 @@ __device__ inline void attn_strip(const bf16* q, const bf16* k, const bf16* vt, 
     s[nt][1] = expf(s[nt][1] - m0);
     s[nt][2] = expf(s[nt][2] - m1);
     s[nt][3] = expf(s[nt][3] - m1);
+    if constexpr (kRes) {   // eb = round(e): the row sum and the stored state take it
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[nt][u] = bf(tobf(s[nt][u]));
+      const int j = nt * 8 + t2;
+      *reinterpret_cast<uint32_t*>(res.eb + (i0 + g) * N + j) = pack_bf2(s[nt][0], s[nt][1]);
+      *reinterpret_cast<uint32_t*>(res.eb + (i0 + g + 8) * N + j) = pack_bf2(s[nt][2], s[nt][3]);
+    }
     l0 += s[nt][0] + s[nt][1];
     l1 += s[nt][2] + s[nt][3];
   }
@@ -268,8 +302,17 @@ __device__ inline void attn_strip(const bf16* q, const bf16* k, const bf16* vt, 
     l0 += __shfl_xor_sync(0xffffffffu, l0, o);
     l1 += __shfl_xor_sync(0xffffffffu, l1, o);
   }
-  l0 = fmaxf(l0, 1e-37f);
-  l1 = fmaxf(l1, 1e-37f);
+  if constexpr (kRes) {   // l0, l1 hold the reciprocals
+    l0 = 1.f / fmaxf(l0, 1e-37f);
+    l1 = 1.f / fmaxf(l1, 1e-37f);
+    if ((lane & 3) == 0) {
+      res.rden[i0 + g] = l0;
+      res.rden[i0 + g + 8] = l1;
+    }
+  } else {
+    l0 = fmaxf(l0, 1e-37f);
+    l1 = fmaxf(l1, 1e-37f);
+  }
   // P @ v: the score tiles 2kt, 2kt + 1 are the A fragment of k-step kt
   float o[kMaxDt][4];
 #pragma unroll
@@ -292,6 +335,17 @@ __device__ inline void attn_strip(const bf16* q, const bf16* k, const bf16* vt, 
   for (int dt = 0; dt < kMaxDt; ++dt) {
     const int c = dt * 8 + t2;
     if (c >= d) break;
+    if constexpr (kRes) {   // ctx_f = (eb @ v) * rden; d is even: the pair is whole
+      const float2 f0 = make_float2(o[dt][0] * l0, o[dt][1] * l0);
+      const float2 f1 = make_float2(o[dt][2] * l1, o[dt][3] * l1);
+      *reinterpret_cast<float2*>(res.ctxf + (size_t)(i0 + g) * res.ldc + c) = f0;
+      *reinterpret_cast<float2*>(res.ctxf + (size_t)(i0 + g + 8) * res.ldc + c) = f1;
+      store(i0 + g, c, tobf(f0.x));
+      store(i0 + g + 8, c, tobf(f1.x));
+      store(i0 + g, c + 1, tobf(f0.y));
+      store(i0 + g + 8, c + 1, tobf(f1.y));
+      continue;
+    }
     store(i0 + g, c, tobf(o[dt][0] / l0));
     store(i0 + g + 8, c, tobf(o[dt][2] / l1));
     if (c + 1 < d) {
@@ -388,6 +442,7 @@ __device__ inline void product_phase(Ring& ring, const Product& p, const void* a
   }
 }
 
+template <bool kRes>
 __global__ void __launch_bounds__(kCThreads, 1)
     swin_cluster_kernel(const __grid_constant__ ClusterArgs a,
                         const __grid_constant__ WeightMaps maps) {
@@ -490,14 +545,21 @@ __global__ void __launch_bounds__(kCThreads, 1)
 
   // per (head, 16-row strip): one warp, no block barrier between heads
   const float* mask = a.mask ? a.mask + (size_t)win * N * N : nullptr;
+  const size_t wgi = (size_t)b * (gridDim.x / G) + win;   // window-major window index
   for (int item = warp; item < hr * (N / 16); item += kWarpsC) {
-    const int hh = item / (N / 16), i0 = (item % (N / 16)) * 16;
-    attn_strip(qkv + (size_t)(0 * hr + hh) * kTile * ldq, qkv + (size_t)(1 * hr + hh) * kTile * ldq,
-               qkv + (size_t)(2 * hr + hh) * kTile * ldq, ldq, d, N, i0,
-               a.bias + (size_t)(rank * hr + hh) * N * N, mask, lane,
-               [&](int row, int col, bf16 v) {
-                 *reinterpret_cast<bf16*>(abuf + a_off(row, rank * cg_ + hh * d + col)) = v;
-               });
+    const int hh = item / (N / 16), i0 = (item % (N / 16)) * 16, head = rank * hr + hh;
+    ResHead res{};
+    if constexpr (kRes)
+      res = ResHead{a.eb + (wgi * a.heads + head) * N * N, a.rden + (wgi * a.heads + head) * N,
+             a.ctxf + wgi * N * C + head * d, C};
+    attn_strip<kRes>(qkv + (size_t)(0 * hr + hh) * kTile * ldq,
+                     qkv + (size_t)(1 * hr + hh) * kTile * ldq,
+                     qkv + (size_t)(2 * hr + hh) * kTile * ldq, ldq, d, N, i0,
+                     a.bias + (size_t)head * N * N, mask, lane,
+                     [&](int row, int col, bf16 v) {
+                       *reinterpret_cast<bf16*>(abuf + a_off(row, rank * cg_ + hh * d + col)) = v;
+                     },
+                     res);
   }
   // ctx: every rank's columns, through distributed shared memory
   PHASE(4);
@@ -580,7 +642,7 @@ extern "C" int sunet_swin_block_phase_clock(void* buf) {
 // How many clusters of G CTAs with `smem` bytes each the card holds at once
 // (cudaOccupancyMaxActiveClusters); negative on an error.
 extern "C" int sunet_swin_block_max_clusters(int G, long long smem) {
-  cudaError_t e = cudaFuncSetAttribute(swin_cluster_kernel,
+  cudaError_t e = cudaFuncSetAttribute(swin_cluster_kernel<false>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
   cudaLaunchConfig_t cfg = {};
@@ -595,10 +657,46 @@ extern "C" int sunet_swin_block_max_clusters(int G, long long smem) {
   cfg.attrs = at;
   cfg.numAttrs = 1;
   int n = 0;
-  e = cudaOccupancyMaxActiveClusters(&n, swin_cluster_kernel, &cfg);
+  e = cudaOccupancyMaxActiveClusters(&n, swin_cluster_kernel<false>, &cfg);
   return e != cudaSuccess ? -(int)e : n;
 }
 #endif
+
+namespace sunet {
+
+// Checks the shape and the cluster size G, builds the weight maps and
+// launches the kernel (kRes: the residual form with its state buffers).
+static cudaError_t launch_block(const ClusterArgs& a, const void* wqkv, const void* wproj,
+                                const void* w1, const void* w2, cudaStream_t st) {
+  const int N = a.ws * a.ws, C = a.C, hidden = a.hidden, heads = a.heads, G = a.G;
+  if (N % 16 || N > kTile || C % 16 || C % heads || hidden % 16 || a.H % a.ws || a.W % a.ws)
+    return cudaErrorInvalidValue;
+  if (G < 1 || G > 8 || heads % G || C % G || hidden % G || C / heads > kTile)
+    return cudaErrorInvalidConfiguration;
+  const BlockCarve cv = block_carve(C, hidden, heads, G);
+  const size_t smem = cv.total;
+  if (smem > kMaxSmem || cv.cg % 8 || cv.hg % 16 || nboxes(cv.cg) * 3 > kMaxBoxes ||
+      nboxes(cv.hg) > kMaxBoxes || nboxes(C) > kMaxBoxes ||
+      (size_t)kTile * (C + kPadF) * 4 > cv.total - 1024 - cv.ring)
+    return cudaErrorInvalidConfiguration;
+  WeightMaps m;
+  const int pq = nboxes(cv.cg), ph = nboxes(cv.hg), pc = nboxes(C);
+  cudaError_t e;
+  if ((e = hop::weight_map(&m.qkv, wqkv, C, 3 * C, chunk_rows(kRingSlot, 3 * pq, C))) ||
+      (e = hop::weight_map(&m.proj, wproj, C, C, chunk_rows(kRingSlot, pq, C))) ||
+      (e = hop::weight_map(&m.fc1, w1, C, hidden, chunk_rows(kRingSlot, ph, C))) ||
+      (e = hop::weight_map(&m.fc2, w2, hidden, C, chunk_rows(kRingSlot, pc, cv.hg))))
+    return e;
+  const dim3 grid((a.H / a.ws) * (a.W / a.ws) * G, a.B);
+  if ((e = a.eb ? hop::launch_cluster(swin_cluster_kernel<true>, grid, kCThreads, smem, st, G,
+                                      a, m)
+                : hop::launch_cluster(swin_cluster_kernel<false>, grid, kCThreads, smem, st, G,
+                                      a, m)))
+    return e;
+  return cudaGetLastError();
+}
+
+}  // namespace sunet
 
 // x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2, bias,
 // mask, dp (B, 2) or NULL; then the shape; then the cluster size G (from
@@ -611,32 +709,31 @@ extern "C" int sunet_swin_block(const void* x, void* out, const void* g1, const 
                                 const void* bias, const void* mask, const void* dp, int B, int H,
                                 int W, int C, int hidden, int ws, int heads, int shift,
                                 float scale, int G, void* stream) {
-  const int N = ws * ws;
-  if (N % 16 || N > kTile || C % 16 || C % heads || hidden % 16 || H % ws || W % ws)
-    return (int)cudaErrorInvalidValue;
-  if (G < 1 || G > 8 || heads % G || C % G || hidden % G || C / heads > kTile)
-    return (int)cudaErrorInvalidConfiguration;
-  const BlockCarve cv = block_carve(C, hidden, heads, G);
-  const size_t smem = cv.total;
-  if (smem > kMaxSmem || cv.cg % 8 || cv.hg % 16 || nboxes(cv.cg) * 3 > kMaxBoxes ||
-      nboxes(cv.hg) > kMaxBoxes || nboxes(C) > kMaxBoxes ||
-      (size_t)kTile * (C + kPadF) * 4 > cv.total - 1024 - cv.ring)
-    return (int)cudaErrorInvalidConfiguration;
-  ClusterArgs a{(const bf16*)x,     (bf16*)out,         (const float*)g1, (const float*)be1,
+  ClusterArgs a{(const bf16*)x,     (bf16*)out,          (const float*)g1, (const float*)be1,
                 (const float*)bqkv, (const float*)bproj, (const float*)g2, (const float*)be2,
-                (const float*)b1,   (const float*)b2,   (const float*)bias,
-                (const float*)mask, (const float*)dp,   B, H, W, C, hidden, ws, heads, shift,
-                scale, G};
-  WeightMaps m;
-  const int pq = nboxes(cv.cg), ph = nboxes(cv.hg), pc = nboxes(C);
-  cudaError_t e;
-  if ((e = hop::weight_map(&m.qkv, wqkv, C, 3 * C, chunk_rows(kRingSlot, 3 * pq, C))) ||
-      (e = hop::weight_map(&m.proj, wproj, C, C, chunk_rows(kRingSlot, pq, C))) ||
-      (e = hop::weight_map(&m.fc1, w1, C, hidden, chunk_rows(kRingSlot, ph, C))) ||
-      (e = hop::weight_map(&m.fc2, w2, hidden, C, chunk_rows(kRingSlot, pc, cv.hg))))
-    return (int)e;
-  if ((e = hop::launch_cluster(swin_cluster_kernel, dim3((H / ws) * (W / ws) * G, B), kCThreads,
-                              smem, (cudaStream_t)stream, G, a, m)))
-    return (int)e;
-  return (int)cudaGetLastError();
+                (const float*)b1,   (const float*)b2,    (const float*)bias,
+                (const float*)mask, (const float*)dp,    B, H, W, C, hidden, ws, heads, shift,
+                scale, G, nullptr, nullptr, nullptr};
+  return (int)launch_block(a, wqkv, wproj, w1, w2, (cudaStream_t)stream);
+}
+
+// The residual form (#6): sunet_swin_block's pointers, then eb, rden and
+// ctx_f (layouts in the header note); then the shape, scale and G.
+extern "C" int sunet_swin_block_res(const void* x, void* out, const void* g1, const void* be1,
+                                    const void* wqkv, const void* bqkv, const void* wproj,
+                                    const void* bproj, const void* g2, const void* be2,
+                                    const void* w1, const void* b1, const void* w2,
+                                    const void* b2, const void* bias, const void* mask,
+                                    const void* dp, void* eb, void* rden, void* ctx, int B,
+                                    int H, int W, int C, int hidden, int ws, int heads,
+                                    int shift, float scale, int G, void* stream) {
+  // the state's pairs: an even head dim
+  if (eb == nullptr || rden == nullptr || ctx == nullptr || heads <= 0 || (C / heads) % 2)
+    return (int)cudaErrorInvalidValue;
+  ClusterArgs a{(const bf16*)x,     (bf16*)out,          (const float*)g1, (const float*)be1,
+                (const float*)bqkv, (const float*)bproj, (const float*)g2, (const float*)be2,
+                (const float*)b1,   (const float*)b2,    (const float*)bias,
+                (const float*)mask, (const float*)dp,    B, H, W, C, hidden, ws, heads, shift,
+                scale, G, (bf16*)eb, (float*)rden, (float*)ctx};
+  return (int)launch_block(a, wqkv, wproj, w1, w2, (cudaStream_t)stream);
 }

@@ -1,10 +1,9 @@
-// Shared pieces of the training kernels (the block backward, the LN+W-MSA
-// and LN+MLP sublayers, the x4-head backward): a tiled bf16 GEMM with fp32
-// accumulation and a per-element epilogue, deterministic token reductions
-// (split partials summed in a fixed order), the token-index map of a
-// window-major (rolled, partitioned) token order, and the row kernels
-// (LayerNorm forward and backward for C <= 768, the dout gather). The
-// attention kernels are in attn_train.cuh.
+// Shared pieces of the training kernels (the block backward and the LN+W-MSA
+// backward, the LN+MLP sublayers, the x4-head backward): a tiled bf16 GEMM
+// with fp32 accumulation and a per-element epilogue, deterministic token
+// reductions (split partials summed in a fixed order), the token-index map
+// of a window-major (rolled, partitioned) token order, and the row kernels
+// (LayerNorm forward and backward for C <= 768).
 //
 // Kernels defined here are templates or static, so every source that
 // includes the header gets its own copy and the link sees no duplicates.
@@ -242,12 +241,6 @@ __device__ inline size_t token_offset(int t, int H, int W, int C, int ws, int sh
   return (((size_t)b * H + gy) * W + gx) * C;
 }
 
-// Element offset of row r of a token matrix in its NHWC map: window-major
-// order (token_offset) when ws > 0, the map's own row order when ws == 0.
-__device__ inline size_t row_offset(int r, int H, int W, int C, int ws, int shift) {
-  return ws > 0 ? token_offset(r, H, W, C, ws, shift) : (size_t)r * C;
-}
-
 #define SUNET_TRY(expr)               \
   do {                                \
     cudaError_t e_ = (expr);          \
@@ -288,7 +281,9 @@ __device__ inline float gelu_grad_f(float v) {
 // LayerNorm of T rows: src rows (gathered from the NHWC map by
 // token_offset when `gather`, else src's own rows), copy (gather only)
 // keeps the gathered rows, out = round(xhat * g + b), stats = (mean, inv)
-// per row.
+// per row. Every caller takes src's own rows; the kernel keeps the gather
+// because the same kernel without it ran slower on the H100 (#4 0.067
+// against 0.063 ms at (8,8,768), PERF.md).
 static __global__ void __launch_bounds__(kThreads)
     ln_fwd_kernel(const bf16* __restrict__ src, bool gather, bf16* __restrict__ copy,
                   bf16* __restrict__ out, float* __restrict__ stats, const float* __restrict__ g,
@@ -327,34 +322,17 @@ inline cudaError_t ln_fwd(const bf16* src, bool gather, bf16* copy, bf16* out, f
   return launched(launches);
 }
 
-// dst = src gathered into window-major rows.
-static __global__ void gather_kernel(const bf16* __restrict__ src, bf16* __restrict__ dst, int T,
-                                     int C, int H, int W, int ws, int shift) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kWarps + warp;
-  if (r >= T) return;
-  const bf16* s = src + token_offset(r, H, W, C, ws, shift);
-  for (int c = lane; c < C; c += 32) dst[(size_t)r * C + c] = s[c];
-}
-
-inline cudaError_t gather_rows(const bf16* src, bf16* dst, int T, int C, int H, int W, int ws,
-                               int shift, cudaStream_t st, int* launches) {
-  gather_kernel<<<(T + kWarps - 1) / kWarps, kThreads, 0, st>>>(src, dst, T, C, H, W, ws, shift);
-  return launched(launches);
-}
-
 // LayerNorm backward over T rows of a sublayer's LN (whose residual
 // autograd adds outside), kCols columns per lane (C <= 32*kCols): xhat from
 // x (the token matrix's rows, bf16) and its stats, dxhat = d * g, dx =
-// round(inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))) at the row's
-// place in the NHWC map (row_offset), and per-CTA partials of dg = sum
-// d*xhat and db = sum d as part[cta][0:C) and part[cta][C:2C).
+// round(inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))) in row r of
+// dx, and per-CTA partials of dg = sum d*xhat and db = sum d as
+// part[cta][0:C) and part[cta][C:2C).
 template <int kCols>
 __global__ void __launch_bounds__(kThreads)
     ln_bwd_kernel(const float* __restrict__ d, const bf16* __restrict__ x,
                   const float* __restrict__ stats, const float* __restrict__ g,
-                  bf16* __restrict__ dx, float* __restrict__ part, int T, int C, int H, int W,
-                  int ws, int shift) {
+                  bf16* __restrict__ dx, float* __restrict__ part, int T, int C) {
   __shared__ float red[kWarps][kCols * 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float pdg[kCols], pdb[kCols];
@@ -382,7 +360,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     m1 = warp_sum(m1) / C;
     m2 = warp_sum(m2) / C;
-    const size_t off = row_offset(r, H, W, C, ws, shift);
+    const size_t off = (size_t)r * C;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const int c = lane + 32 * j;
@@ -413,14 +391,11 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launches the LN backward with the fewest columns per lane that hold C.
 inline cudaError_t ln_bwd(const float* d, const bf16* x, const float* stats, const float* g,
-                          bf16* dx, float* part, int T, int C, int H, int W, int ws, int shift,
-                          cudaStream_t st, int* launches) {
+                          bf16* dx, float* part, int T, int C, cudaStream_t st, int* launches) {
   if (C <= 12 * 32)
-    ln_bwd_kernel<12><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C, H, W,
-                                                       ws, shift);
+    ln_bwd_kernel<12><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C);
   else if (C <= kLnMaxC)
-    ln_bwd_kernel<kLnMaxC / 32><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C,
-                                                                 H, W, ws, shift);
+    ln_bwd_kernel<kLnMaxC / 32><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C);
   else
     return cudaErrorInvalidValue;
   return launched(launches);
@@ -469,15 +444,6 @@ struct EpiDa {   // da = acc * gelu'(a) (fp32) and round(da)
     const float t = v * gelu_grad_f(a[e]);
     da[e] = t;
     dab[e] = tobf(t);
-    return 0.f;
-  }
-};
-
-struct EpiBf16 {
-  bf16* out;
-  int ld;
-  __device__ float operator()(int m, int n, float v, int) const {
-    out[(size_t)m * ld + n] = tobf(v);
     return 0.f;
   }
 };

@@ -29,15 +29,17 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
 - The residual route, JAX's default training block where the attention
   takes the blockdiag layout (:func:`bwd_residuals_enabled`):
   :func:`fused_swin_block_res` (JAX ``fused_swin_block_res``, CUDA
-  ``csrc/swin_block.cu``, one CTA per window) is the train-form block that
-  also returns the softmax state (eb, rden, ctx_f), and
+  ``csrc/swin_cluster.cu``'s residual form, on :func:`block_plan`'s
+  cluster) is the train-form block that also returns the softmax state
+  (eb, rden, ctx_f), and
   :func:`swin_block_bwd_res` (JAX ``_block_bwd_impl_res``, CUDA
   ``csrc/swin_block_bwd_res.cu``) the block backward from that state, with
   no score or softmax recompute; :class:`SwinBlockTrainableRes` pairs them
   (JAX ``swin_block_trainable_res``).
 - The two training sublayers of the blocks above the block-kernel cap:
   :func:`ln_window_attention_bwd` (JAX ``_ln_wmsa_bwd_impl``, CUDA
-  ``csrc/ln_wmsa_bwd.cu``) is the backward of
+  ``csrc/ln_wmsa_bwd.cu``: the attention half of the block backward's
+  launches, :func:`ln_wmsa_bwd_plan`) is the backward of
   :func:`fused_ln_window_attention`, and :class:`LnWindowAttentionTrainable`
   pairs the two (JAX ``ln_window_attention_trainable``);
   :func:`ln_mlp_branch` (JAX ``_ln_mlp_branch``, CUDA
@@ -89,10 +91,12 @@ BLOCK_KERNEL_MAX_C = 384
 # attention forward, proj, LN2 + fc1, dm w2^T, dab w1^T + the LN2 backward,
 # dctx, the attention backward, dqkv wqkv^T + the LN1 backward, the weight
 # gradients, the sums; the residual route reads ctx from its residuals and
-# skips the attention forward.
+# skips the attention forward. The LN+W-MSA backward: its attention half,
+# LN1 + qkv, the attention forward, dctx, the attention backward, dqkv
+# wqkv^T + the LN1 backward, the weight gradients, the sums.
 SWIN_BLOCK_BWD_LAUNCHES = 11
 SWIN_BLOCK_BWD_RES_LAUNCHES = 10
-LN_WMSA_BWD_LAUNCHES = 19
+LN_WMSA_BWD_LAUNCHES = 7
 LN_MLP_BRANCH_LAUNCHES = 3
 LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
 # fused_ln_window_attention: LN + qkv, attention, projection
@@ -333,7 +337,11 @@ _BWD_COLS = 128            # kCols: output columns of a token-GEMM CTA
 BWD_FILL_CTAS = 264        # kFillCtas: CTAs the weight-gradient launch aims at (2 per SM)
 BWD_ATTN_FILL_CTAS = 528   # kAttnFillCtas: CTAs the attention backward aims at (4 per SM)
 BWD_MAX_C = 768            # a cluster of at most 6 CTAs owns a row
-BWD_MAX_HEAD_DIM = 64      # the attention's operands: 64 x 64 tiles
+# The block backward's head dim (#7, #8): the residual route's per-pair t
+# sums hold 32 column pairs. The LN+W-MSA backward (#12) runs the recompute
+# form's attention, whose head dim shared memory alone bounds
+# (ln_wmsa_bwd_why).
+BWD_MAX_HEAD_DIM = 64
 
 
 def _bwd_tok_smem(K: int, a_in_smem: bool) -> int:
@@ -348,13 +356,14 @@ def _attn_smem(N: int, d: int) -> tuple:
     """(forward, backward) shared-memory bytes of the block backward's
     attention (``bb::attn_layout``): q, k (and v, dctx) as N rows of dp + 8
     bf16, k^T (v^T), q^T and dctx^T as dp rows of N + 8, round(P)^T and
-    round(ds)^T as N rows of N + 8, then the backwards' floats; dp is the
-    head dim rounded up to 16."""
+    round(ds)^T as N rows of N + 8, then the backwards' floats (the
+    residual route's 64 x 32 pair sums, four warps' and the chunk's q, k,
+    v column sums, dp each); dp is the head dim rounded up to 16."""
     dp = _up(d, 16)
     rd, tn, nn = (_pad128(N * (dp + 8) * 2), _pad128(dp * (N + 8) * 2),
                   _pad128(N * (N + 8) * 2))
     fwd = 2 * rd + tn
-    return fwd, fwd + 2 * rd + 2 * tn + 2 * nn + (64 * 32 + 4 * 3 * 64 + 3 * 64) * 4
+    return fwd, fwd + 2 * rd + 2 * tn + 2 * nn + (64 * 32 + 4 * 3 * dp + 3 * dp) * 4
 
 
 def _bwd_products(C: int, hidden: int) -> tuple:
@@ -420,14 +429,23 @@ def block_bwd_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> 
     if why:
         raise ValueError(f"block_bwd_plan: H={H}, W={W}, C={C}, hidden={hidden}, ws={ws}, "
                          f"heads={heads}: {why}")
-    hw, nW = H * W, (H // ws) * (W // ws)
     tiles = tuple(_wg_tiles(M, N) for M, N in _bwd_products(C, hidden))
+    return _bwd_plan_of(H, W, C, ws, heads, tiles, {"qkv": 3 * C, "fc1": hidden})
+
+
+def _bwd_plan_of(H: int, W: int, C: int, ws: int, heads: int, tiles: tuple,
+                 ln_cols: dict) -> dict:
+    """The plan of a launch sequence on the block backward's kernels whose
+    weight-gradient launch has ``tiles`` output tiles per product and whose
+    LN A loads produce ``ln_cols`` columns (``bwd_chunks`` in
+    csrc/swin_block_bwd.cuh)."""
+    hw, nW = H * W, (H // ws) * (W // ws)
     per = max(1, _cdiv(BWD_FILL_CTAS, sum(tiles)))
     chunk = _TILE * _cdiv(_cdiv(PLAN_BATCH * hw, _TILE), per)
     wpc = _cdiv(PLAN_BATCH * nW, max(1, BWD_ATTN_FILL_CTAS // heads))
     rows = _cdiv(PLAN_BATCH * hw, _TILE)
     tpc = {name: min(t, max(1, _cdiv(t * rows, BWD_FILL_CTAS)))
-           for name, t in (("qkv", _cdiv(3 * C, _BWD_COLS)), ("fc1", _cdiv(hidden, _BWD_COLS)))}
+           for name, t in ((n, _cdiv(cols, _BWD_COLS)) for n, cols in ln_cols.items())}
     smem = {"gemm_a_in_smem": _bwd_tok_smem(C, True), "gemm_a_by_tma": _bwd_tok_smem(0, False),
             "wgrad": _bwd_tok_smem(0, False)}
     smem["attn_fwd"], smem["attn"] = _attn_smem(ws * ws, C // heads)
@@ -457,6 +475,76 @@ def block_bwd_wgrad_table(H: int, W: int, C: int, hidden: int, ws: int, heads: i
         mt = _cdiv(_bwd_products(C, hidden)[p][0], _TILE)
         table.append((p, tile % mt, tile // mt, ch))
     return table
+
+
+# The LN+W-MSA backward (#12, csrc/ln_wmsa_bwd.cu) on the same kernels: its
+# weight gradients are dwproj (C x C) and dwqkv (C x 3C).
+
+
+def _ln_wmsa_bwd_width_why(C: int, heads: int, N: int) -> Optional[str]:
+    if C % 16:
+        return f"C={C} must be a multiple of 16"
+    if C > BWD_MAX_C:
+        return f"C={C} above {BWD_MAX_C} (a cluster of at most 6 CTAs owns a row)"
+    if heads <= 0 or C % heads:
+        return f"C={C} not divisible by {heads} heads"
+    d = C // heads
+    if d % 2:
+        return f"head dim {d} is odd (the attention loads column pairs)"
+    smem = _attn_smem(N, d)[1]
+    if smem > SMEM_MAX:
+        return (f"head dim {d} needs {smem} bytes of the attention's shared memory at "
+                f"{N} tokens, above {SMEM_MAX}")
+    return None
+
+
+def ln_wmsa_bwd_why(C: int, heads: int, ws: int) -> Optional[str]:
+    """Why the LN+W-MSA backward's kernels do not take a sublayer of width C
+    with ``heads`` heads and window ``ws`` (None when they do): the window
+    kernels' window rule; C a multiple of 16 up to 768; an even head dim
+    whose attention operands fit shared memory (up to 192 at 64 tokens)."""
+    N = ws * ws
+    if N % 16 or N > _TILE or N == 0:
+        return f"window {ws} gives {N} tokens; the kernel takes 16, 32, 48 or 64"
+    return _ln_wmsa_bwd_width_why(C, heads, N)
+
+
+def ln_wmsa_bwd_takes(C: int, heads: int, ws: int) -> bool:
+    """Whether the LN+W-MSA backward's kernels take the sublayer (the
+    router's question: the window's rule is every window kernel's)."""
+    return _ln_wmsa_bwd_width_why(C, heads, ws * ws) is None
+
+
+@functools.lru_cache(maxsize=None)
+def ln_wmsa_bwd_plan(H: int, W: int, C: int, ws: int, heads: int) -> dict:
+    """Launch plan of the LN+W-MSA backward (#12) for (H, W, C) images, a
+    function of one image's shape (``wmsa_bwd_plan`` in csrc/ln_wmsa_bwd.cu
+    mirrors it): :func:`block_bwd_plan`'s quantities over its two weight
+    gradients (dwproj, dwqkv) and its one LN A load (qkv). Raises ValueError
+    on a shape outside the design, with the wrapper's reason."""
+    why = ln_wmsa_bwd_why(C, heads, ws)
+    if why is None and (H % ws or W % ws):
+        why = f"({H},{W}) not divisible by window {ws}"
+    if why:
+        raise ValueError(f"ln_wmsa_bwd_plan: H={H}, W={W}, C={C}, ws={ws}, heads={heads}: {why}")
+    return _bwd_plan_of(H, W, C, ws, heads, (_wg_tiles(C, C), _wg_tiles(C, 3 * C)),
+                        {"qkv": 3 * C})
+
+
+def ln_wmsa_bwd_workspace(B: int, H: int, W: int, C: int, ws: int, heads: int) -> int:
+    """Bytes of the LN+W-MSA backward's workspace (``carve_wmsa_bwd`` in
+    csrc/ln_wmsa_bwd.cu): the token rows (x and LN1(x) gathered, qkv, ctx,
+    dout gathered, round(dctx), round(dqkv)), the LN statistics, the
+    weight gradients' token-chunk partials (none with one chunk: the launch
+    writes the gradients), and the LN, qkv-bias and rel-pos-bias partials."""
+    plan = ln_wmsa_bwd_plan(H, W, C, ws, heads)
+    T, N, nW = B * H * W, ws * ws, (H // ws) * (W // ws)
+    nch = _cdiv(T, plan["chunk_tokens"])
+    achunks = _cdiv(B * nW, plan["windows_per_chunk"])
+    rows = [_pad128(n * T * C * 2) for n in (1, 1, 3, 1, 1, 1, 3)] + [_pad128(2 * T * 4)]
+    parts = ([nch * C * C, nch * 3 * C * C, nch * C] if nch > 1 else []) + [
+        _cdiv(T, _TILE) * 2 * C, achunks * 3 * C, achunks * heads * N * N]
+    return sum(rows) + sum(_pad128(4 * n) for n in parts)
 
 
 def bwd_residuals_enabled(C: int, num_heads: int, N: int) -> bool:
@@ -1045,13 +1133,17 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
     args = [f(ln1[0]), f(ln1[1]), wqkv, f(bqkv), wproj, f(bproj),
             f(ln2[0]), f(ln2[1]), w1, f(b1), w2, f(b2), f(bias), f(mask), f(dp)]
     out = torch.empty_like(x)
+    plan = block_plan(H, W, C, w1.shape[1], ws, num_heads)
     lib = _build.library()
-    dims = (B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale), _build.stream())
+    dims = (B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale), plan["G"],
+            _build.stream())
     ptrs = [_build.ptr(a) for a in [x, out, *args]]
     if not res:
-        plan = block_plan(H, W, C, w1.shape[1], ws, num_heads)
-        _build.check(name, lib.sunet_swin_block(*ptrs, *dims[:-1], plan["G"], _build.stream()))
+        _build.check(name, lib.sunet_swin_block(*ptrs, *dims))
         return out
+    if (C // num_heads) % 2:
+        raise ValueError(f"{name}: head dim {C // num_heads} is odd (the state's stores are "
+                         "column pairs)")
     N = ws * ws
     nwin = B * (H // ws) * (W // ws)
     state = (torch.empty(nwin, num_heads, N, N, device=dev, dtype=x.dtype),
@@ -1183,7 +1275,8 @@ def fused_swin_block_res(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     attention state its backward :func:`swin_block_bwd_res` differentiates.
     Returns (out, eb (B*nW, h, N, N) in x's dtype, rden (B*nW, h, N)
     float32, ctx_f (B*H*W, C) float32), the residuals in window-major order
-    of the rolled map. CUDA: ``csrc/swin_block.cu``, one launch."""
+    of the rolled map. CUDA: ``csrc/swin_cluster.cu``'s residual form, one
+    launch on :func:`block_plan`'s cluster."""
     count = _build.counter("fused_swin_block_res")
     if x.device.type == "cpu":
         count.cpu += 1
@@ -1485,7 +1578,8 @@ def ln_window_attention_bwd(x, dout, ln_scale, ln_bias, wqkv, bqkv, wproj, bias,
     ``_ln_wmsa_bwd_impl``): x as in the forward (raw, rolled by the caller),
     dout the cotangent of its output. Returns (dx, then float32 grads of the
     LN scale and bias, wqkv, bqkv, wproj, bproj and bias). CUDA:
-    ``csrc/ln_wmsa_bwd.cu``, a fixed sequence of launches, each counted."""
+    ``csrc/ln_wmsa_bwd.cu``, the LN_WMSA_BWD_LAUNCHES launches of the block
+    backward's kernels (:func:`ln_wmsa_bwd_plan`), each counted."""
     name = "ln_window_attention_bwd"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -1495,8 +1589,7 @@ def ln_window_attention_bwd(x, dout, ln_scale, ln_bias, wqkv, bqkv, wproj, bias,
             num_heads=num_heads, scale=scale)
     _check_x(name, x)
     B, H, W, C = x.shape
-    if C > SPLIT_TRAIN_MAX_C:
-        raise ValueError(f"{name}: C={C} above {SPLIT_TRAIN_MAX_C}")
+    ln_wmsa_bwd_plan(H, W, C, ws, num_heads)   # raises on a shape outside the design
     _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
     _check_window(name, H, W, C, ws, num_heads, bias, mask)
     _check_vec(name, ln_scale=(ln_scale, C), ln_bias=(ln_bias, C), bqkv=(bqkv, 3 * C))

@@ -29,27 +29,30 @@ stochastic-depth scales from it. On the fused route a block trains by its
 width, a routing rule of the configuration and never a reaction to a kernel
 failing:
 
-- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape the block backward's
-  kernels take (``wa.block_bwd_takes``: an even head dim up to 64), where
-  the attention takes JAX's blockdiag layout (``wa.bwd_residuals_enabled``:
-  C=96 and 192 at WIN 8, 8 heads) and ``ROUTE_TRAIN_RESID`` is set:
-  ``SwinBlockTrainableRes``, the residual route, JAX's default there
-  (``swin_block_trainable_res``): the block kernel's residual form stores
-  the softmax state and ``swin_block_bwd_res`` differentiates it without
-  recomputing it;
-- other C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` that the block kernel takes
-  (``wa.block_kernel_takes``): ``SwinBlockTrainable``, the block kernel
-  forward and ``swin_block_bwd`` backward, which recomputes the attention
-  (JAX ``swin_block_trainable``, and every block of this width under
-  ``SUNET_BWD_RESID=0``);
-- the others up to ``ROUTE_TRAIN_SPLIT_MAX_C`` (768): the two sublayers,
-  ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with the residuals
-  and drop-path in autograd (JAX's sublayer route,
+- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape both the block kernel
+  (``wa.block_kernel_takes``: a launch plan; its residual form runs on the
+  same cluster kernel) and the block backward's kernels
+  (``wa.block_bwd_takes``: an even head dim up to 64) take trains on them:
+  where the attention takes JAX's blockdiag layout
+  (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8 heads) and
+  ``ROUTE_TRAIN_RESID`` is set, ``SwinBlockTrainableRes``, the residual
+  route, JAX's default there (``swin_block_trainable_res``): the block
+  kernel's residual form stores the softmax state and
+  ``swin_block_bwd_res`` differentiates it without recomputing it; else
+  ``SwinBlockTrainable``, the block kernel forward and ``swin_block_bwd``
+  backward, which recomputes the attention (JAX ``swin_block_trainable``,
+  and every block of this width under ``SUNET_BWD_RESID=0``);
+- the others up to ``ROUTE_TRAIN_SPLIT_MAX_C`` (768) whose attention the
+  LN+W-MSA backward takes (``wa.ln_wmsa_bwd_takes``: an even head dim whose
+  operands fit its shared memory, up to 192 at 64 tokens): the two
+  sublayers, ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with
+  the residuals and drop-path in autograd (JAX's sublayer route,
   ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
   ``SUNET_TRAIN_BLOCK_KERNEL=0``; JAX's default trains C=768 on the
   whole-block kernel, which here takes C <= 384, ``BLOCK_KERNEL_MAX_C``);
-- wider (the scaled EMB-180 config's C=1440): autograd of the eager block,
-  as JAX above ``SUNET_TRAIN_KERNEL_MAX_C=768``.
+- the rest (the scaled EMB-180 config's C=1440, a head dim the LN+W-MSA
+  backward refuses): autograd of the eager block, as JAX above
+  ``SUNET_TRAIN_KERNEL_MAX_C=768``.
 
 Training never takes the chain route.
 """
@@ -320,11 +323,18 @@ class SwinBlock(nn.Module):
 
     def trains_on_block_kernels(self) -> bool:
         """Whether training takes the block kernels (the residual route or
-        the recompute one) rather than the sublayer kernels."""
+        the recompute one) rather than the sublayer kernels: both routes'
+        forwards run on the cluster block kernel, so both need its plan."""
         return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C
                 and wa.block_bwd_takes(self.dim, self.mlp.fc1.out_features,
                                        self.attn.num_heads)
-                and (self.trains_on_residuals() or self.takes_block_kernel()))
+                and self.takes_block_kernel())
+
+    def trains_on_split_kernels(self) -> bool:
+        """Whether training takes the two sublayer kernels (when it does not
+        take the block kernels); else the eager block."""
+        return (self.dim <= ROUTE_TRAIN_SPLIT_MAX_C
+                and wa.ln_wmsa_bwd_takes(self.dim, self.attn.num_heads, self.window_size))
 
     def trains_on_residuals(self) -> bool:
         """Whether training takes the residual route (when the block trains
@@ -389,7 +399,7 @@ class SwinBlock(nn.Module):
             dp = drop_path_scales(B, self.drop_path_rate, generator, x.device)
             if self.backend == "fused" and self.trains_on_block_kernels():
                 return self._train_block(x, dp)
-            if self.backend == "fused" and self.dim <= ROUTE_TRAIN_SPLIT_MAX_C:
+            if self.backend == "fused" and self.trains_on_split_kernels():
                 return self._train_split(x, dp)
             return self._eager(x, dp)
         if self.backend == "eager":

@@ -302,13 +302,13 @@ class SUNet(nn.Module):
         launches the block kernel once and its backward's fixed sequence,
         on the residual route where ``trains_on_residuals`` holds (JAX
         ``swin_block_trainable_res``), else on the recompute one (JAX
-        ``swin_block_trainable``); another up to ROUTE_TRAIN_SPLIT_MAX_C
-        the LN+W-MSA pair, LN+W-MSA backward, LN+MLP branch and LN+MLP
-        backward sequences (JAX ``ln_window_attention_trainable`` +
-        ``ln_mlp_trainable``); a wider one runs plain autograd and launches
-        nothing. The x4 head launches its forward kernel and its backward's
-        sequence: the conv-fused head's where ``conv_fused_head`` holds,
-        else the split head's."""
+        ``swin_block_trainable``); another that trains on the sublayer
+        kernels (``trains_on_split_kernels``) the LN+W-MSA pair, LN+W-MSA
+        backward, LN+MLP branch and LN+MLP backward sequences (JAX
+        ``ln_window_attention_trainable`` + ``ln_mlp_trainable``); any other
+        runs plain autograd and launches nothing. The x4 head launches its
+        forward kernel and its backward's sequence: the conv-fused head's
+        where ``conv_fused_head`` holds, else the split head's."""
         counts = dict.fromkeys(TRAIN_WRAPPERS if train else INFER_WRAPPERS, 0)
         if self.backend != "fused":
             return counts
@@ -322,7 +322,7 @@ class SUNet(nn.Module):
                         else:
                             counts["fused_swin_block"] += 1
                             counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
-                    elif blk.dim <= layers.ROUTE_TRAIN_SPLIT_MAX_C:
+                    elif blk.trains_on_split_kernels():
                         counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
                         counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES
                         counts["ln_mlp_branch"] += wa.LN_MLP_BRANCH_LAUNCHES

@@ -1,8 +1,8 @@
-"""Where one launch of the cluster block kernel (#1, ``csrc/swin_cluster.cu``)
-or of the conv-fused x4 head (#5, ``csrc/up4_conv.cu``) spends its time,
-phase by phase, on the card.
+"""Where one launch of the cluster block kernel (#1, ``csrc/swin_cluster.cu``;
+its residual form #6) or of the conv-fused x4 head (#5, ``csrc/up4_conv.cu``)
+spends its time, phase by phase, on the card.
 
-    python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4] [--kernel block|up4]
+    python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4] [--kernel block|block_res|up4]
 
 Builds the kernels with ``-DSUNET_PHASE_CLOCK`` (a library of its own, beside
 the normal one), which makes thread 0 of every CTA record its SM clock at
@@ -15,6 +15,10 @@ the card's name and power limit (the launch's time is chip_smoke.py's and
 chip_ab.py's reading). The clocks are per SM (not comparable across SMs),
 so only differences within one CTA are used. These shares are the per-layer
 metric of #1's redesign (PERF.md, Layers): which phases to overlap next.
+``--kernel block_res``: the residual form (#6, ``fused_swin_block_res``) at
+the widths the residual route trains, (64,64,96) and (32,32,192), with
+drop-path scales 1/0.9: its "attention" phase holds the stores of eb,
+rden and ctx_f.
 ``--kernel up4``: the x4 head at the default model's (64,64,96), out 1;
 thread 0 of every warpgroup (one tile each) adds its cycles per phase
 (setup, the bilinear branch, per subpixel the halo rows and x @ wexp[s],
@@ -54,7 +58,7 @@ def block_args(B: int, H: int, C: int, gen) -> tuple:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--kernel", choices=("block", "up4"), default="block")
+    ap.add_argument("--kernel", choices=("block", "block_res", "up4"), default="block")
     args = ap.parse_args()
     B = args.batch
     if not torch.cuda.is_available():
@@ -68,12 +72,15 @@ def main():
     lib.sunet_swin_block_phase_clock.argtypes = [ctypes.c_void_p]
     lib.sunet_swin_block_max_clusters.argtypes = [ctypes.c_int, ctypes.c_longlong]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for H, C in SHAPES:
+    res = args.kernel == "block_res"
+    dp = torch.full((B, 2), 1 / 0.9, device="cuda")
+    for H, C in SHAPES[:2] if res else SHAPES:
         args = block_args(B, H, C, gen)
         plan = wa.block_plan(H, H, C, 4 * C, 8, 8)
         ctas = B * plan["ctas_per_image"]
         clocks = torch.zeros(ctas, len(PHASES) + 1, dtype=torch.int64, device="cuda")
-        run = lambda: wa.fused_swin_block(*args, ws=8, num_heads=8, scale=8.0)
+        run = ((lambda: wa.fused_swin_block_res(*args, dp, ws=8, num_heads=8, scale=8.0)) if res
+               else (lambda: wa.fused_swin_block(*args, ws=8, num_heads=8, scale=8.0)))
         _build.check("block_phases", lib.sunet_swin_block_phase_clock(
             ctypes.c_void_p(clocks.data_ptr())))
         run()
@@ -83,7 +90,8 @@ def main():
         phase = (c[:, 1:] - c[:, :-1]).median(0).values
         total = float((c[:, -1] - c[:, 0]).median())
         held = lib.sunet_swin_block_max_clusters(plan["G"], plan["smem"])
-        print(f"({H},{H},{C}) batch {B}: cluster {plan['G']}, {ctas} CTAs, {plan['smem']} bytes "
+        print(f"{'#6 ' if res else ''}({H},{H},{C}) batch {B}: cluster {plan['G']}, {ctas} CTAs, "
+              f"{plan['smem']} bytes "
               f"of shared memory, {held} clusters held at once; per CTA {total:.0f} cycles")
         print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
                                for name, v in zip(PHASES, phase.tolist())))

@@ -1,13 +1,16 @@
 """Where one call of the whole-block backward (#8 ``swin_block_bwd``, #7
-``swin_block_bwd_res``; ``csrc/swin_block_bwd.cuh``) spends its device time,
-launch by launch, on the card.
+``swin_block_bwd_res``; ``csrc/swin_block_bwd.cuh``) or of the LN+W-MSA
+backward (#12 ``ln_window_attention_bwd``, ``csrc/ln_wmsa_bwd.cu``, on the
+same kernels) spends its device time, launch by launch, on the card.
 
     python -m sunet_tf_tpu_torch.tools.bwd_launches [--batch 2,4] [--shift 4]
 
 Runs each form at the default model's block widths, (64,64,96),
 (32,32,192) and (16,16,384) for #8 and the first two for #7 (the widths the
 default training route sends there), window 8, 8 heads, QK_SCALE 8,
-drop-path scales 1/0.9, bf16, seeded weights, and prints per case the
+drop-path scales 1/0.9, bf16, seeded weights, and #12 at the default
+model's bottleneck (8,8,768), at (16,16,768) with the shift and its mask,
+and at (16,16,384) with 2 heads (head dim 192), and prints per case the
 device time of each of its launches (torch.profiler, mean over 5 calls
 after 3 warm-up calls, in launch order), their sum (the device-busy time of
 a call) and the launch count, beside the card's name and power limit.
@@ -83,15 +86,27 @@ def main():
             mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
                     if shift else None)
             kw = dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
-            cases = [("#8 swin_block_bwd", lambda: wa.swin_block_bwd(
+            shape = f"({H},{H},{C}) shift {shift}"
+            cases = [(f"#8 swin_block_bwd {shape}", lambda: wa.swin_block_bwd(
                 x, dout, *p, mask, dp, **kw))]
             if res:
                 _, *st = wa.fused_swin_block_res(x, *p, mask, dp, **kw)
-                cases.append(("#7 swin_block_bwd_res", lambda: wa.swin_block_bwd_res(
+                cases.append((f"#7 swin_block_bwd_res {shape}", lambda: wa.swin_block_bwd_res(
                     x, dout, *st, *p[:-1], dp, **kw)))
+            if C == 384:   # #12, beside the block backward's widths
+                for Hw, Cw, hw_heads, sh in ((8, 768, 8, 0), (16, 768, 8, shift), (16, 384, 2, 0)):
+                    xw, dw, *q = block_args(B, Hw, Cw, gen)
+                    bias = torch.randn(hw_heads, 64, 64, device="cuda", generator=gen)
+                    mw = (torch.as_tensor(shift_attn_mask(Hw, Hw, ws, sh), device="cuda")
+                          if sh else None)
+                    cases.append((f"#12 ln_window_attention_bwd ({Hw},{Hw},{Cw}) {hw_heads} heads"
+                                  f" shift {sh}", lambda xw=xw, dw=dw, q=q, bias=bias, mw=mw,
+                                  hh=hw_heads: wa.ln_window_attention_bwd(
+                                      xw, dw, *q[0], *q[1:4], bias, mw, ws=ws, num_heads=hh,
+                                      scale=scale)))
             for name, fn in cases:
                 got = launches(fn)
-                print(f"{name} batch {B} ({H},{H},{C}) shift {shift}: {len(got)} launches, "
+                print(f"{name} batch {B}: {len(got)} launches, "
                       f"{sum(t for _, t in got) / 1000:.4f} ms device busy")
                 for kname, t in got:
                     print(f"  {t:9.2f} us  {kname}")

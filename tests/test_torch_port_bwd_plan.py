@@ -158,8 +158,7 @@ def test_router_never_sends_a_refused_shape_to_the_block_backward(heads):
                         wa.block_bwd_plan(8 * blk.window_size, 8 * blk.window_size, blk.dim,
                                           hidden, blk.window_size, blk.attn.num_heads)
                 elif blk.dim <= layers.ROUTE_TRAIN_BLOCK_MAX_C:
-                    assert not takes or not (blk.trains_on_residuals()
-                                             or blk.takes_block_kernel())
+                    assert not takes or not blk.takes_block_kernel()
 
 
 @pytest.mark.parametrize("resid", [True, False])

@@ -5,7 +5,9 @@ kernels and against autograd.
   ``chip_smoke.py`` holds the CUDA LN+W-MSA backward against) vs the JAX
   ``_ln_wmsa_bwd_impl`` in interpret mode with the per-head attention
   backward (``SUNET_ATTN_LAYOUT_BWD=perhead``), at shift 0 and with the
-  shift-2 mask; and vs torch.autograd of the plain forward
+  shift-2 mask, and at a head dim of 96 (C=96, one head, window 8: the
+  kernel takes head dims above 64 and is held to this plain version on the
+  card); and vs torch.autograd of the plain forward
   ``fused_ln_window_attention_reference``.
 - ``ln_mlp_branch_reference`` vs the JAX ``_ln_mlp_branch``;
   ``ln_mlp_bwd_reference`` vs the JAX ``_ln_mlp_bwd`` and vs autograd of
@@ -47,10 +49,10 @@ def _normal(rng):
     return lambda *s, sd=1.0: (rng.standard_normal(s) * sd).astype(np.float32)
 
 
-def _wmsa_inputs(shift, seed):
+def _wmsa_inputs(shift, seed, C=32, heads=2, ws=4):
     """x, dout (B, H, W, C), [g, b, wqkv, bqkv, wproj, bproj, bias], mask."""
     n = _normal(np.random.default_rng(seed))
-    B, H, W, C, heads, ws = 2, 8, 16, 32, 2, 4
+    B, H, W = 2, 8, 16
     p = [1 + n(C, sd=0.1), n(C, sd=0.1), n(C, 3 * C, sd=C ** -0.5), n(3 * C, sd=0.1),
          n(C, C, sd=C ** -0.5), n(C, sd=0.1), n(heads, ws * ws, ws * ws)]
     mask = shift_attn_mask(H, W, ws, shift) if shift else None
@@ -70,10 +72,13 @@ def _t(a):
     return None if a is None else torch.from_numpy(a)
 
 
-@pytest.mark.parametrize("shift", [0, 2])
-def test_ln_wmsa_bwd_plain_matches_jax(shift, monkeypatch):
+@pytest.mark.parametrize("shift,shape", [pytest.param(0, {}, id="0"),
+                                         pytest.param(2, {}, id="2"),
+                                         pytest.param(0, dict(C=96, heads=1, ws=8),
+                                                      id="head_dim_96")])
+def test_ln_wmsa_bwd_plain_matches_jax(shift, shape, monkeypatch):
     monkeypatch.setenv("SUNET_ATTN_LAYOUT_BWD", "perhead")
-    x, dout, p, mask, kw = _wmsa_inputs(shift, 110 + shift)
+    x, dout, p, mask, kw = _wmsa_inputs(shift, 110 + shift + len(shape), **shape)
     want = jwa._ln_wmsa_bwd_impl(jnp.asarray(x), *[jnp.asarray(a) for a in p],
                                  None if mask is None else jnp.asarray(mask),
                                  jnp.asarray(dout), kw["ws"], kw["num_heads"], kw["scale"])

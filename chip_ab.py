@@ -12,18 +12,18 @@ bf16, ``chip_smoke.block_params`` weights.
   and train form, and at batch 4 (shift 4); the block backward, the
   recompute form (#8) at the three widths and the residual route's (#7) at
   the first two, shift 0 and 4, #7 from the plain version's stored state
-  (the same input in both trees); the LN+MLP branch and its backward (#13,
-  #14) of ``chip_smoke.sublayer_cases``, the LN+MLP kernel (#4) at
+  (the same input in both trees); the LN+MLP branch (#13) of
+  ``chip_smoke.sublayer_cases``, the LN+MLP kernel (#4) at
   (8,8,768), batch 2 and 4, the LN+W-MSA
   kernel (#3) at (8,8,768), batch 2 and 4, and at (16,16,768), shift 4
   with the mask, the conv-fused x4 head (#5) at (64,64,96), out 1 and 3,
-  and out 1 at batch 4, its backward (#9) at (64,64,96), out 1 and 3, the
-  split x4 head (#10) and its backward (#11) at (64,64,96) and the
-  standalone W-MSA (#15) at (64,64,96), shift 0 and 4.
+  and out 1 at batch 4, the split x4 head (#10) and its backward (#11) at
+  (64,64,96) and the standalone W-MSA (#15) at (64,64,96), shift 0 and 4.
 - Against the plain version, both trees' readings printed (``PLAIN``
   lines): the residual route's block forward (#6: output and stored state)
-  at (64,64,96) and (32,32,192), shift 0 and 4, and the LN+W-MSA backward
-  (#12) of ``chip_smoke.sublayer_cases`` (dx and the worst weight
+  at (64,64,96) and (32,32,192), shift 0 and 4, the LN+W-MSA and LN+MLP
+  backwards (#12, #14) of ``chip_smoke.sublayer_cases`` and the conv-fused
+  head's backward (#9) at (64,64,96), out 1 and 3 (dx and the worst weight
   gradient). Their fp32 summation order is a design choice of each tree,
   so their bits may differ; a kernel whose redesign lies between the two
   trees moves here.
@@ -32,14 +32,17 @@ bf16, ``chip_smoke.block_params`` weights.
   with the card spinning first so that the host's pace of launches does not
   count; and the device time of the wrapper's kernels from torch.profiler,
   mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4, #13, #14
-  and #3 at (8,8,768) and #5 at (64,64,96) out 1, batch 2 and 4, #9, #8 at
+  and #3 at (8,8,768) and #5 and #9 at (64,64,96) out 1, batch 2 and 4, #9
+  out 3 (batch 2), #8 at
   the three widths and #6 and #7 at C=96 and 192 (shift 4, batch 2 and 4),
   #12 at (8,8,768) (batch 2 and 4) and at (16,16,768) shift 4, the default
   model's fused bf16 forward at 256x256 batch 4 (also paced by the host:
   events around each call with nothing queued ahead, as a caller who waits
   on each call sees it), and its batch-4 training step (forward and
   backward, no optimizer) on the residual route and with
-  ``ROUTE_TRAIN_RESID`` off: the profiler's device time per step. The trees run in turns (other, this, this, other).
+  ``ROUTE_TRAIN_RESID`` off: the profiler's device time per step and the
+  step paced by the host (median of 10). The trees run in turns (other,
+  this, this, other).
 
 The other tree needs ``chip_smoke.block_params``,
 ``chip_smoke.sublayer_cases``, ``chip_smoke.split_head_args``,
@@ -161,7 +164,7 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
                 outs[f"swin_block_bwd_res {case} output {i}"] = g
 for name, case, kernel, plain, args, kw, _, _ in cs.sublayer_cases(gen):
     out = kernel(*args, **kw)
-    if name == "ln_window_attention_bwd":
+    if name in ("ln_window_attention_bwd", "ln_mlp_bwd"):
         plain_grads(f"{name} {case}", out, plain(*args, **kw))
         timed(f"{name} {case}", lambda: kernel(*args, **kw))
         continue
@@ -176,8 +179,8 @@ for out_ch in (1, 3):
           (n(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16))
     outs[f"fused_dual_upsample4_conv_phase out {out_ch}"] = up.fused_dual_upsample4_conv_phase(*hp)
     dout = n(B, H, H, 16 * out_ch).to(torch.bfloat16)
-    for i, g in enumerate(up.up4_conv_bwd(*hp, dout)):
-        outs[f"up4_conv_bwd out {out_ch} output {i}"] = g
+    plain_grads(f"up4_conv_bwd out {out_ch}", up.up4_conv_bwd(*hp, dout),
+                up.up4_conv_bwd_reference(*hp, dout))
     timed(f"up4_conv_bwd out {out_ch}", lambda: up.up4_conv_bwd(*hp, dout))
 H, C = 8, 768
 p = cs.block_params(C, heads, ws * ws, gen)
@@ -232,6 +235,8 @@ for Bt in (2, 4):
             up.fused_dual_upsample4_conv_phase(*hp))
     timed(f"fused_dual_upsample4_conv_phase batch {Bt} out 1",
           lambda: up.fused_dual_upsample4_conv_phase(*hp))
+    dout = n(Bt, H, H, 16).to(torch.bfloat16)
+    timed(f"up4_conv_bwd batch {Bt} out 1", lambda: up.up4_conv_bwd(*hp, dout))
 for Bt in (2, 4):
     for H, C in ((64, 96), (32, 192), (16, 384), (8, 768)):
         p = cs.block_params(C, heads, ws * ws, gen)
@@ -299,7 +304,8 @@ def train_step():
 for resid in (True, False):
     layers.ROUTE_TRAIN_RESID = resid
     print(f"TIME train step batch 4 ({'residual route' if resid else 'ROUTE_TRAIN_RESID off'}):"
-          f" {device_ms(train_step, 3):.4f} ms device busy", flush=True)
+          f" {device_ms(train_step, 3):.4f} ms device busy, "
+          f"{time_ms(train_step, 10, device=False):.4f} ms paced by the host", flush=True)
 layers.ROUTE_TRAIN_RESID = True
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''

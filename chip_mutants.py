@@ -5,7 +5,7 @@
 
 Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
-x4-head backward at (64,64,96) out 1, and on the C=768 training sublayers
+x4-head backward at (64,64,96) out 1 and (34,40,96) out 3, and on the C=768 training sublayers
 of ``chip_smoke.sublayer_cases``: the LN+W-MSA backward at (8,8,768) and
 (16,16,768) shift 4, the LN+MLP branch and its backward at (8,8,768); and
 on the residual route's block backward at (64,64,96) and (32,32,192),
@@ -19,9 +19,10 @@ settings:
 - ``floor``: the plain version run on the CPU against itself on the card
   (the spread of a reordering alone);
 - one run per mutant: a copy of the repository under a temporary directory
-  with one deliberate fault in a kernel source, built and checked there
-  (each must fail); ``--mutants`` runs only the named ones and no other
-  setting;
+  with one deliberate fault (a few mutants write the same fault into each
+  kernel that has its own copy of the code) in the kernel sources, built
+  and checked there (each must fail); ``--mutants`` runs only the named
+  ones and no other setting;
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -67,7 +68,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# name: (source file under kernels/csrc, text, replacement)
+# name: (source file under kernels/csrc, text, replacement), or a list of
+# them (one fault written into each of several kernels)
 MUTANTS = {
     "tanh_gelu_grad": ("train_common.cuh", """__device__ inline float gelu_grad_f(float v) {
   return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
@@ -81,8 +83,13 @@ MUTANTS = {
     "dp_missing_from_dm": ("block_bwd_hopper.cuh",
                            "if (kA == kADm) ri.scale[r] = a.dp ? a.dp[2 * (row / hw) + 1] : 1.f;",
                            "if (kA == kADm) ri.scale[r] = 1.f;"),
-    # every LN backward, the 12- and the 24-column (C=768) instances
-    "ln_bwd_no_mean": ("train_common.cuh", "    m1 = warp_sum(m1) / C;\n", "    m1 = 0.f;\n"),
+    # the LN+MLP backward's (#14) LN rows without mean(dyn g)
+    "ln_bwd_no_mean": ("ln_mlp_bwd.cu", "  m1 = warp_sum(m1) / C;\n", "  m1 = 0.f;\n"),
+    # the LN+MLP backward's (#14) dab w1^T without the last K-split rank's
+    # partial (ks = 8 at (8,8,768))
+    "mlp_ksplit_rank_dropped": ("ln_mlp_bwd.cu",
+                                "for (int q = 0; q < ks; ++q)   // split partials in rank order",
+                                "for (int q = 0; q < ks - 1; ++q)   // split partials in rank order"),
     # the recompute form's attention backward (#8, and #12 on the same
     # kernel) without the rowsum(dP * P) term
     "ds_no_rowsum": ("block_bwd_hopper.cuh",
@@ -139,16 +146,26 @@ MUTANTS = {
         "          last ? 0u : pack_bf2(s[nt][0], s[nt][1]);\n"
         "      if (last) *reinterpret_cast<uint32_t*>(res.eb + (i0 + g + 8) * N + j) = 0u;\n"
         "      else"),
-    # the PReLU derivative and the stencil adjoint of both x4-head backwards
-    # (#9 and #11, through up4_bwd.cuh)
-    "up4_prelu_slope_ignored": (
-        "up4_bwd.cuh",
-        "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(zz > 0.f ? v : *alpha * v);",
-        "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(v);"),
+    # the subpixel branch's PReLU derivative of both x4-head backwards (#11
+    # in up4_bwd.cuh's epilogue, #9 in its phase launch), and the stencil's
+    # edge clamp of both stencil adjoints (up4_bwd.cuh's stencil_taps: #11's
+    # stencil_adj, #9's tap_coef)
+    "up4_prelu_slope_ignored": [
+        ("up4_bwd.cuh",
+         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(zz > 0.f ? v : *alpha * v);",
+         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(v);"),
+        ("up4_conv_bwd.cu",
+         "pack_bf2(z[i] > 0.f ? dp[i] : ap * dp[i], z[i + 1] > 0.f ? dp[i + 1] : ap * dp[i + 1]);",
+         "pack_bf2(dp[i], dp[i + 1]);")],
     "up4_stencil_edge_not_folded": (
         "up4_bwd.cuh",
-        "const int lo = p < 2 ? max(u - 1, 0) : u, hi = p < 2 ? u : min(u + 1, n - 1);",
-        "const int lo = p < 2 ? u - 1 : u, hi = p < 2 ? u : u + 1;"),
+        "  lo = p < 2 ? max(u - 1, 0) : u;\n  hi = p < 2 ? u : min(u + 1, n - 1);",
+        "  lo = p < 2 ? u - 1 : u;\n  hi = p < 2 ? u : u + 1;"),
+    # the conv-fused head's backward (#9): the fold of the slots that read a
+    # phase at a row offset without that offset (dout not shifted back)
+    "up4_fold_slot_unshifted": ("up4_conv_bwd.cu",
+                                "const int hh = h0 + (r >> 3) - ddh, ww = w0 + (r & 7) - ddw;",
+                                "const int hh = h0 + (r >> 3), ww = w0 + (r & 7) - ddw;"),
     # the split head (#10) with its bilinear branch rounded to bf16 before
     # the stencil (the eager route's rounding point, not the JAX kernel's)
     "up4_split_bilinear_rounded": (
@@ -159,13 +176,18 @@ MUTANTS = {
         "warp, lane);\n"
         "  for (int i = threadIdx.x; i < kSplitHR * ldb; i += kThreads) xb[i] = bf(tobf(xb[i]));\n"
         "  __syncthreads();\n"),
-    # the H-axis stencil adjoint (#11, and #9 through up4_bwd.cuh) with the
-    # top edge's clamped tap not folded back onto the edge row
-    "up4_h_adjoint_top_unclamped": (
-        "up4_bwd.cuh",
-        "      acc += stencil_adj(h, H, i, [&](int u) {\n",
-        "      acc += (h == 0 && i < 2 ? -kQ4[i][0] * dyh[((size_t)i * M + (size_t)b * H * W + w) "
-        "* C + c] : 0.f) +\n             stencil_adj(h, H, i, [&](int u) {\n"),
+    # the H-axis stencil adjoint (#11's kernel in up4_bwd.cuh, #9's H pass
+    # of its dxb tiles) with the top edge's clamped tap not folded back onto
+    # the edge row
+    "up4_h_adjoint_top_unclamped": [
+        ("up4_bwd.cuh",
+         "      acc += stencil_adj(h, H, i, [&](int u) {\n",
+         "      acc += (h == 0 && i < 2 ? -kQ4[i][0] * dyh[((size_t)i * M + (size_t)b * H * W + w) "
+         "* C + c] : 0.f) +\n             stencil_adj(h, H, i, [&](int u) {\n"),
+        ("up4_conv_bwd.cu",
+         "        s += tap_coef(P, th, H) * R[((qh * 8 + pw) * 3 + dxi) * out + o];",
+         "        s += (th == 0 && P < 2 ? tap_coef(P, th, H) - kQ4[P][0] : tap_coef(P, th, H)) *\n"
+         "             R[((qh * 8 + pw) * 3 + dxi) * out + o];")],
     # the cluster block kernel (#1): the last rank's fc2 partial left out of
     # the reduction (at G = 1 the only one), and the next rank's ctx
     # columns not gathered before proj (G > 1: C=192 and 384)
@@ -347,6 +369,15 @@ for Bt, H, W, out_ch in ((4, 64, 64, 1), (2, 34, 40, 3)):
            else up.fused_dual_upsample4_conv_phase(*hp))
     cs.compare(f"fused_dual_upsample4_conv_phase batch {Bt} ({H},{W},96) out {out_ch} {tag}",
                got.cuda(), ref)
+# the conv-fused head's backward (#9) on a map of partial tiles, out 3,
+# drawn last
+hp = (n(B, 34, 40, 96).to(torch.bfloat16), bw(96, 16 * 96), torch.full((1,), 0.25, device="cuda"),
+      bw(96, 96), 0.1 * n(96), torch.full((1,), 0.2, device="cuda"), bw(96, 96), bw(96, 96),
+      (n(3, 3, 96, 3) / (9 * 96) ** 0.5).to(torch.bfloat16), n(B, 34, 40, 48).to(torch.bfloat16))
+ref = up.up4_conv_bwd_reference(*hp)
+got = (up.up4_conv_bwd_reference(*cpu(hp)) if mode == "floor" else up.up4_conv_bwd(*hp))
+cs.compare_grads(f"up4_conv_bwd (34,40,96) out 3 {tag}", tuple(g.cuda() for g in got), ref,
+                 cs.UP4_GRADS)
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)
@@ -644,17 +675,19 @@ def main():
                     for gain in (1.0, 0.25):
                         summary += run(ROOT, "kernel", seed, gain, log)
                 summary += run(ROOT, "floor", 4321, 1.0, log)
-            for name, (src, old, new) in MUTANTS.items():
+            for name, edits in MUTANTS.items():
                 if only and name not in only:
                     continue
                 copy = Path(tmp) / name
                 shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
                     "_build", ".git", "__pycache__"))
-                path = copy / "sunet_tf_tpu_torch" / "kernels" / "csrc" / src
-                text = path.read_text()
-                if text.count(old) != 1:
-                    raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in {src}")
-                path.write_text(text.replace(old, new))
+                for src, old, new in edits if isinstance(edits, list) else [edits]:
+                    path = copy / "sunet_tf_tpu_torch" / "kernels" / "csrc" / src
+                    text = path.read_text()
+                    if text.count(old) != 1:
+                        raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in "
+                                         f"{src} once")
+                    path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
         if not only:
             summary += step_noise(log, out.with_suffix(".dists.json"))

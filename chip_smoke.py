@@ -17,17 +17,21 @@
    CUDA-event-timed runs after warm-up (the card spins first, so the host's
    pace of launches does not count), and the kernel's bound (bytes or operations over
    the card's published peak rates); where a call launches several kernels
-   (#12), its launches per call against the wrapper's constant. The forward
+   (#9, #12, #14), its launches per call against the wrapper's constant. The forward
    kernels also include the
    split x4 head (#10, also on a map that is not a multiple of its tile)
    and the standalone W-MSA (#15, with one PyTorch call for the same
    function timed beside it). The training kernels: the block kernel's
    train form (drop-path scales), the block backward (also at batch 4: the
    residual route's at C=96 and 192, the recompute form's at C=384, the
-   default route's rule), the x4 head backward,
+   default route's rule), the x4 head backward (#9, also at batch 4 out 1
+   and 3, at out 8 and on a (34,40) map of partial tiles, its plan
+   asserted),
    the C=768 sublayers (the LN+W-MSA backward, the LN+MLP branch and its
    backward; the LN+W-MSA backward also at batch 4 and at C=384 with 2
-   heads, head dim 192), the residual route of the C=96/192 blocks (the
+   heads, head dim 192; the LN+MLP backward also at batch 4 and on a
+   (16,16,768) map whose window order is not its row order, its K split
+   asserted and its workspace held to the mirror), the residual route of the C=96/192 blocks (the
    block forward that stores the softmax state, at shift 0 and 4, batch 2
    and 4 on the main path's cluster sizes, output and state held against
    the plain version, and the backward from that state), and the split
@@ -280,14 +284,15 @@ def up4_cost(B: int, H: int, C: int, out: int, W: int = None) -> dict:
                  M * C * 2 + M * 16 * out * 2 + 19 * C * C * 2)
 
 
-def up4_bwd_cost(B: int, H: int, C: int, out: int) -> dict:
+def up4_bwd_cost(B: int, H: int, C: int, out: int, W: int = None) -> dict:
     """Backward of the head + conv (#9): the head recomputed, two products
     per head product, the conv's input and per-slot weight grads; bytes: x
-    and dout in, dx out, bf16 weights in, float32 grads out."""
-    M = B * H * H
+    and dout in, dx out, bf16 weights in, float32 grads out (the conv's
+    (3, 3, C, out)). W defaults to H."""
+    M = B * H * (W or H)
     return bound(M * (3 * 68 * C * C + (288 + 1152) * C * out),
                  2 * M * C * 2 + M * 16 * out * 2 + 19 * C * C * 2
-                 + (19 * C * C + 36 * C * 16 * out) * 4)
+                 + (19 * C * C + 9 * C * out + C + 2) * 4)
 
 
 def up4_split_cost(B: int, H: int, W: int, C: int) -> dict:
@@ -810,6 +815,36 @@ def train_kernel_phases(results: dict):
           "equal bit for bit")
     record_time(results, "up4_conv_bwd", case, got_fn, ref_fn, up4_bwd_cost(B, H, C, out_ch),
                 mx, mean)
+    # #9 on the training step's batch 4, at out 3 and 8 (the fold's 64-column
+    # boxes per phase: 1, 3, 8), and on a (34,40) map of partial tiles (every
+    # border of the fold's zero padding and of the stencil's clamp), each
+    # with its plan asserted; its own generator, so that the other kernels'
+    # cases keep their inputs
+    hgen = torch.Generator(device="cuda").manual_seed(4326)
+    hn = lambda *s: torch.randn(*s, device="cuda", generator=hgen)
+    hw_ = lambda i, o: (hn(i, o) / i ** 0.5).to(torch.bfloat16)
+    for Bc, H, W, C, out_ch, tpc in ((4, 64, 64, 96, 1, 32), (4, 64, 64, 96, 3, 32),
+                                     (2, 64, 64, 96, 8, 32), (2, 34, 40, 96, 1, 13)):
+        plan = up.up4_conv_bwd_plan(H, W, C, out_ch)
+        check(plan["tiles_per_chunk"] == tpc and max(plan["fold_boxes"]) == out_ch,
+              f"up4_conv_bwd ({H},{W},{C}) out {out_ch}: plan {plan}, expected {tpc} tiles "
+              f"per chunk")
+        hp = (hn(Bc, H, W, C).to(torch.bfloat16), hw_(C, 16 * C),
+              torch.full((1,), 0.25, device="cuda"), hw_(C, C), 0.1 * hn(C),
+              torch.full((1,), 0.2, device="cuda"), hw_(C, C), hw_(C, C),
+              (hn(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16),
+              hn(Bc, H, W, 16 * out_ch).to(torch.bfloat16))
+        case = f"batch {Bc} ({H},{W},{C}) out {out_ch}, {tpc} tiles per chunk"
+        got_fn = lambda: up.up4_conv_bwd(*hp)
+        ref_fn = lambda: up.up4_conv_bwd_reference(*hp)
+        got = got_fn()
+        mx, mean = compare_grads(f"up4_conv_bwd {case}", got, ref_fn(), UP4_GRADS)
+        check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
+              f"up4_conv_bwd {case}: two runs differ (the reductions must be deterministic)")
+        launches_per_call("up4_conv_bwd", got_fn, up.UP4_CONV_BWD_LAUNCHES)
+        record_time(results, "up4_conv_bwd", case, got_fn, ref_fn,
+                    up4_bwd_cost(Bc, H, C, out_ch, W), mx, mean)
+    print("  the head backward: plans as mirrored, two runs equal bit for bit")
 
     per_call = {"ln_mlp_branch": wa.LN_MLP_BRANCH_LAUNCHES, "ln_mlp_bwd": wa.LN_MLP_BWD_LAUNCHES,
                 "ln_window_attention_bwd": wa.LN_WMSA_BWD_LAUNCHES}
@@ -888,6 +923,32 @@ def train_kernel_phases(results: dict):
         record_time(results, name, case, got_fn, ref_fn,
                     ln_wmsa_bwd_cost(Bc, H, C, ws, hc, masked=shift > 0), mx, mean)
     print("  the LN+W-MSA backward: workspace equal to the mirror, two runs equal bit for bit")
+    # the LN+MLP backward (#14) on the main path's batch 4, and on a
+    # (16,16,768) map, whose window order is not its row order, each with its
+    # K split asserted and its workspace held to the mirror
+    for Bc, H, ks in ((4, 8, 8), (2, 16, 2)):
+        C, hidden = 768, 3072
+        plan = wa.ln_mlp_bwd_plan(H, H, C, hidden)
+        check(plan["ks"] == ks, f"ln_mlp_bwd ({H},{H},{C}): plan {plan}, expected ks={ks}")
+        work = wa.ln_mlp_bwd_workspace(Bc, H, H, C, hidden)
+        got_work = lib.sunet_ln_mlp_bwd_workspace(Bc, H, H, C, hidden)
+        check(work == got_work, f"ln_mlp_bwd ({H},{H},{C}): workspace {got_work} bytes, the "
+              f"Python mirror {work}")
+        p = block_params(C, heads, N, ngen)
+        x = torch.randn(Bc, H, H, C, device="cuda", generator=ngen).to(torch.bfloat16)
+        dout = torch.randn(Bc, H, H, C, device="cuda", generator=ngen).to(torch.bfloat16)
+        args = (x, dout, p[6:8], p[8], p[9], p[10])
+        case = f"batch {Bc} ({H},{H},{C}), K split {ks}"
+        got_fn = lambda: wa.ln_mlp_bwd(*args)
+        ref_fn = lambda: wa.ln_mlp_bwd_reference(*args)
+        got = got_fn()
+        mx, mean = compare_grads(f"ln_mlp_bwd {case}", got, ref_fn(), MLP_GRADS)
+        check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
+              f"ln_mlp_bwd {case}: two runs differ (the reductions must be deterministic)")
+        launches_per_call("ln_mlp_bwd", got_fn, wa.LN_MLP_BWD_LAUNCHES)
+        record_time(results, "ln_mlp_bwd", case, got_fn, ref_fn, ln_mlp_bwd_cost(Bc, H, C), mx,
+                    mean)
+    print("  the LN+MLP backward: workspace equal to the mirror, two runs equal bit for bit")
 
     # the split head's backward (#11), pixel-space dout: the main path's
     # (64,64,96), and a map whose H and W are not multiples of 4 and 8; its
@@ -1304,13 +1365,15 @@ def plans_taken(into: set):
     duration: ("fused_swin_block" or "fused_swin_block_res", C, hidden,
     heads, G), ("fused_ln_mlp", C, hidden, ks), ("fused_ln_window_attention",
     C, heads, ws, ksq, ks), ("ln_window_attention_bwd", C, heads, ws, tokens
-    per chunk, windows per chunk) and ("fused_dual_upsample4_conv_phase",
-    C, out, T)."""
+    per chunk, windows per chunk), ("ln_mlp_bwd", C, hidden, ks, tokens per
+    chunk), ("fused_dual_upsample4_conv_phase", C, out, T) and
+    ("up4_conv_bwd", C, out, tiles per chunk, tokens per chunk)."""
     from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
 
     block_plan, mlp_plan, wmsa_plan, up4_plan = wa.block_plan, wa.mlp_plan, wa.wmsa_plan, up.up4_plan
     launch_block, wmsa_bwd_plan = wa._launch_block, wa.ln_wmsa_bwd_plan
+    mlp_bwd_plan, up4_bwd_plan = wa.ln_mlp_bwd_plan, up.up4_conv_bwd_plan
     form = ["fused_swin_block"]   # the block kernel's form being launched
 
     def launch(*args, res=False, **kw):
@@ -1331,6 +1394,16 @@ def plans_taken(into: set):
                   plan["windows_per_chunk"]))
         return plan
 
+    def mlp_bwd(H, W, C, hidden):
+        plan = mlp_bwd_plan(H, W, C, hidden)
+        into.add(("ln_mlp_bwd", C, hidden, plan["ks"], plan["chunk_tokens"]))
+        return plan
+
+    def head_bwd(H, W, C, out):
+        plan = up4_bwd_plan(H, W, C, out)
+        into.add(("up4_conv_bwd", C, out, plan["tiles_per_chunk"], plan["wgrad_chunk_tokens"]))
+        return plan
+
     def mlp(M, C, hidden):
         plan = mlp_plan(M, C, hidden)
         into.add(("fused_ln_mlp", C, hidden, plan["ks"]))
@@ -1348,7 +1421,8 @@ def plans_taken(into: set):
 
     with patched([(wa, "block_plan", block), (wa, "mlp_plan", mlp), (wa, "wmsa_plan", wmsa),
                   (up, "up4_plan", head), (wa, "_launch_block", launch),
-                  (wa, "ln_wmsa_bwd_plan", wmsa_bwd)]):
+                  (wa, "ln_wmsa_bwd_plan", wmsa_bwd), (wa, "ln_mlp_bwd_plan", mlp_bwd),
+                  (up, "up4_conv_bwd_plan", head_bwd)]):
         yield into
 
 

@@ -60,9 +60,10 @@ SIGNATURES = {
     # B, H, W, C, hidden, ws, heads -> workspace bytes
     "sunet_swin_block_bwd_res_workspace": [_I] * 7,
     # x, dout, w_exp (C, 16C), wb1, bb1, wpf, wbf, wconv, alphas, dx,
-    # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, dwfold, workspace, B, H, W,
-    # C, out, int* launches, stream
-    "sunet_up4_conv_bwd": [_P] * 18 + [_I] * 5 + [_P, _P],
+    # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, dwconv (3, 3, C, out),
+    # workspace, B, H, W, C, out, the launch plan's tiles per chunk, int*
+    # launches, stream
+    "sunet_up4_conv_bwd": [_P] * 18 + [_I] * 6 + [_P, _P],
     # B, H, W, C, out -> workspace bytes
     "sunet_up4_conv_bwd_workspace": [_I] * 5,
     # x, dout, ln g/b, wqkv, bqkv, wproj, bias, mask, dx, 7 grads (ln g/b,
@@ -77,10 +78,11 @@ SIGNATURES = {
     # M, C, hidden -> workspace bytes
     "sunet_ln_mlp_branch_workspace": [_I] * 3,
     # y, dout, ln g/b, w1, b1, w2, dy, 6 grads (ln g/b, w1, b1, w2, b2),
-    # workspace, M, C, hidden, int* launches, stream
-    "sunet_ln_mlp_bwd": [_P] * 15 + [_I] * 3 + [_P, _P],
-    # M, C, hidden -> workspace bytes
-    "sunet_ln_mlp_bwd_workspace": [_I] * 3,
+    # workspace, B, H, W, C, hidden, the launch plan's K split ks, int*
+    # launches, stream
+    "sunet_ln_mlp_bwd": [_P] * 15 + [_I] * 6 + [_P, _P],
+    # B, H, W, C, hidden -> workspace bytes
+    "sunet_ln_mlp_bwd_workspace": [_I] * 5,
     # x, out, ln g/b, wqkv, bqkv, wproj, bproj, bias, mask, workspace, B, H,
     # W, C, ws, heads, scale, the launch plan's K splits (qkv, proj), int*
     # launches, stream

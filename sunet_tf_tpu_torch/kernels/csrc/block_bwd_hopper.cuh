@@ -321,6 +321,36 @@ __device__ inline void tok_epilogue(const TokArgs& a, float* cs, float* xs, floa
                                     const RowInfo& ri, long long r0, int valid, int n0) {
   if constexpr (ln_bwd_epilogue(kE)) {
     ln_epilogue<kE>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
+  } else if constexpr (kE == kEDa) {
+    // da = s gelu'(a), a's tile from device memory: a group's loads before
+    // its stores, which the compiler cannot tell from a's memory
+    // (interleaved, each load would wait on the stores before it); groups
+    // of 8 keep the registers of a kernel with 2 CTAs per SM
+    constexpr int kGroup = 8;
+    const int tid = threadIdx.x, N = a.N;
+#pragma unroll 1
+    for (int g = 0; g < 64 * kCols / kThr; g += kGroup) {
+      float av[kGroup];
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int i = tid + (g + k) * kThr, r = i / kCols, col = n0 + i % kCols;
+        av[k] = r < valid && col < N ? __ldg(a.aux + (size_t)(r0 + r) * N + col) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup; ++k) {
+        const int i = tid + (g + k) * kThr, r = i / kCols, c = i % kCols, col = n0 + c;
+        if (r >= valid || col >= N) continue;
+        const float t = cs[r * kCsLd + c] * gelu_grad_f(av[k]);
+        a.ob[(size_t)(r0 + r) * N + col] = tobf(t);
+        cs[r * kCsLd + c] = t;
+      }
+    }
+    __syncthreads();   // the row tile's column sums of da (b1's gradient)
+    if (tid < kCols && n0 + tid < N) {
+      float s = 0.f;
+      for (int r = 0; r < valid; ++r) s += cs[r * kCsLd + tid];
+      a.part[(size_t)blockIdx.y * N + n0 + tid] = s;
+    }
   } else {
     const int tid = threadIdx.x, N = a.N;
 #pragma unroll 8
@@ -337,22 +367,10 @@ __device__ inline void tok_epilogue(const TokArgs& a, float* cs, float* xs, floa
         const float t = v + a.bias[col];
         a.of[e] = t;
         a.ob[e] = tobf(gelu_f(t));
-      } else if constexpr (kE == kEDa) {
-        const float t = v * gelu_grad_f(a.aux[e]);
-        a.ob[e] = tobf(t);
-        cs[r * kCsLd + c] = t;
       } else if constexpr (kE == kEDctxB) {
         a.ob[e] = tobf(v);
       } else {
         a.of[e] = v;
-      }
-    }
-    if constexpr (kE == kEDa) {   // the row tile's column sums of da (b1's gradient)
-      __syncthreads();
-      if (tid < kCols && n0 + tid < N) {
-        float s = 0.f;
-        for (int r = 0; r < valid; ++r) s += cs[r * kCsLd + tid];
-        a.part[(size_t)blockIdx.y * N + n0 + tid] = s;
       }
     }
   }
@@ -505,11 +523,12 @@ __host__ __device__ inline int wg_tiles(int M, int N) {
   return ((M + 63) / 64) * ((N + kCols - 1) / kCols);
 }
 
-// CTA blockIdx.x: product p (in order), then output tile (64-row tiles of
-// M fastest), then token chunk, the chunk fastest
-// (kernels/window_attention.py::block_bwd_wgrad_table mirrors it).
-static __global__ void __launch_bounds__(kThr, 1)
-    wgrad_kernel(const __grid_constant__ WgArgs a, const __grid_constant__ WgMaps m) {
+// CTA `bid` of a weight-gradient launch: product p (in order), then output
+// tile (64-row tiles of M fastest), then token chunk, the chunk fastest
+// (kernels/window_attention.py::block_bwd_wgrad_table mirrors it). A and m
+// are the launch's __grid_constant__ parameters (the tensor maps stay in
+// parameter space).
+__device__ __forceinline__ void wgrad_cta(const WgArgs& a, const WgMaps& m, int bid) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -518,9 +537,9 @@ static __global__ void __launch_bounds__(kThr, 1)
   unsigned char* ring = base + kHead;
   const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & 127;
   int pi = 0;
-  while (pi + 1 < a.np && (int)blockIdx.x >= a.p[pi + 1].first) ++pi;
+  while (pi + 1 < a.np && bid >= a.p[pi + 1].first) ++pi;
   const WgProduct& p = a.p[pi];
-  const int local = (int)blockIdx.x - p.first;
+  const int local = bid - p.first;
   const int ch = local % a.nchunks, tile = local / a.nchunks;
   const int m0 = (tile % p.mt) * 64, n0 = (tile / p.mt) * kCols;
   const int t0 = ch * a.chunk, steps = (min(a.T, t0 + a.chunk) - t0 + 63) / 64;
@@ -580,6 +599,11 @@ static __global__ void __launch_bounds__(kThr, 1)
   }
   if (colsum && n0 + wg * 64 + t128 < p.N)
     p.pbias[(size_t)ch * p.N + n0 + wg * 64 + t128] = cs;
+}
+
+static __global__ void __launch_bounds__(kThr, 1)
+    wgrad_kernel(const __grid_constant__ WgArgs a, const __grid_constant__ WgMaps m) {
+  wgrad_cta(a, m, (int)blockIdx.x);
 }
 
 inline size_t wgrad_smem() { return 1024 + kHead + (size_t)kRingS * kSlot; }

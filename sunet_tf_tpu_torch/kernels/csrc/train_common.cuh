@@ -1,9 +1,11 @@
 // Shared pieces of the training kernels (the block backward and the LN+W-MSA
-// backward, the LN+MLP sublayers, the x4-head backward): a tiled bf16 GEMM
-// with fp32 accumulation and a per-element epilogue, deterministic token
-// reductions (split partials summed in a fixed order), the token-index map
-// of a window-major (rolled, partitioned) token order, and the row kernels
-// (LayerNorm forward and backward for C <= 768).
+// and LN+MLP backwards on block_bwd_hopper.cuh, the LN+MLP branch, the split
+// x4 head's backward): a tiled bf16 WMMA GEMM with fp32 accumulation and a
+// per-element epilogue (the LN+MLP branch's and the split head's backward's
+// products), deterministic token reductions (split partials summed in a
+// fixed order), the token-index map of a window-major (rolled, partitioned)
+// token order, GELU and its derivative, and the LayerNorm row kernel for C
+// <= 768.
 //
 // Kernels defined here are templates or static, so every source that
 // includes the header gets its own copy and the link sees no duplicates.
@@ -268,7 +270,7 @@ struct Carve {
 // ---- row kernels
 
 constexpr int kLnRows = 64;    // rows per CTA of the row kernels (8 per warp)
-constexpr int kLnMaxC = 768;   // widest row of the LN backward (24 columns per lane)
+constexpr int kLnMaxC = 768;   // widest LayerNorm row of the training kernels
 
 inline int ln_ctas(int T) { return (T + kLnRows - 1) / kLnRows; }
 
@@ -322,92 +324,6 @@ inline cudaError_t ln_fwd(const bf16* src, bool gather, bf16* copy, bf16* out, f
   return launched(launches);
 }
 
-// LayerNorm backward over T rows of a sublayer's LN (whose residual
-// autograd adds outside), kCols columns per lane (C <= 32*kCols): xhat from
-// x (the token matrix's rows, bf16) and its stats, dxhat = d * g, dx =
-// round(inv*(dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))) in row r of
-// dx, and per-CTA partials of dg = sum d*xhat and db = sum d as
-// part[cta][0:C) and part[cta][C:2C).
-template <int kCols>
-__global__ void __launch_bounds__(kThreads)
-    ln_bwd_kernel(const float* __restrict__ d, const bf16* __restrict__ x,
-                  const float* __restrict__ stats, const float* __restrict__ g,
-                  bf16* __restrict__ dx, float* __restrict__ part, int T, int C) {
-  __shared__ float red[kWarps][kCols * 32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float pdg[kCols], pdb[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) pdg[j] = pdb[j] = 0.f;
-  for (int i = 0; i < kLnRows / kWarps; ++i) {
-    const int r = blockIdx.x * kLnRows + warp * (kLnRows / kWarps) + i;
-    if (r >= T) break;
-    const float mean = stats[2 * r], inv = stats[2 * r + 1];
-    float dv[kCols], xh[kCols];
-    float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = lane + 32 * j;
-      dv[j] = xh[j] = 0.f;
-      if (c < C) {
-        dv[j] = d[(size_t)r * C + c];
-        xh[j] = (bf(x[(size_t)r * C + c]) - mean) * inv;
-        pdg[j] += dv[j] * xh[j];
-        pdb[j] += dv[j];
-        const float dxh = dv[j] * g[c];
-        m1 += dxh;
-        m2 += dxh * xh[j];
-      }
-    }
-    m1 = warp_sum(m1) / C;
-    m2 = warp_sum(m2) / C;
-    const size_t off = (size_t)r * C;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int c = lane + 32 * j;
-      if (c >= C) continue;
-      dx[off + c] = tobf(inv * (dv[j] * g[c] - m1 - xh[j] * m2));
-    }
-  }
-  // the CTA's dg, then its db, through one buffer (warps summed in order)
-  float* out = part + (size_t)blockIdx.x * 2 * C;
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) red[warp][j * 32 + lane] = pdg[j];
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][c];
-    out[c] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) red[warp][j * 32 + lane] = pdb[j];
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][c];
-    out[C + c] = s;
-  }
-}
-
-// Launches the LN backward with the fewest columns per lane that hold C.
-inline cudaError_t ln_bwd(const float* d, const bf16* x, const float* stats, const float* g,
-                          bf16* dx, float* part, int T, int C, cudaStream_t st, int* launches) {
-  if (C <= 12 * 32)
-    ln_bwd_kernel<12><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C);
-  else if (C <= kLnMaxC)
-    ln_bwd_kernel<kLnMaxC / 32><<<ln_ctas(T), kThreads, 0, st>>>(d, x, stats, g, dx, part, T, C);
-  else
-    return cudaErrorInvalidValue;
-  return launched(launches);
-}
-
-// dg and db from the LN backward's partials: two fixed-order sums.
-inline cudaError_t ln_param_grads(const float* part, float* dg, float* db, int T, int C,
-                                  cudaStream_t st, int* launches) {
-  SUNET_TRY(reduce_splits(part, dg, ln_ctas(T), C, 2 * C, st, launches));
-  return reduce_splits(part + C, db, ln_ctas(T), C, 2 * C, st, launches);
-}
-
 // ---- token-row GEMM epilogues (m: token row, n: output column)
 
 struct EpiBias {   // out = round(acc + bias), bias optional
@@ -430,20 +346,6 @@ struct EpiFc1 {   // a = acc + b1 (fp32, when a is given), h = round(gelu(acc + 
     const float t = v + b1[n];
     if (a) a[e] = t;
     h[e] = tobf(gelu_f(t));
-    return 0.f;
-  }
-};
-
-struct EpiDa {   // da = acc * gelu'(a) (fp32) and round(da)
-  float* da;
-  bf16* dab;
-  const float* a;
-  int ld;
-  __device__ float operator()(int m, int n, float v, int) const {
-    const size_t e = (size_t)m * ld + n;
-    const float t = v * gelu_grad_f(a[e]);
-    da[e] = t;
-    dab[e] = tobf(t);
     return 0.f;
   }
 };

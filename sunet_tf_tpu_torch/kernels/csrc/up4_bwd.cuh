@@ -1,18 +1,19 @@
-// Shared pieces of the x4 head's backward kernels: the conv-fused head's
-// (up4_conv_bwd.cu, #9) and the split head's (up4_bwd.cu, #11). Both run
-// the tiled GEMM of train_common.cuh over all low-res pixels with the
-// head's elementwise steps in its epilogues: the PReLU forward recompute
-// and the subpixel scatter of the expand product (EpiPrelu,
-// EpiPreluPhase), the PReLU derivatives with their slope partials
-// (EpiPreluBwdPhase, EpiPreluBwd); the stencil adjoints (stencil_adj, the
-// H-axis kernel); and the bilinear branch's chain from its rounded stencil
-// adjoint to dx (up4_bilinear_bwd).
+// Shared pieces of the x4 head's backward kernels. The split head's (#11,
+// up4_bwd.cu) runs the tiled GEMM of train_common.cuh over all low-res
+// pixels with the head's elementwise steps in its epilogues: the PReLU
+// forward recompute and the subpixel scatter of the expand product
+// (EpiPrelu, EpiPreluPhase), the PReLU derivatives with their slope
+// partials (EpiPreluBwdPhase, EpiPreluBwd); the stencil adjoints
+// (stencil_adj, the H-axis kernel); and the bilinear branch's chain from
+// its rounded stencil adjoint to dx (up4_bilinear_bwd). The conv-fused
+// head's (#9, up4_conv_bwd.cu) runs on hopper.cuh's wgmma and shares the
+// phase weights kQ4, the PReLU and the stencil's clamped taps
+// (stencil_taps).
 //
-// The 16 subpixel maps of the expand product are (16M, C) matrices; a row
-// map says which row holds subpixel s of low-res pixel m: phase-major for
-// #9, whose cotangent arrives in phase space, pixel order of the (B, 4H,
-// 4W) up-sampled map for #11, whose cotangent arrives in pixel space (the
-// pixel -> phase addressing is in the epilogues, not in a permuted copy).
+// The 16 subpixel maps of #11's expand product are (16M, C) matrices in
+// the pixel order of the (B, 4H, 4W) up-sampled map (PixelRows: its
+// cotangent arrives in pixel space; the pixel -> phase addressing is in the
+// epilogues, not in a permuted copy).
 //
 // Everything here is static, inline or a template, so several sources can
 // include the header.
@@ -29,15 +30,6 @@ __device__ inline float prelu_f(float v, float a) { return fmaxf(v, 0.f) + a * f
 
 // Row maps of the subpixel matrices (m: low-res pixel b*H*W + h*W + w;
 // s: subpixel i*4 + j).
-struct PhaseRows {   // row s*M + m
-  int M;
-  __device__ size_t row(int m, int s) const { return (size_t)s * M + m; }
-  __device__ void split(int r, int& m, int& s) const {
-    s = r / M;
-    m = r % M;
-  }
-};
-
 struct PixelRows {   // row of pixel (b, 4h+i, 4w+j) of the (B, 4H, 4W) map
   int H, W;
   __device__ size_t row(int m, int s) const {
@@ -131,6 +123,14 @@ struct EpiAddBf16 {   // out = round(base + acc)
   }
 };
 
+// The two taps (lo, hi) of phase p at source index u of one axis (size n)
+// of the x4 stencil: (u-1, u) for p = 0, 1 and (u, u+1) for p = 2, 3,
+// clamped at the edges.
+__device__ inline void stencil_taps(int u, int n, int p, int& lo, int& hi) {
+  lo = p < 2 ? max(u - 1, 0) : u;
+  hi = p < 2 ? u : min(u + 1, n - 1);
+}
+
 // Adjoint of one axis of the clamped x4 stencil at target index t (size
 // n): sum over source indices u of g(u) * (a_p [lo(u) == t] + b_p [hi(u) ==
 // t]) for phase p.
@@ -138,7 +138,8 @@ template <class G>
 __device__ inline float stencil_adj(int t, int n, int p, G g) {
   float acc = 0.f;
   for (int u = max(t - 1, 0); u <= min(t + 1, n - 1); ++u) {
-    const int lo = p < 2 ? max(u - 1, 0) : u, hi = p < 2 ? u : min(u + 1, n - 1);
+    int lo, hi;
+    stencil_taps(u, n, p, lo, hi);
     const float v = g(u);
     if (lo == t) acc += kQ4[p][0] * v;
     if (hi == t) acc += kQ4[p][1] * v;

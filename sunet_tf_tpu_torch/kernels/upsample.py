@@ -43,15 +43,17 @@ import torch
 import torch.nn.functional as F
 
 from sunet_tf_tpu_torch.kernels import _build
-from sunet_tf_tpu_torch.kernels.window_attention import (BF16, SMEM_MAX, _a_bytes,
-                                                         _check_w, _check_x, _up,
+from sunet_tf_tpu_torch.kernels.window_attention import (BF16, BWD_FILL_CTAS, PLAN_BATCH,
+                                                         SMEM_MAX, _a_bytes, _bwd_tok_smem,
+                                                         _cdiv, _check_w, _check_x,
+                                                         _pad128, _up, _wg_tiles,
                                                          exact_fp32, mm32)
 
 # Half-pixel x4 phase weights: output row 4h+p samples input at
 # h + (2p-3)/8 -> taps (h-1, h) for p = 0, 1 and (h, h+1) for p = 2, 3.
 P4 = ((0.375, 0.625), (0.125, 0.875), (0.875, 0.125), (0.625, 0.375))
-# The conv-fused head's backward (csrc/up4_conv_bwd.cu) stages a tile's 16
-# phase maps in shared memory: C <= 96.
+# The conv-fused head's backward (csrc/up4_conv_bwd.cu) holds a tile's
+# operands as two 64-column panels in shared memory: C <= 96.
 UP4_KERNEL_MAX_C = 96
 UP4_KERNEL_MAX_OUT = 8
 # The conv-fused head's forward (csrc/up4_conv.cu): a tile of UP4_TILE
@@ -61,8 +63,9 @@ UP4_CONV_KERNEL_MAX_C = 192
 UP4_TILE = (6, 8)
 _UP4_RING = (3, 12288)   # csrc/up4_conv.cu kRingS, kRingSlot
 _UP4_HEADER = 2048       # csrc/up4_conv.cu kHeader
-# Kernel launches one up4_conv_bwd call makes (csrc/up4_conv_bwd.cu).
-UP4_CONV_BWD_LAUNCHES = 25
+# Kernel launches one up4_conv_bwd call makes (csrc/up4_conv_bwd.cu): prep,
+# phase, pixel, the weight gradients, the sums.
+UP4_CONV_BWD_LAUNCHES = 5
 # The split head's kernels (csrc/up4.cu, up4_bwd.cu) keep one tile's working
 # set in shared memory: C a multiple of 16 up to this width.
 UP4_SPLIT_KERNEL_MAX_C = 256
@@ -224,6 +227,68 @@ def up4_plan(C: int, out: int) -> dict:
     if not T:
         raise ValueError(f"up4_plan: C={C}, out={out}: one tile does not fit {SMEM_MAX} bytes")
     return {"T": T, "smem": up4_smem(C, out, T)}
+
+
+# The conv-fused head's backward (#9, csrc/up4_conv_bwd.cu): the phase
+# launch's CTAs per chunk of tiles x 16 phases, 8 x 8 tiles of the stencil
+# adjoint, the conv adjoint's K (9 * out) padded to 16 and at most this.
+UP4_BWD_PHASE_CHUNKS = 8     # kPhaseChunks
+UP4_BWD_DXB_TILE = 8         # kDxbT
+_UP4_BWD_WC_ROWS = 80        # kWcRows
+_UP4_BWD_BOX = 64 * 128      # kBox
+
+
+def up4_conv_bwd_plan(H: int, W: int, C: int, out: int) -> dict:
+    """Launch plan of the conv-fused head's backward (#9) for (H, W, C)
+    images, a function of one image's shape (``up4_bwd_plan`` in
+    csrc/up4_conv_bwd.cu mirrors it): 8 x 8 pixel tiles per chunk of the
+    phase launch (PLAN_BATCH images' tiles in UP4_BWD_PHASE_CHUNKS chunks),
+    the fold's 64-column boxes per phase (its slots x 16 * out columns),
+    the conv adjoint's K, the weight-gradient launch's tokens per chunk and
+    tiles (dwexp, dwbf, dwb1), each launch's shared-memory bytes. Raises
+    ValueError on a shape outside the design."""
+    if C % 16 or not 16 <= C <= UP4_KERNEL_MAX_C or not 1 <= out <= UP4_KERNEL_MAX_OUT:
+        raise ValueError(f"up4_conv_bwd_plan: C={C}, out={out}: the kernel takes C a "
+                         f"multiple of 16 up to {UP4_KERNEL_MAX_C} and "
+                         f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
+    if H < 1 or W < 1:
+        raise ValueError(f"up4_conv_bwd_plan: ({H},{W}) is empty")
+    tplan = _cdiv(PLAN_BATCH * H * W, 64)
+    tiles = _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE)
+    wtiles = (_wg_tiles(C, 16 * C), _wg_tiles(C, C), _wg_tiles(C, C))
+    per = max(1, _cdiv(BWD_FILL_CTAS, sum(wtiles)))
+    nslots = [len([u for u in USLOTS if u[1] == p]) for p in range(4)]
+    box = _UP4_BWD_BOX
+    dxb = 4 * (144 * 16 * out + 42 * 8 * 3 * out + 64 * 9 * out + 9 * C * out)
+    return {"tiles_per_chunk": _cdiv(PLAN_BATCH * tiles, UP4_BWD_PHASE_CHUNKS),
+            "fold_boxes": tuple(_cdiv(nslots[s // 4] * nslots[s % 4] * 16 * out, 64)
+                                for s in range(16)),
+            "k16": _up(9 * out, 16), "wgrad_chunk_tokens": 64 * _cdiv(tplan, per),
+            "wgrad_tiles": wtiles, "dxb_tile": (UP4_BWD_DXB_TILE, UP4_BWD_DXB_TILE),
+            "smem": {"prep": 1024 + max(1024 + 12 * box, dxb),
+                     "phase": 2048 + 21 * box + 2 * _UP4_BWD_WC_ROWS * 128 + 81 * 100 * 4,
+                     "pixel": 2048 + 21 * box + 64 * 96 * 4,
+                     "wgrad": _bwd_tok_smem(0, False)}}
+
+
+def up4_conv_bwd_workspace(B: int, H: int, W: int, C: int, out: int) -> int:
+    """Bytes of the conv-fused head's backward workspace (``carve_up4`` in
+    csrc/up4_conv_bwd.cu): zb and xb (float32), abv, dxb, round(dzb) (M x
+    C), dz (M x 16C), w_exp by phase and the conv weights by tap, then the
+    partials: dwpf and the fold per (chunk, phase), the slope sums, the
+    64-pixel strips' slope and db_b1 sums, the weight gradients' token
+    chunks."""
+    plan = up4_conv_bwd_plan(H, W, C, out)
+    M = B * H * W
+    ntiles = _cdiv(M, 64)
+    nch = _cdiv(B * _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE),
+                plan["tiles_per_chunk"])
+    wnch = _cdiv(M, plan["wgrad_chunk_tokens"])
+    pieces = [4 * M * C, 4 * M * C, 2 * M * C, 2 * M * C, 2 * M * C, 2 * 16 * M * C,
+              2 * 16 * C * C, 2 * 9 * out * C, 4 * nch * 16 * C * C,
+              4 * nch * 36 * C * 16 * out, 4 * nch * 16, 4 * ntiles, 4 * ntiles * C,
+              4 * wnch * C * 16 * C, 4 * wnch * C * C, 4 * wnch * C * C]
+    return sum(_pad128(n) for n in pieces)
 
 
 def _stencil_x4_adjoint(gs: list, axis: int) -> torch.Tensor:
@@ -459,8 +524,7 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
         count.cpu += 1
         return fused_dual_upsample4_conv_phase_reference(
             x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv)
-    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_KERNEL_MAX_C,
-               tile=None)
+    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_KERNEL_MAX_C)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
     plan = up4_plan(C, out_ch)
@@ -477,11 +541,9 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
     return out
 
 
-def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C,
-               tile=(2, 8)):
-    """The conv-fused head's kernels take C a multiple of 16 up to max_c,
-    1 <= out <= UP4_KERNEL_MAX_OUT and, where ``tile`` is given, (H, W)
-    multiples of it (the backward's tiles)."""
+def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C):
+    """The conv-fused head's kernels take C a multiple of 16 up to max_c and
+    1 <= out <= UP4_KERNEL_MAX_OUT, any H and W."""
     _check_x(name, x)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
@@ -489,8 +551,6 @@ def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C,
         raise ValueError(f"{name}: C={C}, out={out_ch}: the kernel takes C a "
                          f"multiple of 16 up to {max_c} and "
                          f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
-    if tile and (H % tile[0] or W % tile[1]):
-        raise ValueError(f"{name}: ({H},{W}) must be multiples of {tile}")
     _check_w(name, x, w_exp=(w_exp, (C, 16 * C)), w_b1=(w_b1, (C, C)),
              wpf=(wpf, (C, C)), wbf=(wbf, (C, C)),
              wconv=(wconv, (3, 3, C, out_ch)))
@@ -502,8 +562,8 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     ``_up4c_bwd_impl``): dout (B, H, W, 16*out) phase-space cotangent.
     Returns (dx, dw_exp (C, 16C), dalpha_p, dw_b1, db_b1, dalpha_b, dwpf,
     dwbf, dwconv (3, 3, C, out)), the grads float32. CUDA:
-    ``csrc/up4_conv_bwd.cu``, a fixed sequence of launches, each counted;
-    its per-slot conv grads (36, C, 16*out) are unfolded here."""
+    ``csrc/up4_conv_bwd.cu``, UP4_CONV_BWD_LAUNCHES launches
+    (:func:`up4_conv_bwd_plan`), each counted; any H and W."""
     name = "up4_conv_bwd"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -513,6 +573,7 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
+    plan = up4_conv_bwd_plan(H, W, C, out_ch)
     dev = x.device
     dout = dout.to(BF16).contiguous()
     if tuple(dout.shape) != (B, H, W, 16 * out_ch):
@@ -524,22 +585,21 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
     dx = torch.empty_like(x)
     # dw_exp in w_exp's (C, 16C) layout, dalphas (2,), dwb1, dbb1, dwpf,
-    # dwbf, dwfold (36, C, 16*out)
+    # dwbf, dwconv (3, 3, C, out)
     grads = [z(C, 16 * C), z(2), z(C, C), z(C), z(C, C), z(C, C),
-             z(36, C, 16 * out_ch)]
+             z(3, 3, C, out_ch)]
     launches = _build.c_int(0)
     err = lib.sunet_up4_conv_bwd(
         _build.ptr(x), _build.ptr(dout), _build.ptr(w_exp), _build.ptr(w_b1),
         _build.ptr(bb1), _build.ptr(wpf), _build.ptr(wbf), _build.ptr(wconv),
         _build.ptr(alphas), _build.ptr(dx), *[_build.ptr(g) for g in grads],
-        _build.ptr(work), B, H, W, C, out_ch, _build.byref(launches),
-        _build.stream())
+        _build.ptr(work), B, H, W, C, out_ch, plan["tiles_per_chunk"],
+        _build.byref(launches), _build.stream())
     _build.check(name, err)
     count.cuda += launches.value
-    dw_exp, dal, dwb1, dbb1, dwpf, dwbf, dwfold = grads
+    dw_exp, dal, dwb1, dbb1, dwpf, dwbf, dwconv = grads
     return (dx, dw_exp, dal[0].reshape(alpha_p.shape), dwb1, dbb1,
-            dal[1].reshape(alpha_b.shape), dwpf, dwbf,
-            unfold_output_conv4_grad(dwfold, C, out_ch))
+            dal[1].reshape(alpha_b.shape), dwpf, dwbf, dwconv)
 
 
 class DualUpsample4ConvTrainable(torch.autograd.Function):

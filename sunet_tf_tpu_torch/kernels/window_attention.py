@@ -93,7 +93,9 @@ BLOCK_KERNEL_MAX_C = 384
 # gradients, the sums; the residual route reads ctx from its residuals and
 # skips the attention forward. The LN+W-MSA backward: its attention half,
 # LN1 + qkv, the attention forward, dctx, the attention backward, dqkv
-# wqkv^T + the LN1 backward, the weight gradients, the sums.
+# wqkv^T + the LN1 backward, the weight gradients, the sums. The LN+MLP
+# backward: its MLP half, LN2 + fc1, dm w2^T, dab w1^T split over K, the
+# weight gradients with the LN2 backward, the sums.
 SWIN_BLOCK_BWD_LAUNCHES = 11
 SWIN_BLOCK_BWD_RES_LAUNCHES = 10
 LN_WMSA_BWD_LAUNCHES = 7
@@ -102,7 +104,7 @@ LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
 # fused_ln_window_attention: LN + qkv, attention, projection
 # (csrc/ln_window_attention.cu)
 LN_WMSA_LAUNCHES = 3
-LN_MLP_BWD_LAUNCHES = 15
+LN_MLP_BWD_LAUNCHES = 5
 # Widest C of the training sublayer kernels (the LN backward's rows).
 SPLIT_TRAIN_MAX_C = 768
 
@@ -545,6 +547,58 @@ def ln_wmsa_bwd_workspace(B: int, H: int, W: int, C: int, ws: int, heads: int) -
     parts = ([nch * C * C, nch * 3 * C * C, nch * C] if nch > 1 else []) + [
         _cdiv(T, _TILE) * 2 * C, achunks * 3 * C, achunks * heads * N * N]
     return sum(rows) + sum(_pad128(4 * n) for n in parts)
+
+
+# The LN+MLP backward (#14, csrc/ln_mlp_bwd.cu) on the same kernels, over
+# the map's own rows: dab w1^T split over K on clusters of ks CTAs, and the
+# LN backward one warp per row, MLP_BWD_LN_ROWS rows per CTA.
+MLP_BWD_KS_MAX = 8      # kMlpKsMax: a portable cluster
+MLP_BWD_LN_ROWS = 8     # kMlpLnRows
+
+
+@functools.lru_cache(maxsize=None)
+def ln_mlp_bwd_plan(H: int, W: int, C: int, hidden: int) -> dict:
+    """Launch plan of the LN+MLP backward (#14) for (H, W, C) images, a
+    function of one image's shape (``mlp_bwd_plan`` in csrc/ln_mlp_bwd.cu
+    mirrors it): the K split ks of dab w1^T (the largest divisor of its
+    64-row K chunks, up to MLP_BWD_KS_MAX, that keeps a PLAN_BATCH-image
+    launch within BWD_FILL_CTAS CTAs), fc1's 128-column tiles per CTA (the
+    LN A load), the weight-gradient launch's tokens per chunk and tiles
+    (dw2, dw1) and each launch's shared-memory bytes. Raises ValueError on a
+    shape outside the design."""
+    if C % 16 or hidden % 16 or hidden <= 0 or C <= 0 or C > SPLIT_TRAIN_MAX_C:
+        raise ValueError(f"ln_mlp_bwd_plan: C={C}, hidden={hidden}: the kernel takes "
+                         f"multiples of 16 and C <= {SPLIT_TRAIN_MAX_C}")
+    hw = H * W
+    rows = _cdiv(PLAN_BATCH * hw, _TILE)
+    nch = _cdiv(hidden, _TILE)
+    tiles = rows * _cdiv(C, _BWD_COLS)
+    ks = max(d for d in range(1, min(MLP_BWD_KS_MAX, nch) + 1)
+             if nch % d == 0 and (d == 1 or tiles * d <= BWD_FILL_CTAS))
+    wtiles = (_wg_tiles(hidden, C), _wg_tiles(C, hidden))
+    per = max(1, _cdiv(BWD_FILL_CTAS, sum(wtiles)))
+    fc1 = _cdiv(hidden, _BWD_COLS)
+    return {"ks": ks, "chunk_tokens": _TILE * _cdiv(rows, per), "wgrad_tiles": wtiles,
+            "tiles_per_cta": {"fc1": min(fc1, max(1, _cdiv(fc1 * rows, BWD_FILL_CTAS)))},
+            "smem": {"gemm_a_in_smem": _bwd_tok_smem(C, True),
+                     "ksplit": _bwd_tok_smem(0, False), "tail": _bwd_tok_smem(0, False)}}
+
+
+def ln_mlp_bwd_workspace(B: int, H: int, W: int, C: int, hidden: int) -> int:
+    """Bytes of the LN+MLP backward's workspace (``carve_mlp_bwd`` in
+    csrc/ln_mlp_bwd.cu): the token rows (yn, round(gelu(a)), dm, round(da)),
+    the LN statistics, a and dyn in float32, the weight gradients' partials
+    when there is more than one chunk, b1's per-row-tile and the LN's
+    per-CTA partials."""
+    plan = ln_mlp_bwd_plan(H, W, C, hidden)
+    T = B * H * W
+    nch = _cdiv(T, plan["chunk_tokens"])
+    pieces = [2 * T * C, 2 * T * hidden, 2 * T * C, 2 * T * hidden, 4 * 2 * T,
+              4 * T * hidden, 4 * T * C]
+    if nch > 1:
+        pieces += [4 * nch * hidden * C, 4 * nch * C * hidden, 4 * nch * C]
+    pieces += [4 * _cdiv(T, _TILE) * hidden, 4 * _cdiv(T, MLP_BWD_LN_ROWS) * 2 * C]
+    return sum(_pad128(n) for n in pieces)
 
 
 def bwd_residuals_enabled(C: int, num_heads: int, N: int) -> bool:
@@ -1655,7 +1709,9 @@ def ln_mlp_branch(y, ln, w1, b1, w2, b2) -> torch.Tensor:
 def ln_mlp_bwd(y, dout, ln, w1, b1, w2) -> tuple:
     """Backward of :func:`ln_mlp_branch` (JAX ``_ln_mlp_bwd``). Returns (dy,
     then float32 grads of the LN scale and bias, w1, b1, w2 and b2). CUDA:
-    ``csrc/ln_mlp_bwd.cu``, a fixed sequence of launches, each counted."""
+    ``csrc/ln_mlp_bwd.cu``, the LN_MLP_BWD_LAUNCHES launches of the block
+    backward's kernels over the map's own rows (:func:`ln_mlp_bwd_plan`),
+    each counted."""
     name = "ln_mlp_bwd"
     count = _build.counter(name)
     if y.device.type == "cpu":
@@ -1665,10 +1721,11 @@ def ln_mlp_bwd(y, dout, ln, w1, b1, w2) -> tuple:
     dout = _check_dout(name, y, dout)
     B, H, W, C = y.shape
     hidden = w1.shape[1]
+    plan = ln_mlp_bwd_plan(H, W, C, hidden)
     dev = y.device
     f = lambda t: _f32(t, dev)
     lib = _build.library()
-    work = _workspace(lib.sunet_ln_mlp_bwd_workspace, dev, B * H * W, C, hidden)
+    work = _workspace(lib.sunet_ln_mlp_bwd_workspace, dev, B, H, W, C, hidden)
     dy = torch.empty_like(y)
     z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
     grads = [z(C), z(C), z(C, hidden), z(hidden), z(hidden, C), z(C)]
@@ -1677,7 +1734,7 @@ def ln_mlp_bwd(y, dout, ln, w1, b1, w2) -> tuple:
     err = lib.sunet_ln_mlp_bwd(
         _build.ptr(y), _build.ptr(dout), *[_build.ptr(a) for a in args],
         _build.ptr(dy), *[_build.ptr(g) for g in grads], _build.ptr(work),
-        B * H * W, C, hidden, _build.byref(launches), _build.stream())
+        B, H, W, C, hidden, plan["ks"], _build.byref(launches), _build.stream())
     _build.check(name, err)
     count.cuda += launches.value
     return (dy, *grads)

@@ -2,7 +2,8 @@
 its residual form #6) or of the conv-fused x4 head (#5, ``csrc/up4_conv.cu``)
 spends its time, phase by phase, on the card.
 
-    python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4] [--kernel block|block_res|up4]
+    python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4]
+        [--kernel block|block_res|up4|up4_bwd]
 
 Builds the kernels with ``-DSUNET_PHASE_CLOCK`` (a library of its own, beside
 the normal one), which makes thread 0 of every CTA record its SM clock at
@@ -24,6 +25,12 @@ thread 0 of every warpgroup (one tile each) adds its cycles per phase
 (setup, the bilinear branch, per subpixel the halo rows and x @ wexp[s],
 its PReLU epilogue, @ wpf, the stencil epilogue, the conv terms; the
 output), and the median over warpgroups of each is printed with its share.
+``--kernel up4_bwd``: the phase launch of the x4 head's backward (#9,
+``csrc/up4_conv_bwd.cu``) at (64,64,96), out 1: thread 0 of every CTA adds
+its cycles per phase over its chunk of 8 x 8 tiles (setup, the staged
+gathers, the wait for x, z with dY, y with dP, the fold and dwpf with the dz
+store, the partials), and the median over the CTAs of box 0 of each is
+printed with its share and per tile.
 Refuses to run without a card.
 """
 
@@ -44,6 +51,8 @@ PHASES = ("x in", "LN1", "qkv", "attention", "ctx gather", "proj", "y gather", "
 SHAPES = ((64, 96), (32, 192), (16, 384))
 UP4_PHASES = ("setup", "bilinear", "halo + x @ wexp", "PReLU epilogue", "@ wpf",
               "stencil epilogue", "conv terms", "output")
+UP4_BWD_PHASES = ("setup", "gathers", "wait x", "z, dY", "y, dP", "fold, dwpf, dz store",
+                  "partials")
 
 
 def block_args(B: int, H: int, C: int, gen) -> tuple:
@@ -58,7 +67,8 @@ def block_args(B: int, H: int, C: int, gen) -> tuple:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--kernel", choices=("block", "block_res", "up4"), default="block")
+    ap.add_argument("--kernel", choices=("block", "block_res", "up4", "up4_bwd"),
+                    default="block")
     args = ap.parse_args()
     B = args.batch
     if not torch.cuda.is_available():
@@ -69,6 +79,8 @@ def main():
     lib = _build.use_variant(("SUNET_PHASE_CLOCK",))
     if args.kernel == "up4":
         return up4_phases(lib, B)
+    if args.kernel == "up4_bwd":
+        return up4_bwd_phases(lib, B)
     lib.sunet_swin_block_phase_clock.argtypes = [ctypes.c_void_p]
     lib.sunet_swin_block_max_clusters.argtypes = [ctypes.c_int, ctypes.c_longlong]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -125,6 +137,39 @@ def up4_phases(lib, B: int):
           f"{plan['smem']} bytes of shared memory; per warpgroup {total:.0f} cycles")
     print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
                            for name, v in zip(UP4_PHASES, phase.tolist())))
+
+
+def up4_bwd_phases(lib, B: int):
+    """#9's phase launch: cycles per phase and CTA at (64,64,96), out 1."""
+    from sunet_tf_tpu_torch.kernels import upsample as up
+
+    lib.sunet_up4_conv_bwd_phase_clock.argtypes = [ctypes.c_void_p]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    w = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+    H, C, out = 64, 96, 1
+    hp = (n(B, H, H, C).to(torch.bfloat16), w(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
+          w(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), w(C, C), w(C, C),
+          (n(3, 3, C, out) / (9 * C) ** 0.5).to(torch.bfloat16),
+          n(B, H, H, 16 * out).to(torch.bfloat16))
+    plan = up.up4_conv_bwd_plan(H, H, C, out)
+    tpc = plan["tiles_per_chunk"]
+    tiles = (-(-H // 8)) ** 2
+    nch = -(-(B * tiles) // tpc)
+    clocks = torch.zeros(out, 16, nch, len(UP4_BWD_PHASES), dtype=torch.int64, device="cuda")
+    _build.check("block_phases",
+                 lib.sunet_up4_conv_bwd_phase_clock(ctypes.c_void_p(clocks.data_ptr())))
+    up.up4_conv_bwd(*hp)
+    torch.cuda.synchronize()
+    _build.check("block_phases", lib.sunet_up4_conv_bwd_phase_clock(None))
+    c = clocks[0].reshape(16 * nch, -1).cpu().double()
+    phase = c.median(0).values
+    total = float(c.sum(1).median())
+    print(f"up4_conv_bwd phase launch ({H},{H},{C}) out {out} batch {B}: {16 * nch} CTAs of "
+          f"{tpc} tiles, {plan['smem']['phase']} bytes of shared memory; per CTA {total:.0f} "
+          f"cycles, {total / tpc:.0f} per tile")
+    print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
+                           for name, v in zip(UP4_BWD_PHASES, phase.tolist())))
 
 
 if __name__ == "__main__":

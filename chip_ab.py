@@ -12,28 +12,27 @@ bf16, ``chip_smoke.block_params`` weights.
   and train form, and at batch 4 (shift 4); the block backward, the
   recompute form (#8) at the three widths and the residual route's (#7) at
   the first two, shift 0 and 4, #7 from the plain version's stored state
-  (the same input in both trees); the LN+MLP branch (#13) of
-  ``chip_smoke.sublayer_cases``, the LN+MLP kernel (#4) at
-  (8,8,768), batch 2 and 4, the LN+W-MSA
-  kernel (#3) at (8,8,768), batch 2 and 4, and at (16,16,768), shift 4
-  with the mask, the conv-fused x4 head (#5) at (64,64,96), out 1 and 3,
-  and out 1 at batch 4, the split x4 head (#10) and its backward (#11) at
-  (64,64,96) and the standalone W-MSA (#15) at (64,64,96), shift 0 and 4.
+  (the same input in both trees); the LN+MLP kernel (#4) at (8,8,768),
+  batch 2 and 4, the LN+W-MSA kernel (#3) at (8,8,768), batch 2 and 4,
+  and at (16,16,768), shift 4 with the mask, the conv-fused x4 head (#5)
+  and its backward (#9) at (64,64,96), out 1 and 3, #5 also out 1 at batch
+  4, the split x4 head (#10) at (64,64,96) and the standalone W-MSA (#15)
+  at (64,64,96), shift 0 and 4.
 - Against the plain version, both trees' readings printed (``PLAIN``
   lines): the residual route's block forward (#6: output and stored state)
-  at (64,64,96) and (32,32,192), shift 0 and 4, the LN+W-MSA and LN+MLP
-  backwards (#12, #14) of ``chip_smoke.sublayer_cases`` and the conv-fused
-  head's backward (#9) at (64,64,96), out 1 and 3 (dx and the worst weight
-  gradient). Their fp32 summation order is a design choice of each tree,
-  so their bits may differ; a kernel whose redesign lies between the two
-  trees moves here.
+  at (64,64,96) and (32,32,192), shift 0 and 4, the LN+MLP branch (#13)
+  and the LN+W-MSA and LN+MLP backwards (#12, #14) of
+  ``chip_smoke.sublayer_cases`` and the split head's backward (#11) at
+  (64,64,96), batch 2 and 4 (dx and the worst weight gradient). Their fp32
+  summation order is a design choice of each tree, so their bits may
+  differ; a kernel whose redesign lies between the two trees moves here.
 - Times (``TIME`` lines), each by this script's own ``time_ms`` and
   ``device_ms``, the same code for both trees: CUDA events, medians of 20,
   with the card spinning first so that the host's pace of launches does not
   count; and the device time of the wrapper's kernels from torch.profiler,
   mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4, #13, #14
   and #3 at (8,8,768) and #5 and #9 at (64,64,96) out 1, batch 2 and 4, #9
-  out 3 (batch 2), #8 at
+  out 3 (batch 2), #11 at (64,64,96), batch 2 and 4, #8 at
   the three widths and #6 and #7 at C=96 and 192 (shift 4, batch 2 and 4),
   #12 at (8,8,768) (batch 2 and 4) and at (16,16,768) shift 4, the default
   model's fused bf16 forward at 256x256 batch 4 (also paced by the host:
@@ -168,6 +167,10 @@ for name, case, kernel, plain, args, kw, _, _ in cs.sublayer_cases(gen):
         plain_grads(f"{name} {case}", out, plain(*args, **kw))
         timed(f"{name} {case}", lambda: kernel(*args, **kw))
         continue
+    if name == "ln_mlp_branch":
+        plain_outs(f"{name} {case}", (out,), (plain(*args, **kw),))
+        timed(f"{name} {case}", lambda: kernel(*args, **kw))
+        continue
     for i, g in enumerate(out if isinstance(out, tuple) else (out,)):
         outs[f"{name} {case} output {i}"] = g
 n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
@@ -179,8 +182,8 @@ for out_ch in (1, 3):
           (n(3, 3, C, out_ch) / (9 * C) ** 0.5).to(torch.bfloat16))
     outs[f"fused_dual_upsample4_conv_phase out {out_ch}"] = up.fused_dual_upsample4_conv_phase(*hp)
     dout = n(B, H, H, 16 * out_ch).to(torch.bfloat16)
-    plain_grads(f"up4_conv_bwd out {out_ch}", up.up4_conv_bwd(*hp, dout),
-                up.up4_conv_bwd_reference(*hp, dout))
+    for i, g in enumerate(up.up4_conv_bwd(*hp, dout)):
+        outs[f"up4_conv_bwd out {out_ch} output {i}"] = g
     timed(f"up4_conv_bwd out {out_ch}", lambda: up.up4_conv_bwd(*hp, dout))
 H, C = 8, 768
 p = cs.block_params(C, heads, ws * ws, gen)
@@ -201,8 +204,8 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
 hp = cs.split_head_args(gen, B, 64, 64, 96)
 outs["fused_dual_upsample4 (64,64,96)"] = up.fused_dual_upsample4(*hp)
 dout = torch.randn(B, 256, 256, 96, device="cuda", generator=gen).to(torch.bfloat16)
-for i, g in enumerate(up.up4_bwd(*hp, dout)):
-    outs[f"up4_bwd (64,64,96) output {i}"] = g
+plain_grads("up4_bwd (64,64,96)", up.up4_bwd(*hp, dout), up.up4_bwd_reference(*hp, dout))
+timed("up4_bwd batch 2 (64,64,96)", lambda: up.up4_bwd(*hp, dout))
 for shift in (0, 4):
     p = cs.block_params(96, heads, ws * ws, gen)
     x = torch.randn(B, 64, 64, 96, device="cuda", generator=gen).to(torch.bfloat16)
@@ -237,6 +240,13 @@ for Bt in (2, 4):
           lambda: up.fused_dual_upsample4_conv_phase(*hp))
     dout = n(Bt, H, H, 16).to(torch.bfloat16)
     timed(f"up4_conv_bwd batch {Bt} out 1", lambda: up.up4_conv_bwd(*hp, dout))
+# #11 at batch 4 (its own generator: the cases above keep their inputs)
+sgen4 = torch.Generator(device="cuda").manual_seed(2025)
+hp4 = cs.split_head_args(sgen4, 4, 64, 64, 96)
+dout4 = torch.randn(4, 256, 256, 96, device="cuda", generator=sgen4).to(torch.bfloat16)
+plain_grads("up4_bwd batch 4 (64,64,96)", up.up4_bwd(*hp4, dout4),
+            up.up4_bwd_reference(*hp4, dout4))
+timed("up4_bwd batch 4 (64,64,96)", lambda: up.up4_bwd(*hp4, dout4))
 for Bt in (2, 4):
     for H, C in ((64, 96), (32, 192), (16, 384), (8, 768)):
         p = cs.block_params(C, heads, ws * ws, gen)

@@ -7,7 +7,8 @@ Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
 x4-head backward at (64,64,96) out 1 and (34,40,96) out 3, and on the C=768 training sublayers
 of ``chip_smoke.sublayer_cases``: the LN+W-MSA backward at (8,8,768) and
-(16,16,768) shift 4, the LN+MLP branch and its backward at (8,8,768); and
+(16,16,768) shift 4, the LN+MLP branch there too and its backward at
+(8,8,768); and
 on the residual route's block backward at (64,64,96) and (32,32,192),
 shift 0 and 4, from the residual forward's stored state, and on that
 forward's output and stored state, ``check_res_state``) with failures
@@ -146,14 +147,13 @@ MUTANTS = {
         "          last ? 0u : pack_bf2(s[nt][0], s[nt][1]);\n"
         "      if (last) *reinterpret_cast<uint32_t*>(res.eb + (i0 + g + 8) * N + j) = 0u;\n"
         "      else"),
-    # the subpixel branch's PReLU derivative of both x4-head backwards (#11
-    # in up4_bwd.cuh's epilogue, #9 in its phase launch), and the stencil's
-    # edge clamp of both stencil adjoints (up4_bwd.cuh's stencil_taps: #11's
-    # stencil_adj, #9's tap_coef)
+    # the subpixel branch's PReLU derivative of both x4-head backwards (in
+    # each one's phase launch), and the stencil's edge clamp of both stencil
+    # adjoints (up4_bwd.cuh's stencil_taps, which both tap_coef reads)
     "up4_prelu_slope_ignored": [
-        ("up4_bwd.cuh",
-         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(zz > 0.f ? v : *alpha * v);",
-         "dz[(size_t)m * 16 * C + n * 16 + s] = tobf(v);"),
+        ("up4_bwd.cu",
+         "pack_bf2(acc[i] > 0.f ? d0 : ap * d0, acc[i + 1] > 0.f ? d1 : ap * d1);",
+         "pack_bf2(d0, d1);"),
         ("up4_conv_bwd.cu",
          "pack_bf2(z[i] > 0.f ? dp[i] : ap * dp[i], z[i + 1] > 0.f ? dp[i + 1] : ap * dp[i + 1]);",
          "pack_bf2(dp[i], dp[i + 1]);")],
@@ -176,14 +176,14 @@ MUTANTS = {
         "warp, lane);\n"
         "  for (int i = threadIdx.x; i < kSplitHR * ldb; i += kThreads) xb[i] = bf(tobf(xb[i]));\n"
         "  __syncthreads();\n"),
-    # the H-axis stencil adjoint (#11's kernel in up4_bwd.cuh, #9's H pass
-    # of its dxb tiles) with the top edge's clamped tap not folded back onto
-    # the edge row
+    # the H-axis stencil adjoint of both dxb tiles (#11's H-axis weights in
+    # up4_bwd.cu, #9's H pass) with the top edge's clamped tap not folded
+    # back onto the edge row
     "up4_h_adjoint_top_unclamped": [
-        ("up4_bwd.cuh",
-         "      acc += stencil_adj(h, H, i, [&](int u) {\n",
-         "      acc += (h == 0 && i < 2 ? -kQ4[i][0] * dyh[((size_t)i * M + (size_t)b * H * W + w) "
-         "* C + c] : 0.f) +\n             stencil_adj(h, H, i, [&](int u) {\n"),
+        ("up4_bwd.cu",
+         "(w_axis ? cw : ch)[i] = t < n && P >= 0 && (P >> 2) < n ? tap_coef(P, t, n) : 0.f;",
+         "(w_axis ? cw : ch)[i] = t < n && P >= 0 && (P >> 2) < n\n"
+         "        ? tap_coef(P, t, n) - (!w_axis && t == 0 && P < 2 ? kQ4[P][0] : 0.f) : 0.f;"),
         ("up4_conv_bwd.cu",
          "        s += tap_coef(P, th, H) * R[((qh * 8 + pw) * 3 + dxi) * out + o];",
          "        s += (th == 0 && P < 2 ? tap_coef(P, th, H) - kQ4[P][0] : tap_coef(P, th, H)) *\n"
@@ -217,6 +217,10 @@ MUTANTS = {
     "up4c_corners_dropped": (
         "up4_conv.cu", "if (q == kTW + kTH && (i == 3 || i == 0) && (j == 3 || j == 0))",
         "if (false && q == kTW + kTH)"),
+    # the LN+MLP branch (#13): fc2's bias read from b1 (b2 dropped)
+    "ln_mlp_branch_b2_dropped": ("ln_mlp_branch.cu",
+                                 "GemmArgs{h, (const float*)b2, nullptr,",
+                                 "GemmArgs{h, (const float*)b1, nullptr,"),
     # the standalone W-MSA (#15) without its qkv bias
     "wmsa_no_qkv_bias": ("window_attention.cu", "a.wqkv, a.bqkv, a.bias, mask",
                          "a.wqkv, nullptr, a.bias, mask"),

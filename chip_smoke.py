@@ -27,16 +27,17 @@
    default route's rule), the x4 head backward (#9, also at batch 4 out 1
    and 3, at out 8 and on a (34,40) map of partial tiles, its plan
    asserted),
-   the C=768 sublayers (the LN+W-MSA backward, the LN+MLP branch and its
-   backward; the LN+W-MSA backward also at batch 4 and at C=384 with 2
+   the C=768 sublayers (the LN+W-MSA backward, the LN+MLP branch, also on a
+   (16,16,768) map, and its backward; the LN+W-MSA backward also at batch
+   4 and at C=384 with 2
    heads, head dim 192; the LN+MLP backward also at batch 4 and on a
    (16,16,768) map whose window order is not its row order, its K split
    asserted and its workspace held to the mirror), the residual route of the C=96/192 blocks (the
    block forward that stores the softmax state, at shift 0 and 4, batch 2
    and 4 on the main path's cluster sizes, output and state held against
    the plain version, and the backward from that state), and the split
-   head's backward (#11), dx and every weight grad held against the plain
-   version.
+   head's backward (#11, also on a (30,44) map of partial tiles and at C=256,
+   its cap), dx and every weight grad held against the plain version.
 4. The inference slice: the default SUNet (99,681,993 parameters, seeded
    weights) at 256x256 batch 4 through backend="fused"; the kernels' launch
    counts must equal the router's prediction, and every launch plan it
@@ -60,7 +61,7 @@
 7. The split head's path: ``Config()`` with IN_CHANS = OUT_CHANS = 16 (a
    16-band denoise SUNet) through the slice of 4., then one denoise training
    step on the fused route (the head on #10 + #11) under the gate of 6.,
-   with its time and added memory.
+   with its time, added memory and a profiler trace.
 8. The entry points with no model route: ``kernels.fused_window_attention``
    (#15) once, and the ALU-rate probe ``tools/alu_floor.py`` (#16): each
    chain against its plain version at T=16, then its rates at T=2048.
@@ -614,7 +615,8 @@ def sublayer_cases(gen, B: int = 2, ws: int = 8, heads: int = 8, scale: float = 
     """The C=768 training sublayers' cases, (name, case, kernel wrapper,
     plain version, args, kwargs, cost, grad labels or None for a forward):
     #13 and #14 at the default bottleneck (8,8,768), #12 there and on a
-    shifted, masked (16,16,768) map. ``gain`` scales the qkv weights."""
+    shifted, masked (16,16,768) map, #13 also on that map. ``gain`` scales
+    the qkv weights."""
     import torch
 
     from sunet_tf_tpu_torch.kernels import window_attention as wa
@@ -629,10 +631,11 @@ def sublayer_cases(gen, B: int = 2, ws: int = 8, heads: int = 8, scale: float = 
         mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
                 if shift else None)
         case = f"({H},{H},{C}) shift {shift}"
+        mlp = (p[6:8], p[8], p[9], p[10])
+        cases.append(("ln_mlp_branch", f"({H},{H},{C})", wa.ln_mlp_branch,
+                      wa.ln_mlp_branch_reference,
+                      (x, *mlp, p[11]), {}, ln_mlp_branch_cost(B, H, C), None))
         if shift == 0:
-            mlp = (p[6:8], p[8], p[9], p[10])
-            cases.append(("ln_mlp_branch", case, wa.ln_mlp_branch, wa.ln_mlp_branch_reference,
-                          (x, *mlp, p[11]), {}, ln_mlp_branch_cost(B, H, C), None))
             cases.append(("ln_mlp_bwd", case, wa.ln_mlp_bwd, wa.ln_mlp_bwd_reference,
                           (x, dout, *mlp), {}, ln_mlp_bwd_cost(B, H, C), MLP_GRADS))
         cases.append(("ln_window_attention_bwd", case, wa.ln_window_attention_bwd,
@@ -951,24 +954,32 @@ def train_kernel_phases(results: dict):
     print("  the LN+MLP backward: workspace equal to the mirror, two runs equal bit for bit")
 
     # the split head's backward (#11), pixel-space dout: the main path's
-    # (64,64,96), and a map whose H and W are not multiples of 4 and 8; its
-    # own generator, so that the other kernels' cases keep their inputs
+    # (64,64,96), a map whose H and W are not multiples of 4 and 8, and C =
+    # 256 (the cap: four column boxes, the pixel launch's pairs); its own
+    # generator, so that the other kernels' cases keep their inputs
     sgen = torch.Generator(device="cuda").manual_seed(4323)
-    for Hh, Ww in ((64, 64), (30, 44)):
-        C = 96
+    for Hh, Ww, C, tpc in ((64, 64, 96, 32), (30, 44, 96, 12), (16, 16, 256, 2)):
+        plan = up.up4_bwd_plan(Hh, Ww, C)
+        work, got_work = up.up4_bwd_workspace(B, Hh, Ww, C), lib.sunet_up4_bwd_workspace(
+            B, Hh, Ww, C)
+        check(plan["tiles_per_chunk"] == tpc and work == got_work,
+              f"up4_bwd ({Hh},{Ww},{C}): plan {plan}, expected {tpc} tiles per chunk; "
+              f"workspace {got_work} bytes, the mirror {work}")
         hp = (*split_head_args(sgen, B, Hh, Ww, C),
               torch.randn(B, 4 * Hh, 4 * Ww, C, device="cuda", generator=sgen).to(
                   torch.bfloat16))
-        case = f"({Hh},{Ww},{C})"
+        case = f"({Hh},{Ww},{C}), {tpc} tiles per chunk"
         got_fn = lambda: up.up4_bwd(*hp)
         ref_fn = lambda: up.up4_bwd_reference(*hp)
         got = got_fn()
         mx, mean = compare_grads(f"up4_bwd {case}", got, ref_fn(), UP4_SPLIT_GRADS)
         check(all(torch.equal(a, b) for a, b in zip(got, got_fn())),
               f"up4_bwd {case}: two runs differ (the reductions must be deterministic)")
+        launches_per_call("up4_bwd", got_fn, up.UP4_BWD_LAUNCHES)
         record_time(results, "up4_bwd", case, got_fn, ref_fn,
                     up4_split_bwd_cost(B, Hh, Ww, C), mx, mean)
-    print("  the split head's backward: two runs equal bit for bit")
+    print("  the split head's backward: plans and workspace as mirrored, two runs equal bit "
+          "for bit")
 
 
 def split_head_args(gen, B: int, H: int, W: int, C: int) -> tuple:
@@ -1366,15 +1377,19 @@ def plans_taken(into: set):
     heads, G), ("fused_ln_mlp", C, hidden, ks), ("fused_ln_window_attention",
     C, heads, ws, ksq, ks), ("ln_window_attention_bwd", C, heads, ws, tokens
     per chunk, windows per chunk), ("ln_mlp_bwd", C, hidden, ks, tokens per
-    chunk), ("fused_dual_upsample4_conv_phase", C, out, T) and
-    ("up4_conv_bwd", C, out, tiles per chunk, tokens per chunk)."""
+    chunk), ("fused_dual_upsample4_conv_phase", C, out, T), ("up4_conv_bwd",
+    C, out, tiles per chunk, tokens per chunk), ("up4_bwd", C, tiles per
+    chunk, tokens per chunk) and ("ln_mlp_branch", C, hidden, ks) (#13 takes
+    #4's plan)."""
     from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
 
     block_plan, mlp_plan, wmsa_plan, up4_plan = wa.block_plan, wa.mlp_plan, wa.wmsa_plan, up.up4_plan
     launch_block, wmsa_bwd_plan = wa._launch_block, wa.ln_wmsa_bwd_plan
     mlp_bwd_plan, up4_bwd_plan = wa.ln_mlp_bwd_plan, up.up4_conv_bwd_plan
+    split_bwd_plan, mlp_branch = up.up4_bwd_plan, wa.ln_mlp_branch
     form = ["fused_swin_block"]   # the block kernel's form being launched
+    mlp_form = ["fused_ln_mlp"]   # the caller of mlp_plan
 
     def launch(*args, res=False, **kw):
         form[0] = "fused_swin_block_res" if res else "fused_swin_block"
@@ -1404,9 +1419,21 @@ def plans_taken(into: set):
         into.add(("up4_conv_bwd", C, out, plan["tiles_per_chunk"], plan["wgrad_chunk_tokens"]))
         return plan
 
+    def branch(*args, **kw):
+        mlp_form[0] = "ln_mlp_branch"
+        try:
+            return mlp_branch(*args, **kw)
+        finally:
+            mlp_form[0] = "fused_ln_mlp"
+
+    def split_bwd(H, W, C):
+        plan = split_bwd_plan(H, W, C)
+        into.add(("up4_bwd", C, plan["tiles_per_chunk"], plan["wgrad_chunk_tokens"]))
+        return plan
+
     def mlp(M, C, hidden):
         plan = mlp_plan(M, C, hidden)
-        into.add(("fused_ln_mlp", C, hidden, plan["ks"]))
+        into.add((mlp_form[0], C, hidden, plan["ks"]))
         return plan
 
     def wmsa(H, W, C, heads, ws):
@@ -1422,7 +1449,8 @@ def plans_taken(into: set):
     with patched([(wa, "block_plan", block), (wa, "mlp_plan", mlp), (wa, "wmsa_plan", wmsa),
                   (up, "up4_plan", head), (wa, "_launch_block", launch),
                   (wa, "ln_wmsa_bwd_plan", wmsa_bwd), (wa, "ln_mlp_bwd_plan", mlp_bwd),
-                  (up, "up4_conv_bwd_plan", head_bwd)]):
+                  (up, "up4_conv_bwd_plan", head_bwd), (up, "up4_bwd_plan", split_bwd),
+                  (wa, "ln_mlp_branch", branch)]):
         yield into
 
 
@@ -1830,7 +1858,7 @@ def bands_phase(results: dict) -> dict:
     """The split x4 head's path: the 16-band SUNet at 256x256 batch 4, its
     fused forward against eager with launch counts, and one denoise training
     step on the fused route held by the training gate against float32
-    eager, with its time and added memory."""
+    eager, with its time, added memory and device trace."""
     import torch
 
     from sunet_tf_tpu_torch.train.loop import prepare, step_generators
@@ -1853,6 +1881,11 @@ def bands_phase(results: dict) -> dict:
           and launches["fused_dual_upsample4_conv_phase"] == 0,
           "the split head did not train on its kernels")
     times, fns = step_times(cfg, "denoise", models, step, batch)
+    counter = iter(range(100, 10_000))
+    with train_route("fused"):
+        trace = trace_step(lambda f=fns["fused"]: f.train_step(batch, next(counter),
+                                                                f.init_metrics()),
+                           "16-band fused training step")
     del models, fns
     torch.cuda.empty_cache()
     for k in ("fused_dual_upsample4", "up4_bwd"):
@@ -1861,7 +1894,8 @@ def bands_phase(results: dict) -> dict:
     out.update({"fused_step_ms": times["fused"], "eager_step_ms": times["eager"],
                 "loss_rel_diff": sf["loss_rel_diff"], "worst_grad_cos": sf["worst_grad_cos"],
                 "worst_grad_rel_l2": sf["worst_grad_rel_l2"], "launches": launches,
-                "step_added_bytes": {be: step[be].get("step_added_bytes") for be in times}})
+                "step_added_bytes": {be: step[be].get("step_added_bytes") for be in times},
+                "trace": trace})
     return out
 
 

@@ -72,9 +72,9 @@ SIGNATURES = {
     "sunet_ln_wmsa_bwd": [_P] * 18 + [_I] * 6 + [_F, _P, _P],
     # B, H, W, C, ws, heads -> workspace bytes
     "sunet_ln_wmsa_bwd_workspace": [_I] * 6,
-    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, int* launches,
-    # stream
-    "sunet_ln_mlp_branch": [_P] * 9 + [_I] * 3 + [_P, _P],
+    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks (the
+    # launch plan's K split of fc2), int* launches, stream
+    "sunet_ln_mlp_branch": [_P] * 9 + [_I] * 4 + [_P, _P],
     # M, C, hidden -> workspace bytes
     "sunet_ln_mlp_branch_workspace": [_I] * 3,
     # y, dout, ln g/b, w1, b1, w2, dy, 6 grads (ln g/b, w1, b1, w2, b2),
@@ -103,9 +103,9 @@ SIGNATURES = {
     # W, C, stream
     "sunet_up4": [_P] * 8 + [_I] * 4 + [_P],
     # x, dout (B, 4H, 4W, C), w_exp (C, 16C), wb1, bb1, wpf, wbf, alphas, dx,
-    # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, workspace, B, H, W, C, int*
-    # launches, stream
-    "sunet_up4_bwd": [_P] * 16 + [_I] * 4 + [_P, _P],
+    # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, workspace, B, H, W, C, the
+    # launch plan's tiles per chunk, int* launches, stream
+    "sunet_up4_bwd": [_P] * 16 + [_I] * 5 + [_P, _P],
     # B, H, W, C -> workspace bytes
     "sunet_up4_bwd_workspace": [_I] * 4,
     # xw, ctx, wqkv, bqkv, bias, mask, T, nW, N, C, heads, scale, stream

@@ -48,32 +48,27 @@
 //      as one partial per CTA. y, a, z, dY and dyb never reach device
 //      memory. Independent products go out as one wgmma group (z with dY,
 //      y with dP, the fold with dwpf, the last beside the dz store).
-//   3. pixel: per 64-pixel strip, dzb = prelu'(zb) (dxb wbf^T) (slope and
-//      column partials, round(dzb) written), dx = round(dz wexp^T +
-//      round(dzb) wb1^T) over K = 16 C + C, dz streamed by TMA.
-//   4. the weight gradients dwexp = x^T dz, dwbf = abv^T dxb, dwb1 = x^T
-//      round(dzb) as token-chunk partials (bb::wgrad_kernel).
-//   5. every partial summed in a fixed order, dwexp back to w_exp's column
-//      order c * 16 + s and the fold unfolded to (3, 3, C, out).
+//   3-5. up4_bwd.cuh's launches, shared with the split head's backward
+//      (#11): pixel (per 64-pixel strip, dzb = prelu'(zb) (dxb wbf^T) with
+//      the slope and column partials, round(dzb) written, dx = round(dz
+//      wexp^T + round(dzb) wb1^T) over K = 16 C + C, dz streamed by TMA);
+//      the weight gradients dwexp = x^T dz, dwbf = abv^T dxb, dwb1 = x^T
+//      round(dzb) as token-chunk partials (bb::wgrad_kernel); every partial
+//      summed in a fixed order, dwexp back to w_exp's column order c * 16 +
+//      s and the fold unfolded to (3, 3, C, out).
 // Bytes per launch at batch 4 (64,64,96): 1 reads x and dout, writes zb,
 // xb (6.3 MB each), abv, dxb (3.1 MB each); 2 reads x and xb's
 // neighbourhoods (L2, once per phase) and dout, writes dz (50 MB); 3 reads
-// dz, dxb, zb, writes dx,
-// round(dzb); 4 reads x, dz, abv, dxb, round(dzb); partials are a few MB.
-// Plans are functions of one image's shape (kernels/upsample.py::
-// up4_conv_bwd_plan mirrors up4_bwd_plan); no sum uses atomics.
-#include "block_bwd_hopper.cuh"
+// dz, dxb, zb, writes dx, round(dzb); 4 reads x, dz, abv, dxb, round(dzb);
+// partials are a few MB. Plans are functions of one image's shape
+// (kernels/upsample.py::up4_conv_bwd_plan mirrors up4_bwd_plan); no sum
+// uses atomics.
 #include "up4_bwd.cuh"
 
 namespace sunet {
 namespace u4 {
 
-using bb::kThr;
-constexpr int kBox = 64 * 128;        // one 64 x 64 bf16 box or A panel (128-byte rows)
-constexpr int kPhaseChunks = 8;       // tile chunks of the phase launch at kPlanBatch images
-constexpr int kCopyCtas = 16;         // the prep launch's weight-layout CTAs
-constexpr int kWcRows = 80;           // K of the conv adjoint's product: 9 * out to 16, out <= 8
-constexpr int kDxbT = 8;              // the stencil adjoint's tile: 8 x 8 pixels
+constexpr int kWcRows = 80;   // K of the conv adjoint's product: 9 * out to 16, out <= 8
 
 // Per-axis conv slots: base offset and phase (kernels/upsample.py::USLOTS);
 // the slots that read phase p along one axis.
@@ -81,245 +76,15 @@ static __constant__ int kSlotOff[6] = {-1, 0, 0, 0, 0, 1};
 static __constant__ int kUn[4] = {2, 1, 1, 2};
 static __constant__ int kUs[4][2] = {{1, 5}, {2, 2}, {3, 3}, {0, 4}};
 
-struct Up4BwdPlan {
-  int ntiles;                 // 64-pixel strips (prep, pixel)
-  int tpc, ptiles, nchunks;   // phase launch: 8 x 8 tiles per chunk, tiles, chunks
-  int ndxb;                   // 8 x 8 tiles of the stencil adjoint (= ptiles)
-  int wchunk, wnchunks;       // weight gradients: tokens per chunk, chunks
-  int k16;                    // K of the conv adjoint's product
-};
-
-// The plan (kernels/upsample.py::up4_conv_bwd_plan mirrors it).
-inline Up4BwdPlan up4_bwd_plan(int B, int H, int W, int C, int out) {
-  const int hw = H * W, M = B * hw, strips = (bb::kPlanBatch * hw + 63) / 64;
-  const int tiles = ((H + kDxbT - 1) / kDxbT) * ((W + kDxbT - 1) / kDxbT);
-  Up4BwdPlan p;
-  p.ntiles = (M + 63) / 64;
-  p.tpc = (bb::kPlanBatch * tiles + kPhaseChunks - 1) / kPhaseChunks;
-  p.ptiles = B * tiles;
-  p.nchunks = (p.ptiles + p.tpc - 1) / p.tpc;
-  p.ndxb = B * tiles;
-  const int wt = bb::wg_tiles(C, 16 * C) + 2 * bb::wg_tiles(C, C);
-  const int per = std::max(1, (bb::kFillCtas + wt - 1) / wt);
-  p.wchunk = 64 * ((strips + per - 1) / per);
-  p.wnchunks = (M + p.wchunk - 1) / p.wchunk;
-  p.k16 = (9 * out + 15) / 16 * 16;
-  return p;
-}
-
-// Shared-memory bytes of the three launches of our own (1024 of alignment
+// Shared-memory bytes of the two launches of our own (1024 of alignment
 // slack, then a 1024-byte header; kernels/upsample.py mirrors them).
 inline size_t prep_smem(int C, int out) {
-  const size_t strip = 1024 + 12 * (size_t)kBox;
+  const size_t strip = strip_smem(nboxes(C), true);
   const size_t dxb = 4 * ((size_t)144 * 16 * out + 42 * 8 * 3 * out + 64 * 9 * out + 9 * C * out);
   return 1024 + std::max(strip, dxb);
 }
 constexpr size_t kPhaseSmem =
     1024 + 1024 + 8 * kBox + 2 * kWcRows * 128 + 13 * kBox + 81 * (96 + 4) * 4;
-constexpr size_t kPixelSmem = 1024 + 1024 + 12 * kBox + 3 * 3 * kBox + 64 * 96 * 4;
-
-struct Up4Work {
-  float *zb, *xb, *ppf, *pfold, *pap, *pab, *pbb1, *pw[3];
-  bf16 *abv, *dxb, *dzb, *dz, *wst, *wct;
-  size_t bytes;
-};
-
-// The workspace (kernels/upsample.py::up4_conv_bwd_workspace mirrors it).
-// With p == nullptr only measures.
-inline Up4Work carve_up4(unsigned char* p, const Up4BwdPlan& pl, int M, int C, int out) {
-  Carve cv{p};
-  Up4Work w;
-  const size_t mc = (size_t)M * C;
-  w.zb = cv.take<float>(mc);
-  w.xb = cv.take<float>(mc);
-  w.abv = cv.take<bf16>(mc);
-  w.dxb = cv.take<bf16>(mc);
-  w.dzb = cv.take<bf16>(mc);
-  w.dz = cv.take<bf16>(16 * mc);
-  w.wst = cv.take<bf16>((size_t)16 * C * C);
-  w.wct = cv.take<bf16>((size_t)9 * out * C);
-  w.ppf = cv.take<float>((size_t)pl.nchunks * 16 * C * C);
-  w.pfold = cv.take<float>((size_t)pl.nchunks * 36 * C * 16 * out);
-  w.pap = cv.take<float>((size_t)pl.nchunks * 16);
-  w.pab = cv.take<float>((size_t)pl.ntiles);
-  w.pbb1 = cv.take<float>((size_t)pl.ntiles * C);
-  w.pw[0] = cv.take<float>((size_t)pl.wnchunks * C * 16 * C);
-  w.pw[1] = cv.take<float>((size_t)pl.wnchunks * C * C);
-  w.pw[2] = cv.take<float>((size_t)pl.wnchunks * C * C);
-  w.bytes = cv.used;
-  return w;
-}
-
-// ---------------------------------------------------------------- products
-
-__device__ inline unsigned char* align1k(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
-
-template <int N>
-__device__ inline void zero(float (&v)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = 0.f;
-}
-
-// Stage n items (item e: v = load(e), then store(e, v)) by the CTA's
-// threads, kBatch loads in flight per thread before their stores: the
-// stores go through generic pointers, which the compiler cannot tell from
-// the loads' memory, so interleaved they would wait on each load in turn.
-// The loaders are branch-free (an item off the data loads from a valid
-// address and selects zero), so that the batch's loads issue back to back.
-template <int kBatch, class T, class Load, class Store>
-__device__ inline void stage(int n, Load load, Store store) {
-  for (int e0 = threadIdx.x; e0 < n; e0 += kBatch * kThr) {
-    T v[kBatch];
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) v[k] = load(min(e0 + k * kThr, n - 1));
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int e = e0 + k * kThr;
-      if (e < n) store(e, v[k]);
-    }
-  }
-}
-
-__device__ inline float4 axpy4(float a, float4 x, float b, float4 y) {
-  return make_float4(a * x.x + b * y.x, a * x.y + b * y.y, a * x.z + b * y.z, a * x.w + b * y.w);
-}
-
-// acc = A (64 x K, swizzled K-major panels at a) @ W[0:K, 64 nb: 64 nb + 64],
-// W held as 64 x 64 boxes, box (row block kc, column block nb) at (2 kc +
-// nb) * kBox.
-__device__ inline void mm_w(float (&acc)[32], const unsigned char* a, const unsigned char* w,
-                            int nb, int K) {
-  zero(acc);
-  hop::wg_fence();
-  for (int kk = 0; kk < K; kk += 16)
-    hop::wgmma64(acc, hop::a_desc(a, kk), hop::b_desc(w + (2 * (kk >> 6) + nb) * kBox, kk & 63),
-                 1);
-  hop::wg_commit();
-  hop::wg_wait0();
-}
-
-// acc = A (64 x K) @ W^T[0:K, 64 nb: 64 nb + 64] from the same boxes (W's
-// rows 64 nb .. are the output columns, read K-major).
-__device__ inline void mm_wt(float (&acc)[32], const unsigned char* a, const unsigned char* w,
-                             int nb, int K) {
-  zero(acc);
-  hop::wg_fence();
-  for (int kk = 0; kk < K; kk += 16)
-    hop::wgmma64_kmajor(acc, hop::a_desc(a, kk),
-                        hop::a_desc(w + (2 * nb + (kk >> 6)) * kBox, kk & 63), 1);
-  hop::wg_commit();
-  hop::wg_wait0();
-}
-
-// One axis of the clamped x4 stencil: the weight with which high-res index
-// P (phase P & 3 of source u = P >> 2, u inside the axis of size n) reaches
-// target t.
-__device__ inline float tap_coef(int P, int t, int n) {
-  const int u = P >> 2, i = P & 3;
-  int lo, hi;
-  stencil_taps(u, n, i, lo, hi);
-  return (lo == t ? kQ4[i][0] : 0.f) + (hi == t ? kQ4[i][1] : 0.f);
-}
-
-// TMA: the box of the 4-d `map` at (c0, c1, c2, c3) into dst, completing on bar.
-__device__ inline void tma_load4(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
-                                 int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(hop::smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(hop::smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-// Map of x (B, H, W, C) bf16 in boxes of 64 channels x an 8 x 8 pixel tile:
-// a box lands as 64 rows (pixel (h0 + r / 8, w0 + r % 8)) of 128 bytes
-// with the 128-byte swizzle, the A operand's layout; pixels and channels
-// off the tensor fill zeros.
-inline cudaError_t tile_map(CUtensorMap* m, const void* x, int B, int H, int W, int C) {
-  const hop::EncodeTiledFn f = hop::encode_tiled();
-  if (f == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  if (C % 8 || (reinterpret_cast<uintptr_t>(x) & 15)) return cudaErrorInvalidValue;
-  const cuuint64_t dim[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
-  const cuuint64_t stride[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                (cuuint64_t)H * W * C * 2};
-  const cuuint32_t box[4] = {64, kDxbT, kDxbT, 1};
-  const cuuint32_t es[4] = {1, 1, 1, 1};
-  const CUresult r = f(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dim, stride,
-                       box, es, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------- launch 1
-
-struct PrepArgs {
-  const bf16 *dout, *wexp, *wconv;
-  const float *bb1, *alphas;
-  float *zb, *xb;
-  bf16 *abv, *dxb, *wst, *wct;
-  int B, H, W, C, out, nstrips, ndxb;
-};
-
-// Strip: zb = x wb1 + bb1, abv = round(prelu(zb)), xb = abv wbf.
-template <int NBX>
-__device__ inline void prep_strip(const PrepArgs& a, const CUtensorMap* mx,
-                                  const CUtensorMap* mwb1, const CUtensorMap* mwbf,
-                                  unsigned char* base, int strip) {
-  uint64_t* bar = reinterpret_cast<uint64_t*>(base);
-  unsigned char* X = base + 1024;
-  unsigned char* Wb1 = X + 2 * kBox;
-  unsigned char* Wbf = Wb1 + 4 * kBox;
-  unsigned char* A2 = Wbf + 4 * kBox;
-  const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & 127, C = a.C;
-  const int M = a.B * a.H * a.W, m0 = strip * 64;
-  const float ab = a.alphas[1];
-  if (tid == 0) {
-    hop::mbar_init(bar, 1);
-    hop::mbar_fence_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    hop::mbar_expect_tx(bar, (uint32_t)(NBX + 2 * NBX * NBX) * kBox);
-    for (int cb = 0; cb < NBX; ++cb) hop::tma_load(X + cb * kBox, mx, bar, 64 * cb, m0);
-    for (int rb = 0; rb < NBX; ++rb)
-      for (int cb = 0; cb < NBX; ++cb) {
-        hop::tma_load(Wb1 + (2 * rb + cb) * kBox, mwb1, bar, 64 * cb, 64 * rb);
-        hop::tma_load(Wbf + (2 * rb + cb) * kBox, mwbf, bar, 64 * cb, 64 * rb);
-      }
-  }
-  hop::mbar_wait(bar, 0);
-  float acc[32];
-  if (wg < NBX) {
-    mm_w(acc, X, Wb1, wg, C);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int row = hop::acc_row(t128, i), col = 64 * wg + hop::acc_col(t128, i);
-      const int m = m0 + row;
-      bf16 v = tobf(0.f);
-      if (m < M && col < C) {
-        const float z = acc[i] + a.bb1[col];
-        v = tobf(prelu_f(z, ab));
-        a.zb[(size_t)m * C + col] = z;
-        a.abv[(size_t)m * C + col] = v;
-      }
-      *reinterpret_cast<bf16*>(A2 + hop::a_off(row, col)) = v;
-    }
-  }
-  hop::fence_async_smem();
-  __syncthreads();
-  if (wg < NBX) {
-    mm_w(acc, A2, Wbf, wg, C);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int row = hop::acc_row(t128, i), col = 64 * wg + hop::acc_col(t128, i);
-      if (m0 + row < M && col < C) a.xb[(size_t)(m0 + row) * C + col] = acc[i];
-    }
-  }
-}
 
 // 8 x 8 tile: dxb = round(stencil^T(conv^T(dout))). With Q a high-res
 // dout index and P = Q + tap one of the stencil's sources, per axis
@@ -385,21 +150,6 @@ __device__ inline void prep_dxb(const PrepArgs& a, unsigned char* base, int tile
   }
 }
 
-// w_exp (C, 16C), column n * 16 + s -> wst (16C, C), row s * C + k; wconv
-// (3, 3, C, out) -> wct (9 out, C), row tap * out + o.
-__device__ inline void prep_copy(const PrepArgs& a, int cta) {
-  const int C = a.C, out = a.out;
-  const int stride = kCopyCtas * kThr, i0 = cta * kThr + threadIdx.x;
-  for (int i = i0; i < 16 * C * C; i += stride) {
-    const int s = i / (C * C), k = (i / C) % C, n = i % C;
-    a.wst[i] = a.wexp[(size_t)k * 16 * C + n * 16 + s];
-  }
-  for (int i = i0; i < 9 * out * C; i += stride) {
-    const int k = i / C, c = i % C;
-    a.wct[i] = a.wconv[((k / out) * C + c) * out + k % out];
-  }
-}
-
 template <int NBX>
 __global__ void __launch_bounds__(kThr, 1)
     prep_kernel(const __grid_constant__ PrepArgs a, const __grid_constant__ CUtensorMap mx,
@@ -407,7 +157,7 @@ __global__ void __launch_bounds__(kThr, 1)
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base = align1k(smem_raw);
   const int bid = blockIdx.x;
-  if (bid < a.nstrips) prep_strip<NBX>(a, &mx, &mwb1, &mwbf, base, bid);
+  if (bid < a.nstrips) prep_strip<NBX, true>(a, &mx, &mwb1, &mwbf, base, bid);
   else if (bid < a.nstrips + a.ndxb) prep_dxb(a, base, bid - a.nstrips);
   else prep_copy(a, bid - a.nstrips - a.ndxb);
 }
@@ -415,7 +165,7 @@ __global__ void __launch_bounds__(kThr, 1)
 // ---------------------------------------------------------------- launch 2
 
 // A measurement build (-DSUNET_PHASE_CLOCK, sunet_tf_tpu_torch/tools/
-// block_phases.py --kernel up4_bwd) adds thread 0's SM clock cycles per
+// block_phases.py --kernel up4_conv_bwd) adds thread 0's SM clock cycles per
 // phase of the phase launch (kPhPhases: setup, the staged gathers (dout
 // shifted, the xb neighbourhood, the conv adjoint's A), the wait for x, z
 // with dY, y with dP, the fold and dwpf with the dz store, the partials)
@@ -425,19 +175,6 @@ __global__ void __launch_bounds__(kThr, 1)
 constexpr int kPhPhases = 7;
 #ifdef SUNET_PHASE_CLOCK
 __device__ long long* g_phase_clock;
-#define PH_PHASE(k)                                                                    \
-  do {                                                                                 \
-    if (tid == 0 && g_phase_clock) {                                                   \
-      const long long now = clock64();                                                 \
-      g_phase_clock[(((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +       \
-                     blockIdx.x) * kPhPhases + (k)] += now - clk;                      \
-      clk = now;                                                                       \
-    }                                                                                  \
-  } while (0)
-#else
-#define PH_PHASE(k) \
-  do {              \
-  } while (0)
 #endif
 
 struct PhaseArgs {
@@ -718,212 +455,6 @@ __global__ void __launch_bounds__(kThr, 1)
   PH_PHASE(6);
 }
 
-// ---------------------------------------------------------------- launch 3
-
-struct PixelArgs {
-  const float *zb, *alphas;
-  bf16 *dzb, *dx;
-  float *pab, *pbb1;   // [strip], [strip][C]
-  int M, C;
-};
-
-template <int NBX>
-__global__ void __launch_bounds__(kThr, 1)
-    pixel_kernel(const __grid_constant__ PixelArgs a, const __grid_constant__ CUtensorMap mdxb,
-                 const __grid_constant__ CUtensorMap mdz, const __grid_constant__ CUtensorMap mwst,
-                 const __grid_constant__ CUtensorMap mwbf, const __grid_constant__ CUtensorMap mwb1) {
-  constexpr int kS = 3, kSlotB = (1 + 2) * kBox;   // ring: slots of (dz box, wst boxes)
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* base = align1k(smem_raw);
-  uint64_t* wbar = reinterpret_cast<uint64_t*>(base);
-  uint64_t* full = wbar + 1;
-  uint64_t* empty = full + kS;
-  float* red = reinterpret_cast<float*>(base + 128);
-  unsigned char* Wbf = base + 1024;
-  unsigned char* Wb1 = Wbf + 4 * kBox;
-  unsigned char* A0 = Wb1 + 4 * kBox;   // dxb
-  unsigned char* A1 = A0 + 2 * kBox;    // round(dzb)
-  unsigned char* ring = A1 + 2 * kBox;
-  float* cs = reinterpret_cast<float*>(ring + kS * kSlotB);   // [64][C] fp32 dzb
-  const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & 127, C = a.C, M = a.M;
-  const int strip = blockIdx.x, m0 = strip * 64, nch = 16 * NBX;
-  const float ab = a.alphas[1];
-  if (tid == 0) {
-    hop::mbar_init(wbar, 1);
-    for (int i = 0; i < kS; ++i) {
-      hop::mbar_init(&full[i], 1);
-      hop::mbar_init(&empty[i], kThr);
-    }
-    hop::mbar_fence_init();
-  }
-  __syncthreads();
-  // chunk q of dz wexp^T: phase q / NBX, K columns 64 (q % NBX) of it
-  auto issue = [&](int q) {
-    const int sl = q % kS, ph = q / NBX, kc = q % NBX;
-    unsigned char* slot = ring + (size_t)sl * kSlotB;
-    hop::mbar_expect_tx(&full[sl], (uint32_t)(1 + NBX) * kBox);
-    hop::tma_load(slot, &mdz, &full[sl], ph * C + 64 * kc, m0);
-    for (int j = 0; j < NBX; ++j)
-      hop::tma_load(slot + (1 + j) * kBox, &mwst, &full[sl], 64 * kc, ph * C + 64 * j);
-  };
-  if (tid == 0) {
-    hop::mbar_expect_tx(wbar, (uint32_t)(2 * NBX * NBX + NBX) * kBox);
-    for (int rb = 0; rb < NBX; ++rb)
-      for (int cb = 0; cb < NBX; ++cb) {
-        hop::tma_load(Wbf + (2 * rb + cb) * kBox, &mwbf, wbar, 64 * cb, 64 * rb);
-        hop::tma_load(Wb1 + (2 * rb + cb) * kBox, &mwb1, wbar, 64 * cb, 64 * rb);
-      }
-    for (int cb = 0; cb < NBX; ++cb) hop::tma_load(A0 + cb * kBox, &mdxb, wbar, 64 * cb, m0);
-    for (int q = 0; q < kS; ++q) issue(q);
-  }
-  hop::mbar_wait(wbar, 0);
-  // dzb = prelu'(zb) (dxb wbf^T): fp32 into cs, rounded into A1 and out
-  float acc[32], abs_ = 0.f;
-  if (wg < NBX) {
-    float zbv[32];   // every load before the epilogue's stores
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int row = hop::acc_row(t128, i), col = 64 * wg + hop::acc_col(t128, i);
-      zbv[i] = m0 + row < M && col < C ? __ldg(a.zb + (size_t)(m0 + row) * C + col) : 0.f;
-    }
-    mm_wt(acc, A0, Wbf, wg, C);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int row = hop::acc_row(t128, i), col = 64 * wg + hop::acc_col(t128, i);
-      const int m = m0 + row;
-      float d = 0.f;
-      if (m < M && col < C) {
-        const float zz = zbv[i];
-        d = zz > 0.f ? acc[i] : ab * acc[i];
-        abs_ += fminf(zz, 0.f) * acc[i];
-        a.dzb[(size_t)m * C + col] = tobf(d);
-      }
-      if (col < C) cs[row * C + col] = d;
-      *reinterpret_cast<bf16*>(A1 + hop::a_off(row, col)) = tobf(d);
-    }
-  }
-  hop::fence_async_smem();
-  abs_ = warp_sum(abs_);
-  if ((tid & 31) == 0) red[tid >> 5] = abs_;
-  __syncthreads();
-  if (tid < C) {   // bb1's column partial: rows in order
-    float v = 0.f;
-    for (int r = 0; r < 64; ++r) v += cs[r * C + tid];
-    a.pbb1[(size_t)strip * C + tid] = v;
-  }
-  if (tid == 0) {
-    float v = 0.f;
-    for (int w = 0; w < kThr / 32; ++w) v += red[w];
-    a.pab[strip] = v;
-  }
-  // dx = round(dz wexp^T + round(dzb) wb1^T)
-  zero(acc);
-  for (int q = 0; q < nch; ++q) {
-    const int sl = q % kS;
-    hop::mbar_wait(&full[sl], (uint32_t)((q / kS) & 1));
-    const unsigned char* slot = ring + (size_t)sl * kSlotB;
-    if (wg < NBX) {
-      hop::wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < 64; kk += 16)
-        hop::wgmma64_kmajor(acc, hop::a_desc(slot, kk), hop::a_desc(slot + (1 + wg) * kBox, kk),
-                            1);
-      hop::wg_commit();
-      hop::wg_wait0();
-    }
-    hop::mbar_arrive(&empty[sl]);
-    if (tid == 0 && q + kS < nch) {
-      hop::mbar_wait(&empty[sl], (uint32_t)((q / kS) & 1));
-      issue(q + kS);
-    }
-  }
-  if (wg < NBX) {
-    hop::wg_fence();
-    for (int kk = 0; kk < C; kk += 16)
-      hop::wgmma64_kmajor(acc, hop::a_desc(A1, kk),
-                          hop::a_desc(Wb1 + (2 * wg + (kk >> 6)) * kBox, kk & 63), 1);
-    hop::wg_commit();
-    hop::wg_wait0();
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int row = hop::acc_row(t128, i), col = 64 * wg + hop::acc_col(t128, i);
-      if (m0 + row < M && col < C) a.dx[(size_t)(m0 + row) * C + col] = tobf(acc[i]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- launch 5
-
-struct SumArgs9 {
-  const float *pw0, *pw1, *pw2, *ppf, *pfold, *pap, *pab, *pbb1;
-  float *dwexp, *dwbf, *dwb1, *dwpf, *dwconv, *dbb1, *dalphas;
-  int C, out, nchunks, ntiles, wnchunks;
-};
-
-// The slot of output phase i with conv tap d along one axis
-// (kernels/upsample.py::_slot).
-__device__ inline int conv_slot(int i, int d) {
-  const int hi = i + d;
-  return hi < 0 ? 0 : (hi > 3 ? 5 : 1 + hi);
-}
-
-// One thread per output value, its partials summed in a fixed order.
-static __global__ void __launch_bounds__(kThr) sum9_kernel(const __grid_constant__ SumArgs9 a) {
-  const int C = a.C, O = 16 * a.out;
-  const long long n0 = 16LL * C * C, n1 = (long long)C * C, n4 = 9LL * C * a.out;
-  const long long total = n0 + 3 * n1 + n4 + C + 2;
-  for (long long i = blockIdx.x * (long long)kThr + threadIdx.x; i < total;
-       i += (long long)gridDim.x * kThr) {
-    long long e = i;
-    float v = 0.f;
-    if (e < n0) {   // dwexp in w_exp's column order c * 16 + s
-      const int c = (int)(e / (16 * C)), col = (int)(e % (16 * C)), n = col / 16, s = col % 16;
-      for (int z = 0; z < a.wnchunks; ++z) v += a.pw0[((size_t)z * C + c) * 16 * C + s * C + n];
-      a.dwexp[e] = v;
-      continue;
-    }
-    e -= n0;
-    if (e < 2 * n1) {   // dwbf, dwb1
-      const float* p = e < n1 ? a.pw1 : a.pw2;
-      const long long k = e % n1;
-      for (int z = 0; z < a.wnchunks; ++z) v += p[(size_t)z * n1 + k];
-      (e < n1 ? a.dwbf : a.dwb1)[k] = v;
-      continue;
-    }
-    e -= 2 * n1;
-    if (e < n1) {   // dwpf over (chunk, phase) in order
-      for (int z = 0; z < 16 * a.nchunks; ++z) v += a.ppf[(size_t)z * n1 + e];
-      a.dwpf[e] = v;
-      continue;
-    }
-    e -= n1;
-    if (e < n4) {   // dwconv (3, 3, C, out): every output phase's slot
-      const int o = (int)(e % a.out), c = (int)((e / a.out) % C), tap = (int)(e / (a.out * C));
-      const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) {
-          const int slot = conv_slot(i, dy) * 6 + conv_slot(j, dx);
-          for (int z = 0; z < a.nchunks; ++z)
-            v += a.pfold[(((size_t)z * 36 + slot) * C + c) * O + (i * 4 + j) * a.out + o];
-        }
-      a.dwconv[e] = v;
-      continue;
-    }
-    e -= n4;
-    if (e < C) {   // dbb1 over the strips
-      for (int z = 0; z < a.ntiles; ++z) v += a.pbb1[(size_t)z * C + e];
-      a.dbb1[e] = v;
-      continue;
-    }
-    e -= C;
-    if (e == 0)
-      for (int z = 0; z < 16 * a.nchunks; ++z) v += a.pap[z];
-    else
-      for (int z = 0; z < a.ntiles; ++z) v += a.pab[z];
-    a.dalphas[e] = v;
-  }
-}
-
 // ---------------------------------------------------------------- the sequence
 
 struct Up4BwdArgs {
@@ -937,10 +468,10 @@ struct Up4BwdArgs {
 };
 
 template <int NBX>
-cudaError_t up4_bwd(const Up4BwdArgs& a, const Up4Work& w, const Up4BwdPlan& pl,
-                    cudaStream_t st, int* n) {
+cudaError_t conv_bwd(const Up4BwdArgs& a, const Up4Work& w, const Up4BwdPlan& pl,
+                     cudaStream_t st, int* n) {
   const int M = a.B * a.H * a.W, C = a.C;
-  CUtensorMap mx, mx4, mwb1, mwbf, mwpf, mwst, mwct, mdz, mdxb;
+  CUtensorMap mx, mx4, mwb1, mwbf, mwpf, mwst, mwct;
   SUNET_TRY(hop::weight_map(&mx, a.x, M, C, 64));
   SUNET_TRY(tile_map(&mx4, a.x, a.B, a.H, a.W, C));
   SUNET_TRY(hop::weight_map(&mwb1, a.wb1, C, C, 64));
@@ -948,8 +479,6 @@ cudaError_t up4_bwd(const Up4BwdArgs& a, const Up4Work& w, const Up4BwdPlan& pl,
   SUNET_TRY(hop::weight_map(&mwpf, a.wpf, C, C, 64));
   SUNET_TRY(hop::weight_map(&mwst, w.wst, 16 * C, C, 64));
   SUNET_TRY(hop::weight_map(&mwct, w.wct, 9 * a.out, C, pl.k16));
-  SUNET_TRY(hop::weight_map(&mdz, w.dz, M, 16 * C, 64));
-  SUNET_TRY(hop::weight_map(&mdxb, w.dxb, M, C, 64));
   {
     const PrepArgs p{a.dout, a.wexp, a.wconv, a.bb1, a.alphas, w.zb,  w.xb,       w.abv,
                      w.dxb,  w.wst,  w.wct,   a.B,   a.H,      a.W,   C,          a.out,
@@ -965,38 +494,10 @@ cudaError_t up4_bwd(const Up4BwdArgs& a, const Up4Work& w, const Up4BwdPlan& pl,
                                   kPhaseSmem, st, 1, p, mx4, mwst, mwpf, mwct));
     SUNET_TRY(launched(n));
   }
-  {
-    const PixelArgs p{w.zb, a.alphas, w.dzb, a.dx, w.pab, w.pbb1, M, C};
-    SUNET_TRY(hop::launch_cluster(pixel_kernel<NBX>, dim3(pl.ntiles), kThr, kPixelSmem, st, 1, p,
-                                  mdxb, mdz, mwst, mwbf, mwb1));
-    SUNET_TRY(launched(n));
-  }
-  {
-    using namespace bb;
-    WgArgs g;
-    WgMaps m;
-    memset(&g, 0, sizeof(g));
-    memset(&m, 0, sizeof(m));
-    const bf16* xs[3] = {a.x, w.abv, a.x};
-    const bf16* ds[3] = {w.dz, w.dxb, w.dzb};
-    const int ncols[3] = {16 * C, C, C};
-    int first = 0;
-    for (int i = 0; i < 3; ++i) {
-      g.p[i] = WgProduct{C, ncols[i], (C + 63) / 64, first, w.pw[i], nullptr};
-      first += wg_tiles(C, ncols[i]) * pl.wnchunks;
-      SUNET_TRY(hop::weight_map(&m.x[i], xs[i], M, C, 64));
-      SUNET_TRY(hop::weight_map(&m.d[i], ds[i], M, ncols[i], 64));
-    }
-    g.np = 3, g.T = M, g.chunk = pl.wchunk, g.nchunks = pl.wnchunks;
-    SUNET_TRY(hop::launch_cluster(wgrad_kernel, dim3(first), kThr, wgrad_smem(), st, 1, g, m));
-    SUNET_TRY(launched(n));
-  }
-  const SumArgs9 s{w.pw[0],  w.pw[1], w.pw[2], w.ppf,     w.pfold,   w.pap,      w.pab,
-                   w.pbb1,   a.dwexp, a.dwbf,  a.dwb1,    a.dwpf,    a.dwconv,   a.dbb1,
-                   a.dalphas, C,      a.out,   pl.nchunks, pl.ntiles, pl.wnchunks};
-  const long long total = 19LL * C * C + 9LL * C * a.out + C + 2;
-  sum9_kernel<<<(int)std::min<long long>((total + kThr - 1) / kThr, 2048), kThr, 0, st>>>(s);
-  return launched(n);
+  const Up4Tail t{a.x,    a.wb1,  a.wbf,  a.alphas, a.dx, a.dwexp, a.dalphas, a.dwb1,
+                  a.dbb1, a.dwpf, a.dwbf, a.dwconv, a.B,  a.H,     a.W,       C,
+                  a.out,  16 * pl.nchunks};
+  return up4_bwd_tail<NBX>(t, w, pl, st, n);
 }
 
 }  // namespace u4
@@ -1043,6 +544,6 @@ extern "C" int sunet_up4_conv_bwd(const void* x, const void* dout, const void* w
   const u4::Up4Work w = u4::carve_up4((unsigned char*)work, pl, B * H * W, C, out);
   *launches = 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(C <= 64 ? u4::up4_bwd<1>(a, w, pl, st, launches)
-                       : u4::up4_bwd<2>(a, w, pl, st, launches));
+  return (int)(C <= 64 ? u4::conv_bwd<1>(a, w, pl, st, launches)
+                       : u4::conv_bwd<2>(a, w, pl, st, launches));
 }

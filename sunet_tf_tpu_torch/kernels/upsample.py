@@ -69,8 +69,9 @@ UP4_CONV_BWD_LAUNCHES = 5
 # The split head's kernels (csrc/up4.cu, up4_bwd.cu) keep one tile's working
 # set in shared memory: C a multiple of 16 up to this width.
 UP4_SPLIT_KERNEL_MAX_C = 256
-# Kernel launches one up4_bwd call makes (csrc/up4_bwd.cu).
-UP4_BWD_LAUNCHES = 20
+# Kernel launches one up4_bwd call makes (csrc/up4_bwd.cu): prep, phase,
+# pixel, the weight gradients, the sums.
+UP4_BWD_LAUNCHES = 5
 
 
 def _prelu(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -229,13 +230,39 @@ def up4_plan(C: int, out: int) -> dict:
     return {"T": T, "smem": up4_smem(C, out, T)}
 
 
-# The conv-fused head's backward (#9, csrc/up4_conv_bwd.cu): the phase
-# launch's CTAs per chunk of tiles x 16 phases, 8 x 8 tiles of the stencil
-# adjoint, the conv adjoint's K (9 * out) padded to 16 and at most this.
+# The x4 head's backward kernels (#9, csrc/up4_conv_bwd.cu; #11,
+# csrc/up4_bwd.cu; their shared launches csrc/up4_bwd.cuh): the phase
+# launch's chunks of 8 x 8 tiles, 8 x 8 tiles of the stencil adjoint, #9's
+# conv adjoint's K (9 * out) padded to 16 and at most this.
 UP4_BWD_PHASE_CHUNKS = 8     # kPhaseChunks
 UP4_BWD_DXB_TILE = 8         # kDxbT
 _UP4_BWD_WC_ROWS = 80        # kWcRows
 _UP4_BWD_BOX = 64 * 128      # kBox
+_UP4_BWD_DXB_BYTES = 40 * 40 * 16 * 2 + 40 * 8 * 16 * 4 + 2 * 8 * 12 * 4   # #11's kDxbBytes
+
+
+def _up4_pixel_smem(C: int) -> int:
+    """Shared memory of the pixel launch (csrc/up4_bwd.cuh pixel_smem): wbf
+    and wb1 whole up to two 64-column boxes of C (with the fp32 dzb of a
+    pair), wider one pair of boxes at a time; dxb, round(dzb), the ring."""
+    nbx = _cdiv(C, 64)
+    full = nbx <= 2
+    return (2048 + ((4 if full else 2) * nbx + 2 * nbx + 9) * _UP4_BWD_BOX
+            + (64 * 128 * 4 if full else 0))
+
+
+def _up4_wgrad_plan(H: int, W: int, C: int) -> tuple:
+    """Tokens per chunk and tiles (dwexp, dwbf, dwb1) of the x4 head
+    backward's weight-gradient launch (csrc/up4_bwd.cuh up4_bwd_plan)."""
+    tplan = _cdiv(PLAN_BATCH * H * W, 64)
+    wtiles = (_wg_tiles(C, 16 * C), _wg_tiles(C, C), _wg_tiles(C, C))
+    per = max(1, _cdiv(BWD_FILL_CTAS, sum(wtiles)))
+    return 64 * _cdiv(tplan, per), wtiles
+
+
+def _up4_tiles_per_chunk(H: int, W: int) -> int:
+    tiles = _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE)
+    return _cdiv(PLAN_BATCH * tiles, UP4_BWD_PHASE_CHUNKS)
 
 
 def up4_conv_bwd_plan(H: int, W: int, C: int, out: int) -> dict:
@@ -253,21 +280,19 @@ def up4_conv_bwd_plan(H: int, W: int, C: int, out: int) -> dict:
                          f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
     if H < 1 or W < 1:
         raise ValueError(f"up4_conv_bwd_plan: ({H},{W}) is empty")
-    tplan = _cdiv(PLAN_BATCH * H * W, 64)
-    tiles = _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE)
-    wtiles = (_wg_tiles(C, 16 * C), _wg_tiles(C, C), _wg_tiles(C, C))
-    per = max(1, _cdiv(BWD_FILL_CTAS, sum(wtiles)))
+    wchunk, wtiles = _up4_wgrad_plan(H, W, C)
     nslots = [len([u for u in USLOTS if u[1] == p]) for p in range(4)]
     box = _UP4_BWD_BOX
     dxb = 4 * (144 * 16 * out + 42 * 8 * 3 * out + 64 * 9 * out + 9 * C * out)
-    return {"tiles_per_chunk": _cdiv(PLAN_BATCH * tiles, UP4_BWD_PHASE_CHUNKS),
+    nbx = _cdiv(C, 64)
+    return {"tiles_per_chunk": _up4_tiles_per_chunk(H, W),
             "fold_boxes": tuple(_cdiv(nslots[s // 4] * nslots[s % 4] * 16 * out, 64)
                                 for s in range(16)),
-            "k16": _up(9 * out, 16), "wgrad_chunk_tokens": 64 * _cdiv(tplan, per),
+            "k16": _up(9 * out, 16), "wgrad_chunk_tokens": wchunk,
             "wgrad_tiles": wtiles, "dxb_tile": (UP4_BWD_DXB_TILE, UP4_BWD_DXB_TILE),
-            "smem": {"prep": 1024 + max(1024 + 12 * box, dxb),
+            "smem": {"prep": 1024 + max(1024 + (2 * nbx + 2 * nbx * nbx) * box, dxb),
                      "phase": 2048 + 21 * box + 2 * _UP4_BWD_WC_ROWS * 128 + 81 * 100 * 4,
-                     "pixel": 2048 + 21 * box + 64 * 96 * 4,
+                     "pixel": _up4_pixel_smem(C),
                      "wgrad": _bwd_tok_smem(0, False)}}
 
 
@@ -288,6 +313,49 @@ def up4_conv_bwd_workspace(B: int, H: int, W: int, C: int, out: int) -> int:
               2 * 16 * C * C, 2 * 9 * out * C, 4 * nch * 16 * C * C,
               4 * nch * 36 * C * 16 * out, 4 * nch * 16, 4 * ntiles, 4 * ntiles * C,
               4 * wnch * C * 16 * C, 4 * wnch * C * C, 4 * wnch * C * C]
+    return sum(_pad128(n) for n in pieces)
+
+
+def up4_bwd_plan(H: int, W: int, C: int) -> dict:
+    """Launch plan of the split head's backward (#11) for (H, W, C) images,
+    a function of one image's shape (``up4_bwd_plan`` in csrc/up4_bwd.cuh
+    with out = 0 mirrors it): 8 x 8 pixel tiles per chunk of the phase
+    launch (#9's), its CTAs per (chunk, phase) (one per 64-column box of
+    C), the weight-gradient launch's tokens per chunk and tiles (dwexp,
+    dwbf, dwb1), each launch's shared-memory bytes. Raises ValueError on a
+    shape outside the design."""
+    if C % 16 or not 16 <= C <= UP4_SPLIT_KERNEL_MAX_C:
+        raise ValueError(f"up4_bwd_plan: C={C}: the kernel takes C a multiple of 16 up to "
+                         f"{UP4_SPLIT_KERNEL_MAX_C}")
+    if H < 1 or W < 1:
+        raise ValueError(f"up4_bwd_plan: ({H},{W}) is empty")
+    nbx = _cdiv(C, 64)
+    wchunk, wtiles = _up4_wgrad_plan(H, W, C)
+    box = _UP4_BWD_BOX
+    return {"tiles_per_chunk": _up4_tiles_per_chunk(H, W), "column_boxes": nbx,
+            "wgrad_chunk_tokens": wchunk, "wgrad_tiles": wtiles,
+            "dxb_tile": (UP4_BWD_DXB_TILE, UP4_BWD_DXB_TILE),
+            "smem": {"prep": 1024 + max(1024 + (nbx + nbx * nbx) * box, _UP4_BWD_DXB_BYTES),
+                     "phase": 2048 + (6 * nbx + 3) * box,
+                     "pixel": _up4_pixel_smem(C),
+                     "wgrad": _bwd_tok_smem(0, False)}}
+
+
+def up4_bwd_workspace(B: int, H: int, W: int, C: int) -> int:
+    """Bytes of the split head's backward workspace (``carve_up4`` in
+    csrc/up4_bwd.cuh with out = 0): zb (float32), abv, dxb, round(dzb) (M x
+    C), dz (M x 16C), w_exp by phase, then the partials: dwpf per (chunk,
+    phase), the slope per (chunk, phase, column box), the 64-pixel strips'
+    slope and db_b1 sums, the weight gradients' token chunks."""
+    plan = up4_bwd_plan(H, W, C)
+    M = B * H * W
+    ntiles = _cdiv(M, 64)
+    nch = _cdiv(B * _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE),
+                plan["tiles_per_chunk"])
+    wnch = _cdiv(M, plan["wgrad_chunk_tokens"])
+    pieces = [4 * M * C, 2 * M * C, 2 * M * C, 2 * M * C, 2 * 16 * M * C, 2 * 16 * C * C,
+              4 * nch * 16 * C * C, 4 * nch * 16 * plan["column_boxes"], 4 * ntiles,
+              4 * ntiles * C, 4 * wnch * C * 16 * C, 4 * wnch * C * C, 4 * wnch * C * C]
     return sum(_pad128(n) for n in pieces)
 
 
@@ -668,7 +736,8 @@ def up4_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, dout) -> tuple:
     """Backward of :func:`fused_dual_upsample4` (JAX ``_up4_bwd_impl``):
     dout (B, 4H, 4W, C) pixel-space cotangent. Returns (dx, dw_exp (C,
     16C), dalpha_p, dw_b1, db_b1, dalpha_b, dwpf, dwbf), the grads float32.
-    CUDA: ``csrc/up4_bwd.cu``, a fixed sequence of launches, each counted."""
+    CUDA: ``csrc/up4_bwd.cu``, UP4_BWD_LAUNCHES launches
+    (:func:`up4_bwd_plan`), each counted; any H and W."""
     name = "up4_bwd"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -677,6 +746,7 @@ def up4_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, dout) -> tuple:
                                  wbf, dout)
     _check_up4_split(name, x, w_exp, w_b1, wpf, wbf)
     B, H, W, C = x.shape
+    plan = up4_bwd_plan(H, W, C)
     dev = x.device
     if tuple(dout.shape) != (B, 4 * H, 4 * W, C) or dout.device != dev:
         raise ValueError(f"{name}: dout {tuple(dout.shape)} on {dout.device}, "
@@ -695,7 +765,7 @@ def up4_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, dout) -> tuple:
         _build.ptr(x), _build.ptr(dout), _build.ptr(w_exp), _build.ptr(w_b1),
         _build.ptr(bb1), _build.ptr(wpf), _build.ptr(wbf), _build.ptr(alphas),
         _build.ptr(dx), *[_build.ptr(g) for g in grads], _build.ptr(work),
-        B, H, W, C, _build.byref(launches), _build.stream())
+        B, H, W, C, plan["tiles_per_chunk"], _build.byref(launches), _build.stream())
     _build.check(name, err)
     count.cuda += launches.value
     dw_exp, dal, dwb1, dbb1, dwpf, dwbf = grads

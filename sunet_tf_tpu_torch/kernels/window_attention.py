@@ -86,12 +86,13 @@ BF16 = torch.bfloat16
 BLOCK_KERNEL_MAX_C = 384
 # Kernel launches one call of each training wrapper makes (the forward
 # recompute, the backward products and the token reductions of
-# csrc/swin_block_bwd.cuh, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; LN and the two
-# products of ln_mlp_branch.cu). The block backward: LN1 + qkv, the
-# attention forward, proj, LN2 + fc1, dm w2^T, dab w1^T + the LN2 backward,
-# dctx, the attention backward, dqkv wqkv^T + the LN1 backward, the weight
-# gradients, the sums; the residual route reads ctx from its residuals and
-# skips the attention forward. The LN+W-MSA backward: its attention half,
+# csrc/swin_block_bwd.cuh, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; the two products
+# of ln_mlp_branch.cu, fc1 with the LN in its A load). The block backward:
+# LN1 + qkv, the attention forward, proj, LN2 + fc1, dm w2^T, dab w1^T + the
+# LN2 backward, dctx, the attention backward, dqkv wqkv^T + the LN1
+# backward, the weight gradients, the sums; the residual route reads ctx
+# from its residuals and skips the attention forward. The LN+W-MSA
+# backward: its attention half,
 # LN1 + qkv, the attention forward, dctx, the attention backward, dqkv
 # wqkv^T + the LN1 backward, the weight gradients, the sums. The LN+MLP
 # backward: its MLP half, LN2 + fc1, dm w2^T, dab w1^T split over K, the
@@ -99,7 +100,7 @@ BLOCK_KERNEL_MAX_C = 384
 SWIN_BLOCK_BWD_LAUNCHES = 11
 SWIN_BLOCK_BWD_RES_LAUNCHES = 10
 LN_WMSA_BWD_LAUNCHES = 7
-LN_MLP_BRANCH_LAUNCHES = 3
+LN_MLP_BRANCH_LAUNCHES = 2
 LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
 # fused_ln_window_attention: LN + qkv, attention, projection
 # (csrc/ln_window_attention.cu)
@@ -1680,8 +1681,9 @@ def _check_mlp(name, y, ln, w1, b1, w2, b2=None):
 
 def ln_mlp_branch(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     """fc2(gelu(fc1(LN(y)))) over an NHWC map, in y's dtype, without the
-    residual (JAX ``_ln_mlp_branch``). CUDA: ``csrc/ln_mlp_branch.cu``, the
-    LN row kernel and two GEMM launches, each counted."""
+    residual (JAX ``_ln_mlp_branch``). CUDA: ``csrc/ln_mlp_branch.cu``, two
+    launches (fc1 with the LayerNorm in its A load, fc2 on a K-split
+    cluster; #4's plan, :func:`mlp_plan`), each counted."""
     name = "ln_mlp_branch"
     count = _build.counter(name)
     if y.device.type == "cpu":
@@ -1690,6 +1692,7 @@ def ln_mlp_branch(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     _check_mlp(name, y, ln, w1, b1, w2, b2)
     B, H, W, C = y.shape
     hidden = w1.shape[1]
+    plan = mlp_plan(H * W, C, hidden)
     dev = y.device
     f = lambda t: _f32(t, dev)
     lib = _build.library()
@@ -1699,7 +1702,7 @@ def ln_mlp_branch(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     launches = _build.c_int(0)
     err = lib.sunet_ln_mlp_branch(
         _build.ptr(y), _build.ptr(out), *[_build.ptr(a) for a in args],
-        _build.ptr(work), B * H * W, C, hidden, _build.byref(launches),
+        _build.ptr(work), B * H * W, C, hidden, plan["ks"], _build.byref(launches),
         _build.stream())
     _build.check(name, err)
     count.cuda += launches.value

@@ -1,9 +1,10 @@
 """Where one launch of the cluster block kernel (#1, ``csrc/swin_cluster.cu``;
-its residual form #6) or of the conv-fused x4 head (#5, ``csrc/up4_conv.cu``)
-spends its time, phase by phase, on the card.
+its residual form #6), of the conv-fused x4 head (#5, ``csrc/up4_conv.cu``)
+or of the phase launch of either x4 head's backward (#9, #11) spends its
+time, phase by phase, on the card.
 
     python -m sunet_tf_tpu_torch.tools.block_phases [--batch 4]
-        [--kernel block|block_res|up4|up4_bwd]
+        [--kernel block|block_res|up4|up4_conv_bwd|up4_bwd]
 
 Builds the kernels with ``-DSUNET_PHASE_CLOCK`` (a library of its own, beside
 the normal one), which makes thread 0 of every CTA record its SM clock at
@@ -25,12 +26,16 @@ thread 0 of every warpgroup (one tile each) adds its cycles per phase
 (setup, the bilinear branch, per subpixel the halo rows and x @ wexp[s],
 its PReLU epilogue, @ wpf, the stencil epilogue, the conv terms; the
 output), and the median over warpgroups of each is printed with its share.
-``--kernel up4_bwd``: the phase launch of the x4 head's backward (#9,
-``csrc/up4_conv_bwd.cu``) at (64,64,96), out 1: thread 0 of every CTA adds
-its cycles per phase over its chunk of 8 x 8 tiles (setup, the staged
-gathers, the wait for x, z with dY, y with dP, the fold and dwpf with the dz
-store, the partials), and the median over the CTAs of box 0 of each is
-printed with its share and per tile.
+``--kernel up4_conv_bwd``: the phase launch of the conv-fused head's
+backward (#9, ``csrc/up4_conv_bwd.cu``) at (64,64,96), out 1: thread 0 of
+every CTA adds its cycles per phase over its chunk of 8 x 8 tiles (setup,
+the staged gathers, the wait for x, z with dY, y with dP, the fold and dwpf
+with the dz store, the partials), and the median over the CTAs of box 0 of
+each is printed with its share and per tile.
+``--kernel up4_bwd``: the phase launch of the split head's backward (#11,
+``csrc/up4_bwd.cu``) at (64,64,96): the same per CTA (setup, the wait for
+the x and dout tiles, z beside dP, dz beside dwpf, the dz store, the
+partials), the median over every CTA.
 Refuses to run without a card.
 """
 
@@ -51,8 +56,9 @@ PHASES = ("x in", "LN1", "qkv", "attention", "ctx gather", "proj", "y gather", "
 SHAPES = ((64, 96), (32, 192), (16, 384))
 UP4_PHASES = ("setup", "bilinear", "halo + x @ wexp", "PReLU epilogue", "@ wpf",
               "stencil epilogue", "conv terms", "output")
-UP4_BWD_PHASES = ("setup", "gathers", "wait x", "z, dY", "y, dP", "fold, dwpf, dz store",
-                  "partials")
+UP4_CONV_BWD_PHASES = ("setup", "gathers", "wait x", "z, dY", "y, dP", "fold, dwpf, dz store",
+                       "partials")
+UP4_BWD_PHASES = ("setup", "wait tiles", "z | dP", "dz | dwpf", "dz store", "partials")
 
 
 def block_args(B: int, H: int, C: int, gen) -> tuple:
@@ -67,7 +73,7 @@ def block_args(B: int, H: int, C: int, gen) -> tuple:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--kernel", choices=("block", "block_res", "up4", "up4_bwd"),
+    ap.add_argument("--kernel", choices=("block", "block_res", "up4", "up4_conv_bwd", "up4_bwd"),
                     default="block")
     args = ap.parse_args()
     B = args.batch
@@ -79,6 +85,8 @@ def main():
     lib = _build.use_variant(("SUNET_PHASE_CLOCK",))
     if args.kernel == "up4":
         return up4_phases(lib, B)
+    if args.kernel == "up4_conv_bwd":
+        return up4_conv_bwd_phases(lib, B)
     if args.kernel == "up4_bwd":
         return up4_bwd_phases(lib, B)
     lib.sunet_swin_block_phase_clock.argtypes = [ctypes.c_void_p]
@@ -139,7 +147,7 @@ def up4_phases(lib, B: int):
                            for name, v in zip(UP4_PHASES, phase.tolist())))
 
 
-def up4_bwd_phases(lib, B: int):
+def up4_conv_bwd_phases(lib, B: int):
     """#9's phase launch: cycles per phase and CTA at (64,64,96), out 1."""
     from sunet_tf_tpu_torch.kernels import upsample as up
 
@@ -156,7 +164,8 @@ def up4_bwd_phases(lib, B: int):
     tpc = plan["tiles_per_chunk"]
     tiles = (-(-H // 8)) ** 2
     nch = -(-(B * tiles) // tpc)
-    clocks = torch.zeros(out, 16, nch, len(UP4_BWD_PHASES), dtype=torch.int64, device="cuda")
+    clocks = torch.zeros(out, 16, nch, len(UP4_CONV_BWD_PHASES), dtype=torch.int64,
+                         device="cuda")
     _build.check("block_phases",
                  lib.sunet_up4_conv_bwd_phase_clock(ctypes.c_void_p(clocks.data_ptr())))
     up.up4_conv_bwd(*hp)
@@ -168,6 +177,36 @@ def up4_bwd_phases(lib, B: int):
     print(f"up4_conv_bwd phase launch ({H},{H},{C}) out {out} batch {B}: {16 * nch} CTAs of "
           f"{tpc} tiles, {plan['smem']['phase']} bytes of shared memory; per CTA {total:.0f} "
           f"cycles, {total / tpc:.0f} per tile")
+    print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
+                           for name, v in zip(UP4_CONV_BWD_PHASES, phase.tolist())))
+
+
+def up4_bwd_phases(lib, B: int):
+    """#11's phase launch: cycles per phase and CTA at (64,64,96)."""
+    from sunet_tf_tpu_torch.kernels import upsample as up
+
+    lib.sunet_up4_bwd_phase_clock.argtypes = [ctypes.c_void_p]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    w = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+    H, C = 64, 96
+    hp = (n(B, H, H, C).to(torch.bfloat16), w(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
+          w(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), w(C, C), w(C, C),
+          n(B, 4 * H, 4 * H, C).to(torch.bfloat16))
+    plan = up.up4_bwd_plan(H, H, C)
+    tpc, nbx = plan["tiles_per_chunk"], plan["column_boxes"]
+    nch = -(-(B * (-(-H // 8)) ** 2) // tpc)
+    clocks = torch.zeros(16, nch, nbx, len(UP4_BWD_PHASES), dtype=torch.int64, device="cuda")
+    _build.check("block_phases", lib.sunet_up4_bwd_phase_clock(ctypes.c_void_p(clocks.data_ptr())))
+    up.up4_bwd(*hp)
+    torch.cuda.synchronize()
+    _build.check("block_phases", lib.sunet_up4_bwd_phase_clock(None))
+    c = clocks.reshape(16 * nch * nbx, -1).cpu().double()
+    phase = c.median(0).values
+    total = float(c.sum(1).median())
+    print(f"up4_bwd phase launch ({H},{H},{C}) batch {B}: {16 * nch * nbx} CTAs of {tpc} tiles, "
+          f"{plan['smem']['phase']} bytes of shared memory; per CTA {total:.0f} cycles, "
+          f"{total / tpc:.0f} per tile")
     print("  " + ", ".join(f"{name} {v:.0f} ({v / total:.0%})"
                            for name, v in zip(UP4_BWD_PHASES, phase.tolist())))
 

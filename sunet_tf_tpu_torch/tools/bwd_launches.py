@@ -2,9 +2,10 @@
 ``swin_block_bwd_res``; ``csrc/swin_block_bwd.cuh``), of the LN+W-MSA
 backward (#12 ``ln_window_attention_bwd``, ``csrc/ln_wmsa_bwd.cu``) or of
 the LN+MLP backward (#14 ``ln_mlp_bwd``, ``csrc/ln_mlp_bwd.cu``), all on the
-same kernels, or of the conv-fused x4 head's backward (#9 ``up4_conv_bwd``,
-``csrc/up4_conv_bwd.cu``) spends its device time, launch by launch, on the
-card.
+same kernels, of the x4 head's backwards (#9 ``up4_conv_bwd``,
+``csrc/up4_conv_bwd.cu``; #11 ``up4_bwd``, ``csrc/up4_bwd.cu``) or of the
+LN+MLP branch forward (#13 ``ln_mlp_branch``, ``csrc/ln_mlp_branch.cu``)
+spends its device time, launch by launch, on the card.
 
     python -m sunet_tf_tpu_torch.tools.bwd_launches [--batch 2,4] [--shift 4]
 
@@ -13,8 +14,9 @@ Runs each form at the default model's block widths, (64,64,96),
 default training route sends there), window 8, 8 heads, QK_SCALE 8,
 drop-path scales 1/0.9, bf16, seeded weights, and #12 at the default
 model's bottleneck (8,8,768), at (16,16,768) with the shift and its mask,
-and at (16,16,384) with 2 heads (head dim 192), #14 at (8,8,768) and
-(16,16,768), #9 at (64,64,96) out 1, and prints per case the
+and at (16,16,384) with 2 heads (head dim 192), #13 and #14 at (8,8,768)
+and (16,16,768), #9 at (64,64,96) out 1, #11 at (64,64,96) (the 16-band
+model's head), and prints per case the
 device time of each of its launches (torch.profiler, mean over 5 calls
 after 3 warm-up calls, in launch order), their sum (the device-busy time of
 a call) and the launch count, beside the card's name and power limit.
@@ -68,7 +70,7 @@ def launches(fn, calls: int = 5) -> list:
     tot = collections.defaultdict(float)
     for i, e in enumerate(evs[:per * calls]):
         tot[i % per] += (e.time_range.end - e.time_range.start) / calls
-    names = [re.sub(r"^void |sunet::(bb::|u4::)?|\(.*$", "", evs[i].name) for i in range(per)]
+    names = [re.sub(r"^void |sunet::(bb::|u4s?::)?|\(.*$", "", evs[i].name) for i in range(per)]
     return [(names[i], tot[i]) for i in range(per)]
 
 
@@ -109,9 +111,11 @@ def main():
                                   hh=hw_heads: wa.ln_window_attention_bwd(
                                       xw, dw, *q[0], *q[1:4], bias, mw, ws=ws, num_heads=hh,
                                       scale=scale)))
-            if C == 384:   # #14 at the bottleneck, and a map of 4 windows
+            if C == 384:   # #13 and #14 at the bottleneck, and a map of 4 windows
                 for Hm in (8, 16):
                     ym, dm, *q = block_args(B, Hm, 768, gen)
+                    cases.append((f"#13 ln_mlp_branch ({Hm},{Hm},768)", lambda ym=ym, q=q:
+                                  wa.ln_mlp_branch(ym, q[5], *q[6:10])))
                     cases.append((f"#14 ln_mlp_bwd ({Hm},{Hm},768)", lambda ym=ym, dm=dm, q=q:
                                   wa.ln_mlp_bwd(ym, dm, q[5], *q[6:9])))
             if C == 384:   # #9 at the default model's head, out 1
@@ -124,6 +128,8 @@ def main():
                       n(B, 64, 64, 16).to(torch.bfloat16))
                 cases.append(("#9 up4_conv_bwd (64,64,96) out 1",
                               lambda hp=hp: up.up4_conv_bwd(*hp)))
+                sp = (*hp[:8], n(B, 256, 256, 96).to(torch.bfloat16))
+                cases.append(("#11 up4_bwd (64,64,96)", lambda sp=sp: up.up4_bwd(*sp)))
             for name, fn in cases:
                 got = launches(fn)
                 print(f"{name} batch {B}: {len(got)} launches, "

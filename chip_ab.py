@@ -16,14 +16,15 @@ bf16, ``chip_smoke.block_params`` weights.
   batch 2 and 4, the LN+W-MSA kernel (#3) at (8,8,768), batch 2 and 4,
   and at (16,16,768), shift 4 with the mask, the conv-fused x4 head (#5)
   and its backward (#9) at (64,64,96), out 1 and 3, #5 also out 1 at batch
-  4, the split x4 head (#10) at (64,64,96) and the standalone W-MSA (#15)
-  at (64,64,96), shift 0 and 4.
+  4.
 - Against the plain version, both trees' readings printed (``PLAIN``
   lines): the residual route's block forward (#6: output and stored state)
   at (64,64,96) and (32,32,192), shift 0 and 4, the LN+MLP branch (#13)
   and the LN+W-MSA and LN+MLP backwards (#12, #14) of
-  ``chip_smoke.sublayer_cases`` and the split head's backward (#11) at
-  (64,64,96), batch 2 and 4 (dx and the worst weight gradient). Their fp32
+  ``chip_smoke.sublayer_cases``, the split head's backward (#11) at
+  (64,64,96), batch 2 and 4 (dx and the worst weight gradient), the split
+  head (#10) at (64,64,96), batch 2 and 4, and the standalone W-MSA (#15)
+  at (64,64,96), shift 0 and 4. Their fp32
   summation order is a design choice of each tree, so their bits may
   differ; a kernel whose redesign lies between the two trees moves here.
 - Times (``TIME`` lines), each by this script's own ``time_ms`` and
@@ -32,7 +33,8 @@ bf16, ``chip_smoke.block_params`` weights.
   count; and the device time of the wrapper's kernels from torch.profiler,
   mean per call. #1 at (64,64,96), (32,32,192), (16,16,384), #4, #13, #14
   and #3 at (8,8,768) and #5 and #9 at (64,64,96) out 1, batch 2 and 4, #9
-  out 3 (batch 2), #11 at (64,64,96), batch 2 and 4, #8 at
+  out 3 (batch 2), #10 and #11 at (64,64,96), batch 2 and 4, #15 at
+  (64,64,96) shift 0 and 4 (batch 2), #8 at
   the three widths and #6 and #7 at C=96 and 192 (shift 4, batch 2 and 4),
   #12 at (8,8,768) (batch 2 and 4) and at (16,16,768) shift 4, the default
   model's fused bf16 forward at 256x256 batch 4 (also paced by the host:
@@ -199,10 +201,12 @@ for H, C in ((64, 96), (32, 192), (16, 384)):
     blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12], mask)
     kw = dict(ws=ws, num_heads=heads, scale=scale, shift=4)
     outs[f"fused_swin_block batch 4 ({H},{H},{C}) shift 4"] = wa.fused_swin_block(*blk, **kw)
-# the split head (#10) and the standalone W-MSA (#15), which share a header
-# and a kernel with #5 and #3
+# the split head (#10) and the standalone W-MSA (#15), which share headers
+# and kernels with #3, #5, #9 and #11
 hp = cs.split_head_args(gen, B, 64, 64, 96)
-outs["fused_dual_upsample4 (64,64,96)"] = up.fused_dual_upsample4(*hp)
+plain_outs("fused_dual_upsample4 (64,64,96)", (up.fused_dual_upsample4(*hp),),
+           (up.fused_dual_upsample4_reference(*hp),))
+timed("fused_dual_upsample4 batch 2 (64,64,96)", lambda: up.fused_dual_upsample4(*hp))
 dout = torch.randn(B, 256, 256, 96, device="cuda", generator=gen).to(torch.bfloat16)
 plain_grads("up4_bwd (64,64,96)", up.up4_bwd(*hp, dout), up.up4_bwd_reference(*hp, dout))
 timed("up4_bwd batch 2 (64,64,96)", lambda: up.up4_bwd(*hp, dout))
@@ -211,8 +215,12 @@ for shift in (0, 4):
     x = torch.randn(B, 64, 64, 96, device="cuda", generator=gen).to(torch.bfloat16)
     mask = (torch.as_tensor(shift_attn_mask(64, 64, ws, shift), device="cuda")
             if shift else None)
-    outs[f"wmsa_core (64,64,96) shift {shift}"] = wa.fused_window_attention(
-        x, p[2], p[3], p[4], p[5], p[12], mask, ws=ws, num_heads=heads, scale=scale)
+    wargs = (x, p[2], p[3], p[4], p[5], p[12], mask)
+    wkw = dict(ws=ws, num_heads=heads, scale=scale)
+    plain_outs(f"wmsa_core (64,64,96) shift {shift}", (wa.fused_window_attention(*wargs, **wkw),),
+               (wa.fused_window_attention_reference(*wargs, **wkw),))
+    timed(f"wmsa_core batch 2 (64,64,96) shift {shift}",
+          lambda: wa.fused_window_attention(*wargs, **wkw))
 # #3 at the main path's (8,8,768), batch 2 and 4, and with the SW mask; #5
 # at batch 4
 for Bt, H, shift in ((2, 8, 0), (4, 8, 0), (2, 16, 4)):
@@ -247,6 +255,9 @@ dout4 = torch.randn(4, 256, 256, 96, device="cuda", generator=sgen4).to(torch.bf
 plain_grads("up4_bwd batch 4 (64,64,96)", up.up4_bwd(*hp4, dout4),
             up.up4_bwd_reference(*hp4, dout4))
 timed("up4_bwd batch 4 (64,64,96)", lambda: up.up4_bwd(*hp4, dout4))
+plain_outs("fused_dual_upsample4 batch 4 (64,64,96)", (up.fused_dual_upsample4(*hp4),),
+           (up.fused_dual_upsample4_reference(*hp4),))
+timed("fused_dual_upsample4 batch 4 (64,64,96)", lambda: up.fused_dual_upsample4(*hp4))
 for Bt in (2, 4):
     for H, C in ((64, 96), (32, 192), (16, 384), (8, 768)):
         p = cs.block_params(C, heads, ws * ws, gen)

@@ -167,15 +167,16 @@ MUTANTS = {
                                 "const int hh = h0 + (r >> 3) - ddh, ww = w0 + (r & 7) - ddw;",
                                 "const int hh = h0 + (r >> 3), ww = w0 + (r & 7) - ddw;"),
     # the split head (#10) with its bilinear branch rounded to bf16 before
-    # the stencil (the eager route's rounding point, not the JAX kernel's)
+    # the stencil (the eager route's rounding point, not the JAX kernel's),
+    # in its prep launch's bordered xb store (#9's unbordered xb untouched),
+    # and with the bordered map's border left as zeros (the edge taps read 0)
     "up4_split_bilinear_rounded": (
-        "up4.cu",
-        "  bilinear_rows(x1, ld, kSplitHR / 16, z, xb, ldb, a.wb1, a.bb1, a.wbf, ab, C, bt, stg, "
-        "warp, lane);\n",
-        "  bilinear_rows(x1, ld, kSplitHR / 16, z, xb, ldb, a.wb1, a.bb1, a.wbf, ab, C, bt, stg, "
-        "warp, lane);\n"
-        "  for (int i = threadIdx.x; i < kSplitHR * ldb; i += kThreads) xb[i] = bf(tobf(xb[i]));\n"
-        "  __syncthreads();\n"),
+        "up4_bwd.cuh",
+        "if constexpr (kBorder) store_bordered(a.xb, cells[(i >> 1) & 1], col, acc[i]);",
+        "if constexpr (kBorder) store_bordered(a.xb, cells[(i >> 1) & 1], col, bf(tobf(acc[i])));"),
+    "up4_split_border_zero": ("up4_bwd.cuh",
+                              "if (c.valid >> k & 1) xbp[c.off[k] + col] = v;",
+                              "if (c.valid >> k & 1) xbp[c.off[k] + col] = k ? 0.f : v;"),
     # the H-axis stencil adjoint of both dxb tiles (#11's H-axis weights in
     # up4_bwd.cu, #9's H pass) with the top edge's clamped tap not folded
     # back onto the edge row
@@ -203,9 +204,10 @@ MUTANTS = {
     "gemm_split_rank_dropped": ("gemm_tile.cuh",
                                 "for (int q = 0; q < G; ++q)   // split partials in rank order",
                                 "for (int q = 0; q < G - 1; ++q)   // split partials in rank order"),
-    # the LN+W-MSA kernel (#3): the last head's ctx dropped (zero)
+    # the attention of the LN+W-MSA kernel (#3) and of the standalone W-MSA
+    # (#15): the last head's ctx dropped (zero)
     "ln_wmsa_head_ctx_dropped": (
-        "ln_window_attention.cu", "  l0 = fmaxf(l0, 1e-37f);\n  l1 = fmaxf(l1, 1e-37f);\n",
+        "wmsa_attn.cuh", "  l0 = fmaxf(l0, 1e-37f);\n  l1 = fmaxf(l1, 1e-37f);\n",
         "  l0 = hh == a.heads - 1 ? INFINITY : fmaxf(l0, 1e-37f);\n"
         "  l1 = hh == a.heads - 1 ? INFINITY : fmaxf(l1, 1e-37f);\n"),
     # the conv-fused x4 head (#5): the top halo row's phases (i = 3) not
@@ -221,9 +223,15 @@ MUTANTS = {
     "ln_mlp_branch_b2_dropped": ("ln_mlp_branch.cu",
                                  "GemmArgs{h, (const float*)b2, nullptr,",
                                  "GemmArgs{h, (const float*)b1, nullptr,"),
-    # the standalone W-MSA (#15) without its qkv bias
-    "wmsa_no_qkv_bias": ("window_attention.cu", "a.wqkv, a.bqkv, a.bias, mask",
-                         "a.wqkv, nullptr, a.bias, mask"),
+    # the standalone W-MSA (#15): its qkv launch without its bias (a zeroed
+    # workspace row read instead; #3's launch untouched), and the mask of
+    # window (t + 1) % nW for window t
+    "wmsa_no_qkv_bias": ("window_attention.cu", "  const float* bq = (const float*)bqkv;\n",
+                         "  const float* bq = (const float*)w.ctx;\n"
+                         "  SUNET_TRY(cudaMemsetAsync(w.ctx, 0, 12 * (size_t)C, st));\n"),
+    "wmsa_mask_next_window": (
+        "wmsa_attn.cuh", "mwin = (int)(((long long)b * gridDim.x + win) % gridDim.x);",
+        "mwin = (int)(((long long)b * gridDim.x + win + 1) % gridDim.x);"),
 }
 
 # Run inside a checkout: the backward checks of chip_smoke in one setting.

@@ -19,9 +19,11 @@
    the card's published peak rates); where a call launches several kernels
    (#9, #12, #14), its launches per call against the wrapper's constant. The forward
    kernels also include the
-   split x4 head (#10, also on a map that is not a multiple of its tile)
-   and the standalone W-MSA (#15, with one PyTorch call for the same
-   function timed beside it). The training kernels: the block kernel's
+   split x4 head (#10, also at batch 4, on a map that is not a multiple of
+   its tile and at C=256, its cap, each with its plan asserted and two runs
+   equal bit for bit) and the standalone W-MSA (#15, shift 0 and 4, and
+   without a qkv bias, with one PyTorch call for the same function timed
+   beside it). The training kernels: the block kernel's
    train form (drop-path scales), the block backward (also at batch 4: the
    residual route's at C=96 and 192, the recompute form's at C=384, the
    default route's rule), the x4 head backward (#9, also at batch 4 out 1
@@ -64,7 +66,9 @@
    with its time, added memory and a profiler trace.
 8. The entry points with no model route: ``kernels.fused_window_attention``
    (#15) once, and the ALU-rate probe ``tools/alu_floor.py`` (#16): each
-   chain against its plain version at T=16, then its rates at T=2048.
+   chain's instructions per pipe read from this build's SASS and held to
+   ALU_OPS (its bound's counts), each chain against its plain version at
+   T=16, then its rates at T=2048.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0)
@@ -334,23 +338,42 @@ def wmsa_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 8,
                  2 * T * C * 2 + 4 * C * C * 2 + (4 * C + heads * N * N) * 4 + mask)
 
 
-# Operations per element and step of each chain of the ALU-rate probe (#16):
-# fma y*a+b: 2; exp: negate, exp, fma: 4; tanh: tanh, fma: 3; tanh-GELU:
-# y^3 (2), a*y^3 + y (2), scale, tanh, 1+, 0.5*, y*cdf, fma (2): 11. A
-# transcendental counts as one operation at the float32 rate, so the bound
-# of the exp, tanh and GELU chains is loose: they also take the
-# special-function unit, which runs at a fraction of that rate.
-ALU_OPS = {"fma": 2, "exp": 4, "tanh": 3, "gelu": 11}
+# Instructions per element and step of each chain of the ALU-rate probe
+# (#16), per pipe, as the card's compiler builds csrc/alu_floor.cu (read
+# with ``python -m sunet_tf_tpu_torch.tools.alu_floor --sass``: cuobjdump
+# of the built library, the main unrolled loop of each chain over its
+# steps; PERF.md), and each pipe's results per SM and clock
+# (``alu_floor.PIPE_RATES``, compute capability 9.0): fma 1 FFMA; exp 7
+# FP32, 1.5 ALU (the loop counter over 4 steps among them), 1 MUFU.EX2;
+# tanh 10 FP32, 4.5 ALU, 2 MUFU (EX2 and RCP; both of tanhf's branches are
+# computed and one selected); gelu 17 FP32, 4.5 ALU, 2 MUFU. The entries
+# phase reads them again from this run's build and fails if they moved.
+ALU_OPS = {"fma": {"fp32": 1.0, "alu": 0.125, "mufu": 0.0},
+           "exp": {"fp32": 7.0, "alu": 1.5, "mufu": 1.0},
+           "tanh": {"fp32": 10.0, "alu": 4.5, "mufu": 2.0},
+           "gelu": {"fp32": 17.0, "alu": 4.5, "mufu": 2.0}}
+H100_SMS = 132
+# The clock at which the FP32 pipes give PEAK_FP32_FLOPS (128 FMA lanes per
+# SM, 2 operations each): 1.98 GHz.
+H100_CLOCK = PEAK_FP32_FLOPS / (H100_SMS * 128 * 2)
 
 
 def alu_cost(op: str, n: int, steps: int) -> dict:
-    """One launch of the probe's chain over n float32 values: the chain's
-    operations over the float32 peak, and 8 bytes per value."""
-    flops, nbytes = n * steps * ALU_OPS[op], 8 * n
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    """One launch of the probe's chain over n float32 values: per element
+    and step, each pipe's instructions (ALU_OPS) over its rate per SM and
+    clock, the largest, over the card's SMs at H100_CLOCK; and 8 bytes per
+    value."""
+    from sunet_tf_tpu_torch.tools.alu_floor import PIPE_RATES
+
+    c = ALU_OPS[op]
+    clocks = max(c[p] / rate for p, rate in PIPE_RATES.items())
+    t_ops = n * steps * clocks / (H100_SMS * H100_CLOCK) * 1e3
+    nbytes = 8 * n
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    pipe = max(PIPE_RATES, key=lambda p: c[p] / PIPE_RATES[p])
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+            "pipe": pipe, "flops": 2 * n * steps * c["fp32"], "bytes": nbytes}
 
 
 def grad_distance(a, b) -> tuple:
@@ -1197,29 +1220,40 @@ def kernel_phases(results: dict):
                lambda: up.fused_dual_upsample4_conv_phase_reference(*hp),
                up4_cost(Bh, Hh, Ch, out_ch, W=Wh))
 
-    # the split head (#10): the main path's (64,64,96), and a map whose H
-    # and W are not multiples of the kernel's 4 x 8 tile
-    for Hh, Ww in ((64, 64), (30, 44)):
-        hp = split_head_args(gen, B, Hh, Ww, C)
-        record("fused_dual_upsample4", f"({Hh},{Ww},{C})",
+    # the split head (#10): the main path's (64,64,96) at batch 2 and 4, a
+    # map whose H and W are not multiples of the kernel's 8 x 8 tile, and
+    # C = 256, its cap (four column boxes, the weights streamed per tile);
+    # each with its plan asserted and two runs equal bit for bit
+    for Bh, Hh, Ww, Ch, tpc in ((B, 64, 64, 96, 16), (4, 64, 64, 96, 16), (B, 30, 44, 96, 6),
+                                (B, 16, 16, 256, 1)):
+        plan = up.up4_split_plan(Hh, Ww, Ch)
+        check(plan["tiles_per_chunk"] == tpc and plan["weights_resident"] == (Ch <= 128),
+              f"fused_dual_upsample4 ({Hh},{Ww},{Ch}): plan {plan}")
+        hp = split_head_args(gen, Bh, Hh, Ww, Ch)
+        check(torch.equal(up.fused_dual_upsample4(*hp), up.fused_dual_upsample4(*hp)),
+              f"fused_dual_upsample4 ({Hh},{Ww},{Ch}): two runs differ")
+        record("fused_dual_upsample4", f"batch {Bh} ({Hh},{Ww},{Ch})",
                lambda: up.fused_dual_upsample4(*hp),
                lambda: up.fused_dual_upsample4_reference(*hp),
-               up4_split_cost(B, Hh, Ww, C))
+               up4_split_cost(Bh, Hh, Ww, Ch))
 
     # the standalone W-MSA (#15) over a pre-rolled map, shift 0 and 4 (the
-    # SW mask), with one PyTorch call for the same function as a yardstick
+    # SW mask), and without a qkv bias, with one PyTorch call for the same
+    # function as a yardstick
     H, C = 64, 96
-    for shift in (0, 4):
+    for shift, qkv_bias in ((0, True), (4, True), (4, False)):
         p = block_params(C, heads, N, gen)
         x = torch.randn(B, H, H, C, device="cuda", generator=gen).to(torch.bfloat16)
         mask = (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
                 if shift else None)
-        args = (x, p[2], p[3], p[4], p[5], p[12], mask)
-        record("wmsa_core", f"({H},{H},{C}) shift {shift}",
+        args = (x, p[2], p[3] if qkv_bias else None, p[4], p[5], p[12], mask)
+        lib_args = (p[2], p[3] if qkv_bias else torch.zeros_like(p[3]), *args[3:])
+        record("wmsa_core", f"({H},{H},{C}) shift {shift}"
+               + ("" if qkv_bias else ", bqkv None"),
                lambda: wa.fused_window_attention(*args, **bkw),
                lambda: wa.fused_window_attention_reference(*args, **bkw),
                wmsa_cost(B, H, C, ws, heads, masked=shift > 0),
-               library_fn=wmsa_library(window_partition(x, ws).contiguous(), *args[1:],
+               library_fn=wmsa_library(window_partition(x, ws).contiguous(), *lib_args,
                                        heads=heads, scale=scale))
 
 
@@ -1379,8 +1413,10 @@ def plans_taken(into: set):
     per chunk, windows per chunk), ("ln_mlp_bwd", C, hidden, ks, tokens per
     chunk), ("fused_dual_upsample4_conv_phase", C, out, T), ("up4_conv_bwd",
     C, out, tiles per chunk, tokens per chunk), ("up4_bwd", C, tiles per
-    chunk, tokens per chunk) and ("ln_mlp_branch", C, hidden, ks) (#13 takes
-    #4's plan)."""
+    chunk, tokens per chunk), ("ln_mlp_branch", C, hidden, ks) (#13 takes
+    #4's plan), ("fused_dual_upsample4", C, tiles per chunk) and
+    ("wmsa_core", C, heads, ws, ksq, ks) (#15 takes #3's plan over one
+    image's windows)."""
     from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
 
@@ -1388,8 +1424,10 @@ def plans_taken(into: set):
     launch_block, wmsa_bwd_plan = wa._launch_block, wa.ln_wmsa_bwd_plan
     mlp_bwd_plan, up4_bwd_plan = wa.ln_mlp_bwd_plan, up.up4_conv_bwd_plan
     split_bwd_plan, mlp_branch = up.up4_bwd_plan, wa.ln_mlp_branch
+    split_plan, wmsa_core = up.up4_split_plan, wa.wmsa_core
     form = ["fused_swin_block"]   # the block kernel's form being launched
     mlp_form = ["fused_ln_mlp"]   # the caller of mlp_plan
+    wmsa_form = ["fused_ln_window_attention"]   # the caller of wmsa_plan
 
     def launch(*args, res=False, **kw):
         form[0] = "fused_swin_block_res" if res else "fused_swin_block"
@@ -1438,7 +1476,19 @@ def plans_taken(into: set):
 
     def wmsa(H, W, C, heads, ws):
         plan = wmsa_plan(H, W, C, heads, ws)
-        into.add(("fused_ln_window_attention", C, heads, ws, plan["ksq"], plan["ks"]))
+        into.add((wmsa_form[0], C, heads, ws, plan["ksq"], plan["ks"]))
+        return plan
+
+    def core(*args, **kw):
+        wmsa_form[0] = "wmsa_core"
+        try:
+            return wmsa_core(*args, **kw)
+        finally:
+            wmsa_form[0] = "fused_ln_window_attention"
+
+    def split(H, W, C):
+        plan = split_plan(H, W, C)
+        into.add(("fused_dual_upsample4", C, plan["tiles_per_chunk"]))
         return plan
 
     def head(C, out):
@@ -1450,7 +1500,8 @@ def plans_taken(into: set):
                   (up, "up4_plan", head), (wa, "_launch_block", launch),
                   (wa, "ln_wmsa_bwd_plan", wmsa_bwd), (wa, "ln_mlp_bwd_plan", mlp_bwd),
                   (up, "up4_conv_bwd_plan", head_bwd), (up, "up4_bwd_plan", split_bwd),
-                  (wa, "ln_mlp_branch", branch)]):
+                  (wa, "ln_mlp_branch", branch), (up, "up4_split_plan", split),
+                  (wa, "wmsa_core", core)]):
         yield into
 
 
@@ -1861,6 +1912,7 @@ def bands_phase(results: dict) -> dict:
     eager, with its time, added memory and device trace."""
     import torch
 
+    from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.train.loop import prepare, step_generators
 
     cfg = bands_config()
@@ -1877,7 +1929,8 @@ def bands_phase(results: dict) -> dict:
     gate = train_gate(cfg, "denoise", inp, tar, ("fused",))
     models, step = gate["models"], gate["step"]
     launches = step["fused"]["launches"]
-    check(launches["fused_dual_upsample4"] == 1 and launches["up4_bwd"] > 0
+    check(launches["fused_dual_upsample4"] == up.UP4_SPLIT_LAUNCHES
+          and launches["up4_bwd"] == up.UP4_BWD_LAUNCHES
           and launches["fused_dual_upsample4_conv_phase"] == 0,
           "the split head did not train on its kernels")
     times, fns = step_times(cfg, "denoise", models, step, batch)
@@ -1910,6 +1963,7 @@ def entries_phase(results: dict) -> dict:
 
     from sunet_tf_tpu_torch import kernels
     from sunet_tf_tpu_torch.kernels import _build
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
     from sunet_tf_tpu_torch.ops.window import shift_attn_mask
     from sunet_tf_tpu_torch.tools import alu_floor
 
@@ -1927,10 +1981,17 @@ def entries_phase(results: dict) -> dict:
     n = _build.counter("wmsa_core").cuda
     print(f"  fused_window_attention: {n} launches of wmsa_core, output "
           f"{tuple(y.shape)} {y.dtype}")
-    check(n == 2 and bool(torch.isfinite(y.float()).all()) and y.shape == x.shape,
-          "the standalone W-MSA did not run through its kernels")
+    check(n == wa.WMSA_CORE_LAUNCHES and bool(torch.isfinite(y.float()).all())
+          and y.shape == x.shape, "the standalone W-MSA did not run through its kernels")
     results.setdefault("wmsa_core", {"max_abs_err": 0.0, "cases": []})["launches"] = n
 
+    sass = alu_floor.sass_step_counts(alu_floor.sass_listing())
+    for op in alu_floor.OPS:
+        got = {p: sass[op][p] for p in alu_floor.PIPE_RATES}
+        print(f"  alu_chain {op}: per step " + ", ".join(f"{p} {v:g}" for p, v in got.items())
+              + f" (SASS, a loop of {sass[op]['steps']} steps)")
+        check(got == ALU_OPS[op], f"alu_chain {op}: the build's instructions per step {got} "
+              f"are not ALU_OPS' {ALU_OPS[op]}")
     xs = torch.rand(alu_floor.ROWS, alu_floor.LANES, device="cuda", generator=gen)
     err = {}
     for op in alu_floor.OPS:
@@ -1949,7 +2010,8 @@ def entries_phase(results: dict) -> dict:
                            iters=3, warmup=1)
         cost = alu_cost(op, xs.numel(), alu_floor.T)
         print(f"    {op}: {ms:.4f} ms per launch ({rate:.1f} Gelem/s), plain {plain_ms:.4f} ms, "
-              f"bound {cost['bound_ms']:.4f} ms ({cost['bound_by']})")
+              f"bound {cost['bound_ms']:.4f} ms ({cost['bound_by']}, {cost['pipe']} pipe; "
+              f"{cost['bound_ms'] / ms:.2f} of it reached)")
         file_case(results, "alu_chain", {
             "case": f"{op} ({alu_floor.ROWS},{alu_floor.LANES}) T={alu_floor.T}",
             "max_abs_err": err[op][0], "mean_abs_err": err[op][1], "ms": ms,

@@ -89,8 +89,6 @@ SIGNATURES = {
     "sunet_ln_wmsa": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P, _P],
     # M, C -> workspace bytes
     "sunet_ln_wmsa_workspace": [_I] * 2,
-    # A, W, bias, out, M, K, Nout, stream
-    "sunet_linear_bias": [_P] * 4 + [_I] * 3 + [_P],
     # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks (the
     # launch plan's K split), int* launches, stream
     "sunet_ln_mlp": [_P] * 9 + [_I] * 4 + [_P, _P],
@@ -99,17 +97,22 @@ SIGNATURES = {
     # x, out, wexp(16,C,C), wb1, bb1, wpf, wbf, wconv(3,3,C,out), alphas,
     # B, H, W, C, out_ch, the launch plan's tiles per CTA, stream
     "sunet_up4_conv_phase": [_P] * 9 + [_I] * 6 + [_P],
-    # x, out (B, 4H, 4W, C), wexp(16,C,C), wb1, bb1, wpf, wbf, alphas, B, H,
-    # W, C, stream
-    "sunet_up4": [_P] * 8 + [_I] * 4 + [_P],
+    # x, out (B, 4H, 4W, C), w_exp (C, 16C), wb1, bb1, wpf, wbf, alphas,
+    # workspace, B, H, W, C, the launch plan's tiles per chunk, int*
+    # launches, stream
+    "sunet_up4": [_P] * 9 + [_I] * 5 + [_P, _P],
+    # B, H, W, C -> workspace bytes
+    "sunet_up4_workspace": [_I] * 4,
     # x, dout (B, 4H, 4W, C), w_exp (C, 16C), wb1, bb1, wpf, wbf, alphas, dx,
     # dw_exp, dalphas, dwb1, dbb1, dwpf, dwbf, workspace, B, H, W, C, the
     # launch plan's tiles per chunk, int* launches, stream
     "sunet_up4_bwd": [_P] * 16 + [_I] * 5 + [_P, _P],
     # B, H, W, C -> workspace bytes
     "sunet_up4_bwd_workspace": [_I] * 4,
-    # xw, ctx, wqkv, bqkv, bias, mask, T, nW, N, C, heads, scale, stream
-    "sunet_wmsa_ctx": [_P] * 6 + [_I] * 5 + [_F, _P],
+    # xw, out, wqkv, bqkv, wproj, bproj, bias, mask, workspace, T, nW, ws,
+    # C, heads, scale, the launch plan's K splits (qkv, proj), int*
+    # launches, stream
+    "sunet_wmsa_core": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P, _P],
     # x, out, n, op, T, stream
     "sunet_alu_chain": [_P, _P, ctypes.c_longlong, _I, _I, _P],
 }
@@ -213,12 +216,17 @@ def _load(target: Path) -> ctypes.CDLL:
     return lib
 
 
+def library_path() -> Path:
+    """Where :func:`library` builds the kernel library of these sources."""
+    return BUILD_DIR / f"libsunet_kernels_{_digest()}.so"
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     with _Library.lock:
         if _Library.lib is None:
             t0 = time.perf_counter()
-            target = BUILD_DIR / f"libsunet_kernels_{_digest()}.so"
+            target = library_path()
             if not target.exists():
                 _Library.log = _compile(target)
             _Library.lib = _load(target)

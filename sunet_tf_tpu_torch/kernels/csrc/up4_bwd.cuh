@@ -248,21 +248,56 @@ struct PrepArgs {
   int B, H, W, C, out, nstrips, ndxb;
 };
 
-// Shared-memory bytes of a strip (after the 1024 of alignment slack).
+// Shared-memory bytes of a strip (after the 1024 of alignment slack); with
+// xb at four column boxes wbf takes wb1's place (both would not fit).
 __host__ __device__ inline size_t strip_smem(int nbx, bool xb) {
-  return 1024 + (size_t)(nbx + (xb ? 2 : 1) * nbx * nbx + (xb ? nbx : 0)) * kBox;
+  const int wts = xb && nbx <= 3 ? 2 : 1;
+  return 1024 + (size_t)(nbx + wts * nbx * nbx + (xb ? nbx : 0)) * kBox;
 }
 
-// Strip: zb = x wb1 + bb1, abv = round(prelu(zb)); kXb (#9) also xb = abv
-// wbf. Warpgroup wg takes the output boxes wg, wg + 2, ...
-template <int NBX, bool kXb>
+// The bordered xb map (B, H + 2, W + 2, C) of the split head's forward
+// (#10): pixel (h, w) at (h + 1, w + 1), and an edge pixel also at the
+// border cells beside it, so that every clamped stencil tap is a plain read.
+// Pixel m's cells: element offsets of rows {h + 1, 0 at the top edge, H + 1
+// at the bottom} x columns likewise, cell 0 the interior one.
+struct Bordered {
+  size_t off[9];
+  unsigned valid;
+};
+
+__device__ inline Bordered bordered_cells(int m, int H, int W, int C) {
+  const int w = m % W, h = (m / W) % H, b = m / (H * W);
+  const int ys[3] = {h + 1, h == 0 ? 0 : -1, h == H - 1 ? H + 1 : -1};
+  const int xs[3] = {w + 1, w == 0 ? 0 : -1, w == W - 1 ? W + 1 : -1};
+  Bordered c;
+  c.valid = 0;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    const int y = ys[k / 3], x = xs[k % 3];
+    c.valid |= (y >= 0 && x >= 0 ? 1u : 0u) << k;
+    c.off[k] = (((size_t)b * (H + 2) + max(y, 0)) * (W + 2) + max(x, 0)) * C;
+  }
+  return c;
+}
+
+__device__ inline void store_bordered(float* xbp, const Bordered& c, int col, float v) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k)
+    if (c.valid >> k & 1) xbp[c.off[k] + col] = v;
+}
+
+// Strip: zb = x wb1 + bb1, abv = round(prelu(zb)); kXb also xb = abv wbf
+// (#9, and #10 with kBorder: xb alone, into the bordered map a.xb, no zb
+// or abv). Warpgroup wg takes the output boxes wg, wg + 2, ...
+template <int NBX, bool kXb, bool kBorder = false>
 __device__ inline void prep_strip(const PrepArgs& a, const CUtensorMap* mx,
                                   const CUtensorMap* mwb1, const CUtensorMap* mwbf,
                                   unsigned char* base, int strip) {
+  constexpr bool kTurn = kXb && NBX > 3;   // wbf loaded into wb1's place after zb
   uint64_t* bar = reinterpret_cast<uint64_t*>(base);
   unsigned char* X = base + 1024;
   unsigned char* Wb1 = X + NBX * kBox;
-  unsigned char* Wbf = Wb1 + NBX * NBX * kBox;
+  unsigned char* Wbf = kTurn ? Wb1 : Wb1 + NBX * NBX * kBox;
   unsigned char* A2 = Wbf + NBX * NBX * kBox;
   const int tid = threadIdx.x, wg = tid >> 7, t128 = tid & 127, C = a.C;
   const int M = a.B * a.H * a.W, m0 = strip * 64;
@@ -273,12 +308,13 @@ __device__ inline void prep_strip(const PrepArgs& a, const CUtensorMap* mx,
   }
   __syncthreads();
   if (tid == 0) {
-    hop::mbar_expect_tx(bar, (uint32_t)(NBX + (kXb ? 2 : 1) * NBX * NBX) * kBox);
+    hop::mbar_expect_tx(bar, (uint32_t)(NBX + (kXb && !kTurn ? 2 : 1) * NBX * NBX) * kBox);
     for (int cb = 0; cb < NBX; ++cb) hop::tma_load(X + cb * kBox, mx, bar, 64 * cb, m0);
     for (int rb = 0; rb < NBX; ++rb)
       for (int cb = 0; cb < NBX; ++cb) {
         hop::tma_load(Wb1 + (NBX * rb + cb) * kBox, mwb1, bar, 64 * cb, 64 * rb);
-        if (kXb) hop::tma_load(Wbf + (NBX * rb + cb) * kBox, mwbf, bar, 64 * cb, 64 * rb);
+        if (kXb && !kTurn)
+          hop::tma_load(Wbf + (NBX * rb + cb) * kBox, mwbf, bar, 64 * cb, 64 * rb);
       }
   }
   hop::mbar_wait(bar, 0);
@@ -293,8 +329,10 @@ __device__ inline void prep_strip(const PrepArgs& a, const CUtensorMap* mx,
       if (m < M && col < C) {
         const float z = acc[i] + a.bb1[col];
         v = tobf(prelu_f(z, ab));
-        a.zb[(size_t)m * C + col] = z;
-        a.abv[(size_t)m * C + col] = v;
+        if constexpr (!kBorder) {
+          a.zb[(size_t)m * C + col] = z;
+          a.abv[(size_t)m * C + col] = v;
+        }
       }
       if (kXb) *reinterpret_cast<bf16*>(A2 + hop::a_off(row, col)) = v;
     }
@@ -302,12 +340,29 @@ __device__ inline void prep_strip(const PrepArgs& a, const CUtensorMap* mx,
   if constexpr (kXb) {
     hop::fence_async_smem();
     __syncthreads();
+    if constexpr (kTurn) {   // wb1 is read: wbf takes its place
+      if (tid == 0) {
+        hop::mbar_expect_tx(bar, (uint32_t)NBX * NBX * kBox);
+        for (int rb = 0; rb < NBX; ++rb)
+          for (int cb = 0; cb < NBX; ++cb)
+            hop::tma_load(Wbf + (NBX * rb + cb) * kBox, mwbf, bar, 64 * cb, 64 * rb);
+      }
+      hop::mbar_wait(bar, 1);
+    }
+    [[maybe_unused]] Bordered cells[2];   // kBorder: the cells of the thread's two rows
+    if constexpr (kBorder) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        cells[q] = bordered_cells(min(m0 + hop::acc_row(t128, 2 * q), M - 1), a.H, a.W, C);
+    }
     for (int nb = wg; nb < NBX; nb += 2) {
       mm_w<NBX>(acc, A2, Wbf, nb, C);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         const int row = hop::acc_row(t128, i), col = 64 * nb + hop::acc_col(t128, i);
-        if (m0 + row < M && col < C) a.xb[(size_t)(m0 + row) * C + col] = acc[i];
+        if (m0 + row >= M || col >= C) continue;
+        if constexpr (kBorder) store_bordered(a.xb, cells[(i >> 1) & 1], col, acc[i]);
+        else a.xb[(size_t)(m0 + row) * C + col] = acc[i];
       }
     }
   }
@@ -315,13 +370,18 @@ __device__ inline void prep_strip(const PrepArgs& a, const CUtensorMap* mx,
 
 // w_exp (C, 16C), column n * 16 + s -> wst (16C, C), row s * C + k; wconv
 // (3, 3, C, out) -> wct (9 out, C), row tap * out + o (#9 only).
+// The CTA's share of w_exp is read in w_exp's own order (coalesced), eight
+// loads in flight per thread before their stores.
 __device__ inline void prep_copy(const PrepArgs& a, int cta) {
-  const int C = a.C, out = a.out;
+  const int C = a.C, out = a.out, n = 16 * C * C, per = (n + kCopyCtas - 1) / kCopyCtas;
+  const int e0 = cta * per, cnt = min(n, e0 + per) - e0;
+  stage<8, bf16>(
+      cnt, [&](int e) { return a.wexp[e0 + e]; },
+      [&](int e, bf16 v) {
+        const int k = (e0 + e) / (16 * C), col = (e0 + e) % (16 * C);
+        a.wst[((size_t)(col % 16) * C + k) * C + col / 16] = v;
+      });
   const int stride = kCopyCtas * kThr, i0 = cta * kThr + threadIdx.x;
-  for (int i = i0; i < 16 * C * C; i += stride) {
-    const int s = i / (C * C), k = (i / C) % C, n = i % C;
-    a.wst[i] = a.wexp[(size_t)k * 16 * C + n * 16 + s];
-  }
   for (int i = i0; i < 9 * out * C; i += stride) {
     const int k = i / C, c = i % C;
     a.wct[i] = a.wconv[((k / out) * C + c) * out + k % out];

@@ -11,8 +11,8 @@ Counterparts of ``sunet_tf_tpu/kernels/upsample.py``:
   where 16 * out_chans <= 128.
 - :func:`fused_dual_upsample4` (JAX ``fused_dual_upsample4``): the split
   head, (B, 4H, 4W, C) in x's dtype; the model's output conv follows it as
-  a plain convolution. CUDA: ``csrc/up4.cu``. The model's head where 16 *
-  out_chans > 128.
+  a plain convolution. CUDA: ``csrc/up4.cu`` (two launches). The model's
+  head where 16 * out_chans > 128.
 
 Head math (the three weight-space folds of the JAX ``DualUpsample``):
 pixel-shuffle branch ``prelu(x @ w_exp_s) @ wpf`` per subpixel s; bilinear
@@ -46,8 +46,8 @@ from sunet_tf_tpu_torch.kernels import _build
 from sunet_tf_tpu_torch.kernels.window_attention import (BF16, BWD_FILL_CTAS, PLAN_BATCH,
                                                          SMEM_MAX, _a_bytes, _bwd_tok_smem,
                                                          _cdiv, _check_w, _check_x,
-                                                         _pad128, _up, _wg_tiles,
-                                                         exact_fp32, mm32)
+                                                         _chunk_rows, _pad128, _up,
+                                                         _wg_tiles, exact_fp32, mm32)
 
 # Half-pixel x4 phase weights: output row 4h+p samples input at
 # h + (2p-3)/8 -> taps (h-1, h) for p = 0, 1 and (h, h+1) for p = 2, 3.
@@ -69,6 +69,9 @@ UP4_CONV_BWD_LAUNCHES = 5
 # The split head's kernels (csrc/up4.cu, up4_bwd.cu) keep one tile's working
 # set in shared memory: C a multiple of 16 up to this width.
 UP4_SPLIT_KERNEL_MAX_C = 256
+# Kernel launches one fused_dual_upsample4 call makes (csrc/up4.cu): prep,
+# phase.
+UP4_SPLIT_LAUNCHES = 2
 # Kernel launches one up4_bwd call makes (csrc/up4_bwd.cu): prep, phase,
 # pixel, the weight gradients, the sums.
 UP4_BWD_LAUNCHES = 5
@@ -357,6 +360,55 @@ def up4_bwd_workspace(B: int, H: int, W: int, C: int) -> int:
               4 * nch * 16 * C * C, 4 * nch * 16 * plan["column_boxes"], 4 * ntiles,
               4 * ntiles * C, 4 * wnch * C * 16 * C, 4 * wnch * C * C, 4 * wnch * C * C]
     return sum(_pad128(n) for n in pieces)
+
+
+# The split head's forward (#10, csrc/up4.cu): chunks of 8 x 8 tiles of its
+# phase launch at PLAN_BATCH images, the weight ring's slot bytes, one
+# 32-channel box of a phase's 9 x 9 stencil taps (81 rows of 128 bytes,
+# rounded up to 1024).
+UP4_SPLIT_CHUNKS = 16    # kUpChunks
+_UP4_SPLIT_SLOT = 32768  # kSlot
+_UP4_TAP_HALF = 11264    # kTapHalf
+
+
+def up4_split_plan(H: int, W: int, C: int) -> dict:
+    """Launch plan of the split head's forward (#10) for (H, W, C) images, a
+    function of one image's shape (``up4_split_plan`` in csrc/up4.cu
+    mirrors it): 8 x 8 tiles per chunk of the phase launch (PLAN_BATCH
+    images' tiles in UP4_SPLIT_CHUNKS chunks), its 64-column boxes of C,
+    the weight ring's slots and rows per chunk, whether wexp_s and wpf stay
+    in the ring for a CTA's whole chunk (both products' chunks fit its
+    slots) or stream per tile, its tile chains per CTA (2 where C <= 128:
+    one per warpgroup), each launch's shared-memory bytes. Raises
+    ValueError on a shape outside the design."""
+    if C % 16 or not 16 <= C <= UP4_SPLIT_KERNEL_MAX_C:
+        raise ValueError(f"up4_split_plan: C={C}: the kernel takes C a multiple of 16 up to "
+                         f"{UP4_SPLIT_KERNEL_MAX_C}")
+    if H < 1 or W < 1:
+        raise ValueError(f"up4_split_plan: ({H},{W}) is empty")
+    nbx = _cdiv(C, 64)
+    slots = 2 if nbx <= 2 else 3
+    bk = _chunk_rows(_UP4_SPLIT_SLOT, nbx, C)
+    tiles = _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE)
+    box = _UP4_BWD_BOX
+    weights = 2 if nbx <= 3 else 1   # wb1 and wbf at once, or wbf in wb1's place
+    chains = 2 if nbx <= 2 else 1
+    # per chain: x, a, its boxes' taps (a pair at a time) and, one chain,
+    # two staging boxes
+    chain = ((2 * nbx + (2 if chains == 1 else 0)) * box
+             + (2 * nbx if chains == 2 else 4) * _UP4_TAP_HALF)
+    return {"tiles_per_chunk": _cdiv(PLAN_BATCH * tiles, UP4_SPLIT_CHUNKS),
+            "column_boxes": nbx, "ring_slots": slots, "chunk_rows": bk,
+            "weights_resident": 2 * (C // bk) <= slots, "tile_chains": chains,
+            "smem": {"prep": 2048 + (2 * nbx + weights * nbx * nbx) * box,
+                     "phase": 2048 + slots * _UP4_SPLIT_SLOT + chains * chain}}
+
+
+def up4_split_workspace(B: int, H: int, W: int, C: int) -> int:
+    """Bytes of the split head's forward workspace (``carve`` in
+    csrc/up4.cu): xb (float32) with its one-pixel border, (B, H + 2, W + 2,
+    C), and w_exp by phase (16C x C, bf16)."""
+    return _pad128(4 * B * (H + 2) * (W + 2) * C) + _pad128(2 * 16 * C * C)
 
 
 def _stencil_x4_adjoint(gs: list, axis: int) -> torch.Tensor:
@@ -711,24 +763,30 @@ def fused_dual_upsample4(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf,
     x: (B, H, W, C); w_exp: (C, 16C) pixel-shuffle expand, (in, out) layout,
     column c*16 + i*4 + j feeding pixel (4h+i, 4w+j) channel c; w_b1: (C,
     C), b_b1: (C,); wpf, wbf: (C, C) folded projections. Returns (B, 4H, 4W,
-    C) in x's dtype. CUDA: ``csrc/up4.cu``, one launch."""
+    C) in x's dtype. CUDA: ``csrc/up4.cu``, UP4_SPLIT_LAUNCHES launches
+    (:func:`up4_split_plan`), each counted; any H and W."""
     name = "fused_dual_upsample4"
     count = _build.counter(name)
     if x.device.type == "cpu":
-        count.cpu += 1
+        count.cpu += UP4_SPLIT_LAUNCHES
         return fused_dual_upsample4_reference(x, w_exp, alpha_p, w_b1, b_b1,
                                               alpha_b, wpf, wbf)
     _check_up4_split(name, x, w_exp, w_b1, wpf, wbf)
     B, H, W, C = x.shape
-    wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1).contiguous()
+    plan = up4_split_plan(H, W, C)
     alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
+    lib = _build.library()
+    work = torch.empty(lib.sunet_up4_workspace(B, H, W, C), device=x.device,
+                       dtype=torch.uint8)
     out = torch.empty((B, 4 * H, 4 * W, C), device=x.device, dtype=BF16)
-    err = _build.library().sunet_up4(
-        _build.ptr(x), _build.ptr(out), _build.ptr(wexp_s), _build.ptr(w_b1),
+    launches = _build.c_int(0)
+    err = lib.sunet_up4(
+        _build.ptr(x), _build.ptr(out), _build.ptr(w_exp), _build.ptr(w_b1),
         _build.ptr(bb1), _build.ptr(wpf), _build.ptr(wbf), _build.ptr(alphas),
-        B, H, W, C, _build.stream())
+        _build.ptr(work), B, H, W, C, plan["tiles_per_chunk"], _build.byref(launches),
+        _build.stream())
     _build.check(name, err)
-    count.cuda += 1
+    count.cuda += launches.value
     return out
 
 

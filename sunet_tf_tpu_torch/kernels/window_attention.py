@@ -105,6 +105,8 @@ LN_MLP_LAUNCHES = 3                # fused_ln_mlp: LN, fc1, fc2 (csrc/ln_mlp.cu)
 # fused_ln_window_attention: LN + qkv, attention, projection
 # (csrc/ln_window_attention.cu)
 LN_WMSA_LAUNCHES = 3
+# wmsa_core: the same three without the LayerNorm (csrc/window_attention.cu)
+WMSA_CORE_LAUNCHES = 3
 LN_MLP_BWD_LAUNCHES = 5
 # Widest C of the training sublayer kernels (the LN backward's rows).
 SPLIT_TRAIN_MAX_C = 768
@@ -1512,51 +1514,61 @@ def fused_ln_window_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     return out
 
 
-def wmsa_core(xw, wqkv, bqkv, wproj, bproj, bias, mask, *, num_heads: int,
-              scale: float) -> torch.Tensor:
-    """W-MSA over pre-partitioned windows (JAX ``wmsa_core``): xw (T, N, C),
-    T = B * nW windows in image-major order; bqkv may be None; mask (nW,
-    N, N) additive or None, window t taking mask[t % nW]. Returns (T, N, C)
-    in xw's dtype. CUDA: ``csrc/window_attention.cu`` (per-head ctx), then
-    the projection kernel ``linear_bias_kernel`` of
-    ``csrc/ln_window_attention.cu``."""
-    name = "wmsa_core"
-    count = _build.counter(name)
-    T, N, C = xw.shape
-    ws = math.isqrt(N)
-    if xw.device.type == "cpu":
-        count.cpu += 2  # stands in for the ctx and projection launches
-        return wmsa_core_reference(xw, wqkv, bqkv, wproj, bproj, bias, mask,
-                                   num_heads=num_heads, scale=scale)
+def _check_windows(name, xw, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+    """wmsa_core's checks: xw a contiguous (T, N, C) bf16 CUDA tensor of
+    square windows, T a multiple of the masks' nW, the weights, and the
+    window checks of the nW windows of one image side by side."""
     if xw.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {xw.device}; the kernel takes CUDA "
                          "tensors and the plain version CPU tensors")
     if xw.dtype != BF16 or xw.dim() != 3 or not xw.is_contiguous():
         raise ValueError(f"{name}: xw must be a contiguous (T, N, C) bfloat16 "
                          f"tensor, got {xw.dtype} {tuple(xw.shape)}")
+    T, N, C = xw.shape
+    ws = math.isqrt(N)
     _check_w(name, xw, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
     nW = 1 if mask is None else mask.shape[0]
     if ws * ws != N or T % nW:
         raise ValueError(f"{name}: {T} windows of {N} tokens with {nW} masks")
-    # the nW windows of one image, side by side: a (ws, nW*ws) map
     _check_window(name, ws, ws * nW, C, ws, num_heads, bias, mask)
     _check_vec(name, bqkv=(bqkv, 3 * C), bproj=(bproj, C))
+
+
+def wmsa_core(xw, wqkv, bqkv, wproj, bproj, bias, mask, *, num_heads: int,
+              scale: float) -> torch.Tensor:
+    """W-MSA over pre-partitioned windows (JAX ``wmsa_core``): xw (T, N, C),
+    T = B * nW windows in image-major order; bqkv may be None; mask (nW,
+    N, N) additive or None, window t taking mask[t % nW]. Returns (T, N, C)
+    in xw's dtype. CUDA: ``csrc/window_attention.cu``, WMSA_CORE_LAUNCHES
+    launches (qkv, attention, projection; :func:`wmsa_plan` over one image's
+    windows side by side), each counted."""
+    name = "wmsa_core"
+    count = _build.counter(name)
+    T, N, C = xw.shape
+    ws = math.isqrt(N)
+    if xw.device.type == "cpu":
+        count.cpu += WMSA_CORE_LAUNCHES
+        return wmsa_core_reference(xw, wqkv, bqkv, wproj, bproj, bias, mask,
+                                   num_heads=num_heads, scale=scale)
+    _check_windows(name, xw, wqkv, bqkv, wproj, bproj, bias, mask, num_heads)
+    nW = 1 if mask is None else mask.shape[0]
+    # the nW windows of one image, side by side: a (ws, nW*ws) map
+    plan = wmsa_plan(ws, ws * nW, C, num_heads, ws)
     dev = xw.device
     f = lambda t: _f32(t, dev)
+    if bqkv is None:
+        bqkv = torch.zeros(3 * C, device=dev)
     lib = _build.library()
-    ctx = torch.empty_like(xw)
-    err = lib.sunet_wmsa_ctx(
-        _build.ptr(xw), _build.ptr(ctx), _build.ptr(wqkv), _build.ptr(f(bqkv)),
-        _build.ptr(f(bias)), _build.ptr(f(mask)), T, nW, N, C, num_heads,
-        float(scale), _build.stream())
-    _build.check(name, err)
-    count.cuda += 1
+    work = _workspace(lib.sunet_ln_wmsa_workspace, dev, T * N, C)
     out = torch.empty_like(xw)
-    err = lib.sunet_linear_bias(
-        _build.ptr(ctx), _build.ptr(wproj), _build.ptr(f(bproj)),
-        _build.ptr(out), T * N, C, C, _build.stream())
+    launches = _build.c_int(0)
+    err = lib.sunet_wmsa_core(
+        _build.ptr(xw), _build.ptr(out), _build.ptr(wqkv), _build.ptr(f(bqkv)),
+        _build.ptr(wproj), _build.ptr(f(bproj)), _build.ptr(f(bias)), _build.ptr(f(mask)),
+        _build.ptr(work), T, nW, ws, C, num_heads, float(scale), plan["ksq"], plan["ks"],
+        _build.byref(launches), _build.stream())
     _build.check(name, err)
-    count.cuda += 1
+    count.cuda += launches.value
     return out
 
 

@@ -295,7 +295,9 @@ class SUNet(nn.Module):
         launches the block kernel K times, LN+W-MSA launches three kernels
         (``wa.LN_WMSA_LAUNCHES``), LN+MLP three,
         a block within the cap whose shape the block kernel does not take
-        (``SwinBlock.takes_block_kernel``) the split kernels.
+        (``SwinBlock.takes_block_kernel``) the split kernels; the x4 head
+        one launch where it is the conv-fused head, else the split head's
+        two (``up_kernels.UP4_SPLIT_LAUNCHES``).
         ``train=True``: one training step, forward and backward, by the
         three-width training rule: a block up to ROUTE_TRAIN_BLOCK_MAX_C
         that trains on the block kernels (``trains_on_block_kernels``)
@@ -331,7 +333,7 @@ class SUNet(nn.Module):
                 counts["fused_dual_upsample4_conv_phase"] += 1
                 counts["up4_conv_bwd"] += up_kernels.UP4_CONV_BWD_LAUNCHES
             else:
-                counts["fused_dual_upsample4"] += 1
+                counts["fused_dual_upsample4"] += up_kernels.UP4_SPLIT_LAUNCHES
                 counts["up4_bwd"] += up_kernels.UP4_BWD_LAUNCHES
             return counts
         H = x_shape[1] // self.cfg.patch_size
@@ -357,9 +359,10 @@ class SUNet(nn.Module):
                     counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
                     counts["fused_ln_mlp"] += wa.LN_MLP_LAUNCHES
                 i += 1
-        head = ("fused_dual_upsample4_conv_phase" if conv_fused_head(self.cfg.out_chans)
-                else "fused_dual_upsample4")
-        counts[head] += 1
+        if conv_fused_head(self.cfg.out_chans):
+            counts["fused_dual_upsample4_conv_phase"] += 1
+        else:
+            counts["fused_dual_upsample4"] += up_kernels.UP4_SPLIT_LAUNCHES
         return counts
 
 

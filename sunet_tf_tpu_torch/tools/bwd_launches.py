@@ -4,10 +4,13 @@ backward (#12 ``ln_window_attention_bwd``, ``csrc/ln_wmsa_bwd.cu``) or of
 the LN+MLP backward (#14 ``ln_mlp_bwd``, ``csrc/ln_mlp_bwd.cu``), all on the
 same kernels, of the x4 head's backwards (#9 ``up4_conv_bwd``,
 ``csrc/up4_conv_bwd.cu``; #11 ``up4_bwd``, ``csrc/up4_bwd.cu``) or of the
-LN+MLP branch forward (#13 ``ln_mlp_branch``, ``csrc/ln_mlp_branch.cu``)
-spends its device time, launch by launch, on the card.
+LN+MLP branch forward (#13 ``ln_mlp_branch``, ``csrc/ln_mlp_branch.cu``),
+of the split x4 head's forward (#10 ``fused_dual_upsample4``,
+``csrc/up4.cu``) or of the standalone W-MSA (#15 ``wmsa_core``,
+``csrc/window_attention.cu``) spends its device time, launch by launch, on
+the card.
 
-    python -m sunet_tf_tpu_torch.tools.bwd_launches [--batch 2,4] [--shift 4]
+    python -m sunet_tf_tpu_torch.tools.bwd_launches [--batch 2,4] [--shift 4] [--only 10,15]
 
 Runs each form at the default model's block widths, (64,64,96),
 (32,32,192) and (16,16,384) for #8 and the first two for #7 (the widths the
@@ -15,8 +18,9 @@ default training route sends there), window 8, 8 heads, QK_SCALE 8,
 drop-path scales 1/0.9, bf16, seeded weights, and #12 at the default
 model's bottleneck (8,8,768), at (16,16,768) with the shift and its mask,
 and at (16,16,384) with 2 heads (head dim 192), #13 and #14 at (8,8,768)
-and (16,16,768), #9 at (64,64,96) out 1, #11 at (64,64,96) (the 16-band
-model's head), and prints per case the
+and (16,16,768), #9 at (64,64,96) out 1, #10 and #11 at (64,64,96) (the
+16-band model's head), #15 over the windows of a (64,64,96) map, shift 0
+and 4 (``--only``: those kernels' cases alone), and prints per case the
 device time of each of its launches (torch.profiler, mean over 5 calls
 after 3 warm-up calls, in launch order), their sum (the device-busy time of
 a call) and the launch count, beside the card's name and power limit.
@@ -35,7 +39,7 @@ import torch
 
 from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
-from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+from sunet_tf_tpu_torch.ops.window import shift_attn_mask, window_partition
 
 SHAPES = ((64, 96, True), (32, 192, True), (16, 384, False))   # H, C, also on #7
 
@@ -70,7 +74,8 @@ def launches(fn, calls: int = 5) -> list:
     tot = collections.defaultdict(float)
     for i, e in enumerate(evs[:per * calls]):
         tot[i % per] += (e.time_range.end - e.time_range.start) / calls
-    names = [re.sub(r"^void |sunet::(bb::|u4s?::)?|\(.*$", "", evs[i].name) for i in range(per)]
+    names = [re.sub(r"^void |sunet::(bb::|u4[sf]?::|wmsa::)?|\(.*$", "", evs[i].name)
+             for i in range(per)]
     return [(names[i], tot[i]) for i in range(per)]
 
 
@@ -78,7 +83,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", default="2,4")
     ap.add_argument("--shift", type=int, default=4)
+    ap.add_argument("--only", default="", help="kernel numbers, e.g. 10,15 (default: all)")
     args = ap.parse_args()
+    only = {f"#{k}" for k in args.only.split(",") if k}
     if not torch.cuda.is_available():
         raise SystemExit("bwd_launches: torch.cuda.is_available() is false")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,6 +137,21 @@ def main():
                               lambda hp=hp: up.up4_conv_bwd(*hp)))
                 sp = (*hp[:8], n(B, 256, 256, 96).to(torch.bfloat16))
                 cases.append(("#11 up4_bwd (64,64,96)", lambda sp=sp: up.up4_bwd(*sp)))
+                cases.append(("#10 fused_dual_upsample4 (64,64,96)",
+                              lambda hp=hp: up.fused_dual_upsample4(*hp[:8])))
+                # #15 over the windows of a (64,64,96) map, as fused_window_attention
+                # hands them over
+                wp = block_args(B, 64, 96, gen)
+                xw = window_partition(wp[0], ws).contiguous()
+                for sh in (0, shift):
+                    mw = (torch.as_tensor(shift_attn_mask(64, 64, ws, sh), device="cuda")
+                          if sh else None)
+                    cases.append((f"#15 wmsa_core (64,64,96) shift {sh}",
+                                  lambda mw=mw, wp=wp, xw=xw: wa.wmsa_core(
+                                      xw, *wp[3:7], wp[12], mw, num_heads=heads,
+                                      scale=scale)))
+            if only:
+                cases = [c for c in cases if c[0].split()[0] in only]
             for name, fn in cases:
                 got = launches(fn)
                 print(f"{name} batch {B}: {len(got)} launches, "

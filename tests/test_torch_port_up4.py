@@ -94,7 +94,7 @@ def test_split_head_plain_matches_jax(hw, dtype):
     c = _build.counter("fused_dual_upsample4")
     before = c.cpu
     got = tup.fused_dual_upsample4(*t)
-    assert c.cpu == before + 1 and got.dtype == t[0].dtype
+    assert c.cpu == before + tup.UP4_SPLIT_LAUNCHES and got.dtype == t[0].dtype
     assert tuple(got.shape) == (2, 4 * hw, 4 * hw, 16)
     _close(got, want, dtype, "out")
 
@@ -140,7 +140,7 @@ def test_split_head_function_grads_are_the_wrappers():
     y = tup.DualUpsample4Trainable.apply(x, *ws)
     dout = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32))
     y.backward(dout)
-    assert _build.counter("fused_dual_upsample4").cpu == 1
+    assert _build.counter("fused_dual_upsample4").cpu == tup.UP4_SPLIT_LAUNCHES
     assert _build.counter("up4_bwd").cpu == tup.UP4_BWD_LAUNCHES
     want = tup.up4_bwd_reference(x.detach(), *[w.detach() for w in ws], dout)
     for a, g in zip((x, *ws), want):
@@ -202,7 +202,8 @@ def test_bands_forward_matches_jax_pallas(jax_bands):
         got = model(torch.from_numpy(x))
     calls = {k: _build.counter(k).cpu for k in model.expected_launches(x.shape)}
     assert calls == model.expected_launches(x.shape)
-    assert calls["fused_dual_upsample4"] == 1 and calls["fused_dual_upsample4_conv_phase"] == 0
+    assert (calls["fused_dual_upsample4"] == tup.UP4_SPLIT_LAUNCHES
+            and calls["fused_dual_upsample4_conv_phase"] == 0)
     assert tuple(got.shape) == (1, 64, 64, BANDS)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **SLICE_TOL)
 
@@ -237,9 +238,10 @@ def test_bands_training_step_matches_jax(jax_bands, monkeypatch):
     loss.backward()
     calls = {k: _build.counter(k).cpu for k in TRAIN_WRAPPERS}
     assert calls == model.expected_launches(inp.shape, train=True)
-    assert calls["fused_dual_upsample4"] == 1
+    assert calls["fused_dual_upsample4"] == tup.UP4_SPLIT_LAUNCHES
     assert calls["up4_bwd"] == tup.UP4_BWD_LAUNCHES
-    assert sum(calls.values()) == 1 + tup.UP4_BWD_LAUNCHES   # blocks on autograd
+    # blocks on autograd
+    assert sum(calls.values()) == tup.UP4_SPLIT_LAUNCHES + tup.UP4_BWD_LAUNCHES
 
     assert abs(float(loss.detach()) - float(jl)) <= LOSS_REL * abs(float(jl))
     for name, p in model.named_parameters():

@@ -10,6 +10,9 @@ standalone W-MSA (kernel #15) and the ALU-rate probe (kernel #16).
   probe's own body ``tools/vpu_floor.py::_body``, run through a small
   interpret-mode ``pallas_call`` ((8, 128) float32, T = 16), each op,
   rtol = atol = 1e-5 (float32 transcendentals of two libraries, 16 steps).
+- The probe's SASS reader (``alu_floor.sass_step_counts``, the instructions
+  per pipe of a chain step that its bound counts) on a listing written
+  here.
 """
 
 import functools
@@ -53,7 +56,7 @@ def test_window_attention_plain_matches_jax(shift, dims):
     got = tkernels.fused_window_attention(
         torch.from_numpy(x), *map(torch.from_numpy, args),
         None if mask is None else torch.from_numpy(mask), **kw)
-    assert c.cpu == before + 2 and got.dtype == torch.float32
+    assert c.cpu == before + twa.WMSA_CORE_LAUNCHES and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # no qkv bias: JAX takes None as zeros
     want = jax_fwa(jnp.asarray(x), jnp.asarray(args[0]), None, *map(jnp.asarray, args[2:]),
@@ -100,3 +103,34 @@ def test_new_wrappers_raise_off_cpu_and_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="no CUDA device"):
             alu_floor.main(["--t", "4"])
+
+
+SASS = """
+\t\tFunction : _ZN5sunet16alu_chain_kernelILi1EEEvPKfPfmi
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   FMUL R0, R11, -1.4426950216293334961 ;
+        /*0020*/                   MUFU.EX2 R0, R0 ;
+        /*0030*/                   FFMA R11, R0, 0.5, 0.25 ;
+        /*0040*/                   FSETP.GE.AND P1, PT, |R11|, 0.60000002384185791016, PT ;
+        /*0050*/                   FMUL R0, R11, -1.4426950216293334961 ;
+        /*0060*/                   MUFU.EX2 R0, R0 ;
+        /*0070*/                   FFMA R11, R0, 0.5, 0.25 ;
+        /*0080*/                   IADD3 R9, R9, -0x2, RZ ;
+        /*0090*/                   ISETP.GT.AND P2, PT, R9, 0x1, PT ;
+        /*00a0*/               @P2 BRA 0x10 ;
+        /*00b0*/                   FMUL R0, R11, -1.4426950216293334961 ;
+        /*00c0*/                   MUFU.EX2 R0, R0 ;
+        /*00d0*/                   FFMA R11, R0, 0.5, 0.25 ;
+        /*00e0*/              @!P0 BRA 0xb0 ;
+        /*00f0*/                   EXIT ;
+"""
+
+
+def test_alu_sass_step_counts():
+    """The probe's bound counts a chain step's instructions per pipe in the
+    main unrolled loop (the innermost loop of the most steps), each step
+    closed by its op's y * a + b."""
+    got = alu_floor.sass_step_counts(SASS)
+    assert set(got) == {"exp"}
+    c = got["exp"]
+    assert (c["steps"], c["fp32"], c["alu"], c["mufu"]) == (2, 2.0, 1.5, 1.0)

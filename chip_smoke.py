@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,train,bands,entries]
+    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,train,bands,entries]
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
@@ -11,7 +11,8 @@
    #1 at head counts whose cluster size is not a power of two, #3 at
    (16,16,768) with the SW mask and at C=384 with 2 heads (head dim 192),
    #5 on a map that is not a multiple of its 6 x 8 tile, on a map of one
-   tile and at C=192, out 8):
+   tile and at C=192, out 8; #1-#5 and #10 at batch 5 on the main path's
+   shapes, the tiled path's odd batch):
    kernel vs its plain PyTorch version (max and mean |diff| against a
    stated tolerance), the median device time of each over 20
    CUDA-event-timed runs after warm-up (the card spins first, so the host's
@@ -48,6 +49,15 @@
    forward's device time and its time paced by the host; one forward is
    traced with torch.profiler for its device time by kernel.
 5. The entry point: ``sunet_tf_tpu_torch.demo.main`` on synthetic PNGs.
+   Then tiled inference (``infer.tiled``): ``Config()`` on a 1024x1024 image
+   at 256 tiles, stride 128 (49 tiles in one forward) through
+   backend="fused", launches, plans and output checked as in 4., against
+   eager (mean |diff| <= 5e-3); identity reconstruction at 1000x1500 on both
+   canvases (max |diff| <= 1e-6); tile_batch 16 against 64; device and
+   host-paced times, a trace, and the gather / forward / fold device time;
+   ``tools/corpus_bench.py``'s corpus one image at a time against
+   ``run_corpus``; ``demo_any_resolution.main`` (with masks) and
+   ``evaluate.main`` on its inputs and outputs.
 6. The training slice: one training step of the default SUNet at 256x256
    batch 4 on a synthetic dataset, fused vs eager on the same weights,
    batch and drop-path draws (loss and every parameter's gradient), launch
@@ -61,9 +71,10 @@
    then ``python -m sunet_tf_tpu_torch.train`` for 1 epoch of 3 steps and a
    val pass.
 7. The split head's path: ``Config()`` with IN_CHANS = OUT_CHANS = 16 (a
-   16-band denoise SUNet) through the slice of 4., then one denoise training
-   step on the fused route (the head on #10 + #11) under the gate of 6.,
-   with its time, added memory and a profiler trace.
+   16-band denoise SUNet) through the slice of 4. and one tiled call on a
+   (1, 512, 384, 16) image (a 512x512 canvas, 9 tiles), then one denoise
+   training step on the fused route (the head on #10 + #11) under the gate
+   of 6., with its time, added memory and a profiler trace.
 8. The entry points with no model route: ``kernels.fused_window_attention``
    (#15) once, and the ALU-rate probe ``tools/alu_floor.py`` (#16): each
    chain's instructions per pipe read from this build's SASS and held to
@@ -1237,6 +1248,8 @@ def kernel_phases(results: dict):
                lambda: up.fused_dual_upsample4_reference(*hp),
                up4_split_cost(Bh, Hh, Ww, Ch))
 
+    odd_batch_cases(record, gen, head_args, block_args)
+
     # the standalone W-MSA (#15) over a pre-rolled map, shift 0 and 4 (the
     # SW mask), and without a qkv bias, with one PyTorch call for the same
     # function as a yardstick
@@ -1257,6 +1270,83 @@ def kernel_phases(results: dict):
                                        heads=heads, scale=scale))
 
 
+ODD_BATCH = 5
+
+
+def odd_batch_cases(record, gen, head_args, block_args):
+    """#1-#5 and #10 at an odd batch (``ODD_BATCH``) on the main path's
+    shapes, each against its plain version with its plan asserted: the tiled
+    path runs the model on 49 tiles per forward, and a grid that pairs work
+    across images (#5 two tiles a CTA, #10 two chains a CTA) shows a tail
+    only at an odd batch."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import upsample as up
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+    B, ws, heads, scale = ODD_BATCH, 8, 8, 8.0
+    N = ws * ws
+    bkw = dict(ws=ws, num_heads=heads, scale=scale)
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(torch.bfloat16)
+    sw_mask = lambda H: torch.as_tensor(shift_attn_mask(H, H, ws, 4), device="cuda")
+
+    H, C = 64, 96
+    plan = wa.block_plan(H, H, C, 4 * C, ws, heads)
+    check(plan["G"] == 1, f"fused_swin_block ({H},{H},{C}): plan {plan}, expected G=1")
+    p, x, mask = block_params(C, heads, N, gen), rand(B, H, H, C), sw_mask(H)
+    args = block_args(p, x, mask)
+    record("fused_swin_block", f"batch {B} ({H},{H},{C}) shift 4, G=1",
+           lambda: wa.fused_swin_block(*args, shift=4, **bkw),
+           lambda: wa.fused_swin_block_reference(*args, shift=4, **bkw), block_cost(B, H, C))
+
+    H, C = 32, 192
+    plan = wa.block_plan(H, H, C, 4 * C, ws, heads)
+    check(plan["G"] == 2, f"fused_swin_block_chain ({H},{H},{C}): plan {plan}, expected G=2")
+    ps, x, mask = [block_params(C, heads, N, gen) for _ in range(2)], rand(B, H, H, C), sw_mask(H)
+    first = wa.fused_swin_block(*block_args(ps[0], x, None), shift=0, **bkw)
+    second_ref = lambda y: wa.fused_swin_block_reference(*block_args(ps[1], y, mask), shift=4,
+                                                         **bkw)
+    record("fused_swin_block_chain", f"batch {B} ({H},{H},{C}) K=2, 2nd block, G=2",
+           lambda: wa.fused_swin_block_chain(x, [q[:12] for q in ps], [q[12] for q in ps], mask,
+                                             shifts=(0, 4), **bkw),
+           lambda: second_ref(first), block_cost(B, H, C, blocks=2),
+           plain_fn=lambda: second_ref(wa.fused_swin_block_reference(
+               *block_args(ps[0], x, None), shift=0, **bkw)))
+
+    H, C = 8, 768
+    plan = wa.wmsa_plan(H, H, C, heads, ws)
+    check((plan["ksq"], plan["ks"]) == (1, 4), f"fused_ln_window_attention ({H},{H},{C}): plan "
+          f"{plan}, expected K splits (1, 4)")
+    plan = wa.mlp_plan(H * H, C, 4 * C)
+    check(plan["ks"] == 4, f"fused_ln_mlp ({H},{H},{C}): plan {plan}, expected ks=4")
+    p, x = block_params(C, heads, N, gen), rand(B, H, H, C)
+    record("fused_ln_window_attention", f"batch {B} ({H},{H},{C}), ksq=1 ks=4",
+           lambda: wa.fused_ln_window_attention(x, *p[0:6], p[12], None, **bkw),
+           lambda: wa.fused_ln_window_attention_reference(x, *p[0:6], p[12], None, **bkw),
+           ln_wmsa_cost(B, H, C))
+    T = B * H * H
+    record("fused_ln_mlp", f"batch {B} ({H},{H},{C}), ks=4",
+           lambda: wa.fused_ln_mlp(x, p[6:8], *p[8:12]),
+           lambda: wa.fused_ln_mlp_reference(x, p[6:8], *p[8:12]),
+           bound(4 * T * C * 4 * C, 2 * T * C * 2 + 2 * C * 4 * C * 2))
+
+    H, C = 64, 96
+    plan = up.up4_plan(C, 1)
+    check(plan["T"] == 2, f"fused_dual_upsample4_conv_phase C={C} out 1: plan {plan}, "
+          "expected 2 tiles per CTA")
+    hp = head_args(B, H, H, C, 1)
+    record("fused_dual_upsample4_conv_phase", f"batch {B} ({H},{H},{C}) out 1, T=2",
+           lambda: up.fused_dual_upsample4_conv_phase(*hp),
+           lambda: up.fused_dual_upsample4_conv_phase_reference(*hp), up4_cost(B, H, C, 1))
+    plan = up.up4_split_plan(H, H, C)
+    check(plan["tiles_per_chunk"] == 16, f"fused_dual_upsample4 ({H},{H},{C}): plan {plan}")
+    sp = split_head_args(gen, B, H, H, C)
+    record("fused_dual_upsample4", f"batch {B} ({H},{H},{C}), 16 tiles a chunk",
+           lambda: up.fused_dual_upsample4(*sp),
+           lambda: up.fused_dual_upsample4_reference(*sp), up4_split_cost(B, H, H, C))
+
+
 def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
                 n_params: int = 99_681_993, report: tuple = None) -> dict:
     """The inference slice of ``cfg`` (default: ``Config()``) at 256x256
@@ -1267,7 +1357,6 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
     import torch
 
     from sunet_tf_tpu_torch.config import Config
-    from sunet_tf_tpu_torch.kernels import _build
     from sunet_tf_tpu_torch.models.sunet import build_model, conv_fused_head, param_count
 
     cfg = cfg or Config()
@@ -1286,33 +1375,10 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
     other_head = ("fused_dual_upsample4" if conv_fused_head(sw.out_chans)
                   else "fused_dual_upsample4_conv_phase")
     with torch.inference_mode():
-        torch.cuda.synchronize()
-        _build.reset_counts()
-        with plans_taken(set()) as plans:
-            y_fused = fused(x)
-        torch.cuda.synchronize()
-        launches = {k: _build.counter(k).cuda for k in want}
-        cpu_calls = {k: _build.counter(k).cpu for k in want}
-        print(f"  launches: {launches} (router predicts {want})")
-        check(launches == want, "launch counts differ from the router's prediction")
-        check(all(v > 0 for k, v in launches.items() if k != other_head),
-              "a kernel was not launched")
-        check(not any(cpu_calls.values()), f"plain versions ran: {cpu_calls}")
-        print(f"  launch plans: {sorted(plans)}")
-        if HELD_PLANS:   # the per-kernel checks ran in this process
-            check(plans <= HELD_PLANS, "launch plans of the main path that no per-kernel "
-                  f"check held against its plain version: {sorted(plans - HELD_PLANS)}")
-        y_eager = eager(x)
-        torch.cuda.synchronize()
+        y_fused, launches = run_counted(lambda: fused(x), want, other_head)
         check(tuple(y_fused.shape) == (4, 256, 256, sw.out_chans),
               f"shape {tuple(y_fused.shape)}")
-        check(bool(torch.isfinite(y_fused).all()), "non-finite fused output")
-        check(bool(torch.isfinite(y_eager).all()), "non-finite eager output")
-        d = (y_fused - y_eager).abs()
-        mean, mx = float(d.mean()), float(d.max())
-        print(f"  fused vs eager: mean|diff| {mean:.3e} (tol {SLICE_MEAN_TOL:g}) "
-              f"max|diff| {mx:.3e} mean|y| {float(y_eager.abs().mean()):.3e}")
-        check(mean <= SLICE_MEAN_TOL, "fused forward disagrees with eager")
+        mean, _ = fused_vs_eager(y_fused, eager(x))
         fused_ms = time_ms(lambda: fused(x), iters=10)
         eager_ms = time_ms(lambda: eager(x), iters=10)
         fused_wall = time_ms(lambda: fused(x), iters=10, device=False)
@@ -1330,7 +1396,51 @@ def slice_phase(results: dict, cfg=None, label: str = "default SUNet",
             "launches": launches, "trace": trace}
 
 
-def trace_step(fn, label: str) -> dict:
+def fused_vs_eager(y_fused, y_eager, what: str = "fused vs eager") -> tuple:
+    """Both outputs finite and their mean |diff| within SLICE_MEAN_TOL;
+    returns (mean, max) |diff|."""
+    import torch
+
+    check(bool(torch.isfinite(y_fused).all()), f"{what}: non-finite fused output")
+    check(bool(torch.isfinite(y_eager).all()), f"{what}: non-finite eager output")
+    d = (y_fused - y_eager).abs()
+    mean, mx = float(d.mean()), float(d.max())
+    print(f"  {what}: mean|diff| {mean:.3e} (tol {SLICE_MEAN_TOL:g}) max|diff| {mx:.3e} "
+          f"mean|y| {float(y_eager.abs().mean()):.3e}")
+    check(mean <= SLICE_MEAN_TOL, f"{what}: the outputs disagree")
+    return mean, mx
+
+
+def run_counted(fn, want: dict, other_head: str) -> tuple:
+    """Run ``fn`` once with every launch count at 0 and the launch plans
+    recorded; check the kernels' launches against ``want`` (the router's
+    prediction), every kernel but ``other_head`` (the x4 head the model does
+    not run) launched, no plain version run, and every plan one that the
+    per-kernel checks held. Returns (fn's result, the launches)."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    with plans_taken(set()) as plans:
+        y = fn()
+    torch.cuda.synchronize()
+    launches = {k: _build.counter(k).cuda for k in want}
+    cpu_calls = {k: _build.counter(k).cpu for k in want}
+    print(f"  launches: {launches} (router predicts {want})")
+    check(launches == want, "launch counts differ from the router's prediction")
+    check(all(v > 0 for k, v in launches.items() if k != other_head),
+          "a kernel was not launched")
+    check(not any(cpu_calls.values()), f"plain versions ran: {cpu_calls}")
+    print(f"  launch plans: {sorted(plans)}")
+    if HELD_PLANS:   # the per-kernel checks ran in this process
+        check(plans <= HELD_PLANS, "launch plans of the main path that no per-kernel "
+              f"check held against its plain version: {sorted(plans - HELD_PLANS)}")
+    return y, launches
+
+
+def trace_step(fn, label: str, detail: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel, from torch.profiler: the
     port's kernels by name (the block kernel's two forms by their template
     flag; the backward's GEMMs by their operand layouts),
@@ -1373,6 +1483,8 @@ def trace_step(fn, label: str) -> dict:
     print(f"  trace of one {label}: {len(spans)} device events, busy "
           f"{busy / 1000:.3f} ms of {wall_ms:.3f} ms (idle share "
           f"{1 - busy / 1000 / wall_ms:.3f})")
+    if not detail:
+        return {"wall_ms": wall_ms, "busy_ms": busy / 1000}
     for key, (n, us) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {key}: {n} launches, {us / 1000:.3f} ms")
     print("    largest plain torch kernels:")
@@ -1918,7 +2030,8 @@ def bands_phase(results: dict) -> dict:
     cfg = bands_config()
     sw = cfg.swinunet
     out = {"slice": slice_phase(results, cfg, "16-band SUNet", None,
-                                report=("fused_dual_upsample4",))}
+                                report=("fused_dual_upsample4",)),
+           "tiled": bands_tiled()}
     print("phase: training slice (16-band SUNet, denoise, 256x256, batch 4, bf16 compute, "
           "float32 parameters)")
     gen = torch.Generator(device="cuda").manual_seed(16)
@@ -2044,7 +2157,169 @@ def demo_phase():
         print(f"  wrote {len(written)} .bmp files of the input sizes")
 
 
-PHASES = ("kernels", "train_kernels", "slice", "demo", "train", "bands", "entries")
+def tiled_phase() -> dict:
+    """Arbitrary-resolution inference (``infer.tiled``) of ``Config()`` on the
+    card: a 1024x1024 image at 256 tiles, stride 128 (49 tiles, one forward
+    at tile_batch 64) through backend="fused" with its launches, plans and
+    output checked as the slice's, against backend="eager"; identity
+    reconstruction at 1000x1500 on both canvases; tile_batch 16 (4 chunks)
+    against 64; times and the gather / forward / fold split; the corpus of
+    ``tools/corpus_bench.py`` one image at a time against ``run_corpus``;
+    the ``demo_any_resolution`` and ``evaluate`` entry points on a
+    temporary folder."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from sunet_tf_tpu_torch import demo_any_resolution, evaluate
+    from sunet_tf_tpu_torch.config import Config
+    from sunet_tf_tpu_torch.infer import tiled
+    from sunet_tf_tpu_torch.models.sunet import build_model
+    from sunet_tf_tpu_torch.ops.image import psnr, rgb_to_gray, ssim
+    from sunet_tf_tpu_torch.tools import corpus_bench
+
+    S, K, STRIDE = 1024, 256, 128
+    print(f"phase: tiled inference (default SUNet, {S}x{S}, {K} tiles at stride {STRIDE}, "
+          "bf16)")
+    fused = build_model(Config(), device="cuda", backend="fused", seed=0)
+    eager = build_model(Config(), device="cuda", backend="eager", seed=0)
+    eager.load_state_dict(fused.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    img = torch.rand(1, S, S, 3, device="cuda", generator=gen)
+    n_tiles = tiled.TiledRunner(fused, K, STRIDE).tiles_per_canvas(S, S)
+    check(n_tiles == 49, f"{n_tiles} tiles")
+
+    def run(model, tile_batch=64):
+        return tiled.tiled_inference(model, img, kernel=K, stride=STRIDE, tile_batch=tile_batch)
+
+    out = {"tiles": n_tiles}
+    with torch.inference_mode():
+        y, out["launches"] = run_counted(lambda: run(fused),
+                                         fused.expected_launches((n_tiles, K, K, 3)),
+                                         "fused_dual_upsample4")
+        check(tuple(y.shape) == (1, S, S, 1), f"shape {tuple(y.shape)}")
+        out["mean_abs_diff"], out["max_abs_diff"] = fused_vs_eager(y, run(eager))
+        out["identity_max_err"] = {}
+        for square in (False, True):
+            x = torch.rand(1, 1000, 1500, 3, device="cuda", generator=gen)
+            err = float((tiled.tiled_inference(lambda t: t, x, kernel=K, stride=STRIDE,
+                                               square_pad=square) - x).abs().max())
+            print(f"  identity model, 1000x1500, square_pad={square}: max|y - x| {err:.3e}")
+            check(err <= 1e-6, "identity reconstruction is not exact")
+            out["identity_max_err"][f"square_pad={square}"] = err
+        y16 = run(fused, 16)
+        d = (y16 - y).abs()
+        out["tb16"] = {"max_abs_diff": float(d.max()), "mean_abs_diff": float(d.mean()),
+                       "bit_equal": bool(torch.equal(y16, y))}
+        print(f"  tile_batch 16 (4 chunks) vs 64: max|diff| {out['tb16']['max_abs_diff']:.3e} "
+              f"mean|diff| {out['tb16']['mean_abs_diff']:.3e}, bit for bit: "
+              f"{out['tb16']['bit_equal']}")
+        check(out["tb16"]["mean_abs_diff"] <= SLICE_MEAN_TOL, "tile_batch 16 disagrees with 64")
+        out["device_ms"] = time_ms(lambda: run(fused), iters=10)
+        out["wall_ms"] = time_ms(lambda: run(fused), iters=10, device=False)
+        print(f"  one {S}x{S} tiled_inference: device {out['device_ms']:.3f} ms "
+              f"({1000.0 / out['device_ms']:.2f} img/s), paced by the host "
+              f"{out['wall_ms']:.3f} ms ({1000.0 / out['wall_ms']:.2f} img/s)")
+        out["trace"] = trace_step(lambda: run(fused), f"tiled {S}x{S} forward")
+        canvas = tiled._place(img, S, S, 0, 0)
+        tiles = tiled._gather_tiles(canvas, K, STRIDE)
+        outs = fused(tiles)
+        out["split_busy_ms"] = {
+            part: trace_step(fn, f"tiled {part}", detail=False).get("busy_ms")
+            for part, fn in (
+                ("gather", lambda: tiled._gather_tiles(tiled._place(img, S, S, 0, 0), K, STRIDE)),
+                ("forward", lambda: fused(tiles)),
+                ("fold", lambda: tiled._fold_tiles(outs, 1, S, S, K, STRIDE)))}
+    del fused, eager, outs, tiles
+    torch.cuda.empty_cache()
+
+    print("  tools/corpus_bench.py's corpus, one image at a time against run_corpus:")
+    cb = corpus_bench.main([])
+    for (h, w), a, b in zip(cb["sizes"], cb["serial"], cb["corpus"]):
+        check(tuple(a.shape) == tuple(b.shape) == (1, h, w, 1),
+              f"corpus output {tuple(b.shape)} for a {h}x{w} image")
+        check(bool(torch.isfinite(b).all()), "non-finite corpus output")
+    check(cb["mean_abs_diff"] <= SLICE_MEAN_TOL, "run_corpus disagrees with one image at a time")
+    out["corpus"] = {k: v for k, v in cb.items() if k not in ("serial", "corpus", "sizes")}
+
+    print("  demo_any_resolution and evaluate entry points:")
+    rng = np.random.default_rng(13)
+    sizes = {"a_1024x768": (768, 1024), "b_300x500": (300, 500), "c_256": (256, 256)}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, masks, dst = Path(tmp, "in"), Path(tmp, "masks"), Path(tmp, "out")
+        src.mkdir()
+        masks.mkdir()
+        for name, (h, w) in sizes.items():
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                src / f"{name}.png")
+        for name in ("a_1024x768", "c_256"):
+            h, w = sizes[name]
+            Image.fromarray(rng.integers(0, 256, (h, w), dtype=np.uint8)).save(
+                masks / f"{name}.png")
+        written = demo_any_resolution.main(["--input_dir", str(src), "--mask_dir", str(masks),
+                                            "--result_dir", str(dst), "--device", "cuda"])
+        check(len(written) == len(sizes), f"demo_any_resolution wrote {len(written)} files")
+        for name, (h, w) in sizes.items():
+            size = Image.open(dst / f"{name}.bmp").size
+            check(size == (w, h), f"{name}.bmp has size {size}")
+        rows = (dst / "tpr_fpr_results.txt").read_text().splitlines()
+        check(rows[0] == "Filename\tTPR\tFPR" and len(rows) == 3,
+              f"tpr_fpr_results.txt: {rows}")
+        ev = evaluate.main(["--gt_dir", str(src), "--pred_dir", str(dst), "--device", "cuda"])
+        check(len(ev) == len(sizes), f"evaluate scored {len(ev)} pairs")
+        check(all(np.isfinite([r["psnr"], r["ssim"]]).all() for r in ev), "non-finite scores")
+        load = lambda f: torch.from_numpy(
+            np.asarray(Image.open(f).convert("RGB"), np.float32) / 255.0)[None].cuda()
+        for r, name in zip(ev, sorted(sizes)):
+            gt, pr = load(src / f"{name}.png"), load(dst / f"{name}.bmp")
+            direct = (float(psnr(gt, pr)), float(ssim(rgb_to_gray(gt), rgb_to_gray(pr))))
+            check(r["name"] == f"{name}.png" and abs(r["psnr"] - direct[0]) <= 1e-6
+                  and abs(r["ssim"] - direct[1]) <= 1e-6,
+                  f"evaluate's row {r} differs from psnr/ssim {direct}")
+    out["evaluate"] = {"mean_psnr": float(np.mean([r["psnr"] for r in ev])),
+                       "mean_ssim": float(np.mean([r["ssim"] for r in ev]))}
+    print(f"  wrote {len(written)} .bmp files and 2 TPR/FPR rows; evaluate: "
+          f"{len(ev)} rows, each equal to psnr/ssim computed directly")
+    return out
+
+
+def bands_tiled() -> dict:
+    """One ``tiled_inference`` of the 16-band SUNet on a (1, 512, 384, 16)
+    image (a 512x512 canvas: 9 tiles of 256, stride 128) through
+    backend="fused", its launches checked as the slice's (the split head
+    #10, not #5), against eager."""
+    import torch
+
+    from sunet_tf_tpu_torch.infer.tiled import TiledRunner, tiled_inference
+    from sunet_tf_tpu_torch.models.sunet import build_model
+
+    print("phase: tiled inference (16-band SUNet, 512x384, 256 tiles at stride 128)")
+    cfg = bands_config()
+    fused = build_model(cfg, device="cuda", backend="fused", seed=0)
+    eager = build_model(cfg, device="cuda", backend="eager", seed=0)
+    eager.load_state_dict(fused.state_dict())
+    x = torch.rand(1, 512, 384, 16, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(17))
+    run = lambda m: tiled_inference(m, x, kernel=256, stride=128)
+    geometry = TiledRunner(None, kernel=256, stride=128)
+    n_tiles = geometry.tiles_per_canvas(*geometry.bucket(512, 384))
+    check(n_tiles == 9, f"{n_tiles} tiles")
+    out = {"tiles": n_tiles}
+    with torch.inference_mode():
+        y, out["launches"] = run_counted(lambda: run(fused), fused.expected_launches(
+            (n_tiles, 256, 256, 16)), "fused_dual_upsample4_conv_phase")
+        check(tuple(y.shape) == (1, 512, 384, 16), f"shape {tuple(y.shape)}")
+        out["mean_abs_diff"], out["max_abs_diff"] = fused_vs_eager(y, run(eager))
+        out["device_ms"] = time_ms(lambda: run(fused), iters=10)
+        out["wall_ms"] = time_ms(lambda: run(fused), iters=10, device=False)
+    print(f"  one 512x384 tiled_inference ({n_tiles} tiles): device {out['device_ms']:.3f} ms, "
+          f"paced by the host {out['wall_ms']:.3f} ms")
+    del fused, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "train", "bands", "entries")
 
 
 def main():
@@ -2097,6 +2372,8 @@ def main():
         stats["slice"] = slice_phase(results)
     if "demo" in phases:
         demo_phase()
+    if "tiled" in phases:
+        stats["tiled"] = tiled_phase()
     if "train" in phases:
         stats["train"] = train_phase(results)
     if "bands" in phases:

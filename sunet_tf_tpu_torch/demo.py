@@ -44,47 +44,67 @@ def natural_sorted(names):
     return sorted(names, key=key)
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Demo Image Restoration")
-    p.add_argument("--input_dir", required=True)
-    p.add_argument("--result_dir", required=True)
+def list_images(d: str) -> list:
+    """The .jpg/.jpeg/.png/.bmp files of directory ``d``, naturally sorted."""
+    return natural_sorted(f for f in glob.glob(os.path.join(d, "*.*"))
+                          if f.lower().endswith(IMAGE_EXTS))
+
+
+def add_model_args(p: argparse.ArgumentParser) -> None:
+    """The model options the demo entry points share (``build_demo_model``)."""
     p.add_argument("--weights", default=None,
                    help="reference-format .pth; random weights if omitted")
     p.add_argument("--config", default="training.yaml")
-    p.add_argument("--batch", type=int, default=8)
     p.add_argument("--out_chans", type=int, default=None,
                    help="model head channels (3 = RGB, 1 = mask logits)")
     p.add_argument("--backend", default="fused", choices=["fused", "eager"])
     p.add_argument("--device", default="cuda")
+
+
+def build_demo_model(args) -> tuple:
+    """(config, model) from the ``add_model_args`` options: the YAML config
+    if it exists, else ``Config()``; random weights (seed 0) unless
+    --weights. Without a card, a CUDA --device stops with a message."""
+    cfg = load_config(args.config) if os.path.exists(args.config) else Config()
+    if args.out_chans is not None:
+        cfg = cfg.replace(swinunet=cfg.swinunet.__class__(
+            **{**cfg.swinunet.__dict__, "out_chans": args.out_chans}))
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
+    model = build_model(cfg, device=args.device, backend=args.backend)
+    if args.weights:
+        load_reference_checkpoint(model, args.weights)
+    return cfg, model
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Demo Image Restoration")
+    p.add_argument("--input_dir", required=True)
+    p.add_argument("--result_dir", required=True)
+    p.add_argument("--batch", type=int, default=8)
+    add_model_args(p)
     return p.parse_args(argv)
 
 
-def save_image(path: str, y: np.ndarray):
+def save_image(path: str, y: np.ndarray) -> np.ndarray:
+    """Write an (H, W, C) float image in [0, 1] (C = 1 repeated to RGB) as
+    8-bit RGB; returns the uint8 array written."""
     if y.shape[-1] == 1:
         y = np.repeat(y, 3, axis=-1)
     out = (np.clip(y, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
     Image.fromarray(out).save(path)
+    return out
 
 
 def main(argv=None) -> list:
     """Run the demo; returns the paths written."""
     args = parse_args(argv)
-    cfg = load_config(args.config) if os.path.exists(args.config) else Config()
-    if args.out_chans is not None:
-        cfg = cfg.replace(swinunet=cfg.swinunet.__class__(
-            **{**cfg.swinunet.__dict__, "out_chans": args.out_chans}))
+    cfg, model = build_demo_model(args)
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device; pass --device cpu to run on the CPU")
-    model = build_model(cfg, device=device, backend=args.backend)
-    if args.weights:
-        load_reference_checkpoint(model, args.weights)
     sw = cfg.swinunet
     gran = required_granularity(sw.patch_size, sw.num_stages, sw.win_size)
 
-    files = natural_sorted(
-        f for f in glob.glob(os.path.join(args.input_dir, "*.*"))
-        if f.lower().endswith(IMAGE_EXTS))
+    files = list_images(args.input_dir)
     if not files:
         raise SystemExit(f"No files found at {args.input_dir}")
     os.makedirs(args.result_dir, exist_ok=True)

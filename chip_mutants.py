@@ -5,7 +5,10 @@
 
 Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
-x4-head backward at (64,64,96) out 1 and (34,40,96) out 3, and on the C=768 training sublayers
+x4-head backward at (64,64,96) out 1 and (34,40,96) out 3, on the scaled
+geometry's forward forms (``chip_smoke.scaled_cases``; the chain's check
+``scaled_chain_check`` not in the ``floor`` setting), and on the C=768
+training sublayers
 of ``chip_smoke.sublayer_cases``: the LN+W-MSA backward at (8,8,768) and
 (16,16,768) shift 4, the LN+MLP branch there too and its backward at
 (8,8,768); and
@@ -232,6 +235,34 @@ MUTANTS = {
     "wmsa_mask_next_window": (
         "wmsa_attn.cuh", "mwin = (int)(((long long)b * gridDim.x + win) % gridDim.x);",
         "mwin = (int)(((long long)b * gridDim.x + win + 1) % gridDim.x);"),
+    # the scaled geometry's forms (chip_smoke.scaled_kernel_phase): #1's
+    # sequence form (csrc/swin_block_seq.cu) with its projection's epilogue
+    # without the residual x, or with its output stored at the rolled rows
+    # (the SW roll not undone); the big-window attention (wmsa_attn.cuh, #1's
+    # sequence form and #3 at 256 tokens) with its row maximum taken over
+    # the first 64 keys (exact softmax whenever nothing overflows: the
+    # ~1e3-logit case of #3 overflows); gemm_tile.cuh's 8-byte row chunks
+    # (C=180) with the halves of each 8-column group swapped; the conv-fused
+    # head's (#5) x rows at C=180 with each chunk's second half read from
+    # its first
+    "seq_proj_no_residual": (
+        "swin_block_seq.cu",
+        "  SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(\n      GemmArgs{w.ctx,",
+        "  SUNET_TRY((gemm_tile_ks<kEpiBias, false, kModeGeneral>(\n      GemmArgs{w.ctx,"),
+    "seq_out_rolled": ("swin_block_seq.cu", "nullptr, nullptr, cc, roll * kRollOut, H, W, shift},",
+                       "nullptr, nullptr, cc, 0, H, W, shift},"),
+    "big_attn_max_first_chunk": ("wmsa_attn.cuh",
+                                 "  float m0 = -INFINITY, m1 = -INFINITY;\n"
+                                 "  for (int kc = 0; kc < N / 64; ++kc) {",
+                                 "  float m0 = -INFINITY, m1 = -INFINITY;\n"
+                                 "  for (int kc = 0; kc < 1; ++kc) {"),
+    "gemm_chunk8_halves_swapped": (
+        "gemm_tile.cuh",
+        "v = __ldg(reinterpret_cast<const uint2*>(gemm_a_row<kMode>(a, r0, r) + k0 + c));",
+        "v = __ldg(reinterpret_cast<const uint2*>(gemm_a_row<kMode>(a, r0, r) + k0 + (c ^ 4)));"),
+    "up4c_chunk_second_half_dropped": (
+        "up4_conv.cu", "__ldg(reinterpret_cast<const uint2*>(p + 4))",
+        "__ldg(reinterpret_cast<const uint2*>(p))"),
 }
 
 # Run inside a checkout: the backward checks of chip_smoke in one setting.
@@ -390,6 +421,17 @@ ref = up.up4_conv_bwd_reference(*hp)
 got = (up.up4_conv_bwd_reference(*cpu(hp)) if mode == "floor" else up.up4_conv_bwd(*hp))
 cs.compare_grads(f"up4_conv_bwd (34,40,96) out 3 {tag}", tuple(g.cuda() for g in got), ref,
                  cs.UP4_GRADS)
+# the scaled geometry's forms (chip_smoke.scaled_cases, drawn from this
+# setting's seed), and #2's chain at C=360 on the card
+sgen = torch.Generator(device="cuda").manual_seed(seed)
+for c in cs.scaled_cases(sgen):
+    ref = c["plain"](*c["args"], **c["kw"])
+    got = (c["plain"](*cpu(c["args"]), **c["kw"]) if mode == "floor"
+           else c["fn"](*c["args"], **c["kw"]))
+    cs.compare(f"{c['name']} {c['case']} {tag}", got.cuda(), ref, c["tie"],
+               mean_tol=c["mean_tol"])
+if mode != "floor":
+    cs.scaled_chain_check(sgen)
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)

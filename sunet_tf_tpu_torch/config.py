@@ -240,6 +240,26 @@ def config_to_dict(cfg: Config) -> dict:
     }
 
 
+def scaled_config(**overrides) -> Config:
+    """The scaled SUNet: EMB_DIM 180, WIN_SIZE 16, 512x512 patches, heads
+    6/12/24/48 so that every stage has head dim 30, QK scale head_dim**-0.5
+    (``qk_scale=None``). ``overrides`` of SwinUNetConfig fields replace
+    these; other keys are ignored."""
+    base = dict(
+        img_size=512,
+        patch_size=4,
+        win_size=16,
+        emb_dim=180,
+        depth_en=(8, 8, 8, 8),
+        head_num=(6, 12, 24, 48),
+        qk_scale=None,
+    )
+    base.update({k: v for k, v in overrides.items()
+                 if k in SwinUNetConfig.__dataclass_fields__})
+    return Config(swinunet=SwinUNetConfig(**base),
+                  training=TrainingConfig(train_ps=512, val_ps=512))
+
+
 def tiny_config(**overrides) -> Config:
     """A small config for tests: same topology, tiny dims."""
     swin = SwinUNetConfig(

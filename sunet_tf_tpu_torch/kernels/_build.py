@@ -89,9 +89,16 @@ SIGNATURES = {
     "sunet_ln_wmsa": [_P] * 11 + [_I] * 6 + [_F, _I, _I, _P, _P],
     # M, C -> workspace bytes
     "sunet_ln_wmsa_workspace": [_I] * 2,
-    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, ks (the
-    # launch plan's K split), int* launches, stream
-    "sunet_ln_mlp": [_P] * 9 + [_I] * 4 + [_P, _P],
+    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, the launch
+    # plan's K splits of fc1 and fc2, int* launches, stream
+    "sunet_ln_mlp": [_P] * 9 + [_I] * 5 + [_P, _P],
+    # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
+    # bias, mask, workspace, B, H, W, C, hidden, ws, heads, shift, scale, the
+    # launch plan's depth Kp and K splits (qkv, proj, fc1, fc2), int*
+    # launches, stream
+    "sunet_swin_block_seq": [_P] * 17 + [_I] * 8 + [_F] + [_I] * 5 + [_P, _P],
+    # M, C, hidden -> workspace bytes
+    "sunet_swin_block_seq_workspace": [_I] * 3,
     # M, C, hidden -> workspace bytes
     "sunet_ln_mlp_workspace": [_I] * 3,
     # x, out, wexp(16,C,C), wb1, bb1, wpf, wbf, wconv(3,3,C,out), alphas,

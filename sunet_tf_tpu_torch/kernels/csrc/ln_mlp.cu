@@ -1,7 +1,8 @@
 // y + fc2(gelu(fc1(LN(y)))) over token rows: three launches.
 //
 // Replaces sunet_tf_tpu/kernels/window_attention.py::fused_ln_mlp on the
-// blocks above the whole-block cap (C=768, hidden 3072 at the bottleneck).
+// blocks above the whole-block cap (C=768, hidden 3072 at the bottleneck;
+// the scaled config's C=720 / hidden 2880 and C=1440 / hidden 5760).
 // Rounding points as the JAX kernel: LN in fp32, rounded; fc1 accumulated in
 // fp32 plus b1, exact-erf GELU in fp32, rounded; out = round(y + (fc2 +
 // b2)), fc2 accumulated in fp32.
@@ -17,7 +18,9 @@
 // 2. fc1: one CTA per 64-row x 128-column tile (4 x 24 = 96 CTAs at batch
 //    4), A = yn's 64 rows in shared memory, w1's boxes by TMA into the ring,
 //    the two warpgroups one 64-column box each; the epilogue adds b1, applies
-//    the erf GELU and stores h rounded;
+//    the erf GELU and stores h rounded. Where the 64 x C operand does not
+//    fit shared memory (C=1440: 184 KB) it splits over K as fc2 does (KS1
+//    from the plan, 2 at C=1440), the GELU after the rank-ordered sum;
 // 3. fc2: a cluster of KS CTAs per 64-row x 128-column tile, each over hidden
 //    / KS rows of w2 (KS from the launch plan, kernels/window_attention.py::
 //    mlp_plan, from one image's rows: 4 for the default model's 8x8 map, 96
@@ -54,12 +57,14 @@ extern "C" size_t sunet_ln_mlp_workspace(int M, int C, int hidden) {
 }
 
 // out (M, C) = round(y + fc2(round(gelu(fc1(round(LN(y))) + b1))) + b2);
-// ks: fc2's K split (its cluster size, from the launch plan).
+// ks1, ks: fc1's and fc2's K splits (their cluster sizes, from the launch
+// plan).
 extern "C" int sunet_ln_mlp(const void* y, void* out, const void* g, const void* be,
                             const void* w1, const void* b1, const void* w2, const void* b2,
-                            void* work, int M, int C, int hidden, int ks, int* launches,
-                            void* stream) {
-  if (M <= 0 || C % 16 || hidden % 16 || ks < 1 || hidden % (16 * ks) || kGemmCols % ks)
+                            void* work, int M, int C, int hidden, int ks1, int ks,
+                            int* launches, void* stream) {
+  if (M <= 0 || C % 16 || hidden % 16 || ks < 1 || hidden % (16 * ks) || kGemmCols % ks ||
+      ks1 < 1 || C % (16 * ks1) || kGemmCols % ks1)
     return (int)cudaErrorInvalidValue;
   const MlpWork w = carve_mlp((unsigned char*)work, M, C, hidden);
   cudaStream_t st = (cudaStream_t)stream;
@@ -67,8 +72,9 @@ extern "C" int sunet_ln_mlp(const void* y, void* out, const void* g, const void*
   SUNET_TRY(ln_fwd((const bf16*)y, false, nullptr, w.yn, w.st, (const float*)g,
                    (const float*)be, M, C, 0, 0, 0, 0, st, launches));
   const int kh = hidden / ks;
-  SUNET_TRY((gemm_tile<kEpiGelu, false>(
-      GemmArgs{w.yn, (const float*)b1, nullptr, w.h, M, C, C, hidden, 1, 0.f, 0}, w1, st)));
+  SUNET_TRY((gemm_tile_ks<kEpiGelu>(
+      GemmArgs{w.yn, (const float*)b1, nullptr, w.h, M, C, C / ks1, hidden, ks1, 0.f, 0}, w1,
+      st)));
   ++*launches;
   SUNET_TRY((gemm_tile<kEpiResid, true>(
       GemmArgs{w.h, (const float*)b2, (const bf16*)y, (bf16*)out, M, hidden, kh, C, ks, 0.f, 0},

@@ -32,7 +32,9 @@
 //    into shared memory in chunks of 96 head columns, all three loads in
 //    flight at once (cp.async for q and k); scores, softmax and P in
 //    registers (mma.sync m16n8k16), ctx written at the tokens' own rows
-//    (the reverse is addressing too).
+//    (the reverse is addressing too). Windows of 256 tokens (the scaled
+//    config's C=720 and C=1440 stages, head dim 30) take the big form: a
+//    CTA per 64 query rows, two passes over the keys (wmsa_attn.cuh).
 // 3. The projection: the same GEMM (kEpiBias), split over K on a cluster of
 //    ks CTAs summed in rank order before bproj and the one rounding (4 at
 //    the default model's (8,8,768): 96 CTAs at batch 4).
@@ -51,8 +53,8 @@ extern "C" int sunet_ln_wmsa(const void* x, void* out, const void* g, const void
                              int B, int H, int W, int C, int ws, int heads, float scale, int ksq,
                              int ks, int* launches, void* stream) {
   const int N = ws * ws, M = B * H * W;
-  if (N % 16 || N > wmsa::kTok || C % 16 || C > 256 * kLnChunks || C % heads || H % ws ||
-      W % ws || M <= 0)
+  if (C % 16 || C > 256 * kLnChunks || heads < 1 || C % heads || H % ws || W % ws || M <= 0 ||
+      !wmsa::attn_takes(N, C / heads))
     return (int)cudaErrorInvalidValue;
   if (ksq < 1 || C % (16 * ksq) || kGemmCols % ksq || ks < 1 || C % (16 * ks) || kGemmCols % ks)
     return (int)cudaErrorInvalidValue;
@@ -66,8 +68,7 @@ extern "C" int sunet_ln_wmsa(const void* x, void* out, const void* g, const void
   ++*launches;
   const wmsa::AttnArgs aa{w.qkv, w.ctx, (const float*)bias, (const float*)mask, H, W, C, ws,
                           heads};
-  wmsa::attn_kernel<false><<<dim3((H / ws) * (W / ws), heads, B), wmsa::kAttnThreads, 0, st>>>(aa);
-  SUNET_TRY(launched(launches));
+  SUNET_TRY(wmsa::launch_attn(aa, B, st, launches));
   SUNET_TRY((gemm_tile<kEpiBias, true>(
       GemmArgs{w.ctx, (const float*)bproj, nullptr, (bf16*)out, M, C, C / ks, C, ks, 0.f, 0},
       wproj, st)));

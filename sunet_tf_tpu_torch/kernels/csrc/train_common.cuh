@@ -3,7 +3,7 @@
 // up4_bwd.cuh, the token-row GEMM of gemm_tile.cuh): the token-index map
 // of a window-major (rolled, partitioned) token order, launch-status
 // helpers, the workspace carver, GELU and its derivative, and the LayerNorm
-// row kernel for C <= 768 (#4's first launch).
+// row kernel (#4's first launch, any C: C=1440 in the scaled config).
 //
 // Kernels defined here are static, so every source that includes the
 // header gets its own copy and the link sees no duplicates.

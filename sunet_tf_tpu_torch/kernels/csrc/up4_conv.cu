@@ -43,6 +43,11 @@
 //   outputs outside the image are not written.
 // Grid: ceil(tiles / T) CTAs of T warpgroups (T from the plan); at batch 4,
 // (64,64,96), out 1: 352 tiles on 176 CTAs of two warpgroups.
+// C not a multiple of 16 (the scaled config's 180): every product and
+// shared-memory layout runs over Cp = C rounded up to 16 (192, three
+// 64-column boxes); the caller pads the weights with zeros to Cp (wexp (16,
+// Cp, Cp), wb1, wpf, wbf (Cp, Cp), bb1 (Cp)), x's rows (C values) load in
+// 8-byte chunks with zeros past C, so every pad column stays zero.
 #include "hopper.cuh"
 #include "up4_common.cuh"
 
@@ -157,13 +162,14 @@ __device__ long long* g_up4_clock;
 #endif
 
 struct Args {
-  const bf16* x;
+  const bf16* x;        // (B, H, W, Cx)
   bf16* dst;            // (B, H, W, 16*out)
   const float* bb1;     // (C,)
-  const bf16* wconv;    // (3, 3, C, out)
+  const bf16* wconv;    // (3, 3, Cx, out)
   const float* alphas;  // (alpha_p, alpha_b)
-  int B, H, W, C, out;
+  int B, H, W, C, out;  // C: the padded width Cp
   int nty, ntx, ntiles, T;
+  int Cx;               // x's channels
 };
 
 struct Maps {
@@ -238,7 +244,8 @@ __global__ void __launch_bounds__(256, 1)
 #ifdef SUNET_PHASE_CLOCK
   long long clk = clock64();
 #endif
-  const int C = a.C, out = a.out, H = a.H, W = a.W, ldb = C + kPadF, Nc = conv_rows(out);
+  const int C = a.C, Cx = a.Cx, out = a.out, H = a.H, W = a.W, ldb = C + kPadF;
+  const int Nc = conv_rows(out);
   const int inv_out = ((1 << 16) + out - 1) / out;
   uint64_t* full = reinterpret_cast<uint64_t*>(base);
   uint64_t* empty = full + kRingS;
@@ -268,8 +275,8 @@ __global__ void __launch_bounds__(256, 1)
   const int kc = (C + 63) / 64 * 64;
   for (int e = tid; e < Nc * kc; e += nthreads) {
     const int n = e / kc, k = e % kc;
-    const bf16 v = n < 9 * out && k < C ? a.wconv[((n / out) * C + k) * out + n % out]
-                                        : tobf(0.f);
+    const bf16 v = n < 9 * out && k < Cx ? a.wconv[((n / out) * Cx + k) * out + n % out]
+                                         : tobf(0.f);
     *reinterpret_cast<bf16*>(wc + kmaj_off(n, k, Nc)) = v;
   }
   // this warpgroup's tile (a warpgroup past the last tile repeats it and
@@ -280,11 +287,17 @@ __global__ void __launch_bounds__(256, 1)
   const int b = tl / (a.nty * a.ntx);
   const int ty0 = (tl / a.ntx) % a.nty * kTH, tx0 = tl % a.ntx * kTW;
   // x rows, pixel coordinates clamped into the image: xa = the tile's
-  // pixels (rows kIn.. take each subpixel's halo later), xh = the halo
+  // pixels (rows kIn.. take each subpixel's halo later), xh = the halo;
+  // columns at or past Cx are zeros
   const int c8n = C / 8;
   auto ldx = [&](int y, int x, int c) {
     const int gy = min(max(ty0 + y, 0), H - 1), gx = min(max(tx0 + x, 0), W - 1);
-    return __ldg(reinterpret_cast<const uint4*>(a.x + (((size_t)b * H + gy) * W + gx) * C + c));
+    const bf16* p = a.x + (((size_t)b * H + gy) * W + gx) * Cx + c;
+    if (Cx % 8 == 0)
+      return c < Cx ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
+    const uint2 lo = c < Cx ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
+    const uint2 hi = c + 4 < Cx ? __ldg(reinterpret_cast<const uint2*>(p + 4)) : make_uint2(0u, 0u);
+    return make_uint4(lo.x, lo.y, hi.x, hi.y);
   };
   for (int e = t; e < 64 * c8n; e += 128) {
     const int r = e / c8n, c = (e % c8n) * 8;
@@ -450,17 +463,18 @@ extern "C" int sunet_up4_conv_phase_clock(void* buf) {
 }
 #endif
 
-// dst (B, H, W, 16*out) from x (B, H, W, C): wexp (16, C, C) s-major; wb1,
-// wpf, wbf (C, C); bb1 (C,); wconv (3, 3, C, out); alphas (alpha_p,
-// alpha_b); T: tiles (warpgroups) per CTA, from the plan.
+// dst (B, H, W, 16*out) from x (B, H, W, Cx): with C = Cx rounded up to 16,
+// wexp (16, C, C) s-major; wb1, wpf, wbf (C, C); bb1 (C,), zeros past Cx;
+// wconv (3, 3, Cx, out); alphas (alpha_p, alpha_b); T: tiles (warpgroups)
+// per CTA, from the plan.
 extern "C" int sunet_up4_conv_phase(const void* x, void* dst, const void* wexp,
                                     const void* wb1, const void* bb1, const void* wpf,
                                     const void* wbf, const void* wconv,
-                                    const void* alphas, int B, int H, int W, int C,
+                                    const void* alphas, int B, int H, int W, int Cx,
                                     int out, int T, void* stream) {
   using namespace up4c;
-  const int nb = hop::nboxes(C);
-  if (B < 1 || H < 1 || W < 1 || C % 16 || nb > 3 || out < 1 || out > 8 || T < 1 || T > 2)
+  const int C = align_up(Cx, 16), nb = hop::nboxes(C);
+  if (B < 1 || H < 1 || W < 1 || Cx % 4 || nb > 3 || out < 1 || out > 8 || T < 1 || T > 2)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(C, out, T);
   const int bk = hop::chunk_rows(kRingSlot, nb, C);
@@ -473,7 +487,7 @@ extern "C" int sunet_up4_conv_phase(const void* x, void* dst, const void* wexp,
     return (int)e;
   const int nty = (H + kTH - 1) / kTH, ntx = (W + kTW - 1) / kTW, ntiles = B * nty * ntx;
   const Args a{(const bf16*)x, (bf16*)dst, (const float*)bb1, (const bf16*)wconv,
-               (const float*)alphas, B, H, W, C, out, nty, ntx, ntiles, T};
+               (const float*)alphas, B, H, W, C, out, nty, ntx, ntiles, T, Cx};
   const dim3 grid((ntiles + T - 1) / T);
   cudaStream_t st = (cudaStream_t)stream;
   switch (nb) {

@@ -8,7 +8,9 @@ Counterparts of ``sunet_tf_tpu/kernels/upsample.py``:
   returns (B, H, W, 16*out) where channels (i*4+j)*out .. +out at base (h,
   w) hold the output conv at pixel (4h+i, 4w+j). The 4x-upsampled map never
   exists in device memory. CUDA: ``csrc/up4_conv.cu``. The model's head
-  where 16 * out_chans <= 128.
+  where 16 * out_chans <= 128. C not a multiple of 16 (the scaled config's
+  180) runs over C rounded up to 16, the weights zero-padded
+  (:func:`up4_conv_operands`).
 - :func:`fused_dual_upsample4` (JAX ``fused_dual_upsample4``): the split
   head, (B, 4H, 4W, C) in x's dtype; the model's output conv follows it as
   a plain convolution. CUDA: ``csrc/up4.cu`` (two launches). The model's
@@ -220,17 +222,21 @@ def up4_smem(C: int, out: int, T: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def up4_plan(C: int, out: int) -> dict:
-    """Launch plan of csrc/up4_conv.cu: T, the tiles (warpgroups) per CTA,
-    2 where two fit SMEM_MAX, else 1; its shared memory. A function of C
-    and out alone (a tile is UP4_TILE pixels at any image size and batch).
-    Raises ValueError outside the design."""
-    if C % 16 or not 16 <= C <= UP4_CONV_KERNEL_MAX_C or not 1 <= out <= UP4_KERNEL_MAX_OUT:
-        raise ValueError(f"up4_plan: C={C}, out={out}: the kernel takes C a multiple of 16 "
-                         f"up to {UP4_CONV_KERNEL_MAX_C} and 1 <= out <= {UP4_KERNEL_MAX_OUT}")
-    T = next(T for T in (2, 1, 0) if T == 0 or up4_smem(C, out, T) <= SMEM_MAX)
+    """Launch plan of csrc/up4_conv.cu: Cp, the width its products and
+    shared memory run over (C rounded up to 16: 180 -> 192, the weights
+    zero-padded to it); T, the tiles (warpgroups) per CTA, 2 where two fit
+    SMEM_MAX, else 1; its shared memory. A function of C and out alone (a
+    tile is UP4_TILE pixels at any image size and batch). Raises ValueError
+    outside the design."""
+    Cp = _up(C, 16)
+    if C % 4 or not 16 <= Cp <= UP4_CONV_KERNEL_MAX_C or not 1 <= out <= UP4_KERNEL_MAX_OUT:
+        raise ValueError(f"up4_plan: C={C}, out={out}: the kernel takes C a multiple of 4 "
+                         f"(8-byte row chunks) up to {UP4_CONV_KERNEL_MAX_C} and "
+                         f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
+    T = next(T for T in (2, 1, 0) if T == 0 or up4_smem(Cp, out, T) <= SMEM_MAX)
     if not T:
         raise ValueError(f"up4_plan: C={C}, out={out}: one tile does not fit {SMEM_MAX} bytes")
-    return {"T": T, "smem": up4_smem(C, out, T)}
+    return {"T": T, "smem": up4_smem(Cp, out, T), "Cp": Cp}
 
 
 # The x4 head's backward kernels (#9, csrc/up4_conv_bwd.cu; #11,
@@ -631,6 +637,19 @@ def _alphas_bias(alpha_p, b_b1, alpha_b, dev) -> tuple:
     return alphas, b_b1.to(device=dev, dtype=torch.float32).contiguous()
 
 
+def up4_conv_operands(w_exp, w_b1, b_b1, wpf, wbf, Cp: int) -> tuple:
+    """The conv-fused head's weights as csrc/up4_conv.cu takes them, every
+    C x C matrix and b_b1 zero-padded to Cp (a copy per call, as the (16,
+    C, C) layout already is): (wexp (16, Cp, Cp), subpixel s's expand
+    weights; w_b1, b_b1 float32, wpf, wbf)."""
+    C = w_b1.shape[0]
+    pad = Cp - C
+    sq = lambda w: F.pad(w, (0, pad, 0, pad)).contiguous()
+    return (sq(w_exp.reshape(C, C, 16).permute(2, 0, 1)), sq(w_b1),
+            F.pad(b_b1.to(device=w_b1.device, dtype=torch.float32), (0, pad)).contiguous(),
+            sq(wpf), sq(wbf))
+
+
 def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
                                     wpf, wbf, wconv) -> torch.Tensor:
     """x4 dual up-sample + 3x3 output conv (no bias) in phase space.
@@ -644,13 +663,12 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
         count.cpu += 1
         return fused_dual_upsample4_conv_phase_reference(
             x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv)
-    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_KERNEL_MAX_C)
+    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_KERNEL_MAX_C, c_align=4)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
     plan = up4_plan(C, out_ch)
-    # (16, C, C): subpixel s's expand weights are rows s*C .. of one matrix
-    wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1).contiguous()
-    alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
+    wexp_s, w_b1, bb1, wpf, wbf = up4_conv_operands(w_exp, w_b1, b_b1, wpf, wbf, plan["Cp"])
+    alphas, _ = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
     out = torch.empty((B, H, W, 16 * out_ch), device=x.device, dtype=BF16)
     err = _build.library().sunet_up4_conv_phase(
         _build.ptr(x), _build.ptr(out), _build.ptr(wexp_s), _build.ptr(w_b1),
@@ -661,15 +679,17 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
     return out
 
 
-def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C):
-    """The conv-fused head's kernels take C a multiple of 16 up to max_c and
-    1 <= out <= UP4_KERNEL_MAX_OUT, any H and W."""
+def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C,
+               c_align: int = 16):
+    """The conv-fused head's kernels take C a multiple of ``c_align`` (16;
+    the forward 4, padded to 16 inside) with C rounded up to 16 at most
+    max_c, and 1 <= out <= UP4_KERNEL_MAX_OUT, any H and W."""
     _check_x(name, x)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
-    if C % 16 or C > max_c or not 1 <= out_ch <= UP4_KERNEL_MAX_OUT:
+    if C % c_align or _up(C, 16) > max_c or not 1 <= out_ch <= UP4_KERNEL_MAX_OUT:
         raise ValueError(f"{name}: C={C}, out={out_ch}: the kernel takes C a "
-                         f"multiple of 16 up to {max_c} and "
+                         f"multiple of {c_align} up to {max_c} and "
                          f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
     _check_w(name, x, w_exp=(w_exp, (C, 16 * C)), w_b1=(w_b1, (C, C)),
              wpf=(wpf, (C, C)), wbf=(wbf, (C, C)),

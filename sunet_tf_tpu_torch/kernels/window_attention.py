@@ -6,13 +6,18 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
 - :func:`fused_swin_block` (JAX ``fused_swin_block``): one whole block,
   LN1 -> W-MSA (+ in-kernel SW roll) -> proj -> residual -> LN2 -> MLP ->
   residual. CUDA: ``csrc/swin_cluster.cu``, a cluster of CTAs per window
-  (:func:`block_plan`).
+  (:func:`block_plan`); windows above 64 tokens (WIN 16) take the
+  sequence form, ``csrc/swin_block_seq.cu``: five launches on
+  ``gemm_tile.cuh`` and ``wmsa_attn.cuh`` with the roll as row addressing
+  (:func:`block_seq_plan`).
 - :func:`fused_swin_block_chain` (JAX ``fused_swin_block_chain``): K
   consecutive blocks with a bf16 cast at each seam; launches the block
-  kernel K times (keeping the map on chip between blocks is open work).
+  kernel (either form) K times (keeping the map on chip between blocks is
+  open work).
 - :func:`fused_ln_window_attention` (JAX ``fused_ln_window_attention``):
   LN -> W-MSA -> proj, no residual; three launches (LN and the qkv product,
-  attention per (window, head), the projection; :func:`wmsa_plan`). CUDA:
+  attention per (window, head), or per 64 query rows of it above 64
+  tokens, the projection; :func:`wmsa_plan`). CUDA:
   ``csrc/ln_window_attention.cu`` (+ ``gemm_tile.cuh``).
 - :func:`fused_ln_mlp` (JAX ``fused_ln_mlp``): ``y + fc2(gelu(fc1(LN(y))))``.
   CUDA: ``csrc/ln_mlp.cu``, three launches (:func:`mlp_plan`).
@@ -49,7 +54,9 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   ``ln_mlp_trainable``).
 
 Arguments follow the JAX functions: NHWC activations, weight matrices in
-(in, out) layout and in the compute dtype, LN parameters and biases in any
+(in, out) layout and in the compute dtype (the block wrappers also take
+them with their columns zero-padded to multiples of 8, :func:`wcols`, as
+the model's weight cache stores them), LN parameters and biases in any
 float dtype (used as float32), rel-pos bias (h, N, N), mask (nW, N, N) in
 rolled coordinates or None.
 
@@ -287,20 +294,138 @@ def _fill(splits: list) -> tuple:
 @functools.lru_cache(maxsize=None)
 def mlp_plan(M: int, C: int, hidden: int) -> dict:
     """Launch plan of fused_ln_mlp's two products for images of M token
-    rows each: fc1 on 64 x 128 tiles; fc2 on the same tiles times a K
-    split ks (its cluster size, :func:`_k_splits`, :func:`_fill`). Raises
-    ValueError on a shape outside the design."""
+    rows each, on 64 x 128 tiles: fc1 times a K split ks1 and fc2 times a
+    K split ks (their cluster sizes, each by :func:`_fill` over
+    :func:`_k_splits`; fc1's split only where its 64 x C operand does not
+    fit, C=1440 of the scaled config). Raises ValueError on a shape outside
+    the design."""
     if M <= 0 or C % 16 or hidden % 16:
         raise ValueError(f"mlp_plan: M={M} rows per image, C={C}, hidden={hidden}: the kernel "
                          "takes M > 0 and multiples of 16")
-    if mlp_smem(C) > SMEM_MAX or not _chunk_rows(MLP_RING[1], 2, C):
-        raise ValueError(f"mlp_plan: C={C}: fc1's 64 x C operand does not fit {SMEM_MAX} bytes")
+    fc1 = _k_splits(M, C, hidden)
+    if not fc1:
+        raise ValueError(f"mlp_plan: C={C}: fc1's 64 x C operand does not fit {SMEM_MAX} "
+                         "bytes at any K split")
     splits = _k_splits(M, hidden, C)
     if not splits:
         raise ValueError(f"mlp_plan: hidden={hidden}: no K split fits {SMEM_MAX} bytes")
+    ks1, smem1, ctas1 = _fill(fc1)
     ks, smem, ctas = _fill(splits)
-    return {"ks": ks, "smem_fc1": mlp_smem(C), "smem_fc2": smem,
-            "ctas_fc1": -(-PLAN_BATCH * M // _TILE) * -(-hidden // 128), "ctas_fc2": ctas}
+    return {"ks": ks, "ks1": ks1, "smem_fc1": smem1, "smem_fc2": smem,
+            "ctas_fc1": ctas1, "ctas_fc2": ctas}
+
+
+# Windows above 64 tokens (WIN 16: 256) in the forward kernels: the
+# attention launch of csrc/wmsa_attn.cuh's second form (a CTA of four warps
+# per 64 query rows of a (window, head), two passes over the keys) takes N
+# a multiple of 64 up to BIG_WINDOW_MAX_TOKENS and a head dim up to
+# BIG_WINDOW_MAX_HEAD_DIM (kTokBig, kDcBig).
+BIG_WINDOW_MAX_TOKENS = 256
+BIG_WINDOW_MAX_HEAD_DIM = 64
+# fused_swin_block on such windows (csrc/swin_block_seq.cu): LN1 + qkv, the
+# attention, proj + the residual, LN2 + fc1, fc2 + the residual.
+SWIN_BLOCK_SEQ_LAUNCHES = 5
+
+
+def window_why(N: int, d: int) -> Optional[str]:
+    """Why the forward window kernels do not take windows of N tokens at
+    head dim d (None when they do): N a multiple of 16 up to 64 (one wgmma
+    tile, the attention's registers), or above that a multiple of 64 up to
+    BIG_WINDOW_MAX_TOKENS at a head dim up to BIG_WINDOW_MAX_HEAD_DIM."""
+    if N <= 0 or N % 16:
+        return f"window of {N} tokens (the kernels take N % 16 == 0)"
+    if N <= _TILE:
+        return None
+    if N % _TILE or N > BIG_WINDOW_MAX_TOKENS:
+        return (f"window of {N} tokens (above {_TILE} the kernels take multiples of {_TILE} "
+                f"up to {BIG_WINDOW_MAX_TOKENS})")
+    if d > BIG_WINDOW_MAX_HEAD_DIM:
+        return f"head dim {d} above {BIG_WINDOW_MAX_HEAD_DIM} at {N} tokens"
+    return None
+
+
+def attn_big_smem(N: int, d: int) -> int:
+    """Dynamic shared memory of the big-window attention launch
+    (``wmsa::big_smem``): the token offsets, the CTA's 64 q rows and the N
+    k rows of dp + 8 bf16, v^T as dp rows of N + 8; dp is the head dim
+    rounded up to 16."""
+    dp = _up(d, 16)
+    return N * 8 + (_TILE + N) * (dp + 8) * 2 + dp * (N + 8) * 2
+
+
+def kpad(C: int) -> int:
+    """The depth of a product over C-wide rows: C, or where C is not a
+    multiple of 16 (the k16 steps) C rounded up to whole 64-column panels
+    (C=180 -> 192); A's columns past C are zeros in shared memory and W's
+    rows past C are TMA's zero fill."""
+    return C if C % 16 == 0 else _up(C, 64)
+
+
+def wcols(n: int) -> int:
+    """Columns a weight matrix of n columns is stored with for the kernels:
+    n rounded up to 8, so that its rows are whole 16-byte units (TMA's
+    global stride); the pad columns are zeros (C=180: wqkv 540 -> 544,
+    wproj and w2 180 -> 184)."""
+    return _up(n, 8)
+
+
+def _seq_why(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> Optional[str]:
+    N = ws * ws
+    if H % ws or W % ws:
+        return f"({H},{W}) not divisible by window {ws}"
+    if N <= _TILE:
+        return f"window of {N} tokens: the cluster form (block_plan) takes N <= {_TILE}"
+    if C % 4 or heads <= 0 or C % heads or hidden % 16:
+        return ("C must be a multiple of 4 (8-byte row chunks) and of heads, hidden of 16")
+    why = window_why(N, C // heads)
+    if why:
+        return why
+    Kp = kpad(C)
+    for name, K, cols in (("qkv", Kp, 3 * C), ("proj", Kp, C), ("fc1", Kp, hidden),
+                          ("fc2", hidden, C)):
+        if not _k_splits(H * W, K, cols):
+            return f"no K split of {name}'s {K}-deep product fits {SMEM_MAX} bytes"
+    if attn_big_smem(N, C // heads) > SMEM_MAX:
+        return f"the attention's shared memory at {N} tokens exceeds {SMEM_MAX} bytes"
+    return None
+
+
+def block_seq_takes(C: int, hidden: int, heads: int, ws: int) -> bool:
+    """Whether the sequence form of the block kernel takes blocks of width
+    C, MLP width ``hidden``, ``heads`` heads and window ``ws`` (on a map of
+    one window; the router's question)."""
+    return _seq_why(ws, ws, C, hidden, ws, heads) is None
+
+
+@functools.lru_cache(maxsize=None)
+def block_seq_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
+    """Launch plan of :func:`fused_swin_block`'s sequence form
+    (csrc/swin_block_seq.cu) for (H, W, C) images with windows above 64
+    tokens: the depth Kp of the C-deep products (:func:`kpad`), the K
+    splits of qkv (ksq), proj (ksp), fc1 (ks1) and fc2 (ks2), each by
+    :func:`_fill` over :func:`_k_splits` of one image's rows, the
+    attention's shared memory and the CTAs of each launch at PLAN_BATCH
+    images. A function of one image's shape, never the batch. Raises
+    ValueError on a shape outside the design."""
+    why = _seq_why(H, W, C, hidden, ws, heads)
+    if why:
+        raise ValueError(f"block_seq_plan: H={H}, W={W}, C={C}, hidden={hidden}, ws={ws}, "
+                         f"heads={heads}: {why}")
+    M, Kp, N = H * W, kpad(C), ws * ws
+    plan = {"Kp": Kp, "attn_smem": attn_big_smem(N, C // heads),
+            "ctas_attn": PLAN_BATCH * (M // N) * heads * (N // _TILE)}
+    for split, product, K, cols in (("ksq", "qkv", Kp, 3 * C), ("ksp", "proj", Kp, C),
+                                    ("ks1", "fc1", Kp, hidden), ("ks2", "fc2", hidden, C)):
+        plan[split], plan["smem_" + product], plan["ctas_" + product] = _fill(
+            _k_splits(M, K, cols))
+    return plan
+
+
+def block_launches(ws: int) -> int:
+    """Kernel launches of one :func:`fused_swin_block` call with window
+    ``ws``: the cluster form's one, or the sequence form's
+    SWIN_BLOCK_SEQ_LAUNCHES above 64 tokens."""
+    return 1 if ws * ws <= _TILE else SWIN_BLOCK_SEQ_LAUNCHES
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,24 +434,22 @@ def wmsa_plan(H: int, W: int, C: int, heads: int, ws: int) -> dict:
     splits of its qkv product (ksq) and of the projection (ks), each by
     :func:`_fill` over :func:`_k_splits`, and the CTAs of
     each launch at PLAN_BATCH images (the attention: one per window and
-    head). A function of one image's shape, never the batch. Raises
-    ValueError on a shape outside the design."""
+    head, times N / 64 above 64 tokens). A function of one image's shape,
+    never the batch. Raises ValueError on a shape outside the design."""
     N = ws * ws
-    why = None
-    if H % ws or W % ws:
-        why = f"({H},{W}) not divisible by the window"
-    elif N % 16 or N > _TILE:
-        why = f"window of {N} tokens (the kernel takes N % 16 == 0, N <= {_TILE})"
-    elif C % 16 or C % heads or C > 2048:
+    why = (f"({H},{W}) not divisible by the window" if H % ws or W % ws
+           else window_why(N, C // max(heads, 1)))
+    if why is None and (C % 16 or C % heads or C > 2048):
         why = "C must be a multiple of 16 and of heads, at most 2048"
-    elif not _k_splits(H * W, C, 3 * C):
+    if why is None and not _k_splits(H * W, C, 3 * C):
         why = f"no K split of the {C}-deep products fits {SMEM_MAX} bytes"
     if why:
         raise ValueError(f"wmsa_plan: H={H}, W={W}, C={C}, heads={heads}, ws={ws}: {why}")
     ksq, smem_qkv, ctas_qkv = _fill(_k_splits(H * W, C, 3 * C))
     ks, smem_proj, ctas_proj = _fill(_k_splits(H * W, C, C))
     return {"ksq": ksq, "ks": ks, "smem_qkv": smem_qkv, "smem_proj": smem_proj,
-            "ctas_qkv": ctas_qkv, "ctas_attn": PLAN_BATCH * (H // ws) * (W // ws) * heads,
+            "ctas_qkv": ctas_qkv,
+            "ctas_attn": PLAN_BATCH * (H // ws) * (W // ws) * heads * max(1, N // _TILE),
             "ctas_proj": ctas_proj}
 
 
@@ -1127,18 +1250,42 @@ def _check_w(name: str, x: torch.Tensor, **ws):
                              f"expected {tuple(shape)}")
 
 
+def _unpadded(w: torch.Tensor, cols: int) -> torch.Tensor:
+    """A weight matrix of ``cols`` columns given as the kernels store it
+    (:func:`wcols`: zero pad columns) as its (rows, cols) view; one given
+    at (rows, cols) as it is."""
+    return w if w.shape[-1] == cols else w[:, :cols]
+
+
+def _kernel_ws(name: str, x: torch.Tensor, **ws) -> list:
+    """Each weight matrix ``wname=(w, (rows, cols))`` as the kernels take
+    it: a contiguous bfloat16 (rows, wcols(cols)) tensor on x's device. One
+    given at (rows, cols) with cols not a multiple of 8 is padded here, a
+    copy per call (the model's weight cache stores the padded form,
+    ``SwinBlock.kernel_params``)."""
+    out = []
+    for wname, (w, (rows, cols)) in ws.items():
+        if tuple(w.shape) == (rows, cols) and wcols(cols) != cols:
+            w = torch.nn.functional.pad(w, (0, wcols(cols) - cols))
+        _check_w(name, x, **{wname: (w, (rows, wcols(cols)))})
+        out.append(w)
+    return out
+
+
 def _check_window(name: str, H, W, C, ws, num_heads, bias, mask, *,
-                  no_bias: bool = False):
+                  no_bias: bool = False, c_align: int = 16):
     """``no_bias``: the kernel reads no rel-pos bias (the residual route's
-    backward), and ``bias`` must be None."""
+    backward), and ``bias`` must be None. ``c_align``: the multiple C must
+    be (4 for the block kernel's sequence form, whose launches load rows in
+    8-byte chunks)."""
     N = ws * ws
     if H % ws or W % ws:
         raise ValueError(f"{name}: ({H},{W}) not divisible by window {ws}")
-    if N % 16 or N > 64:
-        raise ValueError(f"{name}: window {ws} gives {N} tokens; the kernel "
-                         "takes 16, 32, 48 or 64")
-    if C % 16 or C % num_heads:
-        raise ValueError(f"{name}: C={C} must be a multiple of 16 and of heads")
+    why = window_why(N, C // max(num_heads, 1))
+    if why:
+        raise ValueError(f"{name}: {why}")
+    if C % c_align or C % num_heads:
+        raise ValueError(f"{name}: C={C} must be a multiple of {c_align} and of heads")
     if no_bias:
         if bias is not None:
             raise ValueError(f"{name}: takes no rel-pos bias")
@@ -1211,6 +1358,44 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
     return (out, *state)
 
 
+def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
+                      mask, *, ws: int, num_heads: int, scale: float, shift: int) -> tuple:
+    """The block kernel's sequence form (csrc/swin_block_seq.cu) for
+    windows above 64 tokens: (out, kernel launches)."""
+    name = "fused_swin_block"
+    _check_x(name, x)
+    B, H, W, C = x.shape
+    hidden = w1.shape[1]
+    if C > BLOCK_KERNEL_MAX_C:
+        raise ValueError(f"{name}: C={C} above the block-kernel cap {BLOCK_KERNEL_MAX_C}; "
+                         "route through fused_ln_window_attention + fused_ln_mlp")
+    wqkv, wproj, w1, w2 = _kernel_ws(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)),
+                                     w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
+    _check_window(name, H, W, C, ws, num_heads, bias, mask, c_align=4)
+    if not 0 <= shift < ws:
+        raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
+    plan = block_seq_plan(H, W, C, hidden, ws, num_heads)
+    dev = x.device
+    f = lambda t: _f32(t, dev)
+    if bqkv is None:
+        bqkv = torch.zeros(3 * C, device=dev)
+    _check_vec(name, ln1_scale=(ln1[0], C), ln1_bias=(ln1[1], C), bqkv=(bqkv, 3 * C),
+               bproj=(bproj, C), ln2_scale=(ln2[0], C), ln2_bias=(ln2[1], C), b1=(b1, hidden),
+               b2=(b2, C))
+    lib = _build.library()
+    work = _workspace(lib.sunet_swin_block_seq_workspace, dev, B * H * W, C, hidden)
+    out = torch.empty_like(x)
+    args = [f(ln1[0]), f(ln1[1]), wqkv, f(bqkv), wproj, f(bproj), f(ln2[0]), f(ln2[1]), w1,
+            f(b1), w2, f(b2), f(bias), f(mask)]
+    launches = _build.c_int(0)
+    err = lib.sunet_swin_block_seq(
+        _build.ptr(x), _build.ptr(out), *[_build.ptr(a) for a in args], _build.ptr(work),
+        B, H, W, C, hidden, ws, num_heads, shift, float(scale), plan["Kp"], plan["ksq"],
+        plan["ksp"], plan["ks1"], plan["ks2"], _build.byref(launches), _build.stream())
+    _build.check(name, err)
+    return out, launches.value
+
+
 # ---------------------------------------------------------------- wrappers
 
 
@@ -1223,17 +1408,42 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     inside the kernel as load/store addressing; ``mask`` is the
     rolled-space SW-MSA mask (None when shift == 0). ``drop_path_scale``:
     optional (B, 2) float32 per-image scales of the attention and MLP
-    branches (stochastic depth); None means ones."""
-    count = _build.counter("fused_swin_block")
+    branches (stochastic depth); None means ones.
+
+    The form follows from the window: up to 64 tokens the cluster kernel
+    (csrc/swin_cluster.cu, one launch, :func:`block_plan`); above, the
+    sequence form (csrc/swin_block_seq.cu, SWIN_BLOCK_SEQ_LAUNCHES launches
+    on gemm_tile.cuh and the big-window attention, :func:`block_seq_plan`),
+    inference only. The weight matrices may come with their columns padded
+    as the kernels store them (:func:`wcols`)."""
+    return _counted_block("fused_swin_block", x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
+                          b2, bias, mask, drop_path_scale, ws=ws, num_heads=num_heads,
+                          scale=scale, shift=shift)
+
+
+def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask,
+                   dp=None, *, ws: int, num_heads: int, scale: float, shift: int):
+    """One block by the form its window and device take, its launches added
+    to wrapper ``name``'s count: the plain version on a CPU tensor (the
+    weights unpadded), else the cluster kernel or the sequence form."""
+    count = _build.counter(name)
+    kw = dict(ws=ws, num_heads=num_heads, scale=scale, shift=shift)
     if x.device.type == "cpu":
-        count.cpu += 1
+        count.cpu += block_launches(ws)
+        C = x.shape[-1]
         return fused_swin_block_reference(
-            x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask,
-            drop_path_scale, ws=ws, num_heads=num_heads, scale=scale,
-            shift=shift)
-    out = _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
-                        bias, mask, drop_path_scale, ws=ws,
-                        num_heads=num_heads, scale=scale, shift=shift)
+            x, ln1, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj, ln2, w1, b1,
+            _unpadded(w2, C), b2, bias, mask, dp, **kw)
+    if ws * ws > _TILE:
+        if dp is not None:
+            raise NotImplementedError(f"{name}: the sequence form (windows above {_TILE} "
+                                      "tokens) is inference only")
+        out, n = _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
+                                   mask, **kw)
+        count.cuda += n
+        return out
+    out = _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask, dp,
+                        **kw)
     count.cuda += 1
     return out
 
@@ -1464,16 +1674,10 @@ def fused_swin_block_chain(x, params_list: list, biases: list, mask, *,
     if not (K == len(biases) == len(shifts) and K >= 1):
         raise ValueError("fused_swin_block_chain: params, biases and shifts "
                          "must have the same length >= 1")
-    count = _build.counter("fused_swin_block_chain")
-    on_cpu = x.device.type == "cpu"
-    run = fused_swin_block_reference if on_cpu else _launch_block
     for p, bias, s in zip(params_list, biases, shifts):
-        x = run(x, p[0:2], *p[2:6], p[6:8], *p[8:12], bias, mask if s else None,
-                ws=ws, num_heads=num_heads, scale=scale, shift=s)
-        if on_cpu:
-            count.cpu += 1
-        else:
-            count.cuda += 1
+        x = _counted_block("fused_swin_block_chain", x, p[0:2], *p[2:6], p[6:8], *p[8:12], bias,
+                           mask if s else None, ws=ws, num_heads=num_heads, scale=scale,
+                           shift=s)
     return x
 
 
@@ -1486,11 +1690,12 @@ def fused_ln_window_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     LN_WMSA_LAUNCHES launches (:func:`wmsa_plan`), each counted."""
     name = "fused_ln_window_attention"
     count = _build.counter(name)
+    C = x.shape[-1]
     if x.device.type == "cpu":
         count.cpu += LN_WMSA_LAUNCHES
         return fused_ln_window_attention_reference(
-            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias, mask,
-            ws=ws, num_heads=num_heads, scale=scale)
+            x, ln_scale, ln_bias, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj,
+            bias, mask, ws=ws, num_heads=num_heads, scale=scale)
     _check_x(name, x)
     B, H, W, C = x.shape
     _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
@@ -1530,6 +1735,9 @@ def _check_windows(name, xw, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
     nW = 1 if mask is None else mask.shape[0]
     if ws * ws != N or T % nW:
         raise ValueError(f"{name}: {T} windows of {N} tokens with {nW} masks")
+    if N > _TILE:
+        raise ValueError(f"{name}: windows of {N} tokens; the standalone W-MSA takes at most "
+                         f"{_TILE} (no model route runs it on larger windows)")
     _check_window(name, ws, ws * nW, C, ws, num_heads, bias, mask)
     _check_vec(name, bqkv=(bqkv, 3 * C), bproj=(bproj, C))
 
@@ -1595,16 +1803,17 @@ def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     count = _build.counter(name)
     if y.device.type == "cpu":
         count.cpu += LN_MLP_LAUNCHES
-        return fused_ln_mlp_reference(y, ln, w1, b1, w2, b2)
+        return fused_ln_mlp_reference(y, ln, w1, b1, _unpadded(w2, y.shape[-1]), b2)
     _check_x(name, y)
     B, H, W, C = y.shape
     hidden = w1.shape[1]
-    if C % 16 or hidden % 16 or C > SPLIT_TRAIN_MAX_C:
+    if C % 16 or hidden % 16:
         raise ValueError(f"{name}: C={C}, hidden={hidden}: the kernel takes "
-                         f"multiples of 16 and C <= {SPLIT_TRAIN_MAX_C}")
+                         "multiples of 16")
     _check_w(name, y, w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
+    _check_vec(name, ln_scale=(ln[0], C), ln_bias=(ln[1], C), b1=(b1, hidden), b2=(b2, C))
     M = B * H * W
-    plan = mlp_plan(H * W, C, hidden)
+    plan = mlp_plan(H * W, C, hidden)   # raises on a width outside the design
     dev = y.device
     f = lambda t: _f32(t, dev)
     lib = _build.library()
@@ -1614,7 +1823,7 @@ def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     launches = _build.c_int(0)
     err = lib.sunet_ln_mlp(
         _build.ptr(y), _build.ptr(out), *[_build.ptr(a) for a in args], _build.ptr(work),
-        M, C, hidden, plan["ks"], _build.byref(launches),
+        M, C, hidden, plan["ks1"], plan["ks"], _build.byref(launches),
         _build.stream())
     _build.check(name, err)
     count.cuda += launches.value

@@ -17,12 +17,18 @@ Two routes per block, chosen by ``backend``:
 - ``"fused"``: the JAX Pallas path's routing (``SwinBlock.__call__``,
   ``chain_fusable_len``): whole-block kernel at C <= ``ROUTE_BLOCK_MAX_C``,
   W->SW pair chains at C >= ``ROUTE_PAIR_MIN_C``, and the split LN+W-MSA /
-  LN+MLP kernels above the cap. A block within the cap whose shape the
-  block kernel's launch plan does not take (``wa.block_kernel_takes``: a
-  head dim above 64, or no cluster size that divides the heads) also takes
-  the split kernels, where JAX runs its block kernel: the two routes round
-  y once more apart (y = x + round(attn) instead of round(x + attn)). The SW roll always happens inside the block
-  kernel (load/store addressing), at any map size.
+  LN+MLP kernels above the cap. The block kernel's form follows from the
+  window: the cluster kernel up to 64 tokens, the sequence form above
+  (WIN 16's 256 tokens, the scaled config's C=180 and C=360 stages;
+  ``wa.block_seq_plan``). A block within the cap whose shape neither form
+  takes (``SwinBlock.takes_block_kernel``: a head dim above 64, or no
+  cluster size that divides the heads) also takes the split kernels, where
+  JAX runs its block kernel: the two routes round y once more apart (y = x
+  + round(attn) instead of round(x + attn)). The SW roll always happens
+  inside the block kernel (load/store addressing), at any map size. JAX
+  runs the "shift" softmax where scale * sqrt(head dim) = 1 (the scaled
+  config, ``softmax_autoselect``); the port's kernels keep the row-max
+  softmax, exact alike for logits in (-47, 80].
 
 Training (a ``torch.Generator`` passed to ``forward``) draws per-image
 stochastic-depth scales from it. On the fused route a block trains by its
@@ -32,7 +38,8 @@ failing:
 - C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape both the block kernel
   (``wa.block_kernel_takes``: a launch plan; its residual form runs on the
   same cluster kernel) and the block backward's kernels
-  (``wa.block_bwd_takes``: an even head dim up to 64) take trains on them:
+  (``wa.block_bwd_takes``: an even head dim up to 64; windows up to 64
+  tokens) take trains on them:
   where the attention takes JAX's blockdiag layout
   (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8 heads) and
   ``ROUTE_TRAIN_RESID`` is set, ``SwinBlockTrainableRes``, the residual
@@ -44,14 +51,15 @@ failing:
   and every block of this width under ``SUNET_BWD_RESID=0``);
 - the others up to ``ROUTE_TRAIN_SPLIT_MAX_C`` (768) whose attention the
   LN+W-MSA backward takes (``wa.ln_wmsa_bwd_takes``: an even head dim whose
-  operands fit its shared memory, up to 192 at 64 tokens): the two
+  operands fit its shared memory, up to 192 at 64 tokens; windows up to 64
+  tokens): the two
   sublayers, ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with
   the residuals and drop-path in autograd (JAX's sublayer route,
   ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
   ``SUNET_TRAIN_BLOCK_KERNEL=0``; JAX's default trains C=768 on the
   whole-block kernel, which here takes C <= 384, ``BLOCK_KERNEL_MAX_C``);
-- the rest (the scaled EMB-180 config's C=1440, a head dim the LN+W-MSA
-  backward refuses): autograd of the eager block, as JAX above
+- the rest (the scaled EMB-180 config's WIN-16 blocks, a head dim the
+  LN+W-MSA backward refuses): autograd of the eager block, as JAX above
   ``SUNET_TRAIN_KERNEL_MAX_C=768``.
 
 Training never takes the chain route.
@@ -280,10 +288,17 @@ class SwinBlock(nn.Module):
 
     def kernel_params(self, dtype) -> tuple:
         """The 12 block operands in the kernels' layout: LN params float32,
-        weight matrices (in, out) in ``dtype``, biases float32."""
+        weight matrices (in, out) in ``dtype`` with their columns padded with
+        zeros to multiples of 8 (``wa.wcols``: wqkv, wproj and w2 at C=180,
+        so that TMA reads their rows; the wrappers take either form),
+        biases float32."""
         def build():
             a, m = self.attn, self.mlp
-            w = lambda lin: lin.weight.detach().t().contiguous().to(dtype)
+
+            def w(lin):
+                t = lin.weight.detach().t()
+                pad = wa.wcols(t.shape[1]) - t.shape[1]
+                return F.pad(t, (0, pad)).contiguous().to(dtype)
             f = lambda t: t.detach().float().contiguous()
             bqkv = (f(a.qkv.bias) if a.qkv.bias is not None
                     else torch.zeros(3 * self.dim, device=a.qkv.weight.device))
@@ -318,22 +333,29 @@ class SwinBlock(nn.Module):
 
     def takes_block_kernel(self) -> bool:
         """Whether the whole-block kernel has a launch plan for this block's
-        shape (``wa.block_kernel_takes``); the router's caps still apply."""
-        return wa.block_kernel_takes(self.dim, self.mlp.fc1.out_features, self.attn.num_heads)
+        shape in the form its window takes: the cluster form up to 64 tokens
+        (``wa.block_kernel_takes``), the sequence form above
+        (``wa.block_seq_takes``); the router's caps still apply."""
+        hidden, heads, ws = self.mlp.fc1.out_features, self.attn.num_heads, self.window_size
+        if ws * ws > 64:
+            return wa.block_seq_takes(self.dim, hidden, heads, ws)
+        return wa.block_kernel_takes(self.dim, hidden, heads)
 
     def trains_on_block_kernels(self) -> bool:
         """Whether training takes the block kernels (the residual route or
         the recompute one) rather than the sublayer kernels: both routes'
-        forwards run on the cluster block kernel, so both need its plan."""
-        return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C
+        forwards run on the cluster block kernel, so both need its plan, and
+        the block backward's window rule (N <= 64)."""
+        return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C and self.window_size ** 2 <= 64
                 and wa.block_bwd_takes(self.dim, self.mlp.fc1.out_features,
                                        self.attn.num_heads)
                 and self.takes_block_kernel())
 
     def trains_on_split_kernels(self) -> bool:
         """Whether training takes the two sublayer kernels (when it does not
-        take the block kernels); else the eager block."""
-        return (self.dim <= ROUTE_TRAIN_SPLIT_MAX_C
+        take the block kernels), whose backward takes windows up to 64
+        tokens; else the eager block."""
+        return (self.dim <= ROUTE_TRAIN_SPLIT_MAX_C and self.window_size ** 2 <= 64
                 and wa.ln_wmsa_bwd_takes(self.dim, self.attn.num_heads, self.window_size))
 
     def trains_on_residuals(self) -> bool:

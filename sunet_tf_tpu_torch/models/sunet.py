@@ -291,8 +291,11 @@ class SUNet(nn.Module):
 
     def expected_launches(self, x_shape: tuple, train: bool = False) -> dict:
         """Kernel launches one fused forward of an input of ``x_shape``
-        makes, per wrapper, as the router decides them: a chain of K blocks
-        launches the block kernel K times, LN+W-MSA launches three kernels
+        makes, per wrapper, as the router decides them: a block launches the
+        block kernel once, or its sequence form's
+        ``wa.SWIN_BLOCK_SEQ_LAUNCHES`` above 64 tokens a window
+        (``wa.block_launches``), a chain of K blocks K times that, LN+W-MSA
+        launches three kernels
         (``wa.LN_WMSA_LAUNCHES``), LN+MLP three,
         a block within the cap whose shape the block kernel does not take
         (``SwinBlock.takes_block_kernel``) the split kernels; the x4 head
@@ -349,12 +352,13 @@ class SUNet(nn.Module):
             while i < len(blocks):
                 k = chain_fusable_len(blocks, i, probe)
                 if k >= 2:
-                    counts["fused_swin_block_chain"] += k
+                    counts["fused_swin_block_chain"] += sum(
+                        wa.block_launches(b.window_size) for b in blocks[i:i + k])
                     i += k
                     continue
                 if (blocks[i].dim <= layers.ROUTE_BLOCK_MAX_C
                         and blocks[i].takes_block_kernel()):
-                    counts["fused_swin_block"] += 1
+                    counts["fused_swin_block"] += wa.block_launches(blocks[i].window_size)
                 else:
                     counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
                     counts["fused_ln_mlp"] += wa.LN_MLP_LAUNCHES

@@ -32,7 +32,7 @@ def test_up4_plan_fits_shared_memory(C, out):
 
 def test_up4_plan_of_the_main_path_and_refusals():
     assert up.up4_plan(96, 1)["T"] == 2
-    for C, out in ((100, 1), (208, 1), (96, 0), (96, 9)):
+    for C, out in ((90, 1), (208, 1), (96, 0), (96, 9)):
         with pytest.raises(ValueError, match="up4_plan"):
             up.up4_plan(C, out)
 
@@ -166,7 +166,7 @@ def test_wmsa_plan_takes_every_shape_the_old_entry_took(H, C, heads, ws):
 
 
 @pytest.mark.parametrize("args,match", [
-    ((32, 32, 192, 8, 16), "window of 256 tokens"),
+    ((64, 64, 192, 8, 32), "window of 1024 tokens"),
     ((8, 8, 200, 8, 8), "multiple of 16"),
     ((12, 12, 96, 8, 8), "not divisible"),
 ])

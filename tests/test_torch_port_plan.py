@@ -78,7 +78,7 @@ def test_block_plan_refuses_shapes_outside_the_design(args, match):
 
 
 @pytest.mark.parametrize("args,match", [
-    ((256, 1536, 6144), "does not fit"),
+    ((256, 2064, 8256), "does not fit"),
     ((256, 100, 400), "multiples of 16"),
     ((0, 768, 3072), "M > 0"),
 ])

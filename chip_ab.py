@@ -16,7 +16,9 @@ bf16, ``chip_smoke.block_params`` weights.
   batch 2 and 4, the LN+W-MSA kernel (#3) at (8,8,768), batch 2 and 4,
   and at (16,16,768), shift 4 with the mask, the conv-fused x4 head (#5)
   and its backward (#9) at (64,64,96), out 1 and 3, #5 also out 1 at batch
-  4.
+  4; the scaled geometry's inference forms (``chip_smoke.scaled_cases``:
+  #1's sequence form, #3's big-window attention, #4 at C=1440, #5 at
+  C=180).
 - Against the plain version, both trees' readings printed (``PLAIN``
   lines): the residual route's block forward (#6: output and stored state)
   at (64,64,96) and (32,32,192), shift 0 and 4, the LN+MLP branch (#13)
@@ -328,6 +330,19 @@ for resid in (True, False):
           f" {device_ms(train_step, 3):.4f} ms device busy, "
           f"{time_ms(train_step, 10, device=False):.4f} ms paced by the host", flush=True)
 layers.ROUTE_TRAIN_RESID = True
+# the scaled geometry's inference forms (chip_smoke.scaled_cases: #1's
+# sequence form on gemm_tile.cuh's general mode, #3's big-window attention,
+# #4 at C=1440, #5 at C=180), drawn last so that the cases above keep their
+# inputs, and #1's sequence form timed at (128,128,180) shift 8
+model = None
+torch.cuda.empty_cache()
+scgen = torch.Generator(device="cuda").manual_seed(1414)
+for c in cs.scaled_cases(scgen):
+    outs[f"{c['name']} [scaled] {c['case']}"] = c["fn"](*c["args"], **c["kw"])
+    if c["name"] == "fused_swin_block" and c["case"].startswith("(128,128,180) shift 8") \
+            and c["case"].endswith("(1, 1, 1, 1)"):
+        timed("fused_swin_block [scaled] (128,128,180) shift 8",
+              lambda c=c: c["fn"](*c["args"], **c["kw"]))
 torch.save({k: v.cpu() for k, v in outs.items()}, sys.argv[1])
 '''
 

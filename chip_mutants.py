@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Calibrate chip_smoke's limits for the backward kernels on one NVIDIA GPU.
 
-    python3 chip_mutants.py [--out PATH] [--step-only] [--mutants NAME,...]
+    python3 chip_mutants.py [--out PATH] [--step-only] [--mutants NAME,...] [--sound]
 
 Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
 x4-head backward at (64,64,96) out 1 and (34,40,96) out 3, on the scaled
 geometry's forward forms (``chip_smoke.scaled_cases``; the chain's check
-``scaled_chain_check`` not in the ``floor`` setting), and on the C=768
+``scaled_chain_check`` not in the ``floor`` setting) and its training
+step's forms (``chip_smoke.scaled_train_cases``: #1's train form, the
+big-window block backward, #9's wide form), and on the C=768
 training sublayers
 of ``chip_smoke.sublayer_cases``: the LN+W-MSA backward at (8,8,768) and
 (16,16,768) shift 4, the LN+MLP branch there too and its backward at
@@ -26,7 +28,9 @@ settings:
   with one deliberate fault (a few mutants write the same fault into each
   kernel that has its own copy of the code) in the kernel sources, built
   and checked there (each must fail); ``--mutants`` runs only the named
-  ones and no other setting;
+  ones and no other setting, ``--sound`` only the kernel and floor
+  settings; a mutant's file path is under ``kernels/csrc`` (``../`` for
+  the wrappers' Python beside it);
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -247,10 +251,10 @@ MUTANTS = {
     # its first
     "seq_proj_no_residual": (
         "swin_block_seq.cu",
-        "  SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(\n      GemmArgs{w.ctx,",
-        "  SUNET_TRY((gemm_tile_ks<kEpiBias, false, kModeGeneral>(\n      GemmArgs{w.ctx,"),
-    "seq_out_rolled": ("swin_block_seq.cu", "nullptr, nullptr, cc, roll * kRollOut, H, W, shift},",
-                       "nullptr, nullptr, cc, 0, H, W, shift},"),
+        "    SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(ga, wproj, st)));",
+        "    SUNET_TRY((gemm_tile_ks<kEpiBias, false, kModeGeneral>(ga, wproj, st)));"),
+    "seq_out_rolled": ("swin_block_seq.cu", "nullptr, nullptr, cc, roll * kRollOut, H, W, shift,",
+                       "nullptr, nullptr, cc, 0, H, W, shift,"),
     "big_attn_max_first_chunk": ("wmsa_attn.cuh",
                                  "  float m0 = -INFINITY, m1 = -INFINITY;\n"
                                  "  for (int kc = 0; kc < N / 64; ++kc) {",
@@ -263,6 +267,25 @@ MUTANTS = {
     "up4c_chunk_second_half_dropped": (
         "up4_conv.cu", "__ldg(reinterpret_cast<const uint2*>(p + 4))",
         "__ldg(reinterpret_cast<const uint2*>(p))"),
+    # the scaled training step's forms (chip_smoke.scaled_train_cases): #1's
+    # train form (gemm_tile.cuh's kModeDrop) with its drop-path scale
+    # dropped; the big-window backward (csrc/block_bwd_big.cuh) with D =
+    # rowsum(P dP) written as zeros for the dk/dv launch, or with the row
+    # maximum the backward launches read off the forward's (P scaled by 1/e
+    # there); #9's wide form given C=180's pad channels with nonzero
+    # weights (kernels/upsample.py's padding: the pad channels leak into
+    # the real ones)
+    "seq_dp_dropped": ("gemm_tile.cuh",
+                       "a.dp[2 * (row / ((long long)a.H * a.W)) + a.dpi] * (s + a.bias[col]));",
+                       "(s + a.bias[col]));"),
+    "big_bwd_d_zeroed": ("block_bwd_big.cuh",
+                         "      a.dsum[st] = rd0;\n      a.dsum[st + 8] = rd1;",
+                         "      a.dsum[st] = 0.f;\n      a.dsum[st + 8] = 0.f;"),
+    "big_bwd_max_off": ("block_bwd_big.cuh", "    a.rmax[st] = m0;\n    a.rmax[st + 8] = m1;",
+                        "    a.rmax[st] = m0 + 1.f;\n    a.rmax[st + 8] = m1 + 1.f;"),
+    "up4_wide_pad_leak": ("../upsample.py",
+                          "    square = lambda w: F.pad(w, (0, pad, 0, pad)).contiguous()",
+                          "    square = lambda w: F.pad(w, (0, pad, 0, pad), value=0.05).contiguous()"),
 }
 
 # Run inside a checkout: the backward checks of chip_smoke in one setting.
@@ -432,6 +455,18 @@ for c in cs.scaled_cases(sgen):
                mean_tol=c["mean_tol"])
 if mode != "floor":
     cs.scaled_chain_check(sgen)
+# the scaled training step's forms (chip_smoke.scaled_train_cases): #1's
+# train form, the big-window backward, #5 and #9's wide form
+tgen = torch.Generator(device="cuda").manual_seed(seed + 1)
+for c in cs.scaled_train_cases(tgen):
+    ref = c["plain"](*c["args"], **c["kw"])
+    got = (c["plain"](*cpu(c["args"]), **c["kw"]) if mode == "floor"
+           else c["fn"](*c["args"], **c["kw"]))
+    if c["grads"] is None:
+        cs.compare(f"{c['name']} {c['case']} {tag}", got.cuda(), ref, mean_tol=c["mean_tol"])
+    else:
+        cs.compare_grads(f"{c['name']} {c['case']} {tag}", tuple(g.cuda() for g in got), ref,
+                         c["grads"])
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)
@@ -697,6 +732,8 @@ def main():
                     help="run the step setting alone")
     ap.add_argument("--mutants", default="", metavar="NAME,...",
                     help="run only these mutants (no other setting)")
+    ap.add_argument("--sound", action="store_true",
+                    help="run only the kernel and floor settings (no mutant, no step)")
     ap.add_argument("--dx-draws", type=int, default=0, metavar="N",
                     help="run only the LN+W-MSA backward's dx over N seeds of inputs")
     args = ap.parse_args()
@@ -730,7 +767,7 @@ def main():
                         summary += run(ROOT, "kernel", seed, gain, log)
                 summary += run(ROOT, "floor", 4321, 1.0, log)
             for name, edits in MUTANTS.items():
-                if only and name not in only:
+                if (only and name not in only) or args.sound:
                     continue
                 copy = Path(tmp) / name
                 shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
@@ -743,7 +780,7 @@ def main():
                                          f"{src} once")
                     path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
-        if not only:
+        if not only and not args.sound:
             summary += step_noise(log, out.with_suffix(".dists.json"))
     print("\n".join(summary))
     print(f"chip_mutants: readings in {out}")

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,train,bands,entries,
-                           scaled]
+                           scaled,scaled_train]
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
@@ -97,6 +97,25 @@
    idle share, the forward's added peak memory; then ``python -m
    sunet_tf_tpu_torch.demo --config`` with the config's YAML on three 512²
    PNGs (its own process). Its kernels' cases and
+   launches are filed under the wrapper's name + ``[scaled]``.
+10. The scaled SUNet's training step (phase ``scaled_train``): its kernel
+   forms against their plain versions at batch 2, plans asserted
+   (``scaled_train_cases``: #1's train form, the sequence form with
+   drop-path scales drawn from a generator, at (128,128,180), (64,64,360)
+   and (32,32,720) shift 8, each branch alone and the whole block; #8's
+   big-window form (csrc/block_bwd_big.cuh's attention) at (128,128,180)
+   shift 0 and 8, (64,64,360) and (32,32,720) shift 8 under the backward
+   limits; #5 at (128,128,180) out 1; #9's wide form at (128,128,180) out
+   1, C padded to 192, and (32,32,128)); then one training step of
+   ``scaled_config()`` at 512², batch 4 (OPTIM.BATCH), on a generated
+   corpus: launches equal to ``expected_launches(train=True)`` (48 blocks
+   on #1 + #8, the 8 C=1440 blocks on eager autograd, the head on #5 +
+   #9), every plan held by those checks, the training gate against eager
+   float32 (batch 2 where the gate's steps do not fit at 4, the reason
+   printed), the timed and traced fused step (host-paced ms, device busy
+   ms, idle share, memory a steady step adds) and the C=1440 stage's eager
+   forward + backward; then ``python -m sunet_tf_tpu_torch.train`` with
+   the config's YAML for 2 steps (its own process). Cases and training
    launches are filed under the wrapper's name + ``[scaled]``.
 
 Prints a JSON line of per-kernel results, then, as the last line,
@@ -244,6 +263,12 @@ REPLACES = {
     "fused_ln_mlp[scaled]": (f"{WA}:1350", "sunet_tf_tpu_torch/kernels/csrc/ln_mlp.cu"),
     "fused_dual_upsample4_conv_phase[scaled]": ("sunet_tf_tpu/kernels/upsample.py:589",
                                                 "sunet_tf_tpu_torch/kernels/csrc/up4_conv.cu"),
+    # its training step: #8's big-window form (csrc/block_bwd_big.cuh's
+    # attention) up to C=720 and #9's wide form at C=180 (#1's train form is
+    # filed under fused_swin_block[scaled])
+    "swin_block_bwd[scaled]": (f"{WA}:2031", "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd.cu"),
+    "up4_conv_bwd[scaled]": ("sunet_tf_tpu/kernels/upsample.py:939",
+                             "sunet_tf_tpu_torch/kernels/csrc/up4_conv_bwd.cu"),
 }
 # The scaled phase files its cases and launches under a wrapper's name with
 # this suffix.
@@ -271,16 +296,20 @@ def block_cost(B: int, H: int, C: int, ws: int = 8, blocks: int = 1, heads: int 
     return bound(flops, 2 * T * C * 2 + blocks * (4 * C * C + 2 * C * hid) * 2 + tables)
 
 
-def block_bwd_cost(B: int, H: int, C: int, ws: int = 8) -> dict:
+def block_bwd_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 0,
+                   masked: bool = False) -> dict:
     """Backward of one block (#8, recompute form): the forward recomputed up
     to the fc1 pre-activation, then two products per forward product (the
     input and weight grads) and four attention products; bytes: x and dout
-    in, dx out, bf16 weights in, float32 grads out."""
+    in, dx out, bf16 weights in, float32 grads out, and with ``heads`` the
+    float32 rel-pos bias read and its gradient written (and the SW mask
+    where ``masked``), megabytes at 256 tokens a window."""
     T, N, hid = B * H * H, ws * ws, 4 * C
     recompute = 2 * T * C * (4 * C + hid) + 4 * T * N * C
     backward = 2 * 2 * T * C * (4 * C + 2 * hid) + 8 * T * N * C
     w = 4 * C * C + 2 * C * hid
-    return bound(recompute + backward, 3 * T * C * 2 + w * 2 + w * 4)
+    tables = 2 * heads * N * N * 4 + ((H // ws) ** 2 * N * N * 4 if masked else 0)
+    return bound(recompute + backward, 3 * T * C * 2 + w * 2 + w * 4 + tables)
 
 
 def res_bytes(B: int, H: int, C: int, ws: int = 8, heads: int = 8) -> int:
@@ -1490,8 +1519,9 @@ def run_counted(fn, want: dict, other_head: str) -> tuple:
 
 def trace_step(fn, label: str, detail: bool = True) -> dict:
     """Device time of one call of ``fn`` by kernel, from torch.profiler: the
-    port's kernels by name (the block kernel's two forms by their template
-    flag; the backward's GEMMs by their operand layouts),
+    port's kernels by name with their namespaces (the block kernel's two
+    forms by their template flag; the backward's GEMMs by their operand
+    layouts),
     everything else as plain torch ops; the device's busy share of the
     call's CUDA-event time."""
     import re
@@ -1514,7 +1544,7 @@ def trace_step(fn, label: str, detail: bool = True) -> dict:
             continue
         t0, t1 = ev.time_range.start, ev.time_range.end
         spans.append((t0, t1))
-        m = re.search(r"sunet::(\w+(?:<[\w, ]+>)?)", ev.name)
+        m = re.search(r"sunet::((?:\w+::)*\w+(?:<[\w, ]+>)?)", ev.name)
         key = m.group(1) if m else "plain torch ops"
         n, us = groups.get(key, (0, 0.0))
         groups[key] = (n + 1, us + (t1 - t0))
@@ -1573,7 +1603,9 @@ def plans_taken(into: set):
     ks1, ks), ("fused_ln_window_attention",
     C, heads, ws, ksq, ks), ("ln_window_attention_bwd", C, heads, ws, tokens
     per chunk, windows per chunk), ("ln_mlp_bwd", C, hidden, ks, tokens per
-    chunk), ("fused_dual_upsample4_conv_phase", C, out, T), ("up4_conv_bwd",
+    chunk), ("swin_block_bwd", C, hidden, heads, ws, Cp, tokens per chunk,
+    windows per chunk) (#8's big-window form, whose wrapper takes it),
+    ("fused_dual_upsample4_conv_phase", C, out, T), ("up4_conv_bwd",
     C, out, tiles per chunk, tokens per chunk), ("up4_bwd", C, tiles per
     chunk, tokens per chunk), ("ln_mlp_branch", C, hidden, ks1, ks) (#13 takes
     #4's plan), ("fused_dual_upsample4", C, tiles per chunk) and
@@ -1586,6 +1618,7 @@ def plans_taken(into: set):
     seq_plan = wa.block_seq_plan
     launch_block, wmsa_bwd_plan = wa._launch_block, wa.ln_wmsa_bwd_plan
     mlp_bwd_plan, up4_bwd_plan = wa.ln_mlp_bwd_plan, up.up4_conv_bwd_plan
+    block_bwd_plan = wa.block_bwd_plan
     split_bwd_plan, mlp_branch = up.up4_bwd_plan, wa.ln_mlp_branch
     split_plan, wmsa_core = up.up4_split_plan, wa.wmsa_core
     form = ["fused_swin_block"]   # the block kernel's form being launched
@@ -1619,6 +1652,12 @@ def plans_taken(into: set):
     def mlp_bwd(H, W, C, hidden):
         plan = mlp_bwd_plan(H, W, C, hidden)
         into.add(("ln_mlp_bwd", C, hidden, plan["ks"], plan["chunk_tokens"]))
+        return plan
+
+    def block_bwd(H, W, C, hidden, ws, heads):
+        plan = block_bwd_plan(H, W, C, hidden, ws, heads)
+        into.add(("swin_block_bwd", C, hidden, heads, ws, plan["Cp"], plan["chunk_tokens"],
+                  plan["windows_per_chunk"]))
         return plan
 
     def head_bwd(H, W, C, out):
@@ -1670,6 +1709,7 @@ def plans_taken(into: set):
                   (up, "up4_plan", head), (wa, "_launch_block", launch),
                   (wa, "ln_wmsa_bwd_plan", wmsa_bwd), (wa, "ln_mlp_bwd_plan", mlp_bwd),
                   (up, "up4_conv_bwd_plan", head_bwd), (up, "up4_bwd_plan", split_bwd),
+                  (wa, "block_bwd_plan", block_bwd),
                   (wa, "ln_mlp_branch", branch), (up, "up4_split_plan", split),
                   (wa, "wmsa_core", core)]):
         yield into
@@ -1775,7 +1815,7 @@ def train_route(be: str):
     return patched(route_patches(be))
 
 
-def train_gate(cfg, task: str, inp, tar, fused: tuple) -> dict:
+def train_gate(cfg, task: str, inp, tar, fused: tuple, eager_blocks: int = 0) -> dict:
     """One training step of ``cfg``'s model (seeded weights) on each fused
     route of ``fused`` (``route_patches`` names), on the eager route in the
     compute dtype and in float32, and on NOISE_ROUTES' variants of the eager
@@ -1784,8 +1824,10 @@ def train_gate(cfg, task: str, inp, tar, fused: tuple) -> dict:
     fused route held against the float32 eager route by the gate (loss,
     ``grad_limits`` per parameter tensor with NOISE_ROUTES as the noise
     reference; a dropped or sign-flipped one-value gradient must fail).
-    Returns {"models", "step"}: the models of the fused routes and of the
-    eager route, and each route's loss, launches and peak memory."""
+    ``eager_blocks``: the blocks the router trains on eager autograd (the
+    scaled config's C=1440 stage, as JAX). Returns {"models", "step"}: the
+    models of the fused routes and of the eager route, and each route's
+    loss, launches and peak memory."""
     import numpy as np
     import torch
 
@@ -1831,20 +1873,23 @@ def train_gate(cfg, task: str, inp, tar, fused: tuple) -> dict:
         m.zero_grad(set_to_none=True)
     blocks = [b for st in list(models[fused[0]].layers) + list(models[fused[0]].layers_up[1:])
               for b in st.blocks]
+    windows = {b.window_size for b in blocks}
+    check(len(windows) == 1, f"the model's blocks take windows {sorted(windows)}")
     for be in fused:
         got = step[be]["launches"]
         print(f"  {be}: launches per training step: {got} (router predicts {want[be]})")
         check(got == want[be], f"{be}: training launch counts differ from "
               "expected_launches")
         on_res = got["fused_swin_block_res"]
-        on_block = got["fused_swin_block"]
+        on_block = got["fused_swin_block"] // wa.block_launches(blocks[0].window_size)
         on_split = got["ln_mlp_branch"] // wa.LN_MLP_BRANCH_LAUNCHES
+        on_eager = len(blocks) - on_res - on_block - on_split
         print(f"  {be}: blocks {len(blocks)}; on the residual route {on_res}, on the "
               f"block kernels with the recompute backward {on_block}, on the sublayer "
-              f"kernels {on_split}, on eager autograd "
-              f"{len(blocks) - on_res - on_block - on_split}")
-        check(on_res + on_block + on_split == len(blocks),
-              f"{be}: a block trained on eager autograd")
+              f"kernels {on_split}, on eager autograd {on_eager} (the router's rule: "
+              f"{eager_blocks})")
+        check(on_eager == eager_blocks, f"{be}: {on_eager} blocks trained on eager autograd, "
+              f"expected {eager_blocks}")
         check(not any(step[be]["cpu"].values()), f"{be}: plain versions ran in training")
         print(f"  {be}: launch plans: {sorted(plans[be])}")
         if HELD_PLANS:   # the per-kernel checks ran in this process
@@ -2630,8 +2675,251 @@ def scaled_phase(results: dict) -> dict:
     return out
 
 
+def scaled_dp(gen, B: int):
+    """(B, 2) drop-path scales drawn from ``gen``: keep 3/4, scaled by 4/3."""
+    import torch
+
+    return (torch.rand(B, 2, device="cuda", generator=gen) < 0.75).float() / 0.75
+
+
+def scaled_train_cases(gen, B: int = 2) -> list:
+    """The scaled training step's kernel forms (WIN 16: 256 tokens a window,
+    head dim 30), each with its launch plan asserted, as dicts of name,
+    case, the kernel wrapper ``fn``, its ``plain`` version, ``args``,
+    ``kw``, ``cost``, the grads' labels (None for a forward), the mean limit,
+    the launches of one call and whether chip_smoke times it: #1's train
+    form (the sequence form with drop-path scales drawn from ``gen``) at
+    (128,128,180), (64,64,360) and (32,32,720), shift 8, each residual
+    branch alone under the forward limits and the whole block under
+    SEQ_BLOCK_MEAN_TOL; #8's big-window form at (128,128,180) shift 0 and 8,
+    (64,64,360) and (32,32,720) shift 8, under the backward limits; #5 at
+    (128,128,180) out 1 (the step's head forward, untimed: the scaled phase
+    times it); #9's wide form at (128,128,180) out 1 (C padded to 192,
+    three column boxes) and at (32,32,128) out 1 (two)."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import upsample as up
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+    ws, scale, N = SCALED_WS, SCALED_QK, SCALED_WS ** 2
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(torch.bfloat16)
+    sw_mask = lambda H, shift: (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                                if shift else None)
+    kw = lambda shift, heads: dict(ws=ws, num_heads=heads, scale=scale, shift=shift)
+    cases = []
+
+    def add(name, case, fn, plain, args, kwargs, cost, grads=None, mean_tol=MEAN_TOL,
+            launches=None, timed=True):
+        cases.append(dict(name=name, case=case, fn=fn, plain=plain, args=args, kw=kwargs,
+                          cost=cost, grads=grads, mean_tol=mean_tol, launches=launches,
+                          timed=timed))
+
+    for H, C, heads, splits in ((128, 180, 6, (1, 1, 1, 1)), (64, 360, 12, (1, 1, 1, 2)),
+                                (32, 720, 24, (1, 1, 1, 4))):
+        plan = wa.block_seq_plan(H, H, C, 4 * C, ws, heads)
+        check((plan["ksq"], plan["ksp"], plan["ks1"], plan["ks2"]) == splits
+              and plan["Kp"] == wa.kpad(C), f"fused_swin_block train form ({H},{H},{C}): "
+              f"plan {plan}")
+        p, x, mask, dp = block_params(C, heads, N, gen), rand(B, H, H, C), sw_mask(H, 8), \
+            scaled_dp(gen, B)
+        print(f"  train form ({H},{H},{C}): drop-path scales {dp.tolist()}")
+        for half, q in seq_halves(p).items():
+            add("fused_swin_block", f"train form ({H},{H},{C}) shift 8, {heads} heads, {half}"
+                + (f", Kp={plan['Kp']} splits {splits}" if half == "block" else ""),
+                wa.fused_swin_block, wa.fused_swin_block_reference,
+                (x, q[0:2], q[2], q[3], q[4], q[5], q[6:8], q[8], q[9], q[10], q[11], q[12], mask,
+                 dp), kw(8, heads), block_cost(B, H, C, ws, heads=heads, masked=True),
+                mean_tol=SEQ_BLOCK_MEAN_TOL if half == "block" else MEAN_TOL,
+                launches=wa.SWIN_BLOCK_SEQ_LAUNCHES, timed=half == "block")
+
+    for H, C, heads, shift, Cp in ((128, 180, 6, 0, 192), (128, 180, 6, 8, 192),
+                                   (64, 360, 12, 8, 368), (32, 720, 24, 8, 720)):
+        plan = wa.block_bwd_plan(H, H, C, 4 * C, ws, heads)
+        check(plan["Cp"] == Cp and plan["nq"] == N // 64
+              and max(plan["smem"].values()) <= wa.SMEM_MAX,
+              f"swin_block_bwd ({H},{H},{C}): plan {plan}")
+        p, x, dout, dp = (block_params(C, heads, N, gen), rand(B, H, H, C), rand(B, H, H, C),
+                          scaled_dp(gen, B))
+        add("swin_block_bwd", f"({H},{H},{C}) shift {shift}, {heads} heads, Cp={Cp}, "
+            f"{plan['windows_per_chunk']} windows a chunk",
+            wa.swin_block_bwd, wa.swin_block_bwd_reference,
+            (x, dout, p[0:2], *p[2:6], p[6:8], *p[8:12], p[12], sw_mask(H, shift), dp),
+            kw(shift, heads), block_bwd_cost(B, H, C, ws, heads=heads, masked=shift > 0),
+            grads=BLOCK_GRADS, launches=wa.SWIN_BLOCK_BWD_BIG_LAUNCHES)
+
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    bw = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+    head = lambda H, C: (rand(B, H, H, C), bw(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
+                         bw(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), bw(C, C),
+                         bw(C, C), (n(3, 3, C, 1) / (9 * C) ** 0.5).to(torch.bfloat16))
+    # the head's forward the step runs (#5 at C=180, out 1; timed in the
+    # scaled phase)
+    add("fused_dual_upsample4_conv_phase", "(128,128,180) out 1, Cp=192, T=1",
+        up.fused_dual_upsample4_conv_phase, up.fused_dual_upsample4_conv_phase_reference,
+        head(128, 180), {}, up4_cost(B, 128, 180, 1), timed=False)
+    for H, C, boxes in ((128, 180, 3), (32, 128, 2)):
+        plan = up.up4_conv_bwd_plan(H, H, C, 1)
+        check(plan["wide"] and plan["Cp"] == 64 * boxes, f"up4_conv_bwd ({H},{H},{C}): plan "
+              f"{plan}")
+        add("up4_conv_bwd", f"({H},{H},{C}) out 1, wide, Cp={plan['Cp']}",
+            up.up4_conv_bwd, up.up4_conv_bwd_reference,
+            (*head(H, C), rand(B, H, H, 16)), {}, up4_bwd_cost(B, H, C, 1), grads=UP4_GRADS,
+            launches=up.UP4_CONV_BWD_WIDE_LAUNCHES)
+    return cases
+
+
+def scaled_train_kernel_phase(results: dict):
+    """The scaled training step's kernel forms against their plain versions
+    at batch 2 (``scaled_train_cases``): forwards under the forward limits,
+    backwards under the backward ones, launches per call, each timed case
+    filed under its wrapper's name + SCALED."""
+    import torch
+
+    print("phase: scaled training kernels vs plain versions (bf16, batch 2)")
+    gen = torch.Generator(device="cuda").manual_seed(1515)
+    for c in scaled_train_cases(gen):
+        got = lambda: c["fn"](*c["args"], **c["kw"])
+        ref = lambda: c["plain"](*c["args"], **c["kw"])
+        label = f"{c['name']} {c['case']}"
+        if c["grads"] is None:
+            mx, mean = compare(label, got(), ref(), mean_tol=c["mean_tol"])
+        else:
+            mx, mean = compare_grads(label, got(), ref(), c["grads"])
+        if c["timed"]:
+            launches_per_call(c["name"], got, c["launches"])
+            record_time(results, c["name"] + SCALED, c["case"], got, ref, c["cost"], mx, mean)
+
+
+def scaled_train_phase(results: dict) -> dict:
+    """One training step of the scaled SUNet (``scaled_config()``, every
+    width and depth, seeded weights) at 512x512 on a generated corpus,
+    batch 4 (the recipe's OPTIM.BATCH): launches equal to
+    ``expected_launches(train=True)`` (48 blocks on #1's train form + #8's
+    big-window form, the 8 C=1440 blocks on eager autograd, the head on #5 +
+    #9), every plan held by ``scaled_train_cases``; the training gate
+    against eager float32 (same weights, batch, drop-path draws); the timed
+    and traced fused step (host-paced ms, device busy ms, idle share,
+    memory a steady step adds) and the C=1440 stage's eager forward and
+    backward against it; then ``python -m sunet_tf_tpu_torch.train`` with
+    the config's YAML for 2 steps, a process of its own."""
+    import csv
+    import gc
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from sunet_tf_tpu_torch.config import config_to_dict, scaled_config
+    from sunet_tf_tpu_torch.data.pipeline import PairDataset, batch_iterator
+    from sunet_tf_tpu_torch.data.synth import generate_dataset
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.train.loop import prepare, step_generators, to_device
+
+    cfg, task, S = scaled_config(), "mask", 512
+    B = cfg.optim.batch
+    print(f"phase: scaled training step (scaled SUNet, EMB 180, WIN 16, {S}x{S}, batch {B}, "
+          "bf16 compute, float32 parameters)")
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        generate_dataset(str(tmp / "train"), 2 * B, size=S, seed=0)
+        generate_dataset(str(tmp / "val"), 2, size=S, seed=1)
+        ds = PairDataset(str(tmp / "train"), S, train=True, seed=0)
+        batch = to_device(next(batch_iterator(ds, B, shuffle=True, drop_last=True, seed=0)),
+                          "cuda")
+        inp, tar = prepare(batch, task, 50.0, step_generators(0, 0, "cuda")[0])
+        eager_blocks = 8   # the C=1440 stage, above JAX's train cap 768
+        gate = None
+        try:
+            gate = train_gate(cfg, task, inp, tar, ("fused",), eager_blocks=eager_blocks)
+        except torch.cuda.OutOfMemoryError as e:
+            reason = str(e).splitlines()[0]
+        if gate is None:   # the failed attempt's tensors are gone with its frames
+            print(f"  the gate's steps do not fit at batch {B} ({reason}); the gate runs at "
+                  "batch 2")
+            gc.collect()
+            torch.cuda.empty_cache()
+            B = 2
+            gate = train_gate(cfg, task, inp[:B], tar[:B], ("fused",), eager_blocks=eager_blocks)
+        out["gate_batch"] = B
+        models, step = gate["models"], gate["step"]
+        launches = step["fused"]["launches"]
+        check(launches["swin_block_bwd"] == 48 * wa.SWIN_BLOCK_BWD_BIG_LAUNCHES,
+              f"swin_block_bwd launches {launches['swin_block_bwd']}")
+        for k, v in launches.items():
+            if v > 0:
+                results.setdefault(k + SCALED, {"max_abs_err": 0.0, "cases": []})[
+                    "train_launches"] = v
+        del models["eager"]
+        torch.cuda.empty_cache()
+        B = cfg.optim.batch
+        times, fns = step_times(cfg, task, {"fused": models["fused"]}, step, batch)
+        counter = iter(range(100, 10_000))
+        trace = trace_step(lambda f=fns["fused"]: f.train_step(batch, next(counter),
+                                                               f.init_metrics()),
+                           f"fused training step, scaled SUNet, batch {B}")
+        # the C=1440 stage's eager forward and backward at the step's shape
+        model = models["fused"]
+        stage = model.layers[-1]
+        x = torch.randn(B, S // 32, S // 32, stage.blocks[0].dim, device="cuda",
+                        dtype=torch.bfloat16, requires_grad=True)
+        g = torch.Generator(device="cuda").manual_seed(3)
+
+        def stage_step():
+            y = x
+            for blk in stage.blocks:
+                y = blk(y, g)
+            y.float().square().mean().backward()
+
+        stage_ms = time_ms(stage_step, iters=5, warmup=2)
+        model.zero_grad(set_to_none=True)
+        busy = trace.get("busy_ms")
+        print(f"  scaled step (batch {B}): host-paced {times['fused']:.3f} ms, device busy "
+              + (f"{busy:.3f} ms of {trace['wall_ms']:.3f} ms traced (idle share "
+                 f"{1 - busy / trace['wall_ms']:.3f})" if busy else "not measured")
+              + f"; a steady step adds {step['fused']['step_added_bytes'] / 2**30:.3f} GiB; "
+              f"the C=1440 stage's eager forward + backward {stage_ms:.3f} ms of device time"
+              + (f" ({stage_ms / busy:.3f} of the step's busy time)" if busy else ""))
+        out.update({"step_ms": times["fused"], "trace": trace, "stage1440_ms": stage_ms,
+                    "step_added_bytes": step["fused"]["step_added_bytes"],
+                    "first_step_peak_bytes": step["fused"]["first_peak_bytes"],
+                    "loss_rel_diff": step["fused"]["loss_rel_diff"],
+                    "worst_grad_cos": step["fused"]["worst_grad_cos"],
+                    "worst_grad_rel_l2": step["fused"]["worst_grad_rel_l2"],
+                    "launches": launches})
+        del models, fns, model, stage, x
+        torch.cuda.empty_cache()
+
+        print("phase: scaled training entry point (1 epoch of 2 steps, one val pass)")
+        raw = config_to_dict(cfg)
+        raw["TRAINING"].update({"TRAIN_DIR": str(tmp / "train"), "VAL_DIR": str(tmp / "val"),
+                                "SAVE_DIR": str(tmp / "ck")})
+        (tmp / "scaled.yaml").write_text(yaml.safe_dump(raw))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sunet_tf_tpu_torch.train", "--config",
+             str(tmp / "scaled.yaml"), "--epochs", "1", "--steps-per-epoch", "2",
+             "--device", "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        fit_s = time.perf_counter() - t0
+        print("\n".join("  | " + ln for ln in proc.stdout.strip().splitlines()[-6:]))
+        check(proc.returncode == 0, f"scaled training CLI exited {proc.returncode}: "
+              f"{proc.stderr.strip()[-2000:]}")
+        ckpt = tmp / "ck" / cfg.mode / "models" / "latest.pth"
+        check(ckpt.is_file(), "no latest checkpoint written")
+        with open(tmp / "ck" / cfg.mode / "log" / "metrics_per_epoch.csv") as f:
+            rows = list(csv.DictReader(f))
+        check(len(rows) == 1 and np.isfinite(float(rows[0]["Train_LOSS"]))
+              and rows[0].get("Val_LOSS", "") != "", f"metrics rows {rows}")
+        print(f"  CLI: {fit_s:.1f} s wall, train loss {float(rows[0]['Train_LOSS']):.6f}, "
+              f"val loss {float(rows[0]['Val_LOSS']):.6f}, checkpoint "
+              f"{ckpt.stat().st_size / 2**20:.1f} MiB")
+        out["cli_seconds"] = fit_s
+    return out
+
+
 PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "train", "bands", "entries",
-          "scaled")
+          "scaled", "scaled_train")
 
 
 def main():
@@ -2682,6 +2970,8 @@ def main():
             train_kernel_phases(results)
         if "scaled" in phases:
             scaled_kernel_phase(results)
+        if "scaled_train" in phases:
+            scaled_train_kernel_phase(results)
     if "slice" in phases:
         stats["slice"] = slice_phase(results)
     if "demo" in phases:
@@ -2696,6 +2986,8 @@ def main():
         stats["entries"] = entries_phase(results)
     if "scaled" in phases:
         stats["scaled"] = scaled_phase(results)
+    if "scaled_train" in phases:
+        stats["scaled_train"] = scaled_train_phase(results)
     total_s = time.perf_counter() - t_start
     print(f"chip_smoke: phases {','.join(phases)} passed in {total_s:.1f} s wall")
     if list(phases) != list(PHASES):

@@ -53,6 +53,12 @@ SIGNATURES = {
     "sunet_swin_block_bwd": [_P] * 32 + [_I] * 8 + [_F, _P, _P],
     # B, H, W, C, hidden, ws, heads -> workspace bytes
     "sunet_swin_block_bwd_workspace": [_I] * 7,
+    # sunet_swin_block_bwd's pointers; B, H, W, C (the padded width), cr
+    # (the real channels), hidden, ws, heads, shift, scale, int* launches,
+    # stream
+    "sunet_swin_block_bwd_big": [_P] * 32 + [_I] * 9 + [_F, _P, _P],
+    # B, H, W, C, cr, hidden, ws, heads -> workspace bytes
+    "sunet_swin_block_bwd_big_workspace": [_I] * 8,
     # x, dout, eb, rden, ctx_f, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b,
     # w1, b1, w2, b2, dp, dx, 13 grads, workspace, B, H, W, C, hidden, ws,
     # heads, shift, scale, int* launches, stream
@@ -93,10 +99,10 @@ SIGNATURES = {
     # plan's K splits of fc1 and fc2, int* launches, stream
     "sunet_ln_mlp": [_P] * 9 + [_I] * 5 + [_P, _P],
     # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
-    # bias, mask, workspace, B, H, W, C, hidden, ws, heads, shift, scale, the
-    # launch plan's depth Kp and K splits (qkv, proj, fc1, fc2), int*
-    # launches, stream
-    "sunet_swin_block_seq": [_P] * 17 + [_I] * 8 + [_F] + [_I] * 5 + [_P, _P],
+    # bias, mask, dp (B, 2) or NULL, workspace, B, H, W, C, hidden, ws, heads,
+    # shift, scale, the launch plan's depth Kp and K splits (qkv, proj, fc1,
+    # fc2), int* launches, stream
+    "sunet_swin_block_seq": [_P] * 18 + [_I] * 8 + [_F] + [_I] * 5 + [_P, _P],
     # M, C, hidden -> workspace bytes
     "sunet_swin_block_seq_workspace": [_I] * 3,
     # M, C, hidden -> workspace bytes

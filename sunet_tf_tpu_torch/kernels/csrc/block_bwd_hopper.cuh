@@ -20,7 +20,10 @@
 //   the ceil(C / 128) CTAs of a row tile form a cluster that owns all C
 //   columns; each CTA's part of the two row sums meets the others' in
 //   distributed shared memory, summed in rank order (the same bits every
-//   run).
+//   run). kRealC (the big-window backward's padded widths, block_bwd_big.cuh):
+//   the rows hold TokArgs::cr real channels and zeros up to C (a multiple of
+//   16), and the LayerNorms' statistics and the backward's means run over
+//   the cr real channels; the other instantiations are unchanged.
 // - wgrad_kernel: every weight gradient dW = X^T dB of the block in one
 //   launch. A table of (product, 64 x 128 output tile, token chunk), chunk
 //   fastest; X and dB both token matrices by TMA (X read transposed,
@@ -104,6 +107,7 @@ struct TokArgs {
   bf16* ob;                 // bf16 output
   float* of;                // fp32 output
   float* part;              // per row tile partials
+  int cr;                   // kRealC: the real channels of the C-wide rows (zeros past them)
 };
 
 // Shared-memory bytes of a token GEMM: slack, header, ring, and A (64 x K)
@@ -146,7 +150,7 @@ __device__ inline void row_setup(const TokArgs& a, RowInfo& ri, long long r0, in
 // LayerNorm of the source rows (one warp per row, the row in registers,
 // fp32 statistics), round(s2 * dout), or round(ctx_f); zero past the rows
 // and past K. Column tile 0 (`side`) also writes it for later launches.
-template <int kA>
+template <int kA, bool kRealC>
 __device__ inline void tok_load_a(const TokArgs& a, unsigned char* as, const RowInfo& ri,
                                   long long r0, int valid, bool side) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -167,7 +171,8 @@ __device__ inline void tok_load_a(const TokArgs& a, unsigned char* as, const Row
 #pragma unroll
         for (int q = 0; q < 8; ++q) sum += bf(e[q]);
       }
-      const float mean = warp_sum(sum) / K;
+      const int kn = kRealC ? a.cr : K;   // the channels the statistics run over
+      const float mean = warp_sum(sum) / kn;
       float sq = 0.f;
 #pragma unroll
       for (int u = 0; u < 3; ++u) {
@@ -176,10 +181,10 @@ __device__ inline void tok_load_a(const TokArgs& a, unsigned char* as, const Row
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           const float dv = bf(e[q]) - mean;
-          sq += dv * dv;
+          if (!kRealC || 8 * (lane + 32 * u) + q < kn) sq += dv * dv;
         }
       }
-      const float inv = rsqrtf(warp_sum(sq) / K + 1e-5f);
+      const float inv = rsqrtf(warp_sum(sq) / kn + 1e-5f);
       const size_t row = (size_t)(r0 + r);
 #pragma unroll
       for (int u = 0; u < 3; ++u) {
@@ -239,7 +244,7 @@ __device__ inline void tok_load_a(const TokArgs& a, unsigned char* as, const Row
 // kELn1: dx = round(dy + t) at the token's place in the map; kELn1NoRes:
 // dx = round(t) there. Then this row tile's parts of dg = sum d xhat and
 // db = sum d.
-template <int kE>
+template <int kE, bool kRealC>
 __device__ inline void ln_epilogue(const TokArgs& a, const float* cs, float* xs, float* rs,
                                    float* mrow, const RowInfo& ri, long long r0, int valid,
                                    int n0) {
@@ -283,8 +288,9 @@ __device__ inline void ln_epilogue(const TokArgs& a, const float* cs, float* xs,
       m1 += o[2 * tid];
       m2 += o[2 * tid + 1];
     }
-    mrow[2 * tid] = m1 / C;
-    mrow[2 * tid + 1] = m2 / C;
+    const int cn = kRealC ? a.cr : C;   // the means run over the real channels
+    mrow[2 * tid] = m1 / cn;
+    mrow[2 * tid + 1] = m2 / cn;
   }
   cl.sync();   // every rank has read this CTA's sums
 #pragma unroll 8
@@ -316,11 +322,11 @@ __device__ inline void ln_epilogue(const TokArgs& a, const float* cs, float* xs,
   }
 }
 
-template <int kE>
+template <int kE, bool kRealC>
 __device__ inline void tok_epilogue(const TokArgs& a, float* cs, float* xs, float* rs, float* mrow,
                                     const RowInfo& ri, long long r0, int valid, int n0) {
   if constexpr (ln_bwd_epilogue(kE)) {
-    ln_epilogue<kE>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
+    ln_epilogue<kE, kRealC>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
   } else if constexpr (kE == kEDa) {
     // da = s gelu'(a), a's tile from device memory: a group's loads before
     // its stores, which the compiler cannot tell from a's memory
@@ -379,7 +385,7 @@ __device__ inline void tok_epilogue(const TokArgs& a, float* cs, float* xs, floa
 // One 64-row tile (blockIdx.y) x a.tpc 128-column tiles from tile
 // blockIdx.x * a.tpc, one after another on the same A; for kELn* the row
 // tile's CTAs are one cluster and blockIdx.x is the rank.
-template <int kA, bool kBK, int kE>
+template <int kA, bool kBK, int kE, bool kRealC = false>
 __global__ void __launch_bounds__(kThr, 1)
     tok_gemm_kernel(const __grid_constant__ TokArgs a, const __grid_constant__ CUtensorMap ma,
                     const __grid_constant__ CUtensorMap mb) {
@@ -425,7 +431,7 @@ __global__ void __launch_bounds__(kThr, 1)
   if (tid == 0)
     for (int c = 0; c < min(kRingS, nch); ++c) issue(c);
   if constexpr (kA != kATma) {
-    tok_load_a<kA>(a, as, ri, r0, valid, blockIdx.x == 0);
+    tok_load_a<kA, kRealC>(a, as, ri, r0, valid, blockIdx.x == 0);
     hop::fence_async_smem();
   }
   __syncthreads();
@@ -463,7 +469,7 @@ __global__ void __launch_bounds__(kThr, 1)
     for (int i = 0; i < 32; ++i)
       cs[hop::acc_row(t128, i) * kCsLd + wg * 64 + hop::acc_col(t128, i)] = acc[i];
     __syncthreads();
-    tok_epilogue<kE>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
+    tok_epilogue<kE, kRealC>(a, cs, xs, rs, mrow, ri, r0, valid, n0);
     __syncthreads();   // the epilogue has read the tile before the next tile's loads land
   }
 }
@@ -481,7 +487,7 @@ inline int tok_tiles_per_cta(int tiles, int hw) {
 // Launch one token GEMM; amat: A's token matrix (T x K) for kATma; w: the
 // weight (wrows x wcols, row-major), read as W (kBK false: K x N) or W^T
 // (kBK true: N x K).
-template <int kA, bool kBK, int kE>
+template <int kA, bool kBK, int kE, bool kRealC = false>
 inline cudaError_t tok_gemm(const TokArgs& a, const void* amat, const void* w, int wrows,
                             int wcols, cudaStream_t st, int* n) {
   CUtensorMap ma, mb;
@@ -492,7 +498,7 @@ inline cudaError_t tok_gemm(const TokArgs& a, const void* amat, const void* w, i
   const bool ln = ln_bwd_epilogue(kE);
   TokArgs t = a;
   t.tpc = kA == kALn1 || kA == kALn2 ? tok_tiles_per_cta(tiles, a.H * a.W) : 1;
-  SUNET_TRY(hop::launch_cluster(tok_gemm_kernel<kA, kBK, kE>,
+  SUNET_TRY(hop::launch_cluster(tok_gemm_kernel<kA, kBK, kE, kRealC>,
                                 dim3((tiles + t.tpc - 1) / t.tpc, (a.T + 63) / 64), kThr,
                                 tok_smem(kA != kATma, a.K), st, ln ? tiles : 1, t, ma, mb));
   return launched(n);

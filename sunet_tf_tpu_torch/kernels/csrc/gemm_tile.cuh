@@ -21,9 +21,12 @@
 // over K * G > lda, and rows of lda not a multiple of 8 load in 8-byte
 // chunks; and `roll`: A's rows (kRollA), the residual's (kRollY) or the
 // output's (kRollOut) are those of the token map rolled by -shift
-// (roll_row), the SW-MSA roll as addressing. In any mode W may be stored
-// with more columns than the output has (wcols, its rows whole 16-byte
-// units).
+// (roll_row), the SW-MSA roll as addressing. The training form of the
+// sequence form (kModeGeneral | kModeDrop) also scales kEpiResid's branch by
+// the row's image's drop-path scale (GemmArgs::dp), at the rounding point
+// of swin_cluster.cu's train form: round(y + s * (acc + bias)). In any mode
+// W may be stored with more columns than the output has (wcols, its rows
+// whole 16-byte units).
 //
 // Epilogues (each rounds once, after the whole fp32 sum):
 // - kEpiGelu: round(gelu_erf(s + bias)) (fc1);
@@ -55,7 +58,7 @@ static_assert((size_t)64 * kGemmPartLd * 4 <= (size_t)kGemmRingS * kGemmRingSlot
 
 enum GemmEpi { kEpiGelu, kEpiResid, kEpiBias, kEpiQkv };
 enum GemmRoll { kRollA = 1, kRollY = 2, kRollOut = 4 };
-enum GemmMode { kModePlain = 0, kModeGeneral = 1 };
+enum GemmMode { kModePlain = 0, kModeGeneral = 1, kModeDrop = 2 };   // flags
 
 struct GemmArgs {
   const bf16* a;    // A rows (M x lda); W has lda rows
@@ -71,6 +74,8 @@ struct GemmArgs {
   int wcols;        // columns W is stored with (0: ncols)
   int roll;         // kModeGeneral: GemmRoll flags, rows addressed in the map rolled by -shift
   int H, W, shift;  // that map: images of H x W token rows
+  const float* dp;  // kModeDrop: (B, 2) per-image drop-path scales, kEpiResid's ..
+  int dpi;          // .. column dpi (0: the attention branch, 1: the MLP branch)
 };
 
 // kLnA: chunks of a row per lane (lda <= 2048 in 16-byte chunks, 1024 in
@@ -94,7 +99,7 @@ __host__ __device__ inline size_t gemm_smem(int K) {
 template <int kEpi, int kMode>
 __device__ inline void gemm_store(const GemmArgs& a, long long row, int col, float s) {
   long long ro = row, ry = row;
-  if constexpr (kMode == kModeGeneral) {
+  if constexpr ((kMode & kModeGeneral) != 0) {
     if (a.roll & kRollOut) ro = roll_row(a, row);
     if (a.roll & kRollY) ry = roll_row(a, row);
   }
@@ -103,7 +108,11 @@ __device__ inline void gemm_store(const GemmArgs& a, long long row, int col, flo
     const float v = s + a.bias[col];
     a.out[o] = tobf(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
   } else if constexpr (kEpi == kEpiResid) {
-    a.out[o] = tobf(bf(a.y[(size_t)ry * a.ncols + col]) + (s + a.bias[col]));
+    if constexpr ((kMode & kModeDrop) != 0)
+      a.out[o] = tobf(bf(a.y[(size_t)ry * a.ncols + col]) +
+                      a.dp[2 * (row / ((long long)a.H * a.W)) + a.dpi] * (s + a.bias[col]));
+    else
+      a.out[o] = tobf(bf(a.y[(size_t)ry * a.ncols + col]) + (s + a.bias[col]));
   } else if constexpr (kEpi == kEpiBias) {
     a.out[o] = tobf(s + a.bias[col]);
   } else {
@@ -115,7 +124,7 @@ __device__ inline void gemm_store(const GemmArgs& a, long long row, int col, flo
 // Row r of A's tile (r < valid): its row of a.a.
 template <int kMode>
 __device__ inline const bf16* gemm_a_row(const GemmArgs& a, long long r0, int r) {
-  if constexpr (kMode == kModeGeneral)
+  if constexpr ((kMode & kModeGeneral) != 0)
     if (a.roll & kRollA) return a.a + roll_row(a, r0 + r) * a.lda;
   return a.a + (r0 + r) * a.lda;
 }
@@ -160,7 +169,7 @@ __device__ inline void gemm_ln_rows(const GemmArgs& a, unsigned char* as, long l
     for (int u = 0; u < kLnChunks; ++u) {
       const int c = (lane + 32 * u) * V - k0;
       // a chunk past lda (kModeGeneral's padded K) is the zero fill's
-      if ((kMode == kModeGeneral && lane + 32 * u >= nv) || c < 0 || c >= K) continue;
+      if (((kMode & kModeGeneral) != 0 && lane + 32 * u >= nv) || c < 0 || c >= K) continue;
       const bf16* e = reinterpret_cast<const bf16*>(&xv[u]);
       Vec o;
       bf16* ov = reinterpret_cast<bf16*>(&o);
@@ -182,16 +191,16 @@ __device__ inline void gemm_load_a(const GemmArgs& a, unsigned char* as, long lo
                                    int k0) {
   const int tid = threadIdx.x, K = a.K;
   if constexpr (kLnA) {
-    if (kMode == kModeGeneral && a.lda % 8)
+    if ((kMode & kModeGeneral) != 0 && a.lda % 8)
       gemm_ln_rows<4, kMode>(a, as, r0, valid, k0);
     else
       gemm_ln_rows<8, kMode>(a, as, r0, valid, k0);
-    if constexpr (kMode == kModeGeneral) {
+    if constexpr ((kMode & kModeGeneral) != 0) {
       const int z0 = max(0, a.lda - k0), zq = (K - z0) / 4;   // the pad columns
       for (int i = tid; i < 64 * zq; i += kGemmThreads)
         *reinterpret_cast<uint2*>(as + hop::a_off(i / zq, z0 + (i % zq) * 4)) = make_uint2(0u, 0u);
     }
-  } else if (kMode == kModeGeneral && a.lda % 8) {
+  } else if ((kMode & kModeGeneral) != 0 && a.lda % 8) {
     const int k4 = K / 4;
     for (int i = tid; i < 64 * k4; i += kGemmThreads) {
       const int r = i / k4, c = (i % k4) * 4;

@@ -32,6 +32,13 @@
 //  10. the four weight gradients in one launch, in token chunks, with the
 //      column sums of dm and dattn (b2's and bproj's gradients);
 //  11. every partial summed in chunk order.
+// Windows above 64 tokens (kBig, swin_block_bwd.cu's big entry) take
+// block_bwd_big.cuh's attention: the forward recompute writes each row's
+// softmax statistics beside ctx (launch 2), and the backward is two
+// launches, dq (with D = rowsum(P dP) and the rel-pos bias partials) and
+// dk/dv (12 launches); the rows are C wide with cr real channels (C the
+// real width rounded up to 16, zeros past cr: the LayerNorms' statistics
+// run over cr, ctx's and dqkv's pad columns are cleared first).
 // The SW roll is load/store addressing (token_offset) on x, dout and dx.
 // The sums are in fixed order: the same bits on every run. Chunks and plans
 // are functions of one image's shape (kernels/window_attention.py::
@@ -42,7 +49,7 @@
 // sunet_tf_tpu_torch.tools.bwd_launches`, PERF.md).
 #pragma once
 
-#include "block_bwd_hopper.cuh"
+#include "block_bwd_big.cuh"
 
 namespace sunet {
 
@@ -67,6 +74,8 @@ struct BwdArgs {
   // the recompute form)
   const bf16* eb = nullptr;
   const float *rden = nullptr, *ctxf = nullptr;
+  // the big-window form (kBig): the real channels of the C-wide rows
+  int cr = 0;
 };
 
 // Whether the kernels take the shape: windows of N = ws^2 <= 64 tokens, N
@@ -79,6 +88,21 @@ inline bool bwd_takes(int H, int W, int C, int hidden, int ws, int heads) {
          hidden > 0 && H % ws == 0 && W % ws == 0;
 }
 
+// The big-window form: N a multiple of 64 above 64 up to bb::kBigMaxTok; C
+// (the rows' width) a multiple of 16 up to 768 holding cr real channels (C
+// - 16 < cr <= C); the head dim cr / heads even and at most bb::kBigMaxD;
+// the attention's launches within shared memory.
+inline bool bwd_big_takes(int H, int W, int C, int cr, int hidden, int ws, int heads) {
+  const int N = ws * ws;
+  if (ws <= 0 || N <= 64 || N % 64 || N > bb::kBigMaxTok || C % 16 || C > 768 || cr > C ||
+      cr <= C - 16 || heads <= 0 || cr % heads || hidden % 16 || hidden <= 0 || H % ws ||
+      W % ws)
+    return false;
+  const int d = cr / heads, dp = (d + 15) & ~15;
+  return d % 2 == 0 && d <= bb::kBigMaxD && bb::big_dq_smem(N, dp) <= kMaxSmem &&
+         bb::big_dkv_smem(N, dp) <= kMaxSmem && bb::big_fwd_smem(N, dp) <= kMaxSmem;
+}
+
 // The plan (kernels/window_attention.py::block_bwd_plan): tokens per chunk
 // of the weight-gradient launch (~kFillCtas CTAs) and windows per chunk of
 // the attention (~kAttnFillCtas CTAs), at kPlanBatch images of this shape.
@@ -86,6 +110,7 @@ struct BwdPlan {
   int chunk, nchunks;   // weight gradients: tokens per chunk (a multiple of 64), chunks
   int wpc, achunks;     // attention: windows per chunk, chunks
   int rtiles;           // 64-row tiles
+  int nq;               // 64-row blocks of a window in the big form (1 up to 64 tokens)
 };
 
 // The chunks of a plan whose weight-gradient launch has `tiles` 64 x 128
@@ -96,7 +121,8 @@ inline BwdPlan bwd_chunks(int B, int H, int W, int ws, int heads, int tiles) {
   BwdPlan p;
   p.chunk = 64 * (((bb::kPlanBatch * hw + 63) / 64 + per - 1) / per);
   p.nchunks = (T + p.chunk - 1) / p.chunk;
-  const int achunks_plan = std::max(1, bb::kAttnFillCtas / heads);
+  p.nq = ws * ws > 64 ? ws * ws / 64 : 1;   // the big form's CTAs per (window, head)
+  const int achunks_plan = std::max(1, bb::kAttnFillCtas / (heads * p.nq));
   p.wpc = (bb::kPlanBatch * nW + achunks_plan - 1) / achunks_plan;
   p.achunks = (B * nW + p.wpc - 1) / p.wpc;
   p.rtiles = (T + 63) / 64;
@@ -114,12 +140,13 @@ inline BwdPlan bwd_plan(int B, int H, int W, int C, int hidden, int ws, int head
 struct BwdWork {
   bf16 *xw, *u, *qkv, *ctx, *y, *yn, *h1, *dm, *dab, *dattn, *dctxb, *dqkv;
   float *st1, *st2, *a, *dy, *dctxf;
+  float *rmax, *rinv, *dsum;   // the big form's softmax statistics and D
   float *pw[bb::kWgProducts], *pb2, *pbproj, *pb1, *pln2, *pln1, *pqkv, *pbias;
   size_t bytes;
 };
 
 inline BwdWork carve_bwd(unsigned char* p, int B, int H, int W, int C, int hidden, int ws,
-                         int heads, bool res) {
+                         int heads, bool res, bool big = false) {
   const BwdPlan pl = bwd_plan(B, H, W, C, hidden, ws, heads);
   const int T = B * H * W, N = ws * ws;
   Carve cv{p};
@@ -142,6 +169,10 @@ inline BwdWork carve_bwd(unsigned char* p, int B, int H, int W, int C, int hidde
   w.a = cv.take<float>(th);
   w.dy = cv.take<float>(tc);
   w.dctxf = res ? cv.take<float>(tc) : nullptr;
+  const size_t th_n = (size_t)T * heads;   // one value per (window, head, row)
+  w.rmax = big ? cv.take<float>(th_n) : nullptr;
+  w.rinv = big ? cv.take<float>(th_n) : nullptr;
+  w.dsum = big ? cv.take<float>(th_n) : nullptr;
   const int mn[bb::kWgProducts][2] = {{hidden, C}, {C, hidden}, {C, C}, {C, 3 * C}};
   for (int i = 0; i < bb::kWgProducts; ++i)
     w.pw[i] = cv.take<float>((size_t)pl.nchunks * mn[i][0] * mn[i][1]);
@@ -150,7 +181,7 @@ inline BwdWork carve_bwd(unsigned char* p, int B, int H, int W, int C, int hidde
   w.pb1 = cv.take<float>((size_t)pl.rtiles * hidden);
   w.pln2 = cv.take<float>((size_t)pl.rtiles * 2 * C);
   w.pln1 = cv.take<float>((size_t)pl.rtiles * 2 * C);
-  w.pqkv = cv.take<float>((size_t)pl.achunks * 3 * C);
+  w.pqkv = cv.take<float>((size_t)pl.achunks * pl.nq * 3 * C);
   w.pbias = cv.take<float>((size_t)pl.achunks * heads * N * N);
   w.bytes = cv.used;
   return w;
@@ -159,8 +190,9 @@ inline BwdWork carve_bwd(unsigned char* p, int B, int H, int W, int C, int hidde
 // The launch sequence. kRes: the residual route (swin_block_bwd_res.cu):
 // ctx = round(ctx_f) in proj's A load in place of the attention recompute,
 // dctx kept in fp32, and the attention backward from the stored state.
-template <bool kRes>
+template <bool kRes, bool kBig = false>
 cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* n) {
+  static_assert(!(kRes && kBig), "the big-window form is the recompute form's");
   using namespace bb;
   const int T = a.B * a.H * a.W, C = a.C, Hd = a.hidden, N = a.ws * a.ws;
   const int nW = (a.H / a.ws) * (a.W / a.ws);
@@ -174,21 +206,31 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
   base.ws = a.ws;
   base.shift = a.shift;
   base.dp = a.dp;
+  base.cr = a.cr;
 
   // ---- forward recompute
   {
     TokArgs t = base;
     t.K = C, t.N = 3 * C, t.src = a.x, t.lg = a.g1, t.lb = a.be1;
     t.side0 = w.u, t.side1 = w.xw, t.stats = w.st1, t.bias = a.bqkv, t.ob = w.qkv;
-    SUNET_TRY((tok_gemm<kALn1, false, kEQkv>(t, nullptr, a.wqkv, C, 3 * C, st, n)));
+    SUNET_TRY((tok_gemm<kALn1, false, kEQkv, kBig>(t, nullptr, a.wqkv, C, 3 * C, st, n)));
   }
+  bb::BigAttnArgs ba;   // the big form's attention
+  memset(&ba, 0, sizeof(ba));
+  ba.qkv = w.qkv, ba.dctxb = w.dctxb, ba.bias = a.bias, ba.mask = a.mask, ba.ctx = w.ctx;
+  ba.dqkv = w.dqkv, ba.rmax = w.rmax, ba.rinv = w.rinv, ba.dsum = w.dsum, ba.pbias = w.pbias;
+  ba.pqkv = w.pqkv, ba.C = C, ba.heads = a.heads, ba.d = a.cr / a.heads, ba.N = N, ba.nW = nW;
+  ba.nwin = T / N, ba.wpc = pl.wpc, ba.scale = a.scale;
   AttnArgs at;
   memset(&at, 0, sizeof(at));
   at.qkv = w.qkv;
   at.C = C, at.heads = a.heads, at.d = C / a.heads, at.N = N, at.nW = nW, at.nwin = T / N;
   at.scale = a.scale;
   at.bias = a.bias, at.mask = a.mask;
-  if constexpr (!kRes) {
+  if constexpr (kBig) {
+    if (a.cr != C) SUNET_TRY(cudaMemsetAsync(w.ctx, 0, (size_t)T * C * sizeof(bf16), st));
+    SUNET_TRY(attn_big_fwd(ba, st, n));
+  } else if constexpr (!kRes) {
     AttnArgs f = at;
     f.ctx = w.ctx, f.wpc = 1;
     SUNET_TRY(attn_tc<kAttnFwd>(f, st, n));
@@ -207,7 +249,7 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
     TokArgs t = base;
     t.K = C, t.N = Hd, t.src = w.y, t.lg = a.g2, t.lb = a.be2, t.side0 = w.yn, t.stats = w.st2;
     t.bias = a.b1, t.of = w.a, t.ob = w.h1;
-    SUNET_TRY((tok_gemm<kALn2, false, kEFc1>(t, nullptr, a.w1, C, Hd, st, n)));
+    SUNET_TRY((tok_gemm<kALn2, false, kEFc1, kBig>(t, nullptr, a.w1, C, Hd, st, n)));
   }
 
   // ---- MLP sublayer
@@ -220,7 +262,7 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
     TokArgs t = base;
     t.K = Hd, t.N = C, t.lg = a.g2, t.stats = w.st2, t.rows = w.y, t.dout = a.dout;
     t.of = w.dy, t.ob = w.dattn, t.part = w.pln2;
-    SUNET_TRY((tok_gemm<kATma, true, kELn2>(t, w.dab, a.w1, C, Hd, st, n)));
+    SUNET_TRY((tok_gemm<kATma, true, kELn2, kBig>(t, w.dab, a.w1, C, Hd, st, n)));
   }
 
   // ---- attention sublayer
@@ -236,7 +278,10 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
     }
   }
   at.dqkv = w.dqkv, at.pbias = w.pbias, at.pqkv = w.pqkv, at.wpc = pl.wpc;
-  if constexpr (kRes) {
+  if constexpr (kBig) {
+    if (a.cr != C) SUNET_TRY(cudaMemsetAsync(w.dqkv, 0, (size_t)T * 3 * C * sizeof(bf16), st));
+    SUNET_TRY(attn_big_bwd(ba, st, n));
+  } else if constexpr (kRes) {
     at.dctxf = w.dctxf, at.eb = a.eb, at.rden = a.rden, at.ctxf = a.ctxf;
     SUNET_TRY(attn_tc<kAttnBwdRes>(at, st, n));
   } else {
@@ -247,7 +292,7 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
     TokArgs t = base;
     t.K = 3 * C, t.N = C, t.lg = a.g1, t.stats = w.st1, t.rows = w.xw, t.aux = w.dy;
     t.ob = a.dx, t.part = w.pln1;
-    SUNET_TRY((tok_gemm<kATma, true, kELn1>(t, w.dqkv, a.wqkv, C, 3 * C, st, n)));
+    SUNET_TRY((tok_gemm<kATma, true, kELn1, kBig>(t, w.dqkv, a.wqkv, C, 3 * C, st, n)));
   }
 
   // ---- the weight gradients: dw2 = h1^T dm (and b2's), dw1 = yn^T dab,
@@ -283,7 +328,7 @@ cudaError_t block_bwd(const BwdArgs& a, const BwdWork& w, cudaStream_t st, int* 
       {w.pb2, a.dbm2, pl.nchunks, C, C},
       {w.pbproj, a.dbproj, pl.nchunks, C, C},
       {w.pb1, a.dbm1, pl.rtiles, Hd, Hd},
-      {w.pqkv, a.dbqkv, pl.achunks, 3 * C, 3 * C},
+      {w.pqkv, a.dbqkv, pl.achunks * pl.nq, 3 * C, 3 * C},
       {w.pln2, a.dg2, pl.rtiles, C, 2 * C},
       {w.pln2 + C, a.db2, pl.rtiles, C, 2 * C},
       {w.pln1, a.dg1, pl.rtiles, C, 2 * C},

@@ -29,6 +29,12 @@
 // 4. LN2 + fc1: h = round(gelu(round(LN2(y)) @ w1 + b1));
 // 5. fc2: out = round(y + (h @ w2 + b2)), stored at the unrolled rows
 //    (kRollOut).
+// The train form (dp, the (B, 2) per-image drop-path scales, not null:
+// kernels/window_attention.py::SwinBlockTrainable above 64 tokens) scales
+// the attention branch in 3 and the MLP branch in 5 by the row's image's
+// scale, at swin_cluster.cu's train-form rounding points: y = round(x + s1
+// (ctx @ wproj + bproj)), out = round(y + s2 (h @ w2 + b2)) (gemm_tile.cuh's
+// kModeDrop; the inference launches keep kModeGeneral alone).
 // C=180 is not a whole number of k16 steps or 16-byte row units: the
 // products run over Kp = 192 (A's pad columns zeros, W's pad rows TMA's
 // zero fill), activation rows load in 8-byte chunks, and wqkv, wproj and w2
@@ -69,13 +75,14 @@ extern "C" size_t sunet_swin_block_seq_workspace(int M, int C, int hidden) {
 // rolled coordinates or NULL; wqkv (C, 3C), wproj (C, C), w2 (hidden, C)
 // with their columns padded to multiples of 8, w1 (C, hidden); Kp: the
 // products' depth over C (a multiple of 16, C <= Kp < C + 64); ksq, ksp,
-// ks1, ks2: the K splits of qkv, proj, fc1 and fc2 (from the launch plan).
+// ks1, ks2: the K splits of qkv, proj, fc1 and fc2 (from the launch plan);
+// dp (B, 2) float32 or NULL (inference).
 extern "C" int sunet_swin_block_seq(const void* x, void* out, const void* g1, const void* be1,
                                     const void* wqkv, const void* bqkv, const void* wproj,
                                     const void* bproj, const void* g2, const void* be2,
                                     const void* w1, const void* b1, const void* w2,
                                     const void* b2, const void* bias, const void* mask,
-                                    void* work, int B, int H, int W, int C, int hidden, int ws,
+                                    const void* dp, void* work, int B, int H, int W, int C, int hidden, int ws,
                                     int heads, int shift, float scale, int Kp, int ksq, int ksp,
                                     int ks1, int ks2, int* launches, void* stream) {
   const int N = ws * ws, M = B * H * W;
@@ -101,10 +108,13 @@ extern "C" int sunet_swin_block_seq(const void* x, void* out, const void* g1, co
                           heads};
   SUNET_TRY(wmsa::launch_attn(aa, B, st, launches));
   // 3. proj + the residual x (gathered by the roll): y at the rolled rows
-  SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(
-      GemmArgs{w.ctx, (const float*)bproj, (const bf16*)x, w.y, M, C, Kp / ksp, C, ksp, 0.f, 0,
-               nullptr, nullptr, cc, roll * kRollY, H, W, shift},
-      wproj, st)));
+  const GemmArgs ga{w.ctx, (const float*)bproj, (const bf16*)x, w.y, M, C, Kp / ksp, C, ksp,
+                    0.f, 0, nullptr, nullptr, cc, roll * kRollY, H, W, shift, (const float*)dp,
+                    0};
+  if (dp)
+    SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral | kModeDrop>(ga, wproj, st)));
+  else
+    SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(ga, wproj, st)));
   ++*launches;
   // 4. LN2 + fc1 + GELU
   SUNET_TRY((gemm_tile_ks<kEpiGelu, true, kModeGeneral>(
@@ -113,10 +123,13 @@ extern "C" int sunet_swin_block_seq(const void* x, void* out, const void* g1, co
       w1, st)));
   ++*launches;
   // 5. fc2 + the residual y: out at the unrolled rows
-  SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(
-      GemmArgs{w.h, (const float*)b2, w.y, (bf16*)out, M, hidden, hidden / ks2, C, ks2, 0.f, 0,
-               nullptr, nullptr, cc, roll * kRollOut, H, W, shift},
-      w2, st)));
+  const GemmArgs g2a{w.h, (const float*)b2, w.y, (bf16*)out, M, hidden, hidden / ks2, C, ks2,
+                     0.f, 0, nullptr, nullptr, cc, roll * kRollOut, H, W, shift,
+                     (const float*)dp, 1};
+  if (dp)
+    SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral | kModeDrop>(g2a, w2, st)));
+  else
+    SUNET_TRY((gemm_tile_ks<kEpiResid, false, kModeGeneral>(g2a, w2, st)));
   ++*launches;
   return 0;
 }

@@ -101,17 +101,20 @@ inline Up4BwdPlan up4_bwd_plan(int B, int H, int W, int C, int out) {
 struct Up4Work {
   float *zb, *xb, *ppf, *pfold, *pap, *pab, *pbb1, *pw[3];
   bf16 *abv, *dxb, *dzb, *dz, *wst, *wct;
+  bf16* am;   // #9's wide form (C above 96): a = round(prelu(z)), (M, 16C)
   size_t bytes;
 };
 
 // The workspace (kernels/upsample.py::up4_conv_bwd_workspace and
 // up4_bwd_workspace mirror it); out = 0 for the split head, which keeps no
 // xb, conv weights or fold and one slope partial per (chunk, phase, column
-// box). With p == nullptr only measures.
+// box), as #9's wide form (C above 96), which also keeps the map of a.
+// With p == nullptr only measures.
 inline Up4Work carve_up4(unsigned char* p, const Up4BwdPlan& pl, int M, int C, int out) {
   Carve cv{p};
   Up4Work w;
   const size_t mc = (size_t)M * C;
+  const bool wide = out && C > 96;
   w.zb = cv.take<float>(mc);
   w.xb = cv.take<float>(out ? mc : 0);
   w.abv = cv.take<bf16>(mc);
@@ -122,12 +125,13 @@ inline Up4Work carve_up4(unsigned char* p, const Up4BwdPlan& pl, int M, int C, i
   w.wct = cv.take<bf16>((size_t)9 * out * C);
   w.ppf = cv.take<float>((size_t)pl.nchunks * 16 * C * C);
   w.pfold = cv.take<float>((size_t)pl.nchunks * 36 * C * 16 * out);
-  w.pap = cv.take<float>((size_t)pl.nchunks * 16 * (out ? 1 : nboxes(C)));
+  w.pap = cv.take<float>((size_t)pl.nchunks * 16 * (out && !wide ? 1 : nboxes(C)));
   w.pab = cv.take<float>((size_t)pl.ntiles);
   w.pbb1 = cv.take<float>((size_t)pl.ntiles * C);
   w.pw[0] = cv.take<float>((size_t)pl.wnchunks * C * 16 * C);
   w.pw[1] = cv.take<float>((size_t)pl.wnchunks * C * C);
   w.pw[2] = cv.take<float>((size_t)pl.wnchunks * C * C);
+  w.am = cv.take<bf16>(wide ? 16 * mc : 0);
   w.bytes = cv.used;
   return w;
 }

@@ -55,8 +55,12 @@ from sunet_tf_tpu_torch.kernels.window_attention import (BF16, BWD_FILL_CTAS, PL
 # h + (2p-3)/8 -> taps (h-1, h) for p = 0, 1 and (h, h+1) for p = 2, 3.
 P4 = ((0.375, 0.625), (0.125, 0.875), (0.875, 0.125), (0.625, 0.375))
 # The conv-fused head's backward (csrc/up4_conv_bwd.cu) holds a tile's
-# operands as two 64-column panels in shared memory: C <= 96.
+# operands as two 64-column panels in shared memory: C <= 96; above, its
+# wide form (each CTA of the phase work over one 64-column box, or a pair)
+# takes C up to UP4_CONV_BWD_WIDE_MAX_C, C % 16 != 0 (the scaled config's
+# 180) padded to 16 inside as the forward pads it.
 UP4_KERNEL_MAX_C = 96
+UP4_CONV_BWD_WIDE_MAX_C = 192
 UP4_KERNEL_MAX_OUT = 8
 # The conv-fused head's forward (csrc/up4_conv.cu): a tile of UP4_TILE
 # low-res pixels per warpgroup, one or two warpgroups per CTA (up4_plan);
@@ -66,8 +70,10 @@ UP4_TILE = (6, 8)
 _UP4_RING = (3, 12288)   # csrc/up4_conv.cu kRingS, kRingSlot
 _UP4_HEADER = 2048       # csrc/up4_conv.cu kHeader
 # Kernel launches one up4_conv_bwd call makes (csrc/up4_conv_bwd.cu): prep,
-# phase, pixel, the weight gradients, the sums.
+# phase, pixel, the weight gradients, the sums; the wide form (C above
+# UP4_KERNEL_MAX_C) splits the phase launch in two (phase by box, the fold).
 UP4_CONV_BWD_LAUNCHES = 5
+UP4_CONV_BWD_WIDE_LAUNCHES = 6
 # The split head's kernels (csrc/up4.cu, up4_bwd.cu) keep one tile's working
 # set in shared memory: C a multiple of 16 up to this width.
 UP4_SPLIT_KERNEL_MAX_C = 256
@@ -274,21 +280,32 @@ def _up4_tiles_per_chunk(H: int, W: int) -> int:
     return _cdiv(PLAN_BATCH * tiles, UP4_BWD_PHASE_CHUNKS)
 
 
+def up4_conv_bwd_launches(C: int) -> int:
+    """Kernel launches of one :func:`up4_conv_bwd` call at width C."""
+    return UP4_CONV_BWD_LAUNCHES if _up(C, 16) <= UP4_KERNEL_MAX_C else UP4_CONV_BWD_WIDE_LAUNCHES
+
+
 def up4_conv_bwd_plan(H: int, W: int, C: int, out: int) -> dict:
     """Launch plan of the conv-fused head's backward (#9) for (H, W, C)
     images, a function of one image's shape (``up4_bwd_plan`` in
-    csrc/up4_conv_bwd.cu mirrors it): 8 x 8 pixel tiles per chunk of the
-    phase launch (PLAN_BATCH images' tiles in UP4_BWD_PHASE_CHUNKS chunks),
-    the fold's 64-column boxes per phase (its slots x 16 * out columns),
-    the conv adjoint's K, the weight-gradient launch's tokens per chunk and
-    tiles (dwexp, dwbf, dwb1), each launch's shared-memory bytes. Raises
-    ValueError on a shape outside the design."""
-    if C % 16 or not 16 <= C <= UP4_KERNEL_MAX_C or not 1 <= out <= UP4_KERNEL_MAX_OUT:
+    csrc/up4_conv_bwd.cu mirrors it): Cp, the width it runs over (C rounded
+    up to 16, 180 -> 192, the operands zero-padded to it); "wide", whether
+    it takes the wide form (Cp above UP4_KERNEL_MAX_C: the phase work by
+    64-column box and the fold in two launches); 8 x 8 pixel tiles per chunk
+    of the phase launch (PLAN_BATCH images' tiles in UP4_BWD_PHASE_CHUNKS
+    chunks), the fold's 64-column boxes per phase (its slots x 16 * out
+    columns), the conv adjoint's K, the weight-gradient launch's tokens per
+    chunk and tiles (dwexp, dwbf, dwb1), each launch's shared-memory bytes.
+    Raises ValueError on a shape outside the design."""
+    Cp = _up(C, 16)
+    if C % 4 or not 16 <= Cp <= UP4_CONV_BWD_WIDE_MAX_C or not 1 <= out <= UP4_KERNEL_MAX_OUT:
         raise ValueError(f"up4_conv_bwd_plan: C={C}, out={out}: the kernel takes C a "
-                         f"multiple of 16 up to {UP4_KERNEL_MAX_C} and "
+                         f"multiple of 4 (padded to 16) up to {UP4_CONV_BWD_WIDE_MAX_C} and "
                          f"1 <= out <= {UP4_KERNEL_MAX_OUT}")
     if H < 1 or W < 1:
         raise ValueError(f"up4_conv_bwd_plan: ({H},{W}) is empty")
+    C = Cp
+    wide = C > UP4_KERNEL_MAX_C
     wchunk, wtiles = _up4_wgrad_plan(H, W, C)
     nslots = [len([u for u in USLOTS if u[1] == p]) for p in range(4)]
     box = _UP4_BWD_BOX
@@ -299,8 +316,12 @@ def up4_conv_bwd_plan(H: int, W: int, C: int, out: int) -> dict:
                                 for s in range(16)),
             "k16": _up(9 * out, 16), "wgrad_chunk_tokens": wchunk,
             "wgrad_tiles": wtiles, "dxb_tile": (UP4_BWD_DXB_TILE, UP4_BWD_DXB_TILE),
+            "Cp": Cp, "wide": wide,
             "smem": {"prep": 1024 + max(1024 + (2 * nbx + 2 * nbx * nbx) * box, dxb),
-                     "phase": 2048 + 21 * box + 2 * _UP4_BWD_WC_ROWS * 128 + 81 * 100 * 4,
+                     **({"phase_box": 2048 + (5 * nbx + 4) * box
+                         + nbx * _UP4_BWD_WC_ROWS * 128 + 32 * 128 * 4,
+                         "fold": 2048 + (4 * nbx + 3) * box + 81 * (128 + 4) * 4} if wide else
+                        {"phase": 2048 + 21 * box + 2 * _UP4_BWD_WC_ROWS * 128 + 81 * 100 * 4}),
                      "pixel": _up4_pixel_smem(C),
                      "wgrad": _bwd_tok_smem(0, False)}}
 
@@ -313,6 +334,7 @@ def up4_conv_bwd_workspace(B: int, H: int, W: int, C: int, out: int) -> int:
     64-pixel strips' slope and db_b1 sums, the weight gradients' token
     chunks."""
     plan = up4_conv_bwd_plan(H, W, C, out)
+    C, wide = plan["Cp"], plan["wide"]
     M = B * H * W
     ntiles = _cdiv(M, 64)
     nch = _cdiv(B * _cdiv(H, UP4_BWD_DXB_TILE) * _cdiv(W, UP4_BWD_DXB_TILE),
@@ -320,8 +342,10 @@ def up4_conv_bwd_workspace(B: int, H: int, W: int, C: int, out: int) -> int:
     wnch = _cdiv(M, plan["wgrad_chunk_tokens"])
     pieces = [4 * M * C, 4 * M * C, 2 * M * C, 2 * M * C, 2 * M * C, 2 * 16 * M * C,
               2 * 16 * C * C, 2 * 9 * out * C, 4 * nch * 16 * C * C,
-              4 * nch * 36 * C * 16 * out, 4 * nch * 16, 4 * ntiles, 4 * ntiles * C,
-              4 * wnch * C * 16 * C, 4 * wnch * C * C, 4 * wnch * C * C]
+              4 * nch * 36 * C * 16 * out, 4 * nch * 16 * (_cdiv(C, 64) if wide else 1),
+              4 * ntiles, 4 * ntiles * C,
+              4 * wnch * C * 16 * C, 4 * wnch * C * C, 4 * wnch * C * C,
+              2 * 16 * M * C if wide else 0]
     return sum(_pad128(n) for n in pieces)
 
 
@@ -702,15 +726,18 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     ``_up4c_bwd_impl``): dout (B, H, W, 16*out) phase-space cotangent.
     Returns (dx, dw_exp (C, 16C), dalpha_p, dw_b1, db_b1, dalpha_b, dwpf,
     dwbf, dwconv (3, 3, C, out)), the grads float32. CUDA:
-    ``csrc/up4_conv_bwd.cu``, UP4_CONV_BWD_LAUNCHES launches
-    (:func:`up4_conv_bwd_plan`), each counted; any H and W."""
+    ``csrc/up4_conv_bwd.cu``, :func:`up4_conv_bwd_launches` launches
+    (:func:`up4_conv_bwd_plan`), each counted; any H and W; C a multiple of
+    4 up to UP4_CONV_BWD_WIDE_MAX_C, run over C rounded up to 16 (the scaled
+    config's 180 over 192, as the forward), the returned gradients at C."""
     name = "up4_conv_bwd"
     count = _build.counter(name)
+    C = x.shape[-1]
     if x.device.type == "cpu":
-        count.cpu += UP4_CONV_BWD_LAUNCHES
+        count.cpu += up4_conv_bwd_launches(C)
         return up4_conv_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
                                       wpf, wbf, wconv, dout)
-    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv)
+    _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_BWD_WIDE_MAX_C, c_align=4)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
     plan = up4_conv_bwd_plan(H, W, C, out_ch)
@@ -718,6 +745,10 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     dout = dout.to(BF16).contiguous()
     if tuple(dout.shape) != (B, H, W, 16 * out_ch):
         raise ValueError(f"{name}: dout shape {tuple(dout.shape)}")
+    Cr, C = C, plan["Cp"]
+    if C != Cr:   # the operands zero-padded to Cp: the pad channels add nothing
+        x, w_exp, w_b1, b_b1, wpf, wbf, wconv = up4_bwd_pad_operands(
+            C, x, w_exp, w_b1, b_b1, wpf, wbf, wconv)
     alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, dev)
     lib = _build.library()
     work = torch.empty(lib.sunet_up4_conv_bwd_workspace(B, H, W, C, out_ch),
@@ -738,8 +769,27 @@ def up4_conv_bwd(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv,
     _build.check(name, err)
     count.cuda += launches.value
     dw_exp, dal, dwb1, dbb1, dwpf, dwbf, dwconv = grads
+    if C != Cr:   # the pad channels' gradients dropped
+        sq = lambda g: g[:Cr, :Cr]
+        dx = dx[..., :Cr].contiguous()
+        dw_exp = dw_exp.reshape(C, C, 16)[:Cr, :Cr].reshape(Cr, 16 * Cr)
+        dwb1, dbb1, dwpf, dwbf, dwconv = sq(dwb1), dbb1[:Cr], sq(dwpf), sq(dwbf), dwconv[:, :, :Cr]
     return (dx, dw_exp, dal[0].reshape(alpha_p.shape), dwb1, dbb1,
             dal[1].reshape(alpha_b.shape), dwpf, dwbf, dwconv)
+
+
+def up4_bwd_pad_operands(Cp: int, x, w_exp, w_b1, b_b1, wpf, wbf, wconv) -> tuple:
+    """#9's operands at width Cp >= C (:func:`up4_conv_bwd_plan`'s "Cp"): x
+    with Cp - C zero channels, every C axis of the weights zero-padded (w_exp
+    (C, 16C) in its column order c * 16 + s). The pad channels' z, a, xb and
+    dY are zeros, so they add nothing to the real channels' gradients."""
+    C = x.shape[-1]
+    pad = Cp - C
+    square = lambda w: F.pad(w, (0, pad, 0, pad)).contiguous()
+    return (F.pad(x, (0, pad)).contiguous(),
+            F.pad(w_exp.reshape(C, C, 16), (0, 0, 0, pad, 0, pad)).reshape(Cp, 16 * Cp),
+            square(w_b1), F.pad(b_b1, (0, pad)), square(wpf), square(wbf),
+            F.pad(wconv, (0, 0, 0, pad)).contiguous())
 
 
 class DualUpsample4ConvTrainable(torch.autograd.Function):

@@ -28,9 +28,12 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   two launches (per-head ctx, then the projection). CUDA:
   ``csrc/window_attention.cu``. No model route calls it, as in JAX.
 - :func:`swin_block_bwd` (JAX ``_block_bwd_impl``): the whole block's
-  backward, recompute form. CUDA: ``csrc/swin_block_bwd.cu``.
+  backward, recompute form. CUDA: ``csrc/swin_block_bwd.cu``; windows above
+  64 tokens take its big-window form (``csrc/block_bwd_big.cuh``'s
+  attention, over rows of C rounded up to 16, :func:`block_bwd_width`).
   :class:`SwinBlockTrainable` pairs it with :func:`fused_swin_block`'s
-  train form (per-image drop-path scales) for autograd.
+  train form (per-image drop-path scales; above 64 tokens the sequence
+  form's, up to C = TRAIN_BLOCK_MAX_C) for autograd.
 - The residual route, JAX's default training block where the attention
   takes the blockdiag layout (:func:`bwd_residuals_enabled`):
   :func:`fused_swin_block_res` (JAX ``fused_swin_block_res``, CUDA
@@ -91,6 +94,11 @@ BF16 = torch.bfloat16
 # (csrc/swin_cluster.cu kMaxBoxes). Wider blocks take the split LN+W-MSA /
 # LN+MLP kernels.
 BLOCK_KERNEL_MAX_C = 384
+# Widest C of the block kernels' training forms above 64 tokens a window
+# (the sequence form with drop-path scales, csrc/swin_block_seq.cu, and the
+# big-window block backward): JAX's train cap (``_kernel_max_c(train=True)``,
+# SUNET_TRAIN_KERNEL_MAX_C=768); the scaled config's C=720 is its widest use.
+TRAIN_BLOCK_MAX_C = 768
 # Kernel launches one call of each training wrapper makes (the forward
 # recompute, the backward products and the token reductions of
 # csrc/swin_block_bwd.cuh, ln_wmsa_bwd.cu, ln_mlp_bwd.cu; the two products
@@ -105,6 +113,11 @@ BLOCK_KERNEL_MAX_C = 384
 # backward: its MLP half, LN2 + fc1, dm w2^T, dab w1^T split over K, the
 # weight gradients with the LN2 backward, the sums.
 SWIN_BLOCK_BWD_LAUNCHES = 11
+# The block backward above 64 tokens a window (csrc/block_bwd_big.cuh's
+# attention): the attention forward recompute with its row statistics, then
+# dq (with D and the rel-pos bias partials) and dk/dv in place of the one
+# attention backward launch.
+SWIN_BLOCK_BWD_BIG_LAUNCHES = 12
 SWIN_BLOCK_BWD_RES_LAUNCHES = 10
 LN_WMSA_BWD_LAUNCHES = 7
 LN_MLP_BRANCH_LAUNCHES = 2
@@ -505,9 +518,11 @@ def _wg_tiles(M: int, N: int) -> int:
     return _cdiv(M, _TILE) * _cdiv(N, _BWD_COLS)
 
 
-def _bwd_width_why(C: int, hidden: int, heads: int) -> Optional[str]:
-    if C % 16 or hidden % 16 or hidden <= 0:
-        return f"C={C} and hidden={hidden} must be multiples of 16"
+def _bwd_width_why(C: int, hidden: int, heads: int, align: int = 16) -> Optional[str]:
+    if C % align or hidden % 16 or hidden <= 0:
+        if align == 16:
+            return f"C={C} and hidden={hidden} must be multiples of 16"
+        return f"C={C} must be a multiple of {align} and hidden={hidden} of 16"
     if C > BWD_MAX_C:
         return f"C={C} above {BWD_MAX_C} (a cluster of at most 6 CTAs owns a row)"
     if heads <= 0 or C % heads:
@@ -519,21 +534,63 @@ def _bwd_width_why(C: int, hidden: int, heads: int) -> Optional[str]:
     return None
 
 
+def block_bwd_width(C: int, ws: int) -> int:
+    """The width of the rows the block backward's kernels run over: C, or
+    above 64 tokens a window C rounded up to 16 (C=180 -> 192, C=360 ->
+    368), the pad channels zeros that the wrapper adds and takes off."""
+    return C if ws * ws <= _TILE else _up(C, 16)
+
+
 def block_bwd_why(C: int, hidden: int, heads: int, ws: int) -> Optional[str]:
     """Why the block backward's kernels do not take a block of width C, MLP
     width ``hidden``, ``heads`` heads and window ``ws`` (None when they do).
-    The window's rule is every window kernel's (``_check_window``)."""
+    Up to 64 tokens the window's rule is every window kernel's
+    (``_check_window``) and C a multiple of 16; above, the big-window form
+    (csrc/block_bwd_big.cuh): N a multiple of 64 up to BIG_WINDOW_MAX_TOKENS,
+    C a multiple of 4 up to BWD_MAX_C (run over :func:`block_bwd_width`),
+    an even head dim up to BWD_MAX_HEAD_DIM whose launches fit SMEM_MAX."""
     N = ws * ws
-    if N % 16 or N > _TILE or N == 0:
-        return f"window {ws} gives {N} tokens; the kernel takes 16, 32, 48 or 64"
-    return _bwd_width_why(C, hidden, heads)
+    if N <= _TILE:
+        if N % 16 or N == 0:
+            return f"window {ws} gives {N} tokens; the kernel takes 16, 32, 48 or 64"
+        return _bwd_width_why(C, hidden, heads)
+    if N % _TILE or N > BIG_WINDOW_MAX_TOKENS:
+        return (f"window {ws} gives {N} tokens; above {_TILE} the kernel takes multiples of "
+                f"{_TILE} up to {BIG_WINDOW_MAX_TOKENS}")
+    why = _bwd_width_why(C, hidden, heads, align=4)
+    if why is None and max(_big_attn_smem(N, C // heads)) > SMEM_MAX:
+        why = f"the big-window attention's shared memory at {N} tokens exceeds {SMEM_MAX} bytes"
+    return why
 
 
-def block_bwd_takes(C: int, hidden: int, heads: int) -> bool:
+def block_bwd_takes(C: int, hidden: int, heads: int, ws: Optional[int] = None) -> bool:
     """Whether the block backward's kernels take a block of width C, MLP
-    width ``hidden`` and ``heads`` heads (the router's question: the
-    window's rule is every window kernel's, the split kernels' too)."""
+    width ``hidden`` and ``heads`` heads (the router's question: up to 64
+    tokens the window's rule is every window kernel's, the split kernels'
+    too); with ``ws`` above 64 tokens, whether the big-window form takes
+    it (:func:`block_bwd_why`)."""
+    if ws is not None and ws * ws > _TILE:
+        return block_bwd_why(C, hidden, heads, ws) is None
     return _bwd_width_why(C, hidden, heads) is None
+
+
+def block_bwd_launches(ws: int) -> int:
+    """Kernel launches of one :func:`swin_block_bwd` call with window ws:
+    SWIN_BLOCK_BWD_LAUNCHES, or SWIN_BLOCK_BWD_BIG_LAUNCHES above 64 tokens."""
+    return SWIN_BLOCK_BWD_LAUNCHES if ws * ws <= _TILE else SWIN_BLOCK_BWD_BIG_LAUNCHES
+
+
+def _big_attn_smem(N: int, d: int) -> tuple:
+    """(forward, dq, dk/dv) shared-memory bytes of the big-window block
+    backward's attention launches (``bb::big_fwd_smem``, ``big_dq_smem``,
+    ``big_dkv_smem``): bf16 rows of dp + 8, transposed rows of N + 8, the
+    dq launch's 64 x (N + 4) fp32 rel-pos bias rows, the statistics and
+    column sums; dp is the head dim rounded up to 16."""
+    dp = _up(d, 16)
+    r64, rN, tN = (_pad128(_TILE * (dp + 8) * 2), _pad128(N * (dp + 8) * 2),
+                   _pad128(dp * (N + 8) * 2))
+    return (r64 + rN + tN, 2 * r64 + 2 * rN + tN + _TILE * (N + 4) * 4 + 5 * dp * 4,
+            2 * r64 + 2 * rN + 2 * tN + 3 * N * 4 + 10 * dp * 4)
 
 
 @functools.lru_cache(maxsize=None)
@@ -557,28 +614,39 @@ def block_bwd_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> 
     if why:
         raise ValueError(f"block_bwd_plan: H={H}, W={W}, C={C}, hidden={hidden}, ws={ws}, "
                          f"heads={heads}: {why}")
-    tiles = tuple(_wg_tiles(M, N) for M, N in _bwd_products(C, hidden))
-    return _bwd_plan_of(H, W, C, ws, heads, tiles, {"qkv": 3 * C, "fc1": hidden})
+    Cp = block_bwd_width(C, ws)
+    tiles = tuple(_wg_tiles(M, N) for M, N in _bwd_products(Cp, hidden))
+    plan = _bwd_plan_of(H, W, Cp, ws, heads, tiles, {"qkv": 3 * Cp, "fc1": hidden},
+                        head_dim=C // heads)
+    plan["Cp"] = Cp
+    return plan
 
 
 def _bwd_plan_of(H: int, W: int, C: int, ws: int, heads: int, tiles: tuple,
-                 ln_cols: dict) -> dict:
+                 ln_cols: dict, head_dim: Optional[int] = None) -> dict:
     """The plan of a launch sequence on the block backward's kernels whose
     weight-gradient launch has ``tiles`` output tiles per product and whose
     LN A loads produce ``ln_cols`` columns (``bwd_chunks`` in
-    csrc/swin_block_bwd.cuh)."""
-    hw, nW = H * W, (H // ws) * (W // ws)
+    csrc/swin_block_bwd.cuh); above 64 tokens a window the attention's
+    chunks count its nq = N / 64 row blocks per (window, head) and
+    ``head_dim`` (the real width over the heads) sizes its launches."""
+    hw, nW, N = H * W, (H // ws) * (W // ws), ws * ws
+    nq = N // _TILE if N > _TILE else 1
     per = max(1, _cdiv(BWD_FILL_CTAS, sum(tiles)))
     chunk = _TILE * _cdiv(_cdiv(PLAN_BATCH * hw, _TILE), per)
-    wpc = _cdiv(PLAN_BATCH * nW, max(1, BWD_ATTN_FILL_CTAS // heads))
+    wpc = _cdiv(PLAN_BATCH * nW, max(1, BWD_ATTN_FILL_CTAS // (heads * nq)))
     rows = _cdiv(PLAN_BATCH * hw, _TILE)
     tpc = {name: min(t, max(1, _cdiv(t * rows, BWD_FILL_CTAS)))
            for name, t in ((n, _cdiv(cols, _BWD_COLS)) for n, cols in ln_cols.items())}
     smem = {"gemm_a_in_smem": _bwd_tok_smem(C, True), "gemm_a_by_tma": _bwd_tok_smem(0, False),
             "wgrad": _bwd_tok_smem(0, False)}
-    smem["attn_fwd"], smem["attn"] = _attn_smem(ws * ws, C // heads)
+    if nq > 1:
+        smem["attn_fwd"], smem["attn_dq"], smem["attn_dkv"] = _big_attn_smem(
+            N, head_dim or C // heads)
+    else:
+        smem["attn_fwd"], smem["attn"] = _attn_smem(N, C // heads)
     return {"G": _cdiv(C, _BWD_COLS), "chunk_tokens": chunk, "wgrad_tiles": tiles,
-            "windows_per_chunk": wpc, "tiles_per_cta": tpc, "smem": smem}
+            "windows_per_chunk": wpc, "tiles_per_cta": tpc, "smem": smem, "nq": nq}
 
 
 def block_bwd_wgrad_table(H: int, W: int, C: int, hidden: int, ws: int, heads: int,
@@ -1359,16 +1427,22 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
 
 
 def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
-                      mask, *, ws: int, num_heads: int, scale: float, shift: int) -> tuple:
+                      mask, dp=None, *, ws: int, num_heads: int, scale: float,
+                      shift: int) -> tuple:
     """The block kernel's sequence form (csrc/swin_block_seq.cu) for
-    windows above 64 tokens: (out, kernel launches)."""
+    windows above 64 tokens: (out, kernel launches). ``dp`` (B, 2): its
+    train form, up to C = TRAIN_BLOCK_MAX_C; without it the inference cap
+    BLOCK_KERNEL_MAX_C holds (JAX ``SUNET_INFER_KERNEL_MAX_C``)."""
     name = "fused_swin_block"
     _check_x(name, x)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
-    if C > BLOCK_KERNEL_MAX_C:
-        raise ValueError(f"{name}: C={C} above the block-kernel cap {BLOCK_KERNEL_MAX_C}; "
+    cap = BLOCK_KERNEL_MAX_C if dp is None else TRAIN_BLOCK_MAX_C
+    if C > cap:
+        raise ValueError(f"{name}: C={C} above the block-kernel cap {cap}; "
                          "route through fused_ln_window_attention + fused_ln_mlp")
+    if dp is not None and tuple(dp.shape) != (B, 2):
+        raise ValueError(f"{name}: drop_path_scale shape {tuple(dp.shape)}, expected {(B, 2)}")
     wqkv, wproj, w1, w2 = _kernel_ws(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)),
                                      w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
     _check_window(name, H, W, C, ws, num_heads, bias, mask, c_align=4)
@@ -1386,7 +1460,7 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
     work = _workspace(lib.sunet_swin_block_seq_workspace, dev, B * H * W, C, hidden)
     out = torch.empty_like(x)
     args = [f(ln1[0]), f(ln1[1]), wqkv, f(bqkv), wproj, f(bproj), f(ln2[0]), f(ln2[1]), w1,
-            f(b1), w2, f(b2), f(bias), f(mask)]
+            f(b1), w2, f(b2), f(bias), f(mask), f(dp)]
     launches = _build.c_int(0)
     err = lib.sunet_swin_block_seq(
         _build.ptr(x), _build.ptr(out), *[_build.ptr(a) for a in args], _build.ptr(work),
@@ -1414,8 +1488,10 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     (csrc/swin_cluster.cu, one launch, :func:`block_plan`); above, the
     sequence form (csrc/swin_block_seq.cu, SWIN_BLOCK_SEQ_LAUNCHES launches
     on gemm_tile.cuh and the big-window attention, :func:`block_seq_plan`),
-    inference only. The weight matrices may come with their columns padded
-    as the kernels store them (:func:`wcols`)."""
+    whose train form (``drop_path_scale`` given) takes C up to
+    TRAIN_BLOCK_MAX_C, its inference form up to BLOCK_KERNEL_MAX_C. The
+    weight matrices may come with their columns padded as the kernels store
+    them (:func:`wcols`)."""
     return _counted_block("fused_swin_block", x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
                           b2, bias, mask, drop_path_scale, ws=ws, num_heads=num_heads,
                           scale=scale, shift=shift)
@@ -1435,11 +1511,8 @@ def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, 
             x, ln1, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj, ln2, w1, b1,
             _unpadded(w2, C), b2, bias, mask, dp, **kw)
     if ws * ws > _TILE:
-        if dp is not None:
-            raise NotImplementedError(f"{name}: the sequence form (windows above {_TILE} "
-                                      "tokens) is inference only")
         out, n = _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
-                                   mask, **kw)
+                                   mask, dp, **kw)
         count.cuda += n
         return out
     out = _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask, dp,
@@ -1456,15 +1529,26 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
     Returns (dx, then float32 grads of ln1 g/b, wqkv, bqkv, wproj, bproj,
     ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd.cu``, the
     SWIN_BLOCK_BWD_LAUNCHES launches of ``csrc/swin_block_bwd.cuh``
-    (:func:`block_bwd_plan`), each counted."""
+    (:func:`block_bwd_plan`), each counted; above 64 tokens a window its
+    big-window form's SWIN_BLOCK_BWD_BIG_LAUNCHES over C rounded up to 16
+    (the operands zero-padded and the grads cut back here,
+    :func:`pad_block_operands`), C a multiple of 4 up to BWD_MAX_C. The
+    weight matrices may come with their columns padded (:func:`wcols`)."""
     name = "swin_block_bwd"
     count = _build.counter(name)
     if x.device.type == "cpu":
-        count.cpu += SWIN_BLOCK_BWD_LAUNCHES
+        count.cpu += block_bwd_launches(ws)
+        C = x.shape[-1]
         return swin_block_bwd_reference(
-            x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
-            mask, drop_path_scale, ws=ws, num_heads=num_heads, scale=scale,
-            shift=shift)
+            x, dout, ln1, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj, ln2, w1,
+            b1, _unpadded(w2, C), b2, bias, mask, drop_path_scale, ws=ws,
+            num_heads=num_heads, scale=scale, shift=shift)
+    if ws * ws > _TILE:
+        g, n = _swin_block_bwd_big(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
+                                   bias, mask, drop_path_scale, ws=ws, num_heads=num_heads,
+                                   scale=scale, shift=shift)
+        count.cuda += n
+        return g
     _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
                  shift, drop_path_scale)
     B, H, W, C = x.shape
@@ -1494,6 +1578,105 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
     _build.check(name, err)
     count.cuda += launches.value
     return (dx, *grads)
+
+
+def _pad_rows(t: torch.Tensor, Cp: int, blocks: int = 1) -> torch.Tensor:
+    """t's last axis, ``blocks`` blocks of C values (q, k, v for 3), each
+    zero-padded to Cp."""
+    C = t.shape[-1] // blocks
+    if C == Cp:
+        return t.contiguous()
+    t = t.reshape(*t.shape[:-1], blocks, C)
+    return torch.nn.functional.pad(t, (0, Cp - C)).reshape(*t.shape[:-2], blocks * Cp)
+
+
+def _unpad_rows(t: torch.Tensor, C: int, blocks: int = 1) -> torch.Tensor:
+    """The inverse of :func:`_pad_rows`: each of the last axis's blocks cut
+    back to C values."""
+    Cp = t.shape[-1] // blocks
+    if C == Cp:
+        return t
+    return t.reshape(*t.shape[:-1], blocks, Cp)[..., :C].reshape(*t.shape[:-1], blocks * C)
+
+
+def pad_block_operands(C: int, Cp: int, x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1,
+                       w2, b2) -> tuple:
+    """The block backward's operands at width Cp >= C (the big-window form's
+    rows, :func:`block_bwd_width`): x and dout with Cp - C zero channels;
+    the LN parameters, biases and the weights' C-sized axes zero-padded,
+    qkv's q, k and v blocks each to Cp. Every product then gives zeros in
+    the pad channels, and the pad rows and columns of the weights take no
+    part in the real ones."""
+    v = lambda t, blocks=1: _pad_rows(t, Cp, blocks)
+    rows = lambda w: (w.contiguous() if C == Cp
+                      else torch.nn.functional.pad(w, (0, 0, 0, Cp - C)).contiguous())
+    return (v(x), v(dout), (v(ln1[0]), v(ln1[1])), rows(v(wqkv, 3)), v(bqkv, 3),
+            rows(v(wproj)), v(bproj), (v(ln2[0]), v(ln2[1])), rows(w1), b1, v(w2), v(b2))
+
+
+def unpad_block_grads(C: int, grads: tuple) -> tuple:
+    """:func:`swin_block_bwd`'s (dx, 13 grads) at width Cp cut back to C
+    (the pad channels' gradients dropped)."""
+    (dx, dg1, db1, dwqkv, dbqkv, dwproj, dbproj, dg2, db2, dw1, dbm1, dw2, dbm2,
+     dbias) = grads
+    Cp = dx.shape[-1]
+    if C == Cp:
+        return grads
+    r = lambda t: _unpad_rows(t, C)
+    return (r(dx).contiguous(), r(dg1), r(db1), _unpad_rows(dwqkv[:C], C, 3),
+            _unpad_rows(dbqkv, C, 3), r(dwproj[:C]), r(dbproj), r(dg2), r(db2), dw1[:C],
+            dbm1, r(dw2), r(dbm2), dbias)
+
+
+def _swin_block_bwd_big(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
+                        mask, drop_path_scale, *, ws: int, num_heads: int, scale: float,
+                        shift: int) -> tuple:
+    """:func:`swin_block_bwd` above 64 tokens a window: the big-window form
+    (csrc/swin_block_bwd.cu's big entry, csrc/block_bwd_big.cuh's
+    attention) over rows of :func:`block_bwd_width` channels. Returns
+    (dx and the grads, kernel launches)."""
+    name = "swin_block_bwd"
+    _check_x(name, x)
+    B, H, W, C = x.shape
+    hidden = w1.shape[1]
+    wqkv, wproj, w2 = (_unpadded(wqkv, 3 * C), _unpadded(wproj, C), _unpadded(w2, C))
+    _check_w(name, x, wqkv=(wqkv.contiguous(), (C, 3 * C)), wproj=(wproj.contiguous(), (C, C)),
+             w1=(w1, (C, hidden)), w2=(w2.contiguous(), (hidden, C)))
+    _check_bwd_design(name, C, hidden, num_heads, ws)
+    _check_window(name, H, W, C, ws, num_heads, bias, mask, c_align=4)
+    if not 0 <= shift < ws:
+        raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
+    if drop_path_scale is not None and tuple(drop_path_scale.shape) != (B, 2):
+        raise ValueError(f"{name}: drop_path_scale shape {tuple(drop_path_scale.shape)}, "
+                         f"expected {(B, 2)}")
+    dout = _check_dout(name, x, dout)
+    dev = x.device
+    f = lambda t: _f32(t, dev)
+    if bqkv is None:
+        bqkv = torch.zeros(3 * C, device=dev)
+    _check_vec(name, ln1_scale=(ln1[0], C), ln1_bias=(ln1[1], C), bqkv=(bqkv, 3 * C),
+               bproj=(bproj, C), ln2_scale=(ln2[0], C), ln2_bias=(ln2[1], C), b1=(b1, hidden),
+               b2=(b2, C))
+    Cp = block_bwd_plan(H, W, C, hidden, ws, num_heads)["Cp"]
+    xp, dp_out, ln1p, wqkvp, bqkvp, wprojp, bprojp, ln2p, w1p, b1p, w2p, b2p = (
+        pad_block_operands(C, Cp, x, dout, (f(ln1[0]), f(ln1[1])), wqkv, f(bqkv), wproj,
+                           f(bproj), (f(ln2[0]), f(ln2[1])), w1, f(b1), w2, f(b2)))
+    dp = (torch.ones(B, 2, device=dev) if drop_path_scale is None else f(drop_path_scale))
+    lib = _build.library()
+    work = _workspace(lib.sunet_swin_block_bwd_big_workspace, dev, B, H, W, Cp, C, hidden, ws,
+                      num_heads)
+    dx = torch.empty_like(xp)
+    z = lambda *s: torch.empty(*s, device=dev, dtype=torch.float32)
+    grads = [z(Cp), z(Cp), z(Cp, 3 * Cp), z(3 * Cp), z(Cp, Cp), z(Cp), z(Cp), z(Cp),
+             z(Cp, hidden), z(hidden), z(hidden, Cp), z(Cp), z(num_heads, ws * ws, ws * ws)]
+    args = [*ln1p, wqkvp, bqkvp, wprojp, bprojp, *ln2p, w1p, b1p, w2p, b2p, f(bias), f(mask), dp]
+    launches = _build.c_int(0)
+    err = lib.sunet_swin_block_bwd_big(
+        _build.ptr(xp), _build.ptr(dp_out), *[_build.ptr(a) for a in args], _build.ptr(dx),
+        *[_build.ptr(g) for g in grads], _build.ptr(work), B, H, W, Cp, C, hidden, ws,
+        num_heads, shift, float(scale), _build.byref(launches), _build.stream())
+    _build.check(name, err)
+    return unpad_block_grads(C, (dx, *grads)), launches.value
 
 
 class SwinBlockTrainable(torch.autograd.Function):

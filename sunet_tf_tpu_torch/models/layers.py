@@ -35,11 +35,19 @@ stochastic-depth scales from it. On the fused route a block trains by its
 width, a routing rule of the configuration and never a reaction to a kernel
 failing:
 
-- C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape both the block kernel
-  (``wa.block_kernel_takes``: a launch plan; its residual form runs on the
-  same cluster kernel) and the block backward's kernels
-  (``wa.block_bwd_takes``: an even head dim up to 64; windows up to 64
-  tokens) take trains on them:
+- windows above 64 tokens (WIN 16: the scaled config's C=180, 360 and 720
+  stages, 48 of its 56 blocks), C <= ``ROUTE_TRAIN_BIG_MAX_C`` (768, JAX's
+  train cap ``_kernel_max_c(train=True)``) whose shape the sequence form
+  (``wa.block_seq_takes``) and the big-window block backward
+  (``wa.block_bwd_takes`` with the window: N a multiple of 64 up to 256, C
+  a multiple of 4, an even head dim up to 64) take: ``SwinBlockTrainable``,
+  the sequence form's train form (drop-path scales in its residual
+  epilogues) and ``swin_block_bwd``'s big-window form, the recompute route,
+  as JAX there (``bwd_residuals_enabled`` is false at N = 256);
+- up to 64 tokens, C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape both
+  the block kernel (``wa.block_kernel_takes``: a launch plan; its residual
+  form runs on the same cluster kernel) and the block backward's kernels
+  (``wa.block_bwd_takes``: an even head dim up to 64) take trains on them:
   where the attention takes JAX's blockdiag layout
   (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8 heads) and
   ``ROUTE_TRAIN_RESID`` is set, ``SwinBlockTrainableRes``, the residual
@@ -58,8 +66,8 @@ failing:
   ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
   ``SUNET_TRAIN_BLOCK_KERNEL=0``; JAX's default trains C=768 on the
   whole-block kernel, which here takes C <= 384, ``BLOCK_KERNEL_MAX_C``);
-- the rest (the scaled EMB-180 config's WIN-16 blocks, a head dim the
-  LN+W-MSA backward refuses): autograd of the eager block, as JAX above
+- the rest (the scaled config's C=1440 bottleneck, a head dim the LN+W-MSA
+  backward refuses): autograd of the eager block, as JAX above
   ``SUNET_TRAIN_KERNEL_MAX_C=768``.
 
 Training never takes the chain route.
@@ -99,6 +107,10 @@ ROUTE_CHAIN_MAX = 2
 # block.
 ROUTE_TRAIN_BLOCK_MAX_C = 384
 ROUTE_TRAIN_SPLIT_MAX_C = wa.SPLIT_TRAIN_MAX_C
+# Widest block trained through the block kernels above 64 tokens a window
+# (the sequence form's train form and the big-window backward): JAX's
+# train cap, SUNET_TRAIN_KERNEL_MAX_C=768.
+ROUTE_TRAIN_BIG_MAX_C = wa.TRAIN_BLOCK_MAX_C
 # Train the blockdiag-layout blocks within ROUTE_TRAIN_BLOCK_MAX_C on the
 # residual route (JAX's default); False is JAX's SUNET_BWD_RESID=0, the
 # recompute backward for every such block.
@@ -343,12 +355,18 @@ class SwinBlock(nn.Module):
 
     def trains_on_block_kernels(self) -> bool:
         """Whether training takes the block kernels (the residual route or
-        the recompute one) rather than the sublayer kernels: both routes'
-        forwards run on the cluster block kernel, so both need its plan, and
-        the block backward's window rule (N <= 64)."""
-        return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C and self.window_size ** 2 <= 64
-                and wa.block_bwd_takes(self.dim, self.mlp.fc1.out_features,
-                                       self.attn.num_heads)
+        the recompute one) rather than the sublayer kernels: up to 64 tokens
+        a window both routes' forwards run on the cluster block kernel, so
+        both need its plan, and C <= ROUTE_TRAIN_BLOCK_MAX_C; above, the
+        sequence form's plan and the big-window backward, C <=
+        ROUTE_TRAIN_BIG_MAX_C."""
+        hidden, heads, ws = self.mlp.fc1.out_features, self.attn.num_heads, self.window_size
+        if ws * ws > 64:
+            return (self.dim <= ROUTE_TRAIN_BIG_MAX_C
+                    and wa.block_bwd_takes(self.dim, hidden, heads, ws)
+                    and self.takes_block_kernel())
+        return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C
+                and wa.block_bwd_takes(self.dim, hidden, heads)
                 and self.takes_block_kernel())
 
     def trains_on_split_kernels(self) -> bool:
@@ -360,9 +378,15 @@ class SwinBlock(nn.Module):
 
     def trains_on_residuals(self) -> bool:
         """Whether training takes the residual route (when the block trains
-        through the block kernels)."""
-        return ROUTE_TRAIN_RESID and wa.bwd_residuals_enabled(
-            self.dim, self.attn.num_heads, self.window_size ** 2)
+        through the block kernels): JAX's rule up to 64 tokens a window,
+        where the residual forms take it; above, the recompute route (at
+        the scaled config's widths JAX's rule says so too; at a width where
+        it would pick the blockdiag layout at 256 tokens, the shrunk test
+        config's C=60 and 120, the two routes differ in bf16 rounding points
+        alone)."""
+        N = self.window_size ** 2
+        return ROUTE_TRAIN_RESID and N <= 64 and wa.bwd_residuals_enabled(
+            self.dim, self.attn.num_heads, N)
 
     def _train_block(self, x: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
         """Training through the block kernels (JAX ``_trainable_block``), on

@@ -302,9 +302,11 @@ class SUNet(nn.Module):
         one launch where it is the conv-fused head, else the split head's
         two (``up_kernels.UP4_SPLIT_LAUNCHES``).
         ``train=True``: one training step, forward and backward, by the
-        three-width training rule: a block up to ROUTE_TRAIN_BLOCK_MAX_C
-        that trains on the block kernels (``trains_on_block_kernels``)
-        launches the block kernel once and its backward's fixed sequence,
+        three-width training rule: a block that trains on the block kernels
+        (``trains_on_block_kernels``: up to ROUTE_TRAIN_BLOCK_MAX_C, or
+        ROUTE_TRAIN_BIG_MAX_C above 64 tokens a window) launches the block
+        kernel (``wa.block_launches``) and its backward's fixed sequence
+        (``wa.block_bwd_launches``: 11, or 12 above 64 tokens),
         on the residual route where ``trains_on_residuals`` holds (JAX
         ``swin_block_trainable_res``), else on the recompute one (JAX
         ``swin_block_trainable``); another that trains on the sublayer
@@ -325,8 +327,8 @@ class SUNet(nn.Module):
                             counts["fused_swin_block_res"] += 1
                             counts["swin_block_bwd_res"] += wa.SWIN_BLOCK_BWD_RES_LAUNCHES
                         else:
-                            counts["fused_swin_block"] += 1
-                            counts["swin_block_bwd"] += wa.SWIN_BLOCK_BWD_LAUNCHES
+                            counts["fused_swin_block"] += wa.block_launches(blk.window_size)
+                            counts["swin_block_bwd"] += wa.block_bwd_launches(blk.window_size)
                     elif blk.trains_on_split_kernels():
                         counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
                         counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES
@@ -334,7 +336,7 @@ class SUNet(nn.Module):
                         counts["ln_mlp_bwd"] += wa.LN_MLP_BWD_LAUNCHES
             if conv_fused_head(self.cfg.out_chans):
                 counts["fused_dual_upsample4_conv_phase"] += 1
-                counts["up4_conv_bwd"] += up_kernels.UP4_CONV_BWD_LAUNCHES
+                counts["up4_conv_bwd"] += up_kernels.up4_conv_bwd_launches(self.cfg.emb_dim)
             else:
                 counts["fused_dual_upsample4"] += up_kernels.UP4_SPLIT_LAUNCHES
                 counts["up4_bwd"] += up_kernels.UP4_BWD_LAUNCHES

@@ -11,6 +11,7 @@ of the split x4 head's forward (#10 ``fused_dual_upsample4``,
 the card.
 
     python -m sunet_tf_tpu_torch.tools.bwd_launches [--batch 2,4] [--shift 4] [--only 10,15]
+    python -m sunet_tf_tpu_torch.tools.bwd_launches --scaled [--batch 2,4]
 
 Runs each form at the default model's block widths, (64,64,96),
 (32,32,192) and (16,16,384) for #8 and the first two for #7 (the widths the
@@ -24,8 +25,11 @@ and 4 (``--only``: those kernels' cases alone), and prints per case the
 device time of each of its launches (torch.profiler, mean over 5 calls
 after 3 warm-up calls, in launch order), their sum (the device-busy time of
 a call) and the launch count, beside the card's name and power limit.
-These are the per-layer metric of the redesign (PERF.md, Layers): which
-launch to shorten next. Refuses to run without a card.
+``--scaled``: the scaled config's training forms instead, #8's big-window
+form at (128,128,180), (64,64,360) and (32,32,720), shift 8, head dim 30,
+QK scale 30^-0.5, and #9's wide form at (128,128,180) out 1 (C padded to
+192). These are the per-layer metric of the redesign (PERF.md, Layers):
+which launch to shorten next. Refuses to run without a card.
 """
 
 from __future__ import annotations
@@ -56,6 +60,30 @@ def block_args(B: int, H: int, C: int, gen) -> tuple:
             n(8, 64, 64))
 
 
+def scaled_cases(B: int, gen) -> list:
+    """(name, call) of the scaled config's training forms at batch B: #8's
+    big-window form at its three widths, shift 8, and #9's wide form."""
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    w = lambda i, o: (n(i, o) / i ** 0.5).to(torch.bfloat16)
+    dp = torch.full((B, 2), 1 / 0.9, device="cuda")
+    cases = []
+    for H, C, heads in ((128, 180, 6), (64, 360, 12), (32, 720, 24)):
+        x, dout, *p = block_args(B, H, C, gen)
+        p[-1] = n(heads, 256, 256)
+        mask = torch.as_tensor(shift_attn_mask(H, H, 16, 8), device="cuda")
+        kw = dict(ws=16, num_heads=heads, scale=30 ** -0.5, shift=8)
+        cases.append((f"#8 swin_block_bwd ({H},{H},{C}) shift 8, {heads} heads",
+                      lambda x=x, dout=dout, p=p, mask=mask, kw=kw: wa.swin_block_bwd(
+                          x, dout, *p, mask, dp, **kw)))
+    C = 180
+    hp = (n(B, 128, 128, C).to(torch.bfloat16), w(C, 16 * C), torch.full((1,), 0.25, device="cuda"),
+          w(C, C), 0.1 * n(C), torch.full((1,), 0.2, device="cuda"), w(C, C), w(C, C),
+          (n(3, 3, C, 1) / (9 * C) ** 0.5).to(torch.bfloat16),
+          n(B, 128, 128, 16).to(torch.bfloat16))
+    cases.append(("#9 up4_conv_bwd (128,128,180) out 1", lambda: up.up4_conv_bwd(*hp)))
+    return cases
+
+
 def launches(fn, calls: int = 5) -> list:
     """[(kernel name, mean device us per call)] of fn's launches, in order."""
     from torch.autograd import DeviceType
@@ -84,6 +112,8 @@ def main():
     ap.add_argument("--batch", default="2,4")
     ap.add_argument("--shift", type=int, default=4)
     ap.add_argument("--only", default="", help="kernel numbers, e.g. 10,15 (default: all)")
+    ap.add_argument("--scaled", action="store_true",
+                    help="the scaled config's training forms (#8 big-window, #9 wide)")
     args = ap.parse_args()
     only = {f"#{k}" for k in args.only.split(",") if k}
     if not torch.cuda.is_available():
@@ -93,6 +123,15 @@ def main():
     print(f"card: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else 'unknown'}")
     gen = torch.Generator(device="cuda").manual_seed(7)
     ws, heads, scale, shift = 8, 8, 8.0, args.shift
+    if args.scaled:
+        for B in (int(b) for b in args.batch.split(",")):
+            for name, fn in scaled_cases(B, gen):
+                got = launches(fn)
+                print(f"{name} batch {B}: {len(got)} launches, "
+                      f"{sum(t for _, t in got) / 1000:.4f} ms device busy")
+                for kname, t in got:
+                    print(f"  {t:9.2f} us  {kname}")
+        return
     for B in (int(b) for b in args.batch.split(",")):
         dp = torch.full((B, 2), 1 / 0.9, device="cuda")
         for H, C, res in SHAPES:

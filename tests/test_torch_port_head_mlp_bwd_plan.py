@@ -131,8 +131,8 @@ def test_up4_conv_bwd_plan_and_workspace(H, W, C, out, want):
 
 
 @pytest.mark.parametrize("C,out,match", [
-    (112, 1, "C a multiple of 16 up to 96"),
-    (40, 1, "C a multiple of 16 up to 96"),
+    (208, 1, "C a multiple of 4 (padded to 16) up to 192"),
+    (42, 1, "C a multiple of 4 (padded to 16) up to 192"),
     (96, 9, "1 <= out <= 8"),
     (96, 0, "1 <= out <= 8"),
 ])

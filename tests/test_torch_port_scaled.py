@@ -81,9 +81,14 @@ def test_scaled_model_size_and_launches():
         "fused_ln_mlp": 24 * twa.LN_MLP_LAUNCHES, "fused_dual_upsample4_conv_phase": 1,
         "fused_dual_upsample4": 0}
     blocks = [b for s in list(model.layers) + list(model.layers_up[1:]) for b in s.blocks]
-    # training at WIN 16 stays on the eager block (no backward kernel takes
-    # 256-token windows yet)
-    assert not any(b.trains_on_block_kernels() or b.trains_on_split_kernels() for b in blocks)
+    # training at WIN 16: the C=180/360/720 blocks on the block kernels
+    # (#1's train form + #8's big-window form, the recompute route), the
+    # C=1440 stage on the eager block (above JAX's train cap 768)
+    on_block = [b.dim for b in blocks if b.trains_on_block_kernels()]
+    assert sorted(set(on_block)) == [180, 360, 720] and len(on_block) == 48
+    assert not any(b.trains_on_residuals() for b in blocks if b.trains_on_block_kernels())
+    assert all(b.dim == 1440 and not b.trains_on_split_kernels() for b in blocks
+               if not b.trains_on_block_kernels())
 
 
 # (H, C, hidden, heads) of the full-size path's blocks at WIN 16
@@ -356,7 +361,8 @@ def _stub_library(monkeypatch) -> dict:
 @pytest.mark.parametrize("H,C,heads,shift", [(128, 180, 6, 8), (64, 360, 12, 0)])
 def test_seq_form_launch_takes_its_plan_and_padded_weights(H, C, heads, shift, monkeypatch):
     """The sequence form's C entry gets block_seq_plan's depth and K splits,
-    and wqkv, wproj and w2 with their columns zero-padded to multiples of 8
+    no drop-path scales in inference, and wqkv, wproj and w2 with their
+    columns zero-padded to multiples of 8
     (padded here when given at their natural shape, taken as they are when
     the model's cache padded them)."""
     calls = _stub_library(monkeypatch)
@@ -372,8 +378,10 @@ def test_seq_form_launch_takes_its_plan_and_padded_weights(H, C, heads, shift, m
                           v(hidden), w2, v(C), torch.zeros(heads, 256, 256), mask, **kw)
     args = calls["sunet_swin_block_seq"]
     plan = twa.block_seq_plan(H, H, C, hidden, ws, heads)
-    assert args[17:25] == (B, H, H, C, hidden, ws, heads, shift) and args[25] == SCALE
-    assert args[26:31] == (plan["Kp"], plan["ksq"], plan["ksp"], plan["ks1"], plan["ks2"])
+    # the inference form: no drop-path scales (dp NULL, pointer 16)
+    assert args[16] is None
+    assert args[18:26] == (B, H, H, C, hidden, ws, heads, shift) and args[26] == SCALE
+    assert args[27:32] == (plan["Kp"], plan["ksq"], plan["ksp"], plan["ks1"], plan["ks2"])
     for got, natural in ((args[4], wqkv), (args[6], wproj), (args[12], w2)):
         cols = natural.shape[1]
         assert tuple(got.shape) == (natural.shape[0], twa.wcols(cols)) and got.is_contiguous()

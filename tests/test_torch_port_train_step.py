@@ -57,21 +57,27 @@ def _no_drop_path(cfg):
     return cfg.replace(swinunet=dataclasses.replace(cfg.swinunet, drop_path_rate=0.0))
 
 
-def make_batch():
+def make_batch(size: int = 64):
     rng = np.random.default_rng(21)
-    inp = rng.random((1, 64, 64, 3), np.float32)
+    inp = rng.random((1, size, size, 3), np.float32)
     # blob-like binary masks, so the boundary rings have every weight
-    tar = (rng.random((1, 16, 16, 1)) > 0.6).astype(np.float32)
+    tar = (rng.random((1, size // 4, size // 4, 1)) > 0.6).astype(np.float32)
     tar = np.repeat(np.repeat(tar, 4, axis=1), 4, axis=2)
     return inp, tar
 
 
-def check_step(cap, monkeypatch, split: bool = False, resid: bool = False):
+def check_step(cap, monkeypatch, split: bool = False, resid: bool = False, configs=None,
+               routes=None, jax_backend: str = "pallas"):
     """The port's tiny training step against JAX's with the training-kernel
     cap ``cap`` on both sides (None: the defaults); ``split``: every block
     within the cap on the two sublayer kernels instead of the block
     kernels; ``resid``: the residual route at JAX's defaults (every tiny
-    block takes the blockdiag layout), else the recompute route."""
+    block takes the blockdiag layout), else the recompute route.
+    ``configs``: (JAX config, port config) in place of the tiny ones, with
+    ``routes``, the blocks on the block kernels and on the sublayer kernels
+    that the port's router must give (the tiny model's are written here);
+    ``jax_backend``: JAX's attention backend ("xla": autograd of the XLA
+    route in place of the Pallas kernels in interpret mode)."""
     if not resid:
         monkeypatch.setenv("SUNET_BWD_RESID", "0")
         monkeypatch.setenv("SUNET_ATTN_LAYOUT_BWD", "perhead")
@@ -83,11 +89,12 @@ def check_step(cap, monkeypatch, split: bool = False, resid: bool = False):
     if split:
         monkeypatch.setenv("SUNET_TRAIN_BLOCK_KERNEL", "0")
         monkeypatch.setattr(tlayers, "ROUTE_TRAIN_BLOCK_MAX_C", 0)
-    inp, tar = make_batch()
+    jbase, tbase = configs or (jconfig.tiny_config(), tconfig.tiny_config())
+    inp, tar = make_batch(jbase.swinunet.img_size)
 
-    jcfg = _no_drop_path(jconfig.tiny_config())
+    jcfg = _no_drop_path(jbase)
     jcfg = jcfg.replace(tpu=jcfg.tpu.__class__(compute_dtype="float32",
-                                               attention_backend="pallas"))
+                                               attention_backend=jax_backend))
     jmodel = jax_build_model(jcfg, seed=4)
     gd, state = nnx.split(jmodel, nnx.Param)
     leaves, treedef = jax.tree.flatten(state)
@@ -101,10 +108,13 @@ def check_step(cap, monkeypatch, split: bool = False, resid: bool = False):
         t = jnp.asarray(tar)
         return jax_charbonnier(logits, t, jax_weights(t) * jnp.ones((1, 1, 1, 1)))
 
-    jl, jgrads = jax.value_and_grad(jloss)(params)
+    value_and_grad = jax.value_and_grad(jloss)
+    if jax_backend == "xla":   # one compile of the whole step, not one per op
+        value_and_grad = jax.jit(value_and_grad)
+    jl, jgrads = value_and_grad(params)
     want = params_to_state_dict(nnx.merge(gd, jgrads))
 
-    tcfg = _no_drop_path(tconfig.tiny_config().replace(compute_dtype="float32"))
+    tcfg = _no_drop_path(tbase.replace(compute_dtype="float32"))
     model = build_model(tcfg, device="cpu", backend="fused", seed=0)
     load_reference_state_dict(model, params_to_state_dict(nnx.merge(gd, params)))
     model.train().requires_grad_(True)
@@ -116,9 +126,13 @@ def check_step(cap, monkeypatch, split: bool = False, resid: bool = False):
     assert calls == model.expected_launches(inp.shape, train=True)
     assert calls["up4_conv_bwd"] > 0
     # blocks on each route (the tiny model has 14: 2 at C=128)
-    on_block = calls["fused_swin_block"] + calls["fused_swin_block_res"]
+    blocks = [b for st in list(model.layers) + list(model.layers_up[1:]) for b in st.blocks]
+    on_block = (calls["fused_swin_block"] // wa.block_launches(blocks[0].window_size)
+                + calls["fused_swin_block_res"])
     on_split = calls["ln_mlp_branch"] // wa.LN_MLP_BRANCH_LAUNCHES
-    assert (on_block, on_split) == ((0, 14) if split else (12, 0) if cap else (14, 0))
+    if routes is None:
+        routes = (0, 14) if split else (12, 0) if cap else (14, 0)
+    assert (on_block, on_split) == routes
     assert calls["fused_swin_block_res"] == (on_block if resid else 0)
 
     assert abs(float(loss.detach()) - float(jl)) <= LOSS_REL * abs(float(jl))

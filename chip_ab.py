@@ -18,7 +18,7 @@ bf16, ``chip_smoke.block_params`` weights.
   and its backward (#9) at (64,64,96), out 1 and 3, #5 also out 1 at batch
   4; the scaled geometry's inference forms (``chip_smoke.scaled_cases``:
   #1's sequence form, #3's big-window attention, #4 at C=1440, #5 at
-  C=180).
+  C=180); the default model's fused bf16 forward at 256x256 batch 4.
 - Against the plain version, both trees' readings printed (``PLAIN``
   lines): the residual route's block forward (#6: output and stored state)
   at (64,64,96) and (32,32,192), shift 0 and 4, the LN+MLP branch (#13)
@@ -308,6 +308,7 @@ model = build_model(Config(), device="cuda", backend="fused", seed=0)
 img = torch.rand(4, 256, 256, 3, device="cuda", generator=gen)
 with torch.inference_mode():
     fwd = lambda: model(img)
+    outs["forward batch 4 (Config(), 256x256, fused bf16)"] = fwd()
     print(f"TIME forward batch 4 (Config(), 256x256, fused bf16): {time_ms(fwd, 10):.4f} ms "
           f"events, {time_ms(fwd, 10, device=False):.4f} ms paced by the host, "
           f"{device_ms(fwd, 5):.4f} ms device", flush=True)

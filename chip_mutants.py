@@ -288,6 +288,22 @@ MUTANTS = {
                           "    square = lambda w: F.pad(w, (0, pad, 0, pad), value=0.05).contiguous()"),
 }
 
+# Faults in the serving path, each of which chip_smoke's export phase must
+# catch: name: (file under sunet_tf_tpu_torch, text, replacement). The ops'
+# CUDA implementation that runs the plain version on copies of its operands
+# on the CPU (a hidden fallback: caught by the launch counts), and
+# ServingModel calling bucket 4 with a request of 3 without its zero-padded
+# tail (caught by the n = 3 request).
+EXPORT_MUTANTS = {
+    "op_cuda_runs_plain": ("kernels/ops.py", """        _LIB.impl(_name, IMPLS[_name], _key)""",
+                           """        _LIB.impl(_name, IMPLS[_name] if _key == "CPU" else (
+            lambda f: lambda *a, **k: f(*[t.cpu() if isinstance(t, torch.Tensor) else [
+                u.cpu() for u in t] if isinstance(t, list) else t for t in a], **k).cuda())(
+            IMPLS[_name]), _key)"""),
+    "serving_tail_unpadded": ("infer/export.py", "        if n < b:\n            x = torch.cat(",
+                              "        if n < 0:\n            x = torch.cat("),
+}
+
 # Run inside a checkout: the backward checks of chip_smoke in one setting.
 CASES = r'''
 import sys
@@ -509,6 +525,21 @@ for mode, (rel, tag) in worst.items():
           f"({tag}); chip_smoke's limit {cs.dx_mean_tol('ln_window_attention_bwd'):g}",
           flush=True)
 '''
+
+
+def run_export(cwd: Path, name: str, log) -> list:
+    """chip_smoke's export phase in the checkout ``cwd``; a SUMMARY line of
+    whether it failed (as a mutant must)."""
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "export"], cwd=cwd,
+                          capture_output=True, text=True)
+    log.write(proc.stdout + proc.stderr)
+    log.flush()
+    if proc.returncode == 0:
+        return [f"SUMMARY [{name}]: the export phase PASSED: the mutant was not caught"]
+    lines = (proc.stdout + proc.stderr).strip().splitlines()
+    why = next((ln for ln in reversed(lines) if "FAILED" in ln or "Error" in ln), lines[-1])
+    return [f"SUMMARY [{name}]: the export phase failed (exit {proc.returncode}): "
+            f"{why.strip()[:300]}"]
 
 
 def run(cwd: Path, mode: str, seed: int, gain: float, log) -> list:
@@ -757,8 +788,9 @@ def main():
         print(f"chip_mutants: readings in {out}")
         return
     only = [m for m in args.mutants.split(",") if m]
-    if set(only) - set(MUTANTS):
-        raise SystemExit(f"chip_mutants: unknown mutants {sorted(set(only) - set(MUTANTS))}")
+    if set(only) - set(MUTANTS) - set(EXPORT_MUTANTS):
+        raise SystemExit("chip_mutants: unknown mutants "
+                         f"{sorted(set(only) - set(MUTANTS) - set(EXPORT_MUTANTS))}")
     with open(out, "w") as log, tempfile.TemporaryDirectory() as tmp:
         if not args.step_only:
             if not only:
@@ -780,6 +812,22 @@ def main():
                                          f"{src} once")
                     path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
+            for name, (src, old, new) in EXPORT_MUTANTS.items():
+                if (only and name not in only) or args.sound:
+                    continue
+                from sunet_tf_tpu_torch.kernels import _build
+
+                _build.library()
+                # Python alone changes: the copy keeps this tree's kernel build
+                copy = Path(tmp) / name
+                shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(".git", "__pycache__"))
+                path = copy / "sunet_tf_tpu_torch" / src
+                text = path.read_text()
+                if text.count(old) != 1:
+                    raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in "
+                                     f"{src} once")
+                path.write_text(text.replace(old, new))
+                summary += run_export(copy, name, log)
         if not only and not args.sound:
             summary += step_noise(log, out.with_suffix(".dists.json"))
     print("\n".join(summary))

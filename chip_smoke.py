@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,train,bands,entries,
-                           scaled,scaled_train]
+    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,export,train,bands,
+                           entries,scaled,scaled_train]
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
@@ -59,6 +59,18 @@
    ``tools/corpus_bench.py``'s corpus one image at a time against
    ``run_corpus``; ``demo_any_resolution.main`` (with masks) and
    ``evaluate.main`` on its inputs and outputs.
+   Then the serving artifacts (phase ``export``, ``infer/export.py``):
+   ``Config()`` exported by ``torch.export`` at batch buckets 1 and 4, the
+   kernels as ``sunet::`` ops, reloaded in this run; requests of n = 1, 3
+   (bucket 4's zero-padded tail) and 4 equal to the live fused forward of
+   the batch each ran, bit for bit, each with the router's launch counts
+   and no plain version run; bucket 4 against eager (mean |diff| <= 5e-3);
+   the artifact with perturbed weights; each .pt2 under 5% of the weights'
+   float32 bytes; device busy time (profiler) and host-paced time of the
+   artifact and the live model at batch 1 and 4; an op's dispatch cost;
+   a 1024x1024 canvas's tiled artifact against the live ``TiledRunner``
+   on a 1017x1011 image; the 16-band model's and ``scaled_config()``'s
+   batch-1 buckets, bit for bit.
 6. The training slice: one training step of the default SUNet at 256x256
    batch 4 on a synthetic dataset, fused vs eager on the same weights,
    batch and drop-path draws (loss and every parameter's gradient), launch
@@ -1562,7 +1574,7 @@ def trace_step(fn, label: str, detail: bool = True) -> dict:
           f"{busy / 1000:.3f} ms of {wall_ms:.3f} ms (idle share "
           f"{1 - busy / 1000 / wall_ms:.3f})")
     if not detail:
-        return {"wall_ms": wall_ms, "busy_ms": busy / 1000}
+        return {"wall_ms": wall_ms, "busy_ms": busy / 1000, "device_events": len(spans)}
     for key, (n, us) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
         print(f"    {key}: {n} launches, {us / 1000:.3f} ms")
     print("    largest plain torch kernels:")
@@ -2422,6 +2434,225 @@ def bands_tiled() -> dict:
     return out
 
 
+# The exported artifact holds no weight: its .pt2 stays under this share of
+# the weights' float32 bytes (Config(): 399 MB).
+EXPORT_SIZE_SHARE = 0.05
+
+
+def bit_equal(what: str, got, want) -> float:
+    """``got`` equal to ``want`` bit for bit (shape, dtype and values);
+    returns max |diff| (0)."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: {tuple(got.shape)} {got.dtype} against {tuple(want.shape)} {want.dtype}")
+    same = bool(torch.equal(got, want))
+    diff = float((got.float() - want.float()).abs().max())
+    print(f"  {what}: max|diff| {diff:.3e}, bit for bit: {same}")
+    check(same, f"{what}: the reloaded artifact differs from the live model")
+    return diff
+
+
+def dispatch_cost(reps: int = 200) -> dict:
+    """Host microseconds per call of the LN+MLP kernel (#4) at (8,8,768),
+    batch 4, through its registered op against its implementation called
+    directly (the live model's way), in turns (direct, op, op, direct), each
+    over ``reps`` calls with one synchronize after them; the card is busy
+    for less time than the host takes to enqueue them."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    r = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    C, hid = 768, 3072
+    args = (r(4, 8, 8, C).to(torch.bfloat16), 1 + 0.1 * r(C), 0.1 * r(C),
+            (r(C, hid) * C ** -0.5).to(torch.bfloat16), 0.1 * r(hid),
+            (r(hid, C) * hid ** -0.5).to(torch.bfloat16), 0.1 * r(C))
+    fns = {"direct": lambda: ops.IMPLS["fused_ln_mlp"](*args),
+           "op": lambda: ops.op("fused_ln_mlp")(*args)}
+    check(torch.equal(fns["op"](), fns["direct"]()), "the op differs from its implementation")
+    us: dict = {k: [] for k in fns}
+    with torch.inference_mode():
+        for name in ("direct", "op", "op", "direct"):
+            for _ in range(10):
+                fns[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fns[name]()
+            us[name].append((time.perf_counter() - t0) * 1e6 / reps)
+            torch.cuda.synchronize()
+    out = {k: min(v) for k, v in us.items()}
+    out["op_minus_direct_us"] = out["op"] - out["direct"]
+    print(f"  dispatch, #4 at (8,8,768) batch 4, host us per call: direct {out['direct']:.2f}, "
+          f"through the op {out['op']:.2f} (+{out['op_minus_direct_us']:.2f})")
+    return out
+
+
+def export_bucket_check(label: str, cfg, size: int, tmp: Path, other_head: str) -> dict:
+    """One batch-1 bucket of ``cfg`` at ``size``² exported, reloaded and held
+    to the live fused model bit for bit, its launches equal to the
+    router's prediction (the x4 head ``other_head`` not run)."""
+    import torch
+
+    from sunet_tf_tpu_torch.infer.export import ServingModel, save_exported
+    from sunet_tf_tpu_torch.models.sunet import build_model
+
+    fused = build_model(cfg, device="cuda", backend="fused", seed=0)
+    sw = cfg.swinunet
+    meta = save_exported(str(tmp), fused, size, batches=(1,))
+    sm = ServingModel(str(tmp))
+    x = torch.rand(1, size, size, sw.in_chans, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(23))
+    with torch.inference_mode():
+        got, launches = run_counted(lambda: sm(fused, x),
+                                    fused.expected_launches(tuple(x.shape)), other_head)
+        live = fused(x)
+    out = {"export_s": meta["export_seconds"]["1"], "bytes": meta["bytes"]["1"],
+           "graph_nodes": meta["graph_nodes"]["1"], "launches": launches,
+           "max_abs_diff": bit_equal(f"{label} bucket 1", got, live)}
+    print(f"  {label}: exported in {out['export_s']:.1f} s, {out['bytes'] / 1e6:.3f} MB, "
+          f"{out['graph_nodes']} graph nodes")
+    del fused
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_phase() -> dict:
+    """Ahead-of-time serving artifacts (``infer/export.py``: ``torch.export``
+    programs that call the kernels as ``sunet::`` ops) on the card, bf16,
+    backend="fused". ``Config()`` at buckets 1 and 4, exported and
+    reloaded in this run: requests of n = 1, 3 (bucket 4 with a zero-padded
+    tail) and 4 equal to the live fused forward of the batch each ran, bit
+    for bit, each reloaded call's launches equal to ``expected_launches``
+    with no plain version run; bucket 4 against eager (mean |diff| <=
+    5e-3); the artifact called with perturbed weights equal to the live
+    model under them and apart from the unperturbed output; each .pt2 under
+    EXPORT_SIZE_SHARE of the weights' float32 bytes; the artifact's
+    device busy time (one profiled call) and host-paced forward beside the
+    live model's at batch 1 and 4; an op's dispatch cost
+    (``dispatch_cost``). Then a 1024x1024
+    canvas's tiled artifact (kernel 256, stride 128, tile_batch 64: 49
+    tiles in one forward) against the live ``TiledRunner`` on a 1017x1011
+    image, with its launches; the 16-band model's batch-1 bucket (#10's op)
+    and ``scaled_config()``'s at 512x512 (#1/#2's sequence form, #3/#4 at
+    C=720 and 1440), each bit for bit against the live model."""
+    import torch
+
+    from sunet_tf_tpu_torch.config import Config, scaled_config
+    from sunet_tf_tpu_torch.infer.export import (
+        ServingModel,
+        TiledServingModel,
+        save_exported,
+        save_exported_tiled,
+    )
+    from sunet_tf_tpu_torch.infer.tiled import TiledRunner
+    from sunet_tf_tpu_torch.models.sunet import build_model, param_count
+
+    t_phase = time.perf_counter()
+    print("phase: export (serving artifacts on torch.export, default SUNet 256x256, bf16)")
+    fused = build_model(Config(), device="cuda", backend="fused", seed=0)
+    eager = build_model(Config(), device="cuda", backend="eager", seed=0)
+    eager.load_state_dict(fused.state_dict())
+    weight_bytes = 4 * param_count(fused)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        tmp = Path(tmp_dir)
+        meta = save_exported(str(tmp / "cfg"), fused, 256, batches=(1, 4))
+        out.update({k: meta[k] for k in ("export_seconds", "bytes", "graph_nodes")})
+        share = max(meta["bytes"].values()) / weight_bytes
+        print(f"  exported buckets 1, 4: {', '.join(f'{s:.1f} s' for s in meta['export_seconds'].values())}; "
+              f".pt2 {', '.join(f'{b / 1e6:.3f} MB' for b in meta['bytes'].values())} "
+              f"({share:.4f} of the {weight_bytes / 1e6:.0f} MB of float32 weights); graph "
+              f"nodes {', '.join(str(n) for n in meta['graph_nodes'].values())}")
+        check(share < EXPORT_SIZE_SHARE, "the artifact holds more than its program")
+        t0 = time.perf_counter()
+        sm = ServingModel(str(tmp / "cfg"))
+        out["load_s"] = time.perf_counter() - t0
+        leaves = list(fused.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(29)
+        x = torch.rand(4, 256, 256, 3, device="cuda", generator=gen)
+        other = "fused_dual_upsample4"
+        with torch.inference_mode():
+            out["requests"] = {}
+            for n in (1, 3, 4):
+                b = 1 if n == 1 else 4
+                xb = torch.cat([x[:n], x.new_zeros((b - n, 256, 256, 3))])
+                got, launches = run_counted(lambda: sm(leaves, x[:n]),
+                                            fused.expected_launches(tuple(xb.shape)), other)
+                out["requests"][n] = bit_equal(f"request n={n} (bucket {b})", got,
+                                               fused(xb)[:n])
+            out["mean_abs_diff"], out["max_abs_diff"] = fused_vs_eager(
+                got, eager(x), "reloaded bucket 4 vs eager")
+            del eager
+            # The program launches more kernels a call than the card's launch
+            # queue holds ahead (its per-call weight casts), so the card cannot
+            # be kept ahead of the host as time_ms does: device time is the
+            # profiler's busy time of one call, for both.
+            times = {}
+            for b in (1, 4):
+                xb = x[:b]
+                art = trace_step(lambda: sm(leaves, xb), f"artifact, batch {b}", detail=False)
+                live = trace_step(lambda: fused(xb), f"live, batch {b}", detail=False)
+                times[b] = {
+                    "artifact_busy_ms": art.get("busy_ms"), "live_busy_ms": live.get("busy_ms"),
+                    "artifact_device_events": art.get("device_events"),
+                    "live_device_events": live.get("device_events"),
+                    "artifact_wall_ms": time_ms(lambda: sm(leaves, xb), iters=10, device=False),
+                    "live_wall_ms": time_ms(lambda: fused(xb), iters=10, device=False)}
+                t = times[b]
+                print(f"  batch {b} forward ms, device busy: artifact {t['artifact_busy_ms']:.3f}, "
+                      f"live {t['live_busy_ms']:.3f} "
+                      f"(+{t['artifact_busy_ms'] - t['live_busy_ms']:.3f}); paced by the host: "
+                      f"artifact {t['artifact_wall_ms']:.3f}, live {t['live_wall_ms']:.3f}")
+            out["times"] = times
+            y1 = fused(x[:1])
+        out["dispatch"] = dispatch_cost()
+        with torch.no_grad():
+            pgen = torch.Generator(device="cuda").manual_seed(37)
+            for p in fused.parameters():
+                p.add_(0.01 * torch.randn(p.shape, device="cuda", generator=pgen))
+        with torch.inference_mode():
+            got = sm(leaves, x[:1])
+            bit_equal("perturbed weights, bucket 1", got, fused(x[:1]))
+            moved = float((got - y1).abs().max())
+        print(f"  perturbed against unperturbed output: max|diff| {moved:.3e}")
+        check(moved > 0, "the artifact ignores the weights it is called with")
+        del sm, y1, got
+
+        S, K, STRIDE = 1024, 256, 128
+        tmeta = save_exported_tiled(str(tmp / "tiled"), fused, [(S, S)], kernel=K,
+                                    stride=STRIDE)
+        out["tiled"] = {k: tmeta[k][f"{S}x{S}"]
+                        for k in ("export_seconds", "bytes", "graph_nodes")}
+        tsm = TiledServingModel(str(tmp / "tiled"))
+        img = torch.rand(1, S - 7, S - 13, 3, device="cuda", generator=gen)
+        runner = TiledRunner(fused, K, STRIDE)
+        with torch.inference_mode():
+            got, out["tiled"]["launches"] = run_counted(
+                lambda: tsm(leaves, img), fused.expected_launches((49, K, K, 3)), other)
+            out["tiled"]["max_abs_diff"] = bit_equal(
+                f"tiled {S - 7}x{S - 13} on a {S}x{S} canvas", got, runner(img))
+            out["tiled"]["artifact_wall_ms"] = time_ms(lambda: tsm(leaves, img), iters=5,
+                                                       device=False)
+            out["tiled"]["live_wall_ms"] = time_ms(lambda: runner(img), iters=5, device=False)
+        print(f"  tiled: exported in {out['tiled']['export_seconds']:.1f} s, "
+              f"{out['tiled']['bytes'] / 1e6:.3f} MB, {out['tiled']['graph_nodes']} graph "
+              f"nodes; paced by the host, ms: artifact {out['tiled']['artifact_wall_ms']:.3f}, "
+              f"live {out['tiled']['live_wall_ms']:.3f}")
+        del fused, tsm, runner, leaves
+        torch.cuda.empty_cache()
+
+        out["bands"] = export_bucket_check("16-band SUNet 256x256", bands_config(), 256,
+                                           tmp / "bands", "fused_dual_upsample4_conv_phase")
+        out["scaled"] = export_bucket_check("scaled SUNet 512x512", scaled_config(), 512,
+                                            tmp / "scaled", "fused_dual_upsample4")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  export phase: {out['phase_s']:.1f} s wall")
+    return out
+
+
 SCALED_WS = 16
 SCALED_QK = 30 ** -0.5   # head dim 30 at every stage, qk_scale None
 
@@ -2918,8 +3149,8 @@ def scaled_train_phase(results: dict) -> dict:
     return out
 
 
-PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "train", "bands", "entries",
-          "scaled", "scaled_train")
+PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "export", "train", "bands",
+          "entries", "scaled", "scaled_train")
 
 
 def main():
@@ -2978,6 +3209,8 @@ def main():
         demo_phase()
     if "tiled" in phases:
         stats["tiled"] = tiled_phase()
+    if "export" in phases:
+        stats["export"] = export_phase()
     if "train" in phases:
         stats["train"] = train_phase(results)
     if "bands" in phases:

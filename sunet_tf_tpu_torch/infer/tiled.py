@@ -16,12 +16,13 @@ tiles in its order, so that both sum each pixel the same way.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from sunet_tf_tpu_torch.ops.constants import shape_constant
 
 
 def required_granularity(patch_size: int, num_stages: int, win_size: int) -> int:
@@ -97,12 +98,17 @@ def _gather_tiles(canvases: torch.Tensor, kernel: int, stride: int) -> torch.Ten
     return t.permute(0, 1, 2, 4, 5, 3).reshape(-1, kernel, kernel, C)
 
 
-@functools.lru_cache(maxsize=64)
 def _inv_tile_counts(Xh: int, Xw: int, kernel: int, stride: int,
                      device: torch.device) -> torch.Tensor:
     """1 / (the number of tiles that cover each stride x stride block of the
     canvas), float32, as a (1, Xh/s, 1, Xw/s, 1, 1) tensor on ``device``:
     built on the host once per canvas shape and moved once."""
+    return shape_constant(("inv_tile_counts", Xh, Xw, kernel, stride, device),
+                          lambda: _build_inv_tile_counts(Xh, Xw, kernel, stride, device))
+
+
+def _build_inv_tile_counts(Xh: int, Xw: int, kernel: int, stride: int,
+                           device: torch.device) -> torch.Tensor:
     q = kernel // stride
     n_rows = len(_tile_starts(Xh, kernel, stride))
     n_cols = len(_tile_starts(Xw, kernel, stride))

@@ -680,7 +680,16 @@ def fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1, alpha_b,
 
     x: (B, H, W, C); w_exp: (C, 16C) pixel-shuffle expand, (in, out) layout;
     w_b1: (C, C), b_b1: (C,); wpf, wbf: (C, C) folded projections;
-    wconv: (3, 3, C, out) HWIO. Returns (B, H, W, 16*out) in x's dtype."""
+    wconv: (3, 3, C, out) HWIO. Returns (B, H, W, 16*out) in x's dtype.
+    Inside a trace it is the op ``sunet::fused_dual_upsample4_conv_phase``
+    (``kernels/ops.py``)."""
+    if torch.compiler.is_compiling():
+        return torch.ops.sunet.fused_dual_upsample4_conv_phase(x, w_exp, alpha_p, w_b1, b_b1,
+                                                               alpha_b, wpf, wbf, wconv)
+    return _conv_phase_impl(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv)
+
+
+def _conv_phase_impl(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv) -> torch.Tensor:
     name = "fused_dual_upsample4_conv_phase"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -808,7 +817,7 @@ class DualUpsample4ConvTrainable(torch.autograd.Function):
         p = (cast(w_exp), alpha_p.detach(), cast(w_b1), b_b1.detach(),
              alpha_b.detach(), cast(wpf), cast(wbf), cast(wconv))
         ctx.save_for_backward(x, *p)
-        return fused_dual_upsample4_conv_phase(x, *p)
+        return _conv_phase_impl(x, *p)
 
     @staticmethod
     def backward(ctx, dout):
@@ -834,7 +843,15 @@ def fused_dual_upsample4(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf,
     column c*16 + i*4 + j feeding pixel (4h+i, 4w+j) channel c; w_b1: (C,
     C), b_b1: (C,); wpf, wbf: (C, C) folded projections. Returns (B, 4H, 4W,
     C) in x's dtype. CUDA: ``csrc/up4.cu``, UP4_SPLIT_LAUNCHES launches
-    (:func:`up4_split_plan`), each counted; any H and W."""
+    (:func:`up4_split_plan`), each counted; any H and W. Inside a trace it
+    is the op ``sunet::fused_dual_upsample4``."""
+    if torch.compiler.is_compiling():
+        return torch.ops.sunet.fused_dual_upsample4(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf,
+                                                    wbf)
+    return _split_head_impl(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf)
+
+
+def _split_head_impl(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf) -> torch.Tensor:
     name = "fused_dual_upsample4"
     count = _build.counter(name)
     if x.device.type == "cpu":
@@ -915,7 +932,7 @@ class DualUpsample4Trainable(torch.autograd.Function):
         p = (cast(w_exp), alpha_p.detach(), cast(w_b1), b_b1.detach(),
              alpha_b.detach(), cast(wpf), cast(wbf))
         ctx.save_for_backward(x, *p)
-        return fused_dual_upsample4(x, *p)
+        return _split_head_impl(x, *p)
 
     @staticmethod
     def backward(ctx, dout):

@@ -1491,7 +1491,12 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     whose train form (``drop_path_scale`` given) takes C up to
     TRAIN_BLOCK_MAX_C, its inference form up to BLOCK_KERNEL_MAX_C. The
     weight matrices may come with their columns padded as the kernels store
-    them (:func:`wcols`)."""
+    them (:func:`wcols`). Inside a trace it is the op
+    ``sunet::fused_swin_block`` (``kernels/ops.py``)."""
+    if torch.compiler.is_compiling():
+        return torch.ops.sunet.fused_swin_block(
+            x, ln1[0], ln1[1], wqkv, bqkv, wproj, bproj, ln2[0], ln2[1], w1, b1, w2, b2, bias,
+            mask, drop_path_scale, ws=ws, num_heads=num_heads, scale=scale, shift=shift)
     return _counted_block("fused_swin_block", x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
                           b2, bias, mask, drop_path_scale, ws=ws, num_heads=num_heads,
                           scale=scale, shift=shift)
@@ -1698,10 +1703,9 @@ class SwinBlockTrainable(torch.autograd.Function):
              b1.detach(), cast(w2), b2.detach(), bias.detach())
         ctx.save_for_backward(x, dp, mask, *p)
         ctx.static = (ws, num_heads, scale, shift)
-        return fused_swin_block(
-            x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
-            p[11], p[12], mask, dp, ws=ws, num_heads=num_heads, scale=scale,
-            shift=shift)
+        return _counted_block(
+            "fused_swin_block", x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
+            p[11], p[12], mask, dp, ws=ws, num_heads=num_heads, scale=scale, shift=shift)
 
     @staticmethod
     def backward(ctx, dout):
@@ -1852,7 +1856,21 @@ def fused_swin_block_chain(x, params_list: list, biases: list, mask, *,
     ln2_b, w1, b1, w2, b2); biases: K (h, N, N); shifts: K shift sizes (0 =
     W-MSA, >0 = SW-MSA with the shared rolled-space ``mask``). Equals K
     :func:`fused_swin_block` calls exactly: the output of each block is
-    rounded to the compute dtype at the seam."""
+    rounded to the compute dtype at the seam. Inside a trace it is the op
+    ``sunet::fused_swin_block_chain``, the K 12-tuples flat in one list."""
+    if torch.compiler.is_compiling():
+        C = x.shape[-1]
+        flat = [t if t is not None else x.new_zeros(3 * C, dtype=torch.float32)
+                for p in params_list for t in p]
+        return torch.ops.sunet.fused_swin_block_chain(
+            x, flat, list(biases), mask, ws=ws, num_heads=num_heads, scale=scale,
+            shifts=list(shifts))
+    return _chain_impl(x, params_list, biases, mask, ws=ws, num_heads=num_heads, scale=scale,
+                       shifts=shifts)
+
+
+def _chain_impl(x, params_list: list, biases: list, mask, *, ws: int, num_heads: int,
+                scale: float, shifts: tuple) -> torch.Tensor:
     K = len(params_list)
     if not (K == len(biases) == len(shifts) and K >= 1):
         raise ValueError("fused_swin_block_chain: params, biases and shifts "
@@ -1870,7 +1888,18 @@ def fused_ln_window_attention(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj,
     """LN + window partition + W-MSA + reverse + proj; x RAW (pre-LN) and
     already rolled by the caller. Returns the sublayer output before the
     residual, NHWC, in x's dtype. CUDA: ``csrc/ln_window_attention.cu``,
-    LN_WMSA_LAUNCHES launches (:func:`wmsa_plan`), each counted."""
+    LN_WMSA_LAUNCHES launches (:func:`wmsa_plan`), each counted. Inside a
+    trace it is the op ``sunet::fused_ln_window_attention``."""
+    if torch.compiler.is_compiling():
+        return torch.ops.sunet.fused_ln_window_attention(
+            x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias, mask, ws=ws,
+            num_heads=num_heads, scale=scale)
+    return _ln_window_attention_impl(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias,
+                                     mask, ws=ws, num_heads=num_heads, scale=scale)
+
+
+def _ln_window_attention_impl(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bias, mask, *,
+                              ws: int, num_heads: int, scale: float) -> torch.Tensor:
     name = "fused_ln_window_attention"
     count = _build.counter(name)
     C = x.shape[-1]
@@ -1981,7 +2010,14 @@ def fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask, *, ws: int,
 def fused_ln_mlp(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     """y + fc2(gelu(fc1(LN(y)))) over an NHWC map, in y's dtype. CUDA:
     ``csrc/ln_mlp.cu``, three launches (LN, fc1, fc2 on a K-split cluster;
-    :func:`mlp_plan`), each counted."""
+    :func:`mlp_plan`), each counted. Inside a trace it is the op
+    ``sunet::fused_ln_mlp``."""
+    if torch.compiler.is_compiling():
+        return torch.ops.sunet.fused_ln_mlp(y, ln[0], ln[1], w1, b1, w2, b2)
+    return _ln_mlp_impl(y, ln, w1, b1, w2, b2)
+
+
+def _ln_mlp_impl(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     name = "fused_ln_mlp"
     count = _build.counter(name)
     if y.device.type == "cpu":
@@ -2166,7 +2202,7 @@ class LnWindowAttentionTrainable(torch.autograd.Function):
              None if bqkv is None else bqkv.detach(), cast(wproj), bias.detach())
         ctx.save_for_backward(x, mask, *p)
         ctx.static = (ws, num_heads, scale)
-        return fused_ln_window_attention(x, *p[:5], bproj.detach(), p[5], mask,
+        return _ln_window_attention_impl(x, *p[:5], bproj.detach(), p[5], mask,
                                          ws=ws, num_heads=num_heads, scale=scale)
 
     @staticmethod

@@ -75,7 +75,6 @@ Training never takes the chain route.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional
 
@@ -85,6 +84,7 @@ import torch.nn.functional as F
 
 from sunet_tf_tpu_torch.kernels import upsample as up_kernels
 from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.ops.constants import shape_constant
 from sunet_tf_tpu_torch.ops.image import bilinear_resize, pixel_shuffle
 from sunet_tf_tpu_torch.ops.window import (
     effective_window,
@@ -132,7 +132,11 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 def kernel_weights(module: nn.Module, dtype, build):
     """``build()`` cached on ``module`` per dtype until any of its parameters
     changes (in-place updates such as ``load_state_dict`` bump a tensor's
-    version)."""
+    version). Inside a trace (``torch.export``) nothing is cached: the casts
+    and pads are nodes of the graph, computed from the weights it is called
+    with."""
+    if torch.compiler.is_compiling():
+        return build()
     key = (dtype,) + tuple((p.data_ptr(), p._version)
                            for p in module.parameters())
     cached = getattr(module, "_kernel_cache", None)
@@ -140,6 +144,21 @@ def kernel_weights(module: nn.Module, dtype, build):
         cached = (key, build())
         module._kernel_cache = cached
     return cached[1]
+
+
+def _frozen(t: torch.Tensor) -> torch.Tensor:
+    """``t`` without autograd history; in a trace, ``t`` itself (the
+    exported program runs without autograd, and a detach would be a node
+    of it)."""
+    return t if torch.compiler.is_compiling() else t.detach()
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a contiguous float32 tensor without autograd history, with
+    no op where it already is one."""
+    t = _frozen(t)
+    t = t if t.dtype == torch.float32 else t.float()
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def drop_path_scales(batch: int, rate: float,
@@ -160,13 +179,9 @@ def drop_path(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return x * scale.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=64)
-def _mask_tensor(H: int, W: int, ws: int, shift: int,
-                 device: torch.device) -> torch.Tensor:
-    # a normal tensor even when first built under inference_mode: training
-    # saves it for backward
-    with torch.inference_mode(False):
-        return torch.as_tensor(shift_attn_mask(H, W, ws, shift), device=device)
+def _mask_tensor(H: int, W: int, ws: int, shift: int, device: torch.device) -> torch.Tensor:
+    return shape_constant(("sw_mask", H, W, ws, shift, device), lambda: torch.as_tensor(
+        shift_attn_mask(H, W, ws, shift), device=device))
 
 
 class PReLU(nn.Module):
@@ -242,9 +257,9 @@ class WindowAttention(nn.Module):
         """(num_heads, N, N) float32 relative-position bias."""
         ws = self.window_size
         n = ws * ws
-        idx = torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
-                              dtype=torch.long,
-                              device=self.relative_position_bias_table.device)
+        dev = self.relative_position_bias_table.device
+        idx = shape_constant(("rel_index", ws, dev), lambda: torch.as_tensor(
+            relative_position_index(ws, ws).reshape(-1), dtype=torch.long, device=dev))
         bias = self.relative_position_bias_table[idx].float()
         return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
 
@@ -308,16 +323,19 @@ class SwinBlock(nn.Module):
             a, m = self.attn, self.mlp
 
             def w(lin):
-                t = lin.weight.detach().t()
+                t = _frozen(lin.weight).t()
                 pad = wa.wcols(t.shape[1]) - t.shape[1]
-                return F.pad(t, (0, pad)).contiguous().to(dtype)
-            f = lambda t: t.detach().float().contiguous()
+                if pad:
+                    t = F.pad(t, (0, pad))
+                # one copy: the cast writes the (in, out) layout
+                return t.to(dtype, memory_format=torch.contiguous_format)
+            f = _f32
             bqkv = (f(a.qkv.bias) if a.qkv.bias is not None
                     else torch.zeros(3 * self.dim, device=a.qkv.weight.device))
             return (f(self.norm1.weight), f(self.norm1.bias), w(a.qkv), bqkv,
                     w(a.proj), f(a.proj.bias), f(self.norm2.weight),
                     f(self.norm2.bias), w(m.fc1), f(m.fc1.bias), w(m.fc2),
-                    f(m.fc2.bias), self.attn.bias_matrix().detach().contiguous())
+                    f(m.fc2.bias), _frozen(self.attn.bias_matrix()).contiguous())
         return kernel_weights(self, dtype, build)
 
     def _fused_block(self, x: torch.Tensor) -> torch.Tensor:
@@ -574,10 +592,10 @@ class DualUpsample(nn.Module):
         alpha_p, w_b1, b_b1, alpha_b, wpf, wbf."""
         def build():
             wpf, wbf = self.folded()
-            w = lambda t: t.detach().contiguous().to(dt)
-            return (w(self.up_p[0].kernel()), self.up_p[1].weight.detach(),
-                    w(self.up_b[0].kernel()), self.up_b[0].bias.detach(),
-                    self.up_b[1].weight.detach(), w(wpf), w(wbf))
+            w = lambda t: _frozen(t).to(dt, memory_format=torch.contiguous_format)
+            return (w(self.up_p[0].kernel()), _frozen(self.up_p[1].weight),
+                    w(self.up_b[0].kernel()), _frozen(self.up_b[0].bias),
+                    _frozen(self.up_b[1].weight), w(wpf), w(wbf))
 
         return kernel_weights(self, dt, build)
 

@@ -30,7 +30,9 @@ settings:
   and checked there (each must fail); ``--mutants`` runs only the named
   ones and no other setting, ``--sound`` only the kernel and floor
   settings; a mutant's file path is under ``kernels/csrc`` (``../`` for
-  the wrappers' Python beside it);
+  the wrappers' Python beside it); the Python mutants of
+  ``EXPORT_MUTANTS`` and ``PARALLEL_MUTANTS`` run chip_smoke's export or
+  parallel phase in their copy, which must fail;
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -294,6 +296,22 @@ MUTANTS = {
 # on the CPU (a hidden fallback: caught by the launch counts), and
 # ServingModel calling bucket 4 with a request of 3 without its zero-padded
 # tail (caught by the n = 3 request).
+# The parallel tier's mutants (Python, under sunet_tf_tpu_torch/), each run
+# through chip_smoke's parallel phase, which must fail: the loss normalised
+# by each rank's own sum of weights (a mean of per-rank losses; the 2 + 1
+# valid batch catches it), and the Swin weights' gradients averaged over the
+# spatial group instead of summed (the SPATIAL=2 step catches it).
+PARALLEL_MUTANTS = {
+    "loss_per_rank_weights": (
+        "train/loop.py",
+        "    den = comm.all_reduce_sum(mesh, mesh.data_group, w.sum().detach())",
+        "    den = w.sum().detach()"),
+    "spatial_grads_averaged": (
+        "train/loop.py",
+        "        _flat_all_reduce(mesh, mesh.spatial_group, sp)",
+        "        _flat_all_reduce(mesh, mesh.spatial_group, sp, 1.0 / mesh.shape[\"spatial\"])"),
+}
+
 EXPORT_MUTANTS = {
     "op_cuda_runs_plain": ("kernels/ops.py", """        _LIB.impl(_name, IMPLS[_name], _key)""",
                            """        _LIB.impl(_name, IMPLS[_name] if _key == "CPU" else (
@@ -527,18 +545,18 @@ for mode, (rel, tag) in worst.items():
 '''
 
 
-def run_export(cwd: Path, name: str, log) -> list:
-    """chip_smoke's export phase in the checkout ``cwd``; a SUMMARY line of
+def run_export(cwd: Path, name: str, log, phase: str = "export") -> list:
+    """chip_smoke's ``phase`` in the checkout ``cwd``; a SUMMARY line of
     whether it failed (as a mutant must)."""
-    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", "export"], cwd=cwd,
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--phases", phase], cwd=cwd,
                           capture_output=True, text=True)
     log.write(proc.stdout + proc.stderr)
     log.flush()
     if proc.returncode == 0:
-        return [f"SUMMARY [{name}]: the export phase PASSED: the mutant was not caught"]
+        return [f"SUMMARY [{name}]: the {phase} phase PASSED: the mutant was not caught"]
     lines = (proc.stdout + proc.stderr).strip().splitlines()
     why = next((ln for ln in reversed(lines) if "FAILED" in ln or "Error" in ln), lines[-1])
-    return [f"SUMMARY [{name}]: the export phase failed (exit {proc.returncode}): "
+    return [f"SUMMARY [{name}]: the {phase} phase failed (exit {proc.returncode}): "
             f"{why.strip()[:300]}"]
 
 
@@ -788,9 +806,11 @@ def main():
         print(f"chip_mutants: readings in {out}")
         return
     only = [m for m in args.mutants.split(",") if m]
-    if set(only) - set(MUTANTS) - set(EXPORT_MUTANTS):
+    python_mutants = {**{k: (v, "export") for k, v in EXPORT_MUTANTS.items()},
+                      **{k: (v, "parallel") for k, v in PARALLEL_MUTANTS.items()}}
+    if set(only) - set(MUTANTS) - set(python_mutants):
         raise SystemExit("chip_mutants: unknown mutants "
-                         f"{sorted(set(only) - set(MUTANTS) - set(EXPORT_MUTANTS))}")
+                         f"{sorted(set(only) - set(MUTANTS) - set(python_mutants))}")
     with open(out, "w") as log, tempfile.TemporaryDirectory() as tmp:
         if not args.step_only:
             if not only:
@@ -812,7 +832,7 @@ def main():
                                          f"{src} once")
                     path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
-            for name, (src, old, new) in EXPORT_MUTANTS.items():
+            for name, ((src, old, new), phase) in python_mutants.items():
                 if (only and name not in only) or args.sound:
                     continue
                 from sunet_tf_tpu_torch.kernels import _build
@@ -827,7 +847,7 @@ def main():
                     raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in "
                                      f"{src} once")
                 path.write_text(text.replace(old, new))
-                summary += run_export(copy, name, log)
+                summary += run_export(copy, name, log, phase)
         if not only and not args.sound:
             summary += step_noise(log, out.with_suffix(".dists.json"))
     print("\n".join(summary))

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,export,train,bands,
-                           entries,scaled,scaled_train]
+    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,export,parallel,
+                           train,bands,entries,scaled,scaled_train]
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
@@ -129,6 +129,32 @@
    forward + backward; then ``python -m sunet_tf_tpu_torch.train`` with
    the config's YAML for 2 steps (its own process). Cases and training
    launches are filed under the wrapper's name + ``[scaled]``.
+
+11. The parallel tier (phase ``parallel``, after ``export``): the B5 form
+   against its plain versions (``b5_cases``: #1's inference and train forms
+   and #8 at shift 0 with a shard's slice of the SW-MSA mask, on the
+   shards of ``Config()``'s three kernel stages at 256² over two spatial
+   ranks, and the sequence form's train form and #8's big-window form on
+   ``scaled_config()``'s first stage's shard; ``swin_block_trainable_dynmask``
+   equal to the wrapper calls it makes); then ranks spawned by
+   ``parallel.launch.run_ranks`` on the kernels built here: world size 1
+   over NCCL, ``Config()`` at batch 4 (the training step, an eval pass and
+   a 1024x1024 tiled image with the mesh equal to the same without it, bit
+   for bit, under deterministic algorithms, the one-process step twice as
+   the control); two ranks sharing the card over gloo (deterministic
+   algorithms too): the data tier (2,
+   1) at batch 4 and with 3 valid rows (2 + 1) against the one-process
+   step in each rank (logits, loss within 1e-5, every gradient under the
+   training gate, both ranks' parameters equal bit for bit), the spatial
+   tier (1, 2) at batch 2 (the forward against the unsharded one under the
+   forward gate, one step against the one-process step on the recompute
+   route under the training gate, the stages the runner took, launches
+   equal to ``expected_launches(runner=)``), the tiled image over the two
+   data ranks bit for bit, and each rank's host-paced step ms (two ranks
+   sharing one H100, not a scaling figure). Its kernels are filed under
+   ``fused_swin_block[B5]``, ``swin_block_trainable_dynmask`` and
+   ``swin_block_trainable_dynmask_bwd`` (launches: the spatial forward's
+   and training step's), the scaled shard's under the ``[scaled]`` names.
 
 Prints a JSON line of per-kernel results, then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0)
@@ -279,6 +305,14 @@ REPLACES = {
     # attention) up to C=720 and #9's wide form at C=180 (#1's train form is
     # filed under fused_swin_block[scaled])
     "swin_block_bwd[scaled]": (f"{WA}:2031", "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd.cu"),
+    # the spatial tier's per-shard forms (B5): #1 at shift 0 with a shard's
+    # slice of the SW-MSA mask (inference), its train form and #8 there
+    # (JAX swin_block_trainable_dynmask and its backward)
+    "fused_swin_block[B5]": (f"{WA}:1582", "sunet_tf_tpu_torch/kernels/csrc/swin_cluster.cu"),
+    "swin_block_trainable_dynmask": (f"{WA}:2188",
+                                     "sunet_tf_tpu_torch/kernels/csrc/swin_cluster.cu"),
+    "swin_block_trainable_dynmask_bwd": (f"{WA}:2031",
+                                         "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd.cu"),
     "up4_conv_bwd[scaled]": ("sunet_tf_tpu/kernels/upsample.py:939",
                              "sunet_tf_tpu_torch/kernels/csrc/up4_conv_bwd.cu"),
 }
@@ -297,30 +331,34 @@ def bound(flops: float, nbytes: float) -> dict:
 
 
 def block_cost(B: int, H: int, C: int, ws: int = 8, blocks: int = 1, heads: int = 0,
-               masked: bool = False) -> dict:
-    """One Swin block forward (kernels #1, #2): products qkv, proj, fc1, fc2
-    and the two attention products; bytes: x in, out, bf16 weights, and
-    with ``heads`` the float32 rel-pos bias (and the SW mask where
-    ``masked``), which at 256 tokens a window are megabytes."""
-    T, N, hid = B * H * H, ws * ws, 4 * C
+               masked: bool = False, W: int = 0) -> dict:
+    """One Swin block forward (kernels #1, #2) on an H x W map (W = H by
+    default): products qkv, proj, fc1, fc2 and the two attention products;
+    bytes: x in, out, bf16 weights, and with ``heads`` the float32 rel-pos
+    bias (and the SW mask where ``masked``), which at 256 tokens a window
+    are megabytes."""
+    W = W or H
+    T, N, hid = B * H * W, ws * ws, 4 * C
     flops = blocks * (2 * T * C * (4 * C + 2 * hid) + 4 * T * N * C)
-    tables = blocks * heads * N * N * 4 + ((H // ws) ** 2 * N * N * 4 if masked else 0)
+    tables = blocks * heads * N * N * 4 + ((H // ws) * (W // ws) * N * N * 4 if masked else 0)
     return bound(flops, 2 * T * C * 2 + blocks * (4 * C * C + 2 * C * hid) * 2 + tables)
 
 
 def block_bwd_cost(B: int, H: int, C: int, ws: int = 8, heads: int = 0,
-                   masked: bool = False) -> dict:
-    """Backward of one block (#8, recompute form): the forward recomputed up
-    to the fc1 pre-activation, then two products per forward product (the
-    input and weight grads) and four attention products; bytes: x and dout
-    in, dx out, bf16 weights in, float32 grads out, and with ``heads`` the
-    float32 rel-pos bias read and its gradient written (and the SW mask
-    where ``masked``), megabytes at 256 tokens a window."""
-    T, N, hid = B * H * H, ws * ws, 4 * C
+                   masked: bool = False, W: int = 0) -> dict:
+    """Backward of one block (#8, recompute form) on an H x W map (W = H by
+    default): the forward recomputed up to the fc1 pre-activation, then two
+    products per forward product (the input and weight grads) and four
+    attention products; bytes: x and dout in, dx out, bf16 weights in,
+    float32 grads out, and with ``heads`` the float32 rel-pos bias read and
+    its gradient written (and the SW mask where ``masked``), megabytes at
+    256 tokens a window."""
+    W = W or H
+    T, N, hid = B * H * W, ws * ws, 4 * C
     recompute = 2 * T * C * (4 * C + hid) + 4 * T * N * C
     backward = 2 * 2 * T * C * (4 * C + 2 * hid) + 8 * T * N * C
     w = 4 * C * C + 2 * C * hid
-    tables = 2 * heads * N * N * 4 + ((H // ws) ** 2 * N * N * 4 if masked else 0)
+    tables = 2 * heads * N * N * 4 + ((H // ws) * (W // ws) * N * N * 4 if masked else 0)
     return bound(recompute + backward, 3 * T * C * 2 + w * 2 + w * 4 + tables)
 
 
@@ -3149,8 +3187,502 @@ def scaled_train_phase(results: dict) -> dict:
     return out
 
 
-PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "export", "train", "bands",
-          "entries", "scaled", "scaled_train")
+# ------------------------------------------------------------ the parallel tier
+
+# The shards of Config()'s Swin stages at 256x256 over two spatial ranks
+# (local H, W, C): the B5 form's shapes on the main path.
+B5_SHARDS = ((32, 64, 96), (16, 32, 192), (8, 16, 384))
+# The scaled config's first stage at 512x512 over two spatial ranks: (B,
+# local H, W, C), head dim 30.
+B5_SCALED_SHARD = (1, 64, 128, 180)
+# One rank group's limit (rendezvous, build, every check): a rank that
+# outlasts it fails the phase.
+RANKS_TIMEOUT_S = 600
+RANKS_LABEL = "two ranks sharing one H100, not a scaling figure"
+
+
+def shard_mask(H: int, W: int, ws: int, shift: int, index: int, n: int = 2):
+    """Rows of spatial shard ``index`` of ``n`` of the rolled-space SW-MSA
+    mask of an H x W map (``parallel.spatial``'s slice)."""
+    import torch
+
+    from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+    full = torch.as_tensor(shift_attn_mask(H, W, ws, shift), device="cuda")
+    k = (H // n // ws) * (W // ws)
+    return full[index * k:(index + 1) * k].contiguous()
+
+
+def b5_cases(gen, B: int = 2) -> list:
+    """The B5 form (the block kernel and #8 at shift 0 with a shard's slice
+    of the SW-MSA mask as an input): #1's inference form, its train form
+    (drop-path scales) and #8 on each shard of ``B5_SHARDS`` (spatial rank
+    1's rows: the mask's second half); the sequence form's train form and
+    #8's big-window form on ``B5_SCALED_SHARD``. Dicts as
+    ``scaled_train_cases``' with the name they are filed under."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+
+    rand = lambda *s: torch.randn(*s, device="cuda", generator=gen).to(torch.bfloat16)
+    cases = []
+
+    def add(name, case, fn, plain, args, kwargs, cost, grads=None, mean_tol=MEAN_TOL,
+            launches=None, timed=True):
+        counter = "fused_swin_block" if grads is None else "swin_block_bwd"
+        cases.append(dict(name=name, case=case, fn=fn, plain=plain, args=args, kw=kwargs,
+                          cost=cost, grads=grads, mean_tol=mean_tol, launches=launches,
+                          timed=timed, counter=counter))
+
+    ws, heads, scale = 8, 8, 8.0
+    dp = torch.tensor([[1 / 0.9, 1 / 0.9], [1 / 0.9, 0.0]], device="cuda")
+    for H, W, C in B5_SHARDS:
+        p, x, dout = block_params(C, heads, ws * ws, gen), rand(B, H, W, C), rand(B, H, W, C)
+        mask = shard_mask(2 * H, W, ws, ws // 2, 1)
+        blk = (x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10], p[11], p[12], mask)
+        kw = dict(ws=ws, num_heads=heads, scale=scale, shift=0)
+        case = f"({H},{W},{C}) shift 0, mask slice"
+        cost = block_cost(B, H, C, ws, heads=heads, masked=True, W=W)
+        add("fused_swin_block[B5]", case, wa.fused_swin_block, wa.fused_swin_block_reference,
+            blk, kw, cost, launches=1)
+        add("swin_block_trainable_dynmask", case + ", train form", wa.fused_swin_block,
+            wa.fused_swin_block_reference, blk + (dp,), kw, cost, launches=1)
+        add("swin_block_trainable_dynmask_bwd", case,
+            wa.swin_block_bwd, wa.swin_block_bwd_reference,
+            (x, dout, *blk[1:], dp), kw,
+            block_bwd_cost(B, H, C, ws, heads=heads, masked=True, W=W), grads=BLOCK_GRADS,
+            launches=wa.SWIN_BLOCK_BWD_LAUNCHES)
+
+    Bs, H, W, C = B5_SCALED_SHARD
+    heads, ws = C // 30, SCALED_WS
+    p, x, dout = block_params(C, heads, ws * ws, gen), rand(Bs, H, W, C), rand(Bs, H, W, C)
+    mask, dps = shard_mask(2 * H, W, ws, ws // 2, 1), scaled_dp(gen, Bs)
+    kw = dict(ws=ws, num_heads=heads, scale=SCALED_QK, shift=0)
+    case = f"({H},{W},{C}) shift 0, mask slice, {heads} heads"
+    for half, q in seq_halves(p).items():
+        add("fused_swin_block" + SCALED, f"B5 train form {case}, {half}", wa.fused_swin_block,
+            wa.fused_swin_block_reference,
+            (x, q[0:2], q[2], q[3], q[4], q[5], q[6:8], q[8], q[9], q[10], q[11], q[12], mask,
+             dps), kw, block_cost(Bs, H, C, ws, heads=heads, masked=True, W=W),
+            mean_tol=SEQ_BLOCK_MEAN_TOL if half == "block" else MEAN_TOL,
+            launches=wa.SWIN_BLOCK_SEQ_LAUNCHES, timed=half == "block")
+    add("swin_block_bwd" + SCALED, f"B5 {case}", wa.swin_block_bwd, wa.swin_block_bwd_reference,
+        (x, dout, p[0:2], *p[2:6], p[6:8], *p[8:12], p[12], mask, dps), kw,
+        block_bwd_cost(Bs, H, C, ws, heads=heads, masked=True, W=W), grads=BLOCK_GRADS,
+        launches=wa.SWIN_BLOCK_BWD_BIG_LAUNCHES)
+    return cases
+
+
+def b5_kernel_phase(results: dict):
+    """The B5 form's kernels against their plain versions (``b5_cases``),
+    timed and filed; and ``swin_block_trainable_dynmask`` (the autograd
+    Function the spatial runner calls) equal, forward and dx, to the wrapper
+    calls it makes."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+
+    print("phase: the B5 form (shift 0, a shard's mask slice) vs plain versions (bf16)")
+    gen = torch.Generator(device="cuda").manual_seed(1717)
+    for c in b5_cases(gen):
+        got = lambda: c["fn"](*c["args"], **c["kw"])
+        ref = lambda: c["plain"](*c["args"], **c["kw"])
+        label = f"{c['name']} {c['case']}"
+        if c["grads"] is None:
+            mx, mean = compare(label, got(), ref(), mean_tol=c["mean_tol"])
+        else:
+            mx, mean = compare_grads(label, got(), ref(), c["grads"])
+        if c["timed"]:
+            launches_per_call(c["counter"], got, c["launches"])
+            record_time(results, c["name"], c["case"], got, ref, c["cost"], mx, mean)
+    # the Function: forward and dx through autograd equal the wrapper calls
+    H, W, C = B5_SHARDS[0]
+    p = block_params(C, 8, 64, gen)
+    x = torch.randn(2, H, W, C, device="cuda", generator=gen).to(torch.bfloat16)
+    dout = torch.randn(2, H, W, C, device="cuda", generator=gen).to(torch.bfloat16)
+    mask, dp = shard_mask(2 * H, W, 8, 4, 1), torch.ones(2, 2, device="cuda")
+    f32 = [t.float().requires_grad_(True) for t in p]
+    xg = x.clone().requires_grad_(True)
+    y = wa.swin_block_trainable_dynmask(xg, *f32[:12], f32[12], dp, mask, 8, 8, 8.0)
+    y.backward(dout)
+    kw = dict(ws=8, num_heads=8, scale=8.0, shift=0)
+    want = wa.fused_swin_block(x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
+                               p[11], p[12], mask, dp, **kw)
+    dx = wa.swin_block_bwd(x, dout, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
+                           p[11], p[12], mask, dp, **kw)[0]
+    check(torch.equal(y.detach(), want) and torch.equal(xg.grad, dx),
+          "swin_block_trainable_dynmask differs from the wrapper calls it makes")
+    print("  swin_block_trainable_dynmask: forward and dx equal the wrapper calls bit for bit")
+
+
+def mask_batch_u8(B: int, S: int, seed: int) -> dict:
+    """A uint8 mask-task batch on the card: random input, blob targets."""
+    import numpy as np
+
+    from sunet_tf_tpu_torch.train.loop import to_device
+
+    rng = np.random.default_rng(seed)
+    tar = (rng.random((B, S // 16, S // 16, 1)) > 0.6).astype(np.uint8) * 255
+    tar = np.repeat(np.repeat(tar, 16, axis=1), 16, axis=2)
+    return to_device({"input": rng.integers(0, 256, (B, S, S, 3), dtype=np.uint8),
+                      "target": tar}, "cuda")
+
+
+class GradTap:
+    """An optimizer that keeps a copy of the gradients it is given before
+    its own ``step``: the step's gradient, after the data tier's reduction."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def zero_grad(self):
+        self.opt.zero_grad()
+
+    def step(self):
+        self.grads = [None if p.grad is None else p.grad.detach().clone()
+                      for p in self.opt.params]
+        self.opt.step()
+
+
+def gate_vs(name: str, model, grads: list, ref_grads: list) -> dict:
+    """Every parameter's gradient against the reference step's under the
+    training gate (``grad_limits``); returns the worst tensor's reading."""
+    readings = []
+    for (pname, prm), g, r in zip(model.named_parameters(), grads, ref_grads):
+        if r is None or g is None:
+            check(g is None and r is None, f"{name}: {pname} has a gradient on one side only")
+            continue
+        cos, rl2 = grad_distance(g.double().flatten(), r.double().flatten())
+        cos_lim, rl2_lim = grad_limits(prm.numel())
+        readings.append((gate_share(cos, rl2, cos_lim, rl2_lim), pname, cos, rl2))
+    readings.sort(reverse=True)
+    share, pname, cos, rl2 = readings[0]
+    beyond = [r for r in readings if r[0] > 1]
+    print(f"  {name}: worst gradient {pname}: cos {cos:.6f} rel-L2 {rl2:.3e} "
+          f"({share:.3f} of its limits) {'ok' if share <= 1 else 'FAIL'}; "
+          f"{len(beyond)} of {len(readings)} tensors beyond"
+          + "".join(f"\n    {n}: cos {c:.6f} rel-L2 {e:.3e}" for _, n, c, e in beyond[:12]))
+    check(share <= 1, f"{name}: gradient of {pname} outside the training gate")
+    return {"worst_tensor": pname, "cos": cos, "rel_l2": rl2, "gate_share": share}
+
+
+def params_digest(model) -> str:
+    """A hash of every parameter's bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for prm in model.parameters():
+        h.update(prm.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def counted(fn, names) -> tuple:
+    """(fn's result, the launches of each wrapper of ``names`` during it)."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: _build.counter(k).cuda for k in names}
+
+
+def world1_rank(rank: int, device) -> dict:
+    """World size 1 over NCCL, ``Config()`` at full width, batch 4: the
+    training step, an eval pass and a 1024x1024 tiled image with the mesh
+    against the same without it, bit for bit; the step's launches. The
+    steps run with PyTorch's deterministic algorithms (the plain ops'
+    backwards, e.g. the rel-pos bias gather's, otherwise add with atomics
+    in any order; the kernels' reductions are deterministic): the one-process
+    step twice equal is the control."""
+    import copy
+
+    import torch
+
+    from sunet_tf_tpu_torch.config import Config
+    from sunet_tf_tpu_torch.infer.tiled import tiled_inference
+    from sunet_tf_tpu_torch.models.sunet import TRAIN_WRAPPERS, build_model
+    from sunet_tf_tpu_torch.parallel.mesh import make_mesh
+    from sunet_tf_tpu_torch.train.loop import build_steps
+    from sunet_tf_tpu_torch.train.trainer import make_optimizer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = make_mesh(1, 1)
+    cfg = Config()
+    batch = mask_batch_u8(4, 256, 5)
+    base = build_model(cfg, device=device, backend="fused", seed=0).train().requires_grad_(True)
+    out = {"backend": mesh.backend, "world": 1}
+    runs = {}
+    for who, m in (("one process", None), ("control", None), ("mesh", mesh)):
+        model = copy.deepcopy(base)
+        fns = build_steps(model, make_optimizer(cfg, model, 1), task="mask", seed=0, mesh=m)
+        (scalars, _), launches = counted(lambda: fns.train_step(batch, 0, fns.init_metrics()),
+                                         TRAIN_WRAPPERS)
+        runs[who] = (model, fns, {k: float(v) for k, v in scalars.items()}, launches)
+    (m1, f1, s1, _), (m2, f2, s2, l2) = runs["one process"], runs["mesh"]
+    same = lambda a, b: runs[a][2] == runs[b][2] and all(
+        torch.equal(x, y) for x, y in zip(runs[a][0].parameters(), runs[b][0].parameters()))
+    out["step_loss"] = (s1["loss"], s2["loss"])
+    out["control_bit_equal"] = same("one process", "control")
+    out["step_bit_equal"] = same("one process", "mesh")
+    del runs["control"]
+    out["step_launches_ok"] = l2 == m2.expected_launches((4, 256, 256, 3), train=True)
+    evb = dict(batch, valid=torch.tensor([1.0, 1.0, 1.0, 0.0], device=device))
+    e1, h1 = f1.eval_step(evb, f1.init_metrics())
+    e2, h2 = f2.eval_step(evb, f2.init_metrics())
+    out["eval_sums"] = {k: float(v) for k, v in e2.items()}
+    out["eval_bit_equal"] = (all(torch.equal(e1[k], e2[k]) for k in e1)
+                             and all(torch.equal(h1[k], h2[k]) for k in h1))
+    m1.eval()
+    img = torch.rand(1, 1024, 1024, 3, device=device,
+                     generator=torch.Generator(device=device).manual_seed(13))
+    with torch.inference_mode():
+        y1 = tiled_inference(m1, img, kernel=256, stride=128)
+        y2 = tiled_inference(m1, img, kernel=256, stride=128, mesh=mesh)
+    out["tiled_bit_equal"] = torch.equal(y1, y2)
+    counter = iter(range(1, 1000))
+    for who in runs:
+        f = runs[who][1]
+        out[f"step_ms {who}"] = time_ms(lambda: f.train_step(batch, next(counter),
+                                                             f.init_metrics()),
+                                        iters=5, warmup=1, device=False)
+    return out
+
+
+def shared_card_rank(rank: int, device) -> dict:
+    """Two ranks on one card over gloo, ``Config()``: the data tier (2, 1)
+    at batch 4 (2 + 2) and with 3 valid rows (2 + 1), drop-path 0, against
+    the one-process step in this rank; the spatial tier (1, 2) at batch 2,
+    its forward and one training step against one process (on the
+    recompute route, which the runner's blocks take); a 1024x1024 tiled
+    image over the two data ranks; launches and plans of each. The steps
+    run with PyTorch's deterministic algorithms, so that each comparison
+    reads the tier alone, not the order of the plain backwards' atomics
+    (which moves a one-value gradient's cancelling sum far)."""
+    import copy
+
+    import torch
+
+    from sunet_tf_tpu_torch.config import Config
+    from sunet_tf_tpu_torch.infer.tiled import tiled_inference
+    from sunet_tf_tpu_torch.models import layers
+    from sunet_tf_tpu_torch.models.sunet import INFER_WRAPPERS, TRAIN_WRAPPERS, build_model
+    from sunet_tf_tpu_torch.parallel.mesh import data_rows, make_mesh
+    from sunet_tf_tpu_torch.parallel.spatial import SpatialStageRunner
+    from sunet_tf_tpu_torch.train.loop import (build_steps, model_generator, prepare,
+                                               step_generators)
+    from sunet_tf_tpu_torch.train.trainer import make_optimizer
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    data = make_mesh(data=2, spatial=1)
+    spatial = make_mesh(data=1, spatial=2)
+    out = {"backend": data.backend, "world": 2}
+    cfg0 = Config()
+    cfg = cfg0.replace(swinunet=cfg0.swinunet.__class__(
+        **{**cfg0.swinunet.__dict__, "drop_path_rate": 0.0}))
+    base = build_model(cfg, device=device, backend="fused", seed=0).train().requires_grad_(True)
+
+    def step(model_src, b, mesh=None, runner=None, c=cfg):
+        model = copy.deepcopy(model_src)
+        opt = GradTap(make_optimizer(c, model, 1))
+        fns = build_steps(model, opt, task="mask", seed=0, mesh=mesh, stage_runner=runner)
+        (scalars, _), launches = counted(lambda: fns.train_step(b, 0, fns.init_metrics()),
+                                         TRAIN_WRAPPERS)
+        return model, opt.grads, float(scalars["loss"]), launches, fns
+
+    # the data tier, batch 4 as 2 + 2
+    batch = mask_batch_u8(4, 256, 7)
+    one, g_one, l_one, _, f_one = step(base, batch)
+    plans = set()
+    with plans_taken(plans):
+        m_d, g_d, l_d, launches, f_d = step(base, batch, data)
+    out["data_plans"] = plans
+    out["data_launches"] = launches
+    out["data_launches_ok"] = launches == m_d.expected_launches((2, 256, 256, 3), train=True)
+    out["data_loss"] = (l_one, l_d)
+    out["data_gate"] = gate_vs(f"data tier rank {rank}", m_d, g_d, g_one)
+    out["data_digest"] = params_digest(m_d)
+    # each rank's logits against the one-process rows (drop-path 0: no draw)
+    inp, _ = prepare(batch, "mask", 50.0, step_generators(0, 0, device)[0])
+    rows = data_rows(data, 4)
+    with torch.no_grad():
+        full = base(inp, generator=step_generators(0, 0, device)[1])
+        mine = base(inp[rows], generator=model_generator(0, 0, device, data.data_index, 2))
+    d = (mine - full[rows]).abs()
+    out["logits"] = {"bit_equal": bool(torch.equal(mine, full[rows])),
+                     "max_abs_diff": float(d.max()), "mean_abs_diff": float(d.mean())}
+    counter = iter(range(1, 1000))
+    out["step_ms one process"] = time_ms(lambda: f_one.train_step(
+        batch, next(counter), f_one.init_metrics()), iters=5, warmup=1, device=False)
+    out["step_ms data rank"] = time_ms(lambda: f_d.train_step(
+        batch, next(counter), f_d.init_metrics()), iters=5, warmup=1, device=False)
+    del one, m_d, f_one, f_d, g_one, g_d
+
+    # 3 valid rows, 2 + 1, against the one-process step on those 3
+    b3 = {k: v[:3] for k, v in batch.items()}
+    bpad = dict(batch, valid=torch.tensor([1.0, 1.0, 1.0, 0.0], device=device))
+    one3, g3, l3, _, _ = step(base, b3)
+    m_p, g_p, l_p, _, _ = step(base, bpad, data)
+    out["valid3_loss"] = (l3, l_p)
+    out["valid3_gate"] = gate_vs(f"3 valid rows rank {rank}", m_p, g_p, g3)
+    out["valid3_digest"] = params_digest(m_p)
+    del one3, m_p, g3, g_p, base
+    torch.cuda.empty_cache()
+
+    # the spatial tier (1, 2), batch 2, Config() with its drop-path rate
+    sbase = build_model(cfg0, device=device, backend="fused", seed=0)
+    runner = SpatialStageRunner(spatial)
+    x = torch.rand(2, 256, 256, 3, device=device,
+                   generator=torch.Generator(device=device).manual_seed(21))
+    with torch.inference_mode():
+        y_one = sbase(x)
+        y_sp, launches = counted(lambda: sbase(x, stage_runner=runner), INFER_WRAPPERS)
+    d = (y_sp - y_one).abs()
+    out["spatial_forward"] = {"max_abs_diff": float(d.max()), "mean_abs_diff": float(d.mean()),
+                              "bit_equal": bool(torch.equal(y_sp, y_one)),
+                              "finite": bool(torch.isfinite(y_sp).all())}
+    out["spatial_forward_launches"] = launches
+    out["spatial_forward_launches_ok"] = launches == sbase.expected_launches(
+        tuple(x.shape), runner=runner)
+    H = 256 // cfg0.swinunet.patch_size
+    n = cfg0.swinunet.num_stages
+    stages = [(f"encoder {i}", s, i) for i, s in enumerate(sbase.layers)]
+    stages += [(f"decoder {j}", s, n - 1 - j) for j, s in enumerate(sbase.layers_up[1:], 1)]
+    out["stages_taken"] = {
+        f"{name} ({H >> lv}x{H >> lv}, C={s.blocks[0].dim})": runner.applies(
+            list(s.blocks), (2, H >> lv, H >> lv, s.blocks[0].dim), True)
+        for name, s, lv in stages}
+    sbase.train().requires_grad_(True)
+    b2 = mask_batch_u8(2, 256, 9)
+    # the reference: the one-process step on the recompute route, the route
+    # the runner's blocks take (JAX's runner too; the default trains C=96 and
+    # 192 on the residual route, other rounding points)
+    layers.ROUTE_TRAIN_RESID = False
+    try:
+        _, g1, l1, _, _ = step(sbase, b2, c=cfg0)
+    finally:
+        layers.ROUTE_TRAIN_RESID = True
+    plans = set()
+    with plans_taken(plans):
+        m_s, g_s, l_s, launches, f_s = step(sbase, b2, spatial, runner, c=cfg0)
+    out["spatial_plans"] = plans
+    out["spatial_launches"] = launches
+    out["spatial_launches_ok"] = launches == m_s.expected_launches(
+        (2, 256, 256, 3), train=True, runner=runner)
+    out["spatial_loss"] = (l1, l_s)
+    out["spatial_gate"] = gate_vs(f"spatial tier rank {rank}", m_s, g_s, g1)
+    out["spatial_digest"] = params_digest(m_s)
+    out["step_ms spatial rank"] = time_ms(lambda: f_s.train_step(
+        b2, next(counter), f_s.init_metrics()), iters=3, warmup=1, device=False)
+    del m_s, g_s, g1, f_s
+    torch.cuda.empty_cache()
+
+    # tiled over the two data ranks
+    sbase.eval()
+    img = torch.rand(1, 1024, 1024, 3, device=device,
+                     generator=torch.Generator(device=device).manual_seed(13))
+    with torch.inference_mode():
+        t_one = tiled_inference(sbase, img, kernel=256, stride=128)
+        t_mesh = tiled_inference(sbase, img, kernel=256, stride=128, mesh=data)
+    out["tiled_bit_equal"] = bool(torch.equal(t_one, t_mesh))
+    out["tiled_max_abs_diff"] = float((t_one - t_mesh).abs().max())
+    return out
+
+
+def parallel_phase(results: dict, held: bool) -> dict:
+    """The parallel tier on the card: world size 1 over NCCL (bit for bit
+    against one process), then two ranks sharing the card over gloo (data
+    and spatial tiers under the gates, tiled bit for bit). The kernels were
+    built by this process; the ranks load them. ``held``: the per-kernel
+    checks of every form ran in this process, so every plan the ranks take
+    must be one they held."""
+    from sunet_tf_tpu_torch.parallel.launch import run_ranks
+
+    t0 = time.perf_counter()
+    print("phase: parallel tier (torch.distributed; ranks spawned, kernels built above)")
+    w1, = run_ranks(world1_rank, 1, backend="nccl", device="cuda:0",
+                    timeout_s=RANKS_TIMEOUT_S, env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    print(f"  world size 1, backend {w1['backend']}: step loss {w1['step_loss'][1]:.6f}, "
+          f"bit for bit {w1['step_bit_equal']} (control: the one-process step twice "
+          f"{w1['control_bit_equal']}); eval sums bit for bit {w1['eval_bit_equal']}; "
+          f"1024x1024 tiled bit for bit {w1['tiled_bit_equal']}; step launches as expected "
+          f"{w1['step_launches_ok']}")
+    print(f"    host-paced step ms (deterministic algorithms): one process "
+          f"{w1['step_ms one process']:.3f}, with the NCCL mesh {w1['step_ms mesh']:.3f}")
+    check(w1["control_bit_equal"], "world size 1: the one-process step is not reproducible")
+    check(w1["step_bit_equal"], "world size 1: the step with the mesh differs from without")
+    check(w1["eval_bit_equal"], "world size 1: eval sums differ")
+    check(w1["tiled_bit_equal"], "world size 1: tiled output differs")
+    check(w1["step_launches_ok"], "world size 1: step launches differ from expected_launches")
+
+    ranks = run_ranks(shared_card_rank, 2, backend="gloo", device="cuda:0",
+                      timeout_s=RANKS_TIMEOUT_S, env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+    r0, r1 = ranks
+    print(f"  two ranks, backend {r0['backend']} ({RANKS_LABEL}):")
+    for r, rk in enumerate(ranks):
+        lg = rk["logits"]
+        print(f"    rank {r}: data tier logits vs the one-process rows: bit for bit "
+              f"{lg['bit_equal']}, max|diff| {lg['max_abs_diff']:.3e} mean|diff| "
+              f"{lg['mean_abs_diff']:.3e}")
+        check(lg["mean_abs_diff"] <= SLICE_MEAN_TOL, f"rank {r}: logits outside the forward gate")
+        for what in ("data", "valid3"):
+            lo, lm = rk[f"{what}_loss"]
+            rel = abs(lm - lo) / abs(lo)
+            print(f"    rank {r}: {what} step loss {lm:.7f} vs one process {lo:.7f} "
+                  f"(rel {rel:.2e}, limit 1e-5)")
+            check(rel <= 1e-5, f"rank {r}: {what} step loss differs from one process")
+        check(rk["data_launches_ok"], f"rank {r}: data step launches differ from expected")
+        check(rk["spatial_launches_ok"] and rk["spatial_forward_launches_ok"],
+              f"rank {r}: spatial launches differ from expected: {rk['spatial_launches']}")
+        sf = rk["spatial_forward"]
+        print(f"    rank {r}: spatial forward vs unsharded: max|diff| {sf['max_abs_diff']:.3e} "
+              f"mean|diff| {sf['mean_abs_diff']:.3e} (limit {SLICE_MEAN_TOL}), bit for bit "
+              f"{sf['bit_equal']}")
+        check(sf["finite"] and sf["mean_abs_diff"] <= SLICE_MEAN_TOL,
+              f"rank {r}: spatial forward outside the forward gate")
+        lo, ls = rk["spatial_loss"]
+        print(f"    rank {r}: spatial step loss {ls:.7f} vs one process {lo:.7f} (rel "
+              f"{abs(ls - lo) / abs(lo):.2e}, limit {TRAIN_LOSS_RTOL})")
+        check(abs(ls - lo) <= TRAIN_LOSS_RTOL * abs(lo), f"rank {r}: spatial loss")
+        check(rk["tiled_bit_equal"], f"rank {r}: tiled over two ranks differs from one "
+              f"process (max|diff| {rk['tiled_max_abs_diff']:.3e})")
+        print(f"    rank {r}: host-paced step ms (deterministic algorithms), one process "
+              f"{rk['step_ms one process']:.3f}, "
+              f"data rank {rk['step_ms data rank']:.3f}, spatial rank (batch 2) "
+              f"{rk['step_ms spatial rank']:.3f}")
+        if held:
+            for what in ("data_plans", "spatial_plans"):
+                check(rk[what] <= HELD_PLANS, f"rank {r}: launch plans no per-kernel check held: "
+                      f"{sorted(rk[what] - HELD_PLANS)}")
+    print("    stages the spatial runner took: " + ", ".join(
+        f"{k} {'yes' if v else 'no (replicated)'}" for k, v in r0["stages_taken"].items()))
+    for what in ("data", "valid3", "spatial"):
+        check(r0[f"{what}_digest"] == r1[f"{what}_digest"],
+              f"{what}: the two ranks' parameters differ after the update")
+    print("    both ranks' parameters equal bit for bit after each update; the 1024x1024 "
+          "tiled image over two ranks equals one process bit for bit")
+    launches = r0["spatial_launches"]
+    results.setdefault("swin_block_trainable_dynmask", {"max_abs_err": 0.0, "cases": []})[
+        "launches"] = launches["fused_swin_block"]
+    results.setdefault("swin_block_trainable_dynmask_bwd", {"max_abs_err": 0.0, "cases": []})[
+        "launches"] = launches["swin_block_bwd"]
+    results.setdefault("fused_swin_block[B5]", {"max_abs_err": 0.0, "cases": []})[
+        "launches"] = r0["spatial_forward_launches"]["fused_swin_block"]
+    for name in ("swin_block_trainable_dynmask", "swin_block_trainable_dynmask_bwd",
+                 "fused_swin_block[B5]"):
+        check(results[name]["launches"] > 0, f"{name}: never launched on the spatial path")
+    wall = time.perf_counter() - t0
+    print(f"  parallel phase: {wall:.1f} s wall")
+    return {"world1": w1, "ranks": [{k: v for k, v in rk.items() if not k.endswith("_plans")}
+                                    for rk in ranks], "label": RANKS_LABEL, "wall_s": wall}
+
+
+PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "export", "parallel", "train",
+          "bands", "entries", "scaled", "scaled_train")
 
 
 def main():
@@ -3203,6 +3735,8 @@ def main():
             scaled_kernel_phase(results)
         if "scaled_train" in phases:
             scaled_train_kernel_phase(results)
+        if "parallel" in phases:
+            b5_kernel_phase(results)
     if "slice" in phases:
         stats["slice"] = slice_phase(results)
     if "demo" in phases:
@@ -3211,6 +3745,8 @@ def main():
         stats["tiled"] = tiled_phase()
     if "export" in phases:
         stats["export"] = export_phase()
+    if "parallel" in phases:
+        stats["parallel"] = parallel_phase(results, {"kernels", "train_kernels"} <= set(phases))
     if "train" in phases:
         stats["train"] = train_phase(results)
     if "bands" in phases:

@@ -3,9 +3,11 @@
 The on-disk format is the reference ``training.yaml`` (sections ``VERBOSE /
 SWINUNET / MODEL / OPTIM / TRAINING``), the same schema the JAX package
 reads (``sunet_tf_tpu/config.py``). Of the JAX package's ``TPU`` section
-only ``COMPUTE_DTYPE`` and the optimizer's moment storage dtypes
-(``OPT_MU_DTYPE``, ``OPT_NU_DTYPE``) mean anything on a GPU; its other keys
-(mesh, attention backend, donation) are read past and ignored here.
+the port reads ``COMPUTE_DTYPE``, the optimizer's moment storage dtypes
+(``OPT_MU_DTYPE``, ``OPT_NU_DTYPE``) and the mesh (``DATA_PARALLEL``,
+``SPATIAL``: the data and spatial sizes of the ranks of a
+``torch.distributed`` group, ``parallel/``); its other keys (attention
+backend, donation, data workers) are read past and ignored here.
 """
 
 from __future__ import annotations
@@ -99,6 +101,11 @@ class Config:
     # rounding; float32 for both is the exact reference optimizer.
     opt_mu_dtype: str = "bfloat16"
     opt_nu_dtype: str = "bfloat16_sr"
+    # The mesh of a multi-rank run (TPU.DATA_PARALLEL, TPU.SPATIAL): the
+    # data size (0: the largest divisor of OPTIM.BATCH up to world size /
+    # spatial) and the spatial size (> 1 shards the Swin stages' rows).
+    data_parallel: int = 0
+    spatial: int = 1
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:
@@ -180,6 +187,8 @@ def config_from_dict(raw: dict) -> Config:
         verbose=bool(_get(raw, "VERBOSE", False)),
         opt_mu_dtype=str(_get(tp, "OPT_MU_DTYPE", "bfloat16")),
         opt_nu_dtype=str(_get(tp, "OPT_NU_DTYPE", "bfloat16_sr")),
+        data_parallel=int(_get(tp, "DATA_PARALLEL", 0)),
+        spatial=int(_get(tp, "SPATIAL", 1)),
     )
 
 
@@ -236,7 +245,9 @@ def config_to_dict(cfg: Config) -> dict:
         },
         "TPU": {"COMPUTE_DTYPE": cfg.compute_dtype,
                 "OPT_MU_DTYPE": cfg.opt_mu_dtype,
-                "OPT_NU_DTYPE": cfg.opt_nu_dtype},
+                "OPT_NU_DTYPE": cfg.opt_nu_dtype,
+                "DATA_PARALLEL": cfg.data_parallel,
+                "SPATIAL": cfg.spatial},
     }
 
 

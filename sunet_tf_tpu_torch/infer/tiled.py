@@ -12,6 +12,14 @@ rectangular by default (each side rounded up to a tile multiple);
 ``square_pad=True`` gives the reference's square canvas. The canvas
 geometry, tile order and fold are the JAX package's, and the fold adds the
 tiles in its order, so that both sum each pixel the same way.
+
+With a mesh (``parallel/mesh.py``) the tiles are split over its data ranks
+in order (zero tiles pad them to a multiple, since an all-gather takes equal
+shares), each rank runs its share in its own ``tile_batch`` chunks, and
+the outputs are all-gathered, the pad tiles dropped and folded on every
+rank. A tile's bits do not depend on the batch it runs in (the kernels'
+launch plans are functions of one image's shape), so the output equals the
+one-process output bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 from sunet_tf_tpu_torch.ops.constants import shape_constant
+from sunet_tf_tpu_torch.parallel import comm
 
 
 def required_granularity(patch_size: int, num_stages: int, win_size: int) -> int:
@@ -145,11 +154,21 @@ def _fold_tiles(outs: torch.Tensor, B: int, Xh: int, Xw: int, kernel: int,
     return acc
 
 
-def _run_tiles(run: Callable, tiles: torch.Tensor, tile_batch: int) -> torch.Tensor:
+def _run_tiles(run: Callable, tiles: torch.Tensor, tile_batch: int, mesh=None) -> torch.Tensor:
     """Forward all tiles: one batched forward when T <= tile_batch, else
     ceil(T / tile_batch) balanced chunks (65 tiles at 64: 33 + 32), written
-    into one output."""
+    into one output. ``mesh``: this rank runs its share of the tiles (zero
+    tiles pad T to a multiple of the data size) and the outputs of the data
+    group are all-gathered."""
     T = tiles.shape[0]
+    if mesh is not None:
+        D = mesh.shape["data"]
+        pad = (-T) % D
+        if pad:
+            tiles = torch.cat([tiles, tiles.new_zeros((pad,) + tiles.shape[1:])])
+        k = tiles.shape[0] // D
+        mine = _run_tiles(run, tiles[mesh.data_index * k:(mesh.data_index + 1) * k], tile_batch)
+        return comm.all_gather_cat(mesh, mesh.data_group, mine)[:T]
     if T <= tile_batch:
         return run(tiles)
     n_chunks = -(-T // tile_batch)
@@ -163,18 +182,19 @@ def _run_tiles(run: Callable, tiles: torch.Tensor, tile_batch: int) -> torch.Ten
 
 
 def _tiled_core(model_fn: Callable, canvases: torch.Tensor, kernel: int, stride: int,
-                tile_batch: int) -> torch.Tensor:
+                tile_batch: int, mesh=None) -> torch.Tensor:
     """(b, Xh, Xw, C) canvases -> (b, Xh, Xw, C_out) folded float32 outputs:
-    the tiles of every canvas go through the same batched forwards."""
+    the tiles of every canvas go through the same batched forwards (with
+    ``mesh``, split over its data ranks)."""
     b, Xh, Xw, _ = canvases.shape
     tiles = _gather_tiles(canvases, kernel, stride)
-    outs = _run_tiles(model_fn, tiles, tile_batch)
+    outs = _run_tiles(model_fn, tiles, tile_batch, mesh)
     return _fold_tiles(outs, b, Xh, Xw, kernel, stride)
 
 
 def tiled_inference(model_fn: Callable, img: torch.Tensor, kernel: int = 256,
                     stride: int = 128, tile_batch: int = 64,
-                    square_pad: bool = False) -> torch.Tensor:
+                    square_pad: bool = False, mesh=None) -> torch.Tensor:
     """Overlap-tiled inference over (B, H, W, C) images of one size, on
     ``img.device``: the tiles of all B images run through one batched
     forward (chunks beyond ``tile_batch`` tiles) and fold back by
@@ -183,14 +203,15 @@ def tiled_inference(model_fn: Callable, img: torch.Tensor, kernel: int = 256,
 
     ``model_fn`` maps (N, kernel, kernel, C) -> (N, kernel, kernel, C_out):
     a model or any callable. Wrap the call in ``torch.inference_mode()``
-    for inference.
+    for inference. ``mesh``: the tiles are split over its data ranks, each
+    of which calls with the same ``img`` and gets the whole output.
     """
     B, H, W, C = img.shape
     if not (0 < stride <= kernel and kernel % stride == 0):
         raise ValueError(f"stride {stride} must divide kernel {kernel}")
     Xh, Xw, top, left = canvas_shape(H, W, kernel, square_pad)
     folded = _tiled_core(model_fn, _place(img, Xh, Xw, top, left), kernel, stride,
-                         tile_batch)
+                         tile_batch, mesh)
     return folded[:, top:top + H, left:left + W]
 
 
@@ -209,11 +230,12 @@ class TiledRunner:
     image share a 512x768 bucket at kernel 256. The geometry, tile order
     and fold are ``tiled_inference``'s. ``__call__`` runs on its input's
     device; ``run_corpus`` on the device of ``model_fn``'s parameters,
-    else the card.
+    else the card. ``mesh``: every forward's tiles are split over its data
+    ranks (each rank makes the same calls and gets every output).
     """
 
     def __init__(self, model_fn: Callable, kernel: int = 256, stride: int = 128,
-                 tile_batch: int = 64, square_pad: bool = False):
+                 tile_batch: int = 64, square_pad: bool = False, mesh=None):
         if not (0 < stride <= kernel and kernel % stride == 0):
             raise ValueError(f"stride {stride} must divide kernel {kernel}")
         self.model_fn = model_fn
@@ -221,6 +243,7 @@ class TiledRunner:
         self.stride = stride
         self.tile_batch = tile_batch
         self.square_pad = square_pad
+        self.mesh = mesh
 
     def bucket(self, H: int, W: int) -> tuple:
         """The (Xh, Xw) canvas an HxW image runs on."""
@@ -234,7 +257,7 @@ class TiledRunner:
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) -> (B, H, W, C_out) float32: ``tiled_inference``."""
         return tiled_inference(self.model_fn, img, self.kernel, self.stride,
-                               self.tile_batch, self.square_pad)
+                               self.tile_batch, self.square_pad, self.mesh)
 
     def run_corpus(self, images, canvas_batch: Optional[int] = None) -> list:
         """Tiled inference over images of mixed sizes, each (H, W, C) or
@@ -277,7 +300,7 @@ class TiledRunner:
                 for k, (_, im, top, left) in enumerate(chunk):
                     canvases[k, top:top + im.shape[1], left:left + im.shape[2]] = im[0]
                 folded = _tiled_core(self.model_fn, canvases, self.kernel, self.stride,
-                                     self.tile_batch).cpu()
+                                     self.tile_batch, self.mesh).cpu()
                 for (i, im, top, left), f in zip(chunk, folded):
                     results[i] = f[None, top:top + im.shape[1], left:left + im.shape[2]]
         return results

@@ -39,6 +39,8 @@ byref = ctypes.byref
 # C signatures of the entry points in csrc/*.cu (all return cudaError_t,
 # except the *_workspace sizes, which return size_t).
 SIGNATURES = {
+    # device -> cudaError_t of setting it (csrc/runtime.cu)
+    "sunet_thread_init": [_I],
     # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
     # bias, mask, dp (B, 2) or NULL, B, H, W, C, hidden, ws, heads, shift,
     # scale, the launch plan's cluster size G, stream
@@ -275,5 +277,16 @@ def ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
+_THREAD = threading.local()
+
+
 def stream() -> ctypes.c_void_p:
+    """The current CUDA stream, for a launch from this host thread. The
+    first launch on a device from a thread first sets up the library's own
+    CUDA runtime there (``csrc/runtime.cu``)."""
+    dev = torch.cuda.current_device()
+    ready = _THREAD.__dict__.setdefault("devices", set())
+    if dev not in ready:
+        check("sunet_thread_init", library().sunet_thread_init(dev))
+        ready.add(dev)
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

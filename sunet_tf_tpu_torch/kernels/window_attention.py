@@ -1394,9 +1394,10 @@ def _check_bwd_design(name: str, C: int, hidden: int, heads: int, ws: int):
 
 def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
                   mask, dp=None, *, ws: int, num_heads: int, scale: float,
-                  shift: int, res: bool = False):
+                  shift: int, res: bool = False, plan_hw: Optional[tuple] = None):
     """One launch of the block kernel; ``res``: its residual form, which
-    returns (out, eb, rden, ctx_f)."""
+    returns (out, eb, rden, ctx_f). ``plan_hw``: the (H, W) whose plan the
+    launch takes (default x's)."""
     name = "fused_swin_block_res" if res else "fused_swin_block"
     _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads, shift, dp)
     B, H, W, C = x.shape
@@ -1405,7 +1406,7 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
     args = [f(ln1[0]), f(ln1[1]), wqkv, f(bqkv), wproj, f(bproj),
             f(ln2[0]), f(ln2[1]), w1, f(b1), w2, f(b2), f(bias), f(mask), f(dp)]
     out = torch.empty_like(x)
-    plan = block_plan(H, W, C, w1.shape[1], ws, num_heads)
+    plan = block_plan(*(plan_hw or (H, W)), C, w1.shape[1], ws, num_heads)
     lib = _build.library()
     dims = (B, H, W, C, w1.shape[1], ws, num_heads, shift, float(scale), plan["G"],
             _build.stream())
@@ -1428,7 +1429,7 @@ def _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
 
 def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
                       mask, dp=None, *, ws: int, num_heads: int, scale: float,
-                      shift: int) -> tuple:
+                      shift: int, plan_hw: Optional[tuple] = None) -> tuple:
     """The block kernel's sequence form (csrc/swin_block_seq.cu) for
     windows above 64 tokens: (out, kernel launches). ``dp`` (B, 2): its
     train form, up to C = TRAIN_BLOCK_MAX_C; without it the inference cap
@@ -1448,7 +1449,7 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
     _check_window(name, H, W, C, ws, num_heads, bias, mask, c_align=4)
     if not 0 <= shift < ws:
         raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
-    plan = block_seq_plan(H, W, C, hidden, ws, num_heads)
+    plan = block_seq_plan(*(plan_hw or (H, W)), C, hidden, ws, num_heads)
     dev = x.device
     f = lambda t: _f32(t, dev)
     if bqkv is None:
@@ -1476,7 +1477,7 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
 def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
                      bias, mask, drop_path_scale=None, *, ws: int,
                      num_heads: int, scale: float,
-                     shift: int = 0) -> torch.Tensor:
+                     shift: int = 0, plan_hw: Optional[tuple] = None) -> torch.Tensor:
     """One whole Swin block over an NHWC map, x UNROLLED (caller
     coordinates). With ``shift > 0`` the SW-MSA roll and unroll happen
     inside the kernel as load/store addressing; ``mask`` is the
@@ -1491,22 +1492,30 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     whose train form (``drop_path_scale`` given) takes C up to
     TRAIN_BLOCK_MAX_C, its inference form up to BLOCK_KERNEL_MAX_C. The
     weight matrices may come with their columns padded as the kernels store
-    them (:func:`wcols`). Inside a trace it is the op
-    ``sunet::fused_swin_block`` (``kernels/ops.py``)."""
+    them (:func:`wcols`). ``plan_hw``: the (H, W) of the map whose launch
+    plan the call takes, x's by default; a spatial shard of a larger map
+    takes the map's, so that its windows get the unsharded map's bits
+    (``parallel/spatial.py``). Inside a trace it is the op
+    ``sunet::fused_swin_block`` (``kernels/ops.py``), with x's plan."""
     if torch.compiler.is_compiling():
+        if plan_hw is not None:
+            raise NotImplementedError("fused_swin_block: plan_hw inside a trace (the "
+                                      "parallel tier is not exported)")
         return torch.ops.sunet.fused_swin_block(
             x, ln1[0], ln1[1], wqkv, bqkv, wproj, bproj, ln2[0], ln2[1], w1, b1, w2, b2, bias,
             mask, drop_path_scale, ws=ws, num_heads=num_heads, scale=scale, shift=shift)
     return _counted_block("fused_swin_block", x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
                           b2, bias, mask, drop_path_scale, ws=ws, num_heads=num_heads,
-                          scale=scale, shift=shift)
+                          scale=scale, shift=shift, plan_hw=plan_hw)
 
 
 def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask,
-                   dp=None, *, ws: int, num_heads: int, scale: float, shift: int):
+                   dp=None, *, ws: int, num_heads: int, scale: float, shift: int,
+                   plan_hw: Optional[tuple] = None):
     """One block by the form its window and device take, its launches added
     to wrapper ``name``'s count: the plain version on a CPU tensor (the
-    weights unpadded), else the cluster kernel or the sequence form."""
+    weights unpadded), else the cluster kernel or the sequence form, on the
+    plan of ``plan_hw`` (default x's (H, W))."""
     count = _build.counter(name)
     kw = dict(ws=ws, num_heads=num_heads, scale=scale, shift=shift)
     if x.device.type == "cpu":
@@ -1517,11 +1526,11 @@ def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, 
             _unpadded(w2, C), b2, bias, mask, dp, **kw)
     if ws * ws > _TILE:
         out, n = _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
-                                   mask, dp, **kw)
+                                   mask, dp, plan_hw=plan_hw, **kw)
         count.cuda += n
         return out
     out = _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask, dp,
-                        **kw)
+                        plan_hw=plan_hw, **kw)
     count.cuda += 1
     return out
 
@@ -1689,11 +1698,12 @@ class SwinBlockTrainable(torch.autograd.Function):
     forward = the block kernel with per-image drop-path scales ``dp``,
     backward = :func:`swin_block_bwd`. Weights come in float32, (in, out)
     layout, and are cast to x's dtype for the kernels; their grads come back
-    in float32. ``dp``, ``mask`` and the static arguments get no gradient."""
+    in float32. ``dp``, ``mask`` and the static arguments get no gradient.
+    ``plan_hw``: the forward's launch plan's (H, W) (:func:`fused_swin_block`)."""
 
     @staticmethod
     def forward(ctx, x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b,
-                w1, b1, w2, b2, bias, dp, mask, ws, num_heads, scale, shift):
+                w1, b1, w2, b2, bias, dp, mask, ws, num_heads, scale, shift, plan_hw=None):
         dt = x.dtype
         cast = lambda w: w.detach().to(dt).contiguous()
         x = x.contiguous()
@@ -1705,7 +1715,8 @@ class SwinBlockTrainable(torch.autograd.Function):
         ctx.static = (ws, num_heads, scale, shift)
         return _counted_block(
             "fused_swin_block", x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
-            p[11], p[12], mask, dp, ws=ws, num_heads=num_heads, scale=scale, shift=shift)
+            p[11], p[12], mask, dp, ws=ws, num_heads=num_heads, scale=scale, shift=shift,
+            plan_hw=plan_hw)
 
     @staticmethod
     def backward(ctx, dout):
@@ -1717,7 +1728,25 @@ class SwinBlockTrainable(torch.autograd.Function):
             scale=scale, shift=shift))
         if p[3] is None:
             g[4] = None
-        return (*g, None, None, None, None, None, None)
+        return (*g, None, None, None, None, None, None, None)
+
+
+def swin_block_trainable_dynmask(x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1,
+                                 b1, w2, b2, bias, dp, mask, ws: int, num_heads: int,
+                                 scale: float, plan_hw: Optional[tuple] = None) -> torch.Tensor:
+    """:class:`SwinBlockTrainable` at shift 0 with the SW-MSA mask as an
+    input (JAX ``swin_block_trainable_dynmask``, B5): the spatial runner
+    rolls its shard outside the kernel (W locally, H by one exchange) and
+    passes its (nW_local, N, N) slice of the global rolled-space mask, which
+    takes no gradient (None at a block without shift). Forward: the block
+    kernel's train form (its sequence form above 64 tokens a window);
+    backward: :func:`swin_block_bwd` (its big-window form above 64), both
+    reading the mask at shift 0. ``plan_hw``: the whole map's (H, W), whose
+    launch plan the shard's forward takes."""
+    if mask is not None:
+        mask = mask.detach().contiguous()
+    return SwinBlockTrainable.apply(x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1,
+                                    b1, w2, b2, bias, dp, mask, ws, num_heads, scale, 0, plan_hw)
 
 
 def fused_swin_block_res(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,

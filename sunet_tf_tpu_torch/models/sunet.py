@@ -91,9 +91,14 @@ class SwinStage(nn.Module):
         elif resample == "up":
             self.upsample = DualUpsample(dim, 2)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                runner=None) -> torch.Tensor:
+        """``runner``: the spatial tier's stage runner
+        (``parallel.spatial.SpatialStageRunner``); where it ``applies``, the
+        blocks run through it, H sharded over its spatial group."""
         blocks = list(self.blocks)
+        if runner is not None and runner.applies(blocks, tuple(x.shape), generator is not None):
+            return self._resample(runner(blocks, x, generator))
         i = 0
         while i < len(blocks):
             if generator is not None:   # training: one block at a time
@@ -107,10 +112,13 @@ class SwinStage(nn.Module):
                 continue
             x = blocks[i](x)
             i += 1
+        return self._resample(x)
+
+    def _resample(self, x: torch.Tensor) -> torch.Tensor:
         if self.resample == "down":
-            x = self.downsample(x)
-        elif self.resample == "up":
-            x = self.upsample(x)
+            return self.downsample(x)
+        if self.resample == "up":
+            return self.upsample(x)
         return x
 
 
@@ -184,12 +192,15 @@ class SUNet(nn.Module):
             y = layer_norm(y, self.patch_embed.norm)
         return y
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                stage_runner=None) -> torch.Tensor:
         """x: (B, H, W, in_chans) in [0, 1] -> (B, H, W, out_chans) float32
         logits. With ``generator`` this is the training forward (JAX
         ``key``): stochastic depth drawn from it, the blocks and the x4 head
-        on their trainable routes; without it, inference."""
+        on their trainable routes; without it, inference. ``stage_runner``:
+        the spatial tier's runner (``parallel.spatial.SpatialStageRunner``),
+        which each Swin stage asks whether it takes the stage; the other
+        layers run replicated on every rank of its spatial group."""
         cfg = self.cfg
         if (self.backend == "fused" and x.device.type == "cuda"
                 and self.dtype != torch.bfloat16):
@@ -216,13 +227,14 @@ class SUNet(nn.Module):
         skips = []
         for layer in self.layers:
             skips.append(feats)
-            feats = layer(feats, generator)
+            feats = layer(feats, generator, stage_runner)
         feats = layer_norm(feats, self.norm)
         feats = self.layers_up[0](feats)
         for j in range(1, n):
             feats = torch.cat([feats, skips[n - 1 - j]], dim=-1)
             lin = self.concat_back_dim[j]
-            feats = self.layers_up[j](linear(feats, lin.weight, lin.bias), generator)
+            feats = self.layers_up[j](linear(feats, lin.weight, lin.bias), generator,
+                                      stage_runner)
         feats = layer_norm(feats, self.norm_up)
         if self.backend != "fused":
             return self.output(self.up(feats)).float()
@@ -289,7 +301,7 @@ class SUNet(nn.Module):
         total += 2 * H * W * 9 * C * cfg.out_chans
         return int(total)
 
-    def expected_launches(self, x_shape: tuple, train: bool = False) -> dict:
+    def expected_launches(self, x_shape: tuple, train: bool = False, runner=None) -> dict:
         """Kernel launches one fused forward of an input of ``x_shape``
         makes, per wrapper, as the router decides them: a block launches the
         block kernel once, or its sequence form's
@@ -315,12 +327,33 @@ class SUNet(nn.Module):
         ``ln_window_attention_trainable`` + ``ln_mlp_trainable``); any other
         runs plain autograd and launches nothing. The x4 head launches its
         forward kernel and its backward's sequence: the conv-fused head's
-        where ``conv_fused_head`` holds, else the split head's."""
+        where ``conv_fused_head`` holds, else the split head's.
+        ``runner``: a spatial stage runner; each block of a stage it
+        ``applies`` to launches the block kernel (``wa.block_launches``),
+        in training also its recompute backward (``wa.block_bwd_launches``),
+        at shift 0 with a mask slice (no chain, no residual route)."""
         counts = dict.fromkeys(TRAIN_WRAPPERS if train else INFER_WRAPPERS, 0)
         if self.backend != "fused":
             return counts
+        H = x_shape[1] // self.cfg.patch_size
+        W = x_shape[2] // self.cfg.patch_size
+        n = self.cfg.num_stages
+        stages = [(s, i) for i, s in enumerate(self.layers)]
+        stages += [(s, n - 1 - j) for j, s in enumerate(self.layers_up[1:], 1)]
+        if runner is not None:
+            kept = []
+            for stage, level in stages:
+                shape = (x_shape[0], H >> level, W >> level, stage.blocks[0].dim)
+                if not runner.applies(list(stage.blocks), shape, train):
+                    kept.append((stage, level))
+                    continue
+                for blk in stage.blocks:
+                    counts["fused_swin_block"] += wa.block_launches(blk.window_size)
+                    if train:
+                        counts["swin_block_bwd"] += wa.block_bwd_launches(blk.window_size)
+            stages = kept
         if train:
-            for stage in list(self.layers) + list(self.layers_up[1:]):
+            for stage, _ in stages:
                 for blk in stage.blocks:
                     if blk.trains_on_block_kernels():
                         if blk.trains_on_residuals():
@@ -341,11 +374,6 @@ class SUNet(nn.Module):
                 counts["fused_dual_upsample4"] += up_kernels.UP4_SPLIT_LAUNCHES
                 counts["up4_bwd"] += up_kernels.UP4_BWD_LAUNCHES
             return counts
-        H = x_shape[1] // self.cfg.patch_size
-        W = x_shape[2] // self.cfg.patch_size
-        n = self.cfg.num_stages
-        stages = [(s, i) for i, s in enumerate(self.layers)]
-        stages += [(s, n - 1 - j) for j, s in enumerate(self.layers_up[1:], 1)]
         for stage, level in stages:
             probe = torch.empty((1, H >> level, W >> level,
                                  stage.blocks[0].dim), device="meta")

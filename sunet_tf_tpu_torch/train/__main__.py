@@ -8,6 +8,12 @@
 Reads a reference-schema training.yaml (defaults when the file is missing),
 builds the Trainer on --device (the card unless asked for the CPU) and runs
 the fit loop. Returns the fit summary from ``main``.
+
+Under torchrun (``torchrun --nproc_per_node N -m sunet_tf_tpu_torch.train
+--config ...``) every process joins the group (NCCL on the cards, each rank
+on ``cuda:{LOCAL_RANK}``; gloo with ``--device cpu``) and the Trainer lays
+the ranks out by the YAML's ``TPU.DATA_PARALLEL`` and ``TPU.SPATIAL``: data
+parallel, spatially sharded, or both. Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -15,8 +21,11 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch.distributed as dist
+
 from sunet_tf_tpu_torch.config import Config, load_config
 from sunet_tf_tpu_torch.models.sunet import param_count
+from sunet_tf_tpu_torch.parallel.mesh import init_distributed
 from sunet_tf_tpu_torch.train.trainer import Trainer
 
 
@@ -53,13 +62,33 @@ def main(argv=None) -> dict:
         op["epochs"] = args.epochs
     cfg = cfg.replace(training=cfg.training.__class__(**tr), optim=cfg.optim.__class__(**op))
 
-    print("==> Build the model")
-    trainer = Trainer(cfg, task=args.task, sigma=args.sigma, device=args.device,
+    device = args.device
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if launched:    # torchrun
+        cpu = device == "cpu"
+        device = init_distributed(backend="gloo" if cpu else "nccl",
+                                  device="cpu" if cpu else None)
+    try:
+        return _fit(cfg, args, device)
+    finally:
+        if launched:
+            dist.destroy_process_group()
+
+
+def _fit(cfg: Config, args, device) -> dict:
+    main_rank = not dist.is_initialized() or dist.get_rank() == 0
+    say = print if main_rank else (lambda *a, **k: None)
+    say("==> Build the model")
+    trainer = Trainer(cfg, task=args.task, sigma=args.sigma, device=device,
                       backend=args.backend)
-    print(f"""==> Training details:
+    mesh = trainer.mesh
+    layout = ("one process" if mesh is None
+              else f"data {mesh.shape['data']} x spatial {mesh.shape['spatial']}")
+    say(f"""==> Training details:
 ------------------------------------------------------------------
     Mode / task:        {cfg.mode} / {trainer.task}
     Device / backend:   {trainer.device} / {args.backend}
+    Ranks:              {layout}
     Train patch size:   {cfg.training.train_ps}
     Model parameters:   {param_count(trainer.model)}
     Start/End epochs:   {trainer.start_epoch}~{cfg.optim.epochs}

@@ -21,21 +21,30 @@ def _reduce(l: torch.Tensor, weight: Optional[torch.Tensor], dims) -> torch.Tens
     return (l * w).sum(dim=dims) / w.sum(dim=dims).clamp_min(1e-8)
 
 
-def charbonnier_loss(pred, target, weight=None, eps: float = 1e-3) -> torch.Tensor:
+def charbonnier(pred, target, eps: float = 1e-3) -> torch.Tensor:
+    """The per-pixel Charbonnier loss, float32."""
     diff = pred.float() - target.float()
-    return _reduce(torch.sqrt(diff * diff + eps * eps), weight, None)
+    return torch.sqrt(diff * diff + eps * eps)
+
+
+def squared_error(pred, target) -> torch.Tensor:
+    """The per-pixel squared error, float32."""
+    return (pred.float() - target.float()) ** 2
+
+
+def charbonnier_loss(pred, target, weight=None, eps: float = 1e-3) -> torch.Tensor:
+    return _reduce(charbonnier(pred, target, eps), weight, None)
 
 
 def mse_loss(pred, target, weight=None) -> torch.Tensor:
-    return _reduce((pred.float() - target.float()) ** 2, weight, None)
+    return _reduce(squared_error(pred, target), weight, None)
 
 
 def charbonnier_per_sample(pred, target, weight=None, eps: float = 1e-3) -> torch.Tensor:
-    diff = pred.float() - target.float()
-    l = torch.sqrt(diff * diff + eps * eps)
+    l = charbonnier(pred, target, eps)
     return _reduce(l, weight, tuple(range(1, l.dim())))
 
 
 def mse_per_sample(pred, target, weight=None) -> torch.Tensor:
-    l = (pred.float() - target.float()) ** 2
+    l = squared_error(pred, target)
     return _reduce(l, weight, tuple(range(1, l.dim())))

@@ -7,6 +7,17 @@ weighted MSE and AUROC/AUPRC (mask task) or PSNR/SSIM (denoise task), CSV
 best-by-metric checkpoints, the closed-form LR schedule, and resume. The
 model runs on ``device`` (the card unless the caller asks for the CPU);
 metrics accumulate on the device and reach the host once per epoch.
+
+In a process group (``parallel/``, e.g. under torchrun) the trainer lays
+the ranks out as JAX's trainer lays out devices: spatial size
+``TPU.SPATIAL``, data size ``TPU.DATA_PARALLEL`` or else the largest
+divisor of ``OPTIM.BATCH`` up to world size / spatial. Every rank builds the
+same seeded model, iterates the same global batches (the same shuffle, the
+trailing batch padded to a multiple of the data size, pad rows masked by
+"valid") and the step keeps its rows; with ``TPU.SPATIAL > 1`` the Swin
+stages the spatial runner takes run per H shard on the block kernels. Rank
+0 alone writes checkpoints, the CSV, TensorBoard and plots, and prints;
+resume reads on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from sunet_tf_tpu_torch.ckpt import BestTracker, latest_path, restore_checkpoint, save_checkpoint
 from sunet_tf_tpu_torch.config import Config
@@ -26,6 +38,7 @@ from sunet_tf_tpu_torch.obs import MetricsLogger
 from sunet_tf_tpu_torch.ops.metrics import (auprc_from_histograms, auroc_from_histograms,
                                             pr_curve_from_histograms,
                                             roc_curve_from_histograms)
+from sunet_tf_tpu_torch.parallel.mesh import make_mesh
 from sunet_tf_tpu_torch.train.adam import AdamLP
 from sunet_tf_tpu_torch.train.loop import build_steps, to_device
 from sunet_tf_tpu_torch.train.schedule import lr_for_step
@@ -51,11 +64,37 @@ def make_optimizer(cfg: Config, model, steps_per_epoch: int) -> AdamLP:
         stochastic_round_nu=cfg.opt_nu_dtype == "bfloat16_sr", sr_seed=cfg.training.seed)
 
 
+class _Quiet:
+    """The logger of a rank other than 0: keeps nothing, writes nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def mesh_for(cfg: Config, world: int) -> tuple:
+    """JAX's layout (``trainer.py``): (data, spatial) with spatial =
+    TPU.SPATIAL and data = TPU.DATA_PARALLEL or the largest divisor of
+    OPTIM.BATCH up to world // spatial."""
+    sp = max(1, cfg.spatial)
+    d = cfg.data_parallel or max(1, world // sp)
+    while cfg.optim.batch % d:
+        d -= 1
+    return d, sp
+
+
 class Trainer:
     def __init__(self, cfg: Config, task: Optional[str] = None, sigma: float = 50.0,
-                 device="cuda", backend: str = "fused", verbose: bool = True):
+                 device="cuda", backend: str = "fused", verbose: bool = True, mesh=None):
+        """``mesh``: a ``parallel.mesh.Mesh``; by default, in a process group
+        the mesh ``mesh_for`` gives over it, else none (one process)."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is None and (dist.is_initialized() or cfg.spatial > 1):
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            mesh = make_mesh(*mesh_for(cfg, world))
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.rank == 0
+        verbose = verbose and self.is_main
         self.task = task or ("mask" if cfg.swinunet.out_chans == 1 else "denoise")
         self.sigma = sigma
         self.verbose = verbose
@@ -78,12 +117,22 @@ class Trainer:
         # one (partial) batch
         self.steps_per_epoch = tr.steps_per_epoch or max(1, n_train // cfg.optim.batch)
         self.optimizer = make_optimizer(cfg, self.model, self.steps_per_epoch)
+        self.stage_runner = None
+        if mesh is not None and mesh.shape["spatial"] > 1 and backend == "fused":
+            from sunet_tf_tpu_torch.parallel.spatial import SpatialStageRunner
+
+            self.stage_runner = SpatialStageRunner(
+                mesh, dropout=sw.drop_rate > 0 or sw.attn_drop_rate > 0)
         self.fns = build_steps(self.model, self.optimizer, task=self.task, sigma=sigma,
-                               seed=tr.seed)
+                               seed=tr.seed, mesh=mesh, stage_runner=self.stage_runner)
         self.model_dir = os.path.join(tr.save_dir, cfg.mode, "models")
-        self.logger = MetricsLogger(os.path.join(tr.save_dir, cfg.mode, "log"))
         self.best = BestTracker(self.model_dir,
                                 ("auroc", "auprc") if self.task == "mask" else ("psnr", "ssim"))
+        if self.is_main:
+            self.logger = MetricsLogger(os.path.join(tr.save_dir, cfg.mode, "log"))
+        else:
+            self.logger = _Quiet()
+            self.best.update = lambda *a, **k: False
         self.start_epoch = 1
         if tr.resume:
             self._resume()
@@ -109,7 +158,7 @@ class Trainer:
         cfg = self.cfg
         it = batch_iterator(self.train_ds, cfg.optim.batch, shuffle=True,
                             drop_last=len(self.train_ds) > cfg.optim.batch,
-                            seed=cfg.training.seed + epoch)
+                            seed=cfg.training.seed + epoch, pad_to=self._data_size())
         acc: dict = {}
         n = 0
         hists = self.fns.init_metrics()
@@ -131,12 +180,19 @@ class Trainer:
             out["_hists"] = hists
         return out
 
+    def _data_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["data"]
+
     def eval_epoch(self, ds: PairDataset, batch_size: int = 0) -> dict:
-        """Exact per-sample means over ``ds`` at any batch size."""
-        batch_size = batch_size or max(1, min(self.cfg.optim.batch, len(ds)))
+        """Exact per-sample means over ``ds`` at any batch size; with a mesh
+        the batches are padded to a multiple of the data size (pad rows
+        masked by "valid") and each rank evaluates its rows."""
+        d = self._data_size()
+        batch_size = batch_size or max(d, min(self.cfg.optim.batch, len(ds)))
         hists = self.fns.init_metrics()
         sums: dict = {}
-        for batch, _names in self._batches(batch_iterator(ds, batch_size, shuffle=False)):
+        for batch, _names in self._batches(batch_iterator(ds, batch_size, shuffle=False,
+                                                          pad_to=d)):
             s, hists = self.fns.eval_step(batch, hists)
             for k, v in s.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
@@ -178,8 +234,9 @@ class Trainer:
                     self._plot_curves("test", epoch, te.pop("_hists", None), te)
                     self.logger.log_dict("test", te, epoch)
             self.logger.plot_overlays(epoch)
-            save_checkpoint(self.model_dir, "latest", self.model, self.optimizer,
-                            epoch=epoch, extra={"best": self.best.state()})
+            if self.is_main:
+                save_checkpoint(self.model_dir, "latest", self.model, self.optimizer,
+                                epoch=epoch, extra={"best": self.best.state()})
             if self.verbose:
                 msg = "  ".join(f"{k}={v:.6f}" for k, v in tr.items() if k != "steps")
                 print(f"Epoch {epoch}\ttime {time.time() - t0:.1f}s\t{msg}")

@@ -31,8 +31,9 @@ settings:
   ones and no other setting, ``--sound`` only the kernel and floor
   settings; a mutant's file path is under ``kernels/csrc`` (``../`` for
   the wrappers' Python beside it); the Python mutants of
-  ``EXPORT_MUTANTS`` and ``PARALLEL_MUTANTS`` run chip_smoke's export or
-  parallel phase in their copy, which must fail;
+  ``EXPORT_MUTANTS``, ``PARALLEL_MUTANTS`` and ``FLOAT64_MUTANTS`` run
+  chip_smoke's export, parallel, or parity and train phase in their copy,
+  which must fail;
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -310,6 +311,35 @@ PARALLEL_MUTANTS = {
         "train/loop.py",
         "        _flat_all_reduce(mesh, mesh.spatial_group, sp)",
         "        _flat_all_reduce(mesh, mesh.spatial_group, sp, 1.0 / mesh.shape[\"spatial\"])"),
+}
+
+# The float64 oracle's and the C2 gate's mutants (Python, under
+# sunet_tf_tpu_torch/): mm32 demoting float64 operands to float32 again (the
+# parity phase's float64 probe check, the oracle on the card against the
+# CPU, catches it), and the residual route's backward (#7's wrapper, the
+# kernel path alone) with the wqkv gradient of the C=96 blocks at drop-path
+# rate 0 (the first block of each C=96 stage) scaled by 1.01 (the train
+# phase's per-stage C2 gate against float64 catches it).
+FLOAT64_MUTANTS = {
+    "mm32_float32_demotion": (
+        "kernels/window_attention.py",
+        """    ct = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+    return torch.matmul(a.to(ct), b.to(ct))""",
+        """    return torch.matmul(a.float(), b.float())"""),
+    "res_c96_dwqkv_scaled": (
+        "kernels/window_attention.py",
+        """    count.cuda += launches.value
+    return (dx, *grads)
+
+
+class SwinBlockTrainableRes(""",
+        """    count.cuda += launches.value
+    if C == 96 and bool((dp == 1).all()):
+        grads[2] *= 1.01
+    return (dx, *grads)
+
+
+class SwinBlockTrainableRes("""),
 }
 
 EXPORT_MUTANTS = {
@@ -590,19 +620,6 @@ NOISE_LABELS = {"eager": "eager", "eager_dp32": "eager, drop-path product in flo
                                   "float32"}
 
 
-def plain_kernels() -> list:
-    """(module, name, plain version) of every kernel wrapper the training
-    step calls."""
-    from sunet_tf_tpu_torch.kernels import upsample as up
-    from sunet_tf_tpu_torch.kernels import window_attention as wa
-
-    names = [(wa, n) for n in ("fused_swin_block", "swin_block_bwd", "fused_swin_block_res",
-                               "swin_block_bwd_res", "fused_ln_window_attention",
-                               "ln_window_attention_bwd", "ln_mlp_branch", "ln_mlp_bwd")]
-    names += [(up, "fused_dual_upsample4_conv_phase"), (up, "up4_conv_bwd")]
-    return [(m, n, getattr(m, n + "_reference")) for m, n in names]
-
-
 def step_noise(log, dists_out: Path) -> list:
     """The ``step`` setting: one-value gradients of the training step under
     bf16 rounding variants, against the float32 eager route; every run's
@@ -668,7 +685,7 @@ def step_noise(log, dists_out: Path) -> list:
     dp32 = cs.drop_path_f32
     sublayers = ("fused_ln_window_attention", "ln_window_attention_bwd", "ln_mlp_branch",
                  "ln_mlp_bwd")
-    plain = plain_kernels()
+    plain = cs.plain_kernel_patches()
     c768_eager = (layers, "ROUTE_TRAIN_SPLIT_MAX_C", layers.ROUTE_TRAIN_BLOCK_MAX_C)
     variants = (
         ("fused", "fused", []),
@@ -807,7 +824,11 @@ def main():
         return
     only = [m for m in args.mutants.split(",") if m]
     python_mutants = {**{k: (v, "export") for k, v in EXPORT_MUTANTS.items()},
-                      **{k: (v, "parallel") for k, v in PARALLEL_MUTANTS.items()}}
+                      **{k: (v, "parallel") for k, v in PARALLEL_MUTANTS.items()},
+                      "mm32_float32_demotion": (FLOAT64_MUTANTS["mm32_float32_demotion"],
+                                                "parity"),
+                      "res_c96_dwqkv_scaled": (FLOAT64_MUTANTS["res_c96_dwqkv_scaled"],
+                                               "train")}
     if set(only) - set(MUTANTS) - set(python_mutants):
         raise SystemExit("chip_mutants: unknown mutants "
                          f"{sorted(set(only) - set(MUTANTS) - set(python_mutants))}")

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,export,parallel,
-                           train,bands,entries,scaled,scaled_train]
+                           train,parity,bands,entries,scaled,scaled_train]
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
@@ -79,10 +79,26 @@
    the recompute backward, the C=768 stage the two sublayer kernels) and
    every launch plan held by 3., and
    the same step with ``ROUTE_TRAIN_RESID`` off (every C <= 384 block on
-   the recompute backward), both held against float32 eager; train-step
+   the recompute backward), both held against float32 eager; then fault
+   C2's arbiter: the step on both fused routes and on both with every
+   kernel by its plain version against the eager model in float64 (float64
+   parameters and products; the same weights, batches and drop-path draws)
+   over C2_DRAWS batches, per stage the geometric means of 1 - cos and of
+   the relative L2 distance, each fused route's within C2_FACTOR times its
+   plain route's, and each tensor's scale z within C2_SCALE_Z; train-step
    times, peak memory and a profiler trace of one step of each fused route;
    then ``python -m sunet_tf_tpu_torch.train`` for 1 epoch of 3 steps and a
    val pass.
+   Then the parity phase (``parity``): ``python -m
+   sunet_tf_tpu_torch.tools.parity_run`` (its own process) trains
+   ``Config()`` for 40 fused steps at batch 4 on a synthetic corpus and
+   validates the trained weights on fused bf16, eager bf16 and eager
+   float32 against the float64 oracle (PSNR, SSIM, gaps, attention-logit
+   extrema); ``tools.fp64_oracle`` and ``tools.bisect_fp64`` then read its
+   checkpoint. It fails unless every gate of its RESULTS.json holds, fused
+   vs eager bf16 reads mean |diff| <= 5e-3, every oracle probe is float64
+   and agrees with the oracle on the CPU within ORACLE_CPU_RL2, and the
+   loss is finite.
 7. The split head's path: ``Config()`` with IN_CHANS = OUT_CHANS = 16 (a
    16-band denoise SUNet) through the slice of 4. and one tiled call on a
    (1, 512, 384, 16) image (a 512x512 canvas, 9 tiles), then one denoise
@@ -101,7 +117,10 @@
    the whole block under SEQ_BLOCK_MEAN_TOL; #2 K=2 at C=360, also bit for
    bit against two block launches; #3 at (32,32,720) shift 8 and
    (16,16,1440), also with ~1e3 logits; #4 at C=720 and 1440 (fc1 on a K
-   split); #5 at (128,128,180) out 1 and 3, padded to 192); then
+   split); #5 at (128,128,180) out 1 and 3, padded to 192; fault C4's
+   reading on each whole block of #1: the kernel's and the plain version's
+   mean |diff| to the plain version in float64 on float64 copies of the
+   same draws, their ratio within C4_RATIO); then
    ``scaled_config()`` (350,723,145 parameters, seeded weights) fused at
    512², batch 8: launches equal to the router's prediction with every
    block on a kernel, every plan held by those checks, against eager (mean
@@ -114,7 +133,8 @@
    forms against their plain versions at batch 2, plans asserted
    (``scaled_train_cases``: #1's train form, the sequence form with
    drop-path scales drawn from a generator, at (128,128,180), (64,64,360)
-   and (32,32,720) shift 8, each branch alone and the whole block; #8's
+   and (32,32,720) shift 8, each branch alone and the whole block, with
+   C4's float64 reading on the whole block; #8's
    big-window form (csrc/block_bwd_big.cuh's attention) at (128,128,180)
    shift 0 and 8, (64,64,360) and (32,32,720) shift 8 under the backward
    limits; #5 at (128,128,180) out 1; #9's wide form at (128,128,180) out
@@ -156,7 +176,8 @@
    ``swin_block_trainable_dynmask_bwd`` (launches: the spatial forward's
    and training step's), the scaled shard's under the ``[scaled]`` names.
 
-Prints a JSON line of per-kernel results, then, as the last line,
+Prints a JSON line of per-kernel results (with the float64 readings of C2
+and C4 under "float64"), then, as the last line,
 ``{"ok": true, "device": {...}}``. Any failed check raises (exit code != 0)
 before that line; ``--phases`` runs a subset and then prints no result
 lines. Needs one GPU; imports nothing of JAX.
@@ -208,6 +229,14 @@ SLICE_MEAN_TOL = 5e-3   # fused vs eager forward (the JAX bench.py gate)
 # and the chain's second block on the kernel's first, are held to
 # SEQ_BLOCK_MEAN_TOL: about 2.5 times the largest sound reading.
 SEQ_BLOCK_MEAN_TOL = 1e-3
+# Fault C4 (ROADMAP): does #1's sequence form sit farther from the exact
+# block than its plain version? Both read against the plain version run in
+# float64 on float64 copies of the same bf16 draws (every rounding point
+# gone): the kernel's mean |diff| to it over the plain version's must stay
+# within C4_RATIO on every whole-block case of the scaled phases.
+C4_RATIO = 1.5
+# float64 readings of the run (C4's, C2's), filed into the result line
+FLOAT64_READINGS: dict = {}
 # The backward kernels against their plain versions. The two share every
 # rounding point and sum the same bf16 products in another order, so they
 # differ where a bf16 rounding flips; a backward passes ~7 such points (y,
@@ -249,6 +278,25 @@ TRAIN_LOSS_RTOL = 1e-2
 TRAIN_GRAD_COS = 0.999
 TRAIN_GRAD_RL2 = 5e-2
 GRAD_NOISE_FACTOR = 2.0
+# Fault C2 (ROADMAP): do the fused training routes' kernels move the
+# gradients farther from exact than their plain versions do? The arbiter is
+# the eager model in float64 (float64 parameters, every product in
+# float64) on the same weights, batch and drop-path draws, over C2_DRAWS
+# batches. Per stage (``grad_stage``) and route, the geometric mean over
+# the stage's parameter tensors and the draws of (1 - cos) and of the
+# relative L2 distance to float64; each fused route's must stay within
+# C2_FACTOR times its plain route's (the same route with every wrapper's
+# plain version in place of its kernel). A geometric mean cannot see one
+# tensor's gradient scaled, which leaves its direction as it is: per stage
+# also the largest over its tensors (of more than one value) of |s - s_plain|
+# / rl2_plain, s a route's share of the exact gradient less one (g.g64 /
+# |g64|^2 - 1, pooled over the draws), must stay within C2_SCALE_Z. On the
+# H100 the sound routes read at most 0.35 (a rel-pos table of layers.3);
+# the C=96 wqkv gradient scaled by 1.01 (chip_mutants.py) reads 1.87.
+C2_DRAWS = 3
+C2_FACTOR = 2.0
+C2_SCALE_Z = 1.0
+C2_ROUTES = ("fused", "fused_recompute")
 NOISE_ROUTES = ("eager", "eager_dp32", "eager_res", "eager_res_dp32")
 # A one-value parameter (a PReLU slope) has a gradient that is one
 # cancelling sum, whose relative error moves with where the bf16 roundings
@@ -1860,6 +1908,29 @@ def route_patches(be: str) -> list:
             + ([(layers, "drop_path", drop_path_f32)] if be.endswith("_dp32") else []))
 
 
+def plain_kernel_patches() -> list:
+    """(module, name, plain version) of every kernel wrapper the training
+    step calls: the step with them patched in runs the kernels' rounding
+    points without a kernel."""
+    from sunet_tf_tpu_torch.kernels import upsample as up
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+
+    names = [(wa, n) for n in ("fused_swin_block", "swin_block_bwd", "fused_swin_block_res",
+                               "swin_block_bwd_res", "fused_ln_window_attention",
+                               "ln_window_attention_bwd", "ln_mlp_branch", "ln_mlp_bwd")]
+    names += [(up, "fused_dual_upsample4_conv_phase"), (up, "up4_conv_bwd")]
+
+    def block(name, *args, plan_hw=None, **kw):
+        return wa.fused_swin_block_reference(*args, **kw)
+
+    # the training Functions' forwards launch through these entries, which
+    # the wrappers above call too
+    return [(m, n, getattr(m, n + "_reference")) for m, n in names] + [
+        (wa, "_counted_block", block),
+        (wa, "_ln_window_attention_impl", wa.fused_ln_window_attention_reference),
+        (up, "_conv_phase_impl", up.fused_dual_upsample4_conv_phase_reference)]
+
+
 def train_route(be: str):
     """Route ``be``'s settings (:func:`route_patches`) for the duration."""
     return patched(route_patches(be))
@@ -2026,6 +2097,162 @@ def train_gate(cfg, task: str, inp, tar, fused: tuple, eager_blocks: int = 0) ->
     return {"models": models, "step": step}
 
 
+def grad_stage(name: str) -> str:
+    """The stage a parameter belongs to: "layers.i" or "layers_up.j" for the
+    Swin stages (and layers_up.0, the bottleneck's x2 up-sample), else its
+    top-level module (conv_first, patch_embed, norm, concat_back_dim,
+    norm_up, up, output)."""
+    parts = name.split(".")
+    return ".".join(parts[:2]) if parts[0] in ("layers", "layers_up") else parts[0]
+
+
+def c2_distances(dots: tuple) -> tuple:
+    """(1 - cos, relative L2) of a gradient against the float64 one from
+    ``dots`` = (|g|^2, |g64|^2, |g - g64|^2, g.g64, numel), free of the
+    cancellation of 1 - g.g64 / (|g| |g64|) near 1."""
+    gg, rr, dd = dots[:3]
+    ng, nr = gg ** 0.5, rr ** 0.5
+    return max(dd - (ng - nr) ** 2, 0.0) / max(2 * ng * nr, 1e-300), (dd / max(rr, 1e-300)) ** 0.5
+
+
+def c2_pooled(readings: list, name: str) -> tuple:
+    """(scale error, relative L2) of tensor ``name`` pooled over the draws
+    of ``readings``: sum g.g64 / sum |g64|^2 - 1 (how much of the exact
+    gradient the route's carries, less one) and sqrt(sum |g - g64|^2 /
+    sum |g64|^2)."""
+    rr = sum(d[name][1] for d in readings)
+    return (sum(d[name][3] for d in readings) / max(rr, 1e-300) - 1.0,
+            (sum(d[name][2] for d in readings) / max(rr, 1e-300)) ** 0.5)
+
+
+def c2_aggregate(readings: list) -> dict:
+    """Per stage, the geometric mean over its tensors and the draws of (1 -
+    cos) and of rl2: {stage: (omc, rl2, tensors)} of ``readings`` (one dict
+    {tensor: dots} per draw)."""
+    import math
+
+    logs: dict = {}
+    for draw in readings:
+        for name, dots in draw.items():
+            omc, rl2 = c2_distances(dots)
+            acc = logs.setdefault(grad_stage(name), [0.0, 0.0, 0])
+            acc[0] += math.log(max(omc, 1e-30))
+            acc[1] += math.log(max(rl2, 1e-30))
+            acc[2] += 1
+    return {st: (math.exp(a / n), math.exp(b / n), n // len(readings))
+            for st, (a, b, n) in logs.items()}
+
+
+def c2_scale_z(route: list, plain: list) -> dict:
+    """Per stage, the largest over its tensors of more than one value of
+    |s - s_plain| / rl2_plain (``c2_pooled``): how far the route's share
+    of the exact gradient moves from its plain route's, in units of the
+    plain route's own distance to float64, as (z, tensor)."""
+    out: dict = {}
+    for name, dots in route[0].items():
+        if dots[4] == 1:
+            continue
+        s, _ = c2_pooled(route, name)
+        sp, rp = c2_pooled(plain, name)
+        out[grad_stage(name)] = max(out.get(grad_stage(name), (0.0, "")),
+                                    (abs(s - sp) / max(rp, 1e-300), name))
+    return out
+
+
+def c2_arbiter(cfg, task: str, ds) -> dict:
+    """C2's readings: the training step of ``cfg``'s model (seeded weights)
+    on each route of C2_ROUTES, on each with every kernel by its plain
+    version, and on the float64 eager arbiter, over C2_DRAWS batches of
+    ``ds`` with their drop-path draws; per stage the aggregates of
+    ``c2_aggregate`` and the gate (module text). The kernel routes must
+    launch kernels and the plain routes none. Per draw and tensor the dots
+    go to ``c2_readings.json`` beside the built kernels."""
+    import torch
+
+    from sunet_tf_tpu_torch.data.pipeline import batch_iterator
+    from sunet_tf_tpu_torch.kernels import _build
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.models.sunet import TRAIN_WRAPPERS, build_model, route_copy
+    from sunet_tf_tpu_torch.train.loop import (loss_and_metrics, prepare, step_generators,
+                                               to_device)
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", backend="fused", seed=0)
+    oracle = route_copy(model, dtype=torch.float64, backend="eager")
+    for m in (model, oracle):
+        m.train().requires_grad_(True)
+    routes = {be: route_patches(be) for be in C2_ROUTES}
+    routes.update({f"{be}_plain": route_patches(be) + plain_kernel_patches()
+                   for be in C2_ROUTES})
+    valid = torch.ones(4, device="cuda")
+    readings = {r: [] for r in routes}
+    losses = {r: [] for r in ("float64", *routes)}
+    for d in range(C2_DRAWS):
+        seed = 100 + d
+        batch = to_device(next(batch_iterator(ds, 4, shuffle=True, drop_last=True, seed=seed)),
+                          "cuda")
+        inp, tar = prepare(batch, task, 50.0, step_generators(seed, 0, "cuda")[0])
+
+        def step(m, patches, label):
+            _build.reset_counts()
+            with patched(patches), wa.exact_fp32():
+                loss, _, _ = loss_and_metrics(m, inp, tar, step_generators(seed, 0, "cuda")[1],
+                                              valid, task)
+                loss.backward()
+            launched = sum(_build.counter(k).cuda for k in TRAIN_WRAPPERS)
+            check(bool(launched) == (label in C2_ROUTES),
+                  f"C2 {label}: {launched} kernel launches in its step")
+            losses[label].append(float(loss.detach()))
+            g = {n: p.grad.detach().double().flatten() for n, p in m.named_parameters()
+                 if p.grad is not None}
+            m.zero_grad(set_to_none=True)
+            return g
+
+        ref = step(oracle, [], "float64")
+        check(all(v.dtype == torch.float64 for v in ref.values()), "C2: float64 grads expected")
+        ref = {n: v for n, v in ref.items() if bool(v.any())}
+        for r, patches in routes.items():
+            g = step(model, patches, r)
+            readings[r].append({n: (float(g[n] @ g[n]), float(v @ v),
+                                    float((g[n] - v) @ (g[n] - v)), float(g[n] @ v), v.numel())
+                                for n, v in ref.items()})
+            del g
+    (OUT_DIR / "c2_readings.json").write_text(json.dumps({"readings": readings,
+                                                          "losses": losses}))
+    agg = {r: c2_aggregate(v) for r, v in readings.items()}
+    zs = {be: c2_scale_z(readings[be], readings[f"{be}_plain"]) for be in C2_ROUTES}
+    stages = list(agg[C2_ROUTES[0]])
+    print(f"  C2: {C2_DRAWS} draws, {sum(n for *_, n in agg[C2_ROUTES[0]].values())} gradient "
+          f"tensors a draw against the float64 eager arbiter; losses " + ", ".join(
+              f"{r} {sum(v) / len(v):.6f}" for r, v in losses.items()))
+    print("  C2: per stage, geometric means of 1 - cos and of rl2 to float64: "
+          + " | ".join(routes) + "; ratio of each fused route to its plain route; the "
+          "largest scale z")
+    out, bad = {}, []
+    for st in stages:
+        row = []
+        for be in C2_ROUTES:
+            k, p = agg[be][st], agg[f"{be}_plain"][st]
+            ratio = (k[0] / max(p[0], 1e-300), k[1] / max(p[1], 1e-300))
+            z, zname = zs[be].get(st, (0.0, ""))
+            out[f"{be} {st}"] = {"omc": k[0], "rl2": k[1], "plain_omc": p[0],
+                                 "plain_rl2": p[1], "ratio_omc": ratio[0], "ratio_rl2": ratio[1],
+                                 "scale_z": z, "scale_z_tensor": zname}
+            row.append(f"{k[0]:.3e} {k[1]:.3e} / plain {p[0]:.3e} {p[1]:.3e} = "
+                       f"{ratio[0]:.2f} {ratio[1]:.2f}, z {z:.2f}")
+            if max(ratio) > C2_FACTOR or z > C2_SCALE_Z:
+                bad.append(f"{be} {st} ({ratio[0]:.2f}, {ratio[1]:.2f}, z {z:.2f} {zname})")
+        print(f"    {st:18s} ({agg[C2_ROUTES[0]][st][2]:3d} tensors) " + " | ".join(row))
+    FLOAT64_READINGS["c2"] = out
+    print(f"  C2: {time.perf_counter() - t0:.1f} s; stages beyond {C2_FACTOR:g}x their plain "
+          f"route or scale z {C2_SCALE_Z:g}: {bad or 'none'}")
+    check(not bad, f"C2: fused routes farther from float64 than {C2_FACTOR:g}x their plain "
+          f"routes, or scale z above {C2_SCALE_Z:g}, at {bad}")
+    del model, oracle
+    torch.cuda.empty_cache()
+    return out
+
+
 def step_times(cfg, task: str, models: dict, step: dict, batch: dict) -> tuple:
     """Train-step times (forward, backward, Adam update; median of 10) of
     each route's model on ``batch``, and the peak memory of its first step
@@ -2093,6 +2320,7 @@ def train_phase(results: dict) -> dict:
         inp, tar = prepare(batch, task, 50.0, step_generators(0, 0, "cuda")[0])
         fused = ("fused", "fused_recompute")
         gate = train_gate(cfg, task, inp, tar, fused)
+        c2 = c2_arbiter(cfg, task, ds)
         models, step = gate["models"], gate["step"]
         launches = step["fused"]["launches"]
         for be in fused:
@@ -2154,8 +2382,100 @@ def train_phase(results: dict) -> dict:
                 "step_added_bytes": {be: step[be].get("step_added_bytes") for be in step},
                 "launches": launches, "recompute_launches": step["fused_recompute"]["launches"],
                 "trace": traces["fused"], "recompute_trace": traces["fused_recompute"],
-                "cli_seconds": fit_s})
+                "cli_seconds": fit_s, "c2": c2})
     return out
+
+
+# The parity phase's run (tools/parity_run.py): Config() trained for 40
+# fused steps at batch 4 on a 40 + 4 image synthetic corpus, then validated.
+PARITY_ARGS = ("--n-train", "40", "--n-val", "4", "--epochs", "2", "--steps-per-epoch", "20",
+               "--val-every", "1")
+PARITY_STEPS = 40
+# The float64 oracle's probes on the card against the oracle on the CPU
+# (relative L2): float64 throughout agrees to rounding of ~1e-16 per
+# operation; one product demoted to float32 reads ~1e-7.
+ORACLE_CPU_RL2 = 1e-10
+
+
+def parity_phase() -> dict:
+    """``python -m sunet_tf_tpu_torch.tools.parity_run`` (PARITY_ARGS, its
+    own process: Config() trained on the fused route, then validated across
+    the routes against the float64 oracle), then ``tools.fp64_oracle`` and
+    ``tools.bisect_fp64`` on its checkpoint, each its own process. Fails
+    unless every gate of its RESULTS.json holds, the fused route reads mean
+    |diff| <= SLICE_MEAN_TOL against eager bf16, every oracle probe is
+    float64 and agrees with the oracle on the CPU within ORACLE_CPU_RL2,
+    and the training loss is finite over PARITY_STEPS steps."""
+    import math
+
+    print(f"phase: parity (Config() trained {PARITY_STEPS} fused steps at batch 4, then "
+          "validated on every route against the float64 oracle)")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "parity"
+
+        def tool(name: str, *args) -> float:
+            t = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", f"sunet_tf_tpu_torch.tools.{name}",
+                                   "--out", str(out), *args], cwd=ROOT, capture_output=True,
+                                  text=True, timeout=900)
+            wall = time.perf_counter() - t
+            (OUT_DIR / f"parity_{name}.log").write_text(proc.stdout + proc.stderr)
+            check(proc.returncode == 0, f"{name} exited {proc.returncode}: "
+                  f"{proc.stderr.strip()[-2000:]}")
+            print(f"  {name}: {wall:.1f} s wall")
+            return wall
+
+        walls = {"parity_run": tool("parity_run", *PARITY_ARGS), "fp64_oracle": tool("fp64_oracle"),
+                 "bisect_fp64": tool("bisect_fp64")}
+        res = json.loads((out / "RESULTS.json").read_text())
+    (OUT_DIR / "parity_RESULTS.json").write_text(json.dumps(res, indent=1))
+    tr = res["training"]
+    print(f"  trained {tr['steps']} steps in {tr['train_time_s']} s: loss per epoch "
+          f"{tr['train_loss']}, val PSNR per epoch {tr['val_psnr']}")
+    print(f"  val (Trainer.eval_epoch): fused {res['val_fused']}; eager {res['val_eager']}")
+    for k in res["psnr_mean"]:
+        gap = (f", |PSNR - oracle| max {res['psnr_gap_db'][k]:.4f} dB, |SSIM - oracle| max "
+               f"{res['ssim_gap_vs_oracle'][k]:.2e}, mean |out - oracle| "
+               f"{res['mean_abs_vs_oracle'][k]:.3e}" if k in res["psnr_gap_db"] else "")
+        print(f"  {k}: PSNR {res['psnr_mean'][k]:.4f} dB, SSIM {res['ssim_mean'][k]:.5f}{gap}")
+    print(f"  fused vs eager bf16 mean |diff| {res['fused_vs_eager_mean_abs']:.3e} (tol "
+          f"{SLICE_MEAN_TOL:g}); attention logits {res['attn_logits']}")
+    orc = res["fp64_oracle"]
+    print(f"  fp64_oracle on images {orc['images']}: |PSNR - PSNR_fp64| "
+          f"{orc['psnr_abs_err_vs_fp64']}; fused closer or equal to exact than eager bf16: "
+          f"{orc['fused_closer_or_equal_to_exact']}")
+    bis = res["bisect_fp64"]
+    for k, v in bis["stem"].items():
+        print(f"  bisect (a) {k}: {v}")
+    probes = bis["probes"]
+    print("  bisect (b) rl2 to the oracle per probe: " + "; ".join(
+        f"{p} " + " ".join(f"{probes['rl2'][r][p]:.2e}" for r in probes["rl2"])
+        for p in probes["probes"]) + f" ({', '.join(probes['rl2'])})")
+    print(f"  first probe where fused bf16 is more than 2x farther from the oracle than eager "
+          f"bf16: {probes['first_divergent']}; oracle probes on the card against the CPU: "
+          f"largest rl2 {max(probes['oracle_cpu_rl2'].values()):.3e} (limit {ORACLE_CPU_RL2:g})")
+    gates = {g: res[g] for g in ("parity_within_0.05dB", "quality_no_regression_0.05dB",
+                                  "ssim_no_regression_0.002")}
+    print(f"  gates: {gates}")
+    wall = time.perf_counter() - t0
+    print(f"  parity phase: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in walls.items())})")
+    check(all(gates.values()), f"parity gates failed: {gates}")
+    check(res["fused_vs_eager_mean_abs"] <= SLICE_MEAN_TOL, "parity: fused vs eager bf16 mean "
+          f"|diff| {res['fused_vs_eager_mean_abs']:.3e} above {SLICE_MEAN_TOL:g}")
+    check(set(probes["oracle_dtypes"].values()) == {"torch.float64"},
+          f"parity: oracle probes not float64: {probes['oracle_dtypes']}")
+    check(max(probes["oracle_cpu_rl2"].values()) <= ORACLE_CPU_RL2,
+          f"parity: the oracle's probes on the card differ from the CPU's: "
+          f"{probes['oracle_cpu_rl2']}")
+    check(tr["steps"] == PARITY_STEPS and all(math.isfinite(v) for v in tr["train_loss"]),
+          f"parity: {tr['steps']} steps, losses {tr['train_loss']}")
+    return {"wall_s": wall, "tool_wall_s": walls, "psnr_mean": res["psnr_mean"],
+            "ssim_mean": res["ssim_mean"], "psnr_gap_db": res["psnr_gap_db"],
+            "mean_abs_vs_oracle": res["mean_abs_vs_oracle"],
+            "fused_vs_eager_mean_abs": res["fused_vs_eager_mean_abs"],
+            "attn_logits": res["attn_logits"], "first_divergent": probes["first_divergent"],
+            "train_loss": tr["train_loss"], "gates": gates}
 
 
 def bands_config():
@@ -2830,6 +3150,38 @@ def scaled_chain_check(gen, B: int = 2, record=None):
     print("  fused_swin_block_chain == two fused_swin_block launches at C=360, bit for bit")
 
 
+def float64_copy(a):
+    """A float64 copy of a tensor, or of each tensor of a tuple; anything
+    else as it is."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.double()
+    if isinstance(a, tuple):
+        return tuple(float64_copy(t) for t in a)
+    return a
+
+
+def c4_reading(label: str, got, ref, plain, args: tuple, kw: dict) -> dict:
+    """C4's reading of one case of #1's sequence form: mean |kernel - f64|
+    and mean |plain - f64|, f64 the plain version on float64 copies of the
+    case's arguments, and their ratio, held to C4_RATIO."""
+    import torch
+
+    with torch.no_grad():
+        f64 = plain(*float64_copy(args), **kw)
+    check(f64.dtype == torch.float64, f"{label}: the float64 plain version returned {f64.dtype}")
+    k = float((got.double() - f64).abs().mean())
+    p = float((ref.double() - f64).abs().mean())
+    r = {"case": label, "kernel_vs_f64": k, "plain_vs_f64": p, "ratio": k / max(p, 1e-300)}
+    print(f"    C4: mean |kernel - f64| {k:.4e}, mean |plain - f64| {p:.4e}, ratio "
+          f"{r['ratio']:.3f} (limit {C4_RATIO})")
+    FLOAT64_READINGS.setdefault("c4", []).append(r)
+    check(r["ratio"] <= C4_RATIO, f"{label}: the kernel sits {r['ratio']:.3f} times as far "
+          f"from float64 as its plain version (C4_RATIO {C4_RATIO})")
+    return r
+
+
 def scaled_kernel_phase(results: dict):
     """The scaled config's kernels against their plain versions at batch 2
     (``scaled_cases``, ``scaled_chain_check``), each case timed and filed
@@ -2841,8 +3193,10 @@ def scaled_kernel_phase(results: dict):
     for c in scaled_cases(gen):
         got = lambda: c["fn"](*c["args"], **c["kw"])
         ref = lambda: c["plain"](*c["args"], **c["kw"])
-        mx, mean = compare(f"{c['name']} {c['case']}", got(), ref(), c["tie"],
-                           mean_tol=c["mean_tol"])
+        g, r = got(), ref()
+        mx, mean = compare(f"{c['name']} {c['case']}", g, r, c["tie"], mean_tol=c["mean_tol"])
+        if c["name"] == "fused_swin_block" and c["case"].split(", ")[2] == "block":
+            c4_reading(f"{c['name']} {c['case']}", g, r, c["plain"], c["args"], c["kw"])
         if c["timed"]:
             record_time(results, c["name"] + SCALED, c["case"], got, ref, c["cost"], mx, mean)
 
@@ -3052,7 +3406,10 @@ def scaled_train_kernel_phase(results: dict):
         ref = lambda: c["plain"](*c["args"], **c["kw"])
         label = f"{c['name']} {c['case']}"
         if c["grads"] is None:
-            mx, mean = compare(label, got(), ref(), mean_tol=c["mean_tol"])
+            g, r = got(), ref()
+            mx, mean = compare(label, g, r, mean_tol=c["mean_tol"])
+            if c["name"] == "fused_swin_block" and c["case"].split(", ")[2] == "block":
+                c4_reading(label, g, r, c["plain"], c["args"], c["kw"])
         else:
             mx, mean = compare_grads(label, got(), ref(), c["grads"])
         if c["timed"]:
@@ -3682,7 +4039,7 @@ def parallel_phase(results: dict, held: bool) -> dict:
 
 
 PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "export", "parallel", "train",
-          "bands", "entries", "scaled", "scaled_train")
+          "parity", "bands", "entries", "scaled", "scaled_train")
 
 
 def main():
@@ -3749,6 +4106,8 @@ def main():
         stats["parallel"] = parallel_phase(results, {"kernels", "train_kernels"} <= set(phases))
     if "train" in phases:
         stats["train"] = train_phase(results)
+    if "parity" in phases:
+        stats["parity"] = parity_phase()
     if "bands" in phases:
         stats["bands"] = bands_phase(results)
     if "entries" in phases:
@@ -3773,7 +4132,7 @@ def main():
                         "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
                         "bound_by": first["bound_by"], "library_ms": first["library_ms"],
                         "train_launches": r.get("train_launches", 0), "cases": r["cases"]})
-    line = {"kernels": kernels, **stats, "wall_seconds": total_s}
+    line = {"kernels": kernels, **stats, "float64": FLOAT64_READINGS, "wall_seconds": total_s}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(line, indent=1))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

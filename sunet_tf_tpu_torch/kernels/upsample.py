@@ -49,7 +49,7 @@ from sunet_tf_tpu_torch.kernels.window_attention import (BF16, BWD_FILL_CTAS, PL
                                                          SMEM_MAX, _a_bytes, _bwd_tok_smem,
                                                          _cdiv, _check_w, _check_x,
                                                          _chunk_rows, _pad128, _up,
-                                                         _wg_tiles, exact_fp32, mm32)
+                                                         _wg_tiles, exact_fp32, mm32, wide)
 
 # Half-pixel x4 phase weights: output row 4h+p samples input at
 # h + (2p-3)/8 -> taps (h-1, h) for p = 0, 1 and (h, h+1) for p = 2, 3.
@@ -134,9 +134,9 @@ def _phase_maps(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf) -> torch.Tenso
     float32 stencil; one rounding of the sum. Call inside exact_fp32()."""
     dt = x.dtype
     C = x.shape[-1]
-    ap = alpha_p.float().reshape(())
-    ab = alpha_b.float().reshape(())
-    zb = _prelu(mm32(x, w_b1) + b_b1.float(), ab).to(dt)
+    ap = wide(alpha_p).reshape(())
+    ab = wide(alpha_b).reshape(())
+    zb = _prelu(mm32(x, w_b1) + wide(b_b1), ab).to(dt)
     xb = mm32(zb, wbf)
     st = [_stencil_x4(t, 2) for t in _stencil_x4(xb, 1)]   # st[i][j]
     wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1)
@@ -164,8 +164,8 @@ def fused_dual_upsample4_conv_phase_reference(x, w_exp, alpha_p, w_b1, b_b1,
         # pixel-space head map, then the zero-padded 3x3 conv in float32
         y = _phases_to_pixel(_phase_maps(x, w_exp, alpha_p, w_b1, b_b1,
                                          alpha_b, wpf, wbf))
-        o = F.conv2d(y.float().permute(0, 3, 1, 2),
-                     wconv.float().permute(3, 2, 0, 1), padding=1)
+        o = F.conv2d(wide(y).permute(0, 3, 1, 2),
+                     wide(wconv).permute(3, 2, 0, 1), padding=1)
         return _pixel_to_phase(o.permute(0, 2, 3, 1)).to(x.dtype)
 
 
@@ -521,9 +521,9 @@ def _head_recompute(x, w_exp, alpha_p, w_b1, b_b1, alpha_b) -> tuple:
     round(prelu(z_s)), w_exp as (16, C, C))."""
     dt = x.dtype
     C = x.shape[-1]
-    ap = alpha_p.float().reshape(())
-    ab = alpha_b.float().reshape(())
-    zb = mm32(x, w_b1) + b_b1.float()
+    ap = wide(alpha_p).reshape(())
+    ab = wide(alpha_b).reshape(())
+    zb = mm32(x, w_b1) + wide(b_b1)
     wexp_s = w_exp.reshape(C, C, 16).permute(2, 0, 1)
     z = [mm32(x, wexp_s[s]) for s in range(16)]
     return (zb, _prelu(zb, ab).to(dt), z, [_prelu(zs, ap).to(dt) for zs in z],
@@ -538,17 +538,18 @@ def _shuffle_bwd(x, z, a, dys, wexp_s, wpf, alpha_p, round_dp: bool) -> tuple:
     dw_exp (C, 16C), dalpha_p, dx rows), float32."""
     dt = x.dtype
     C = x.shape[-1]
-    ap = alpha_p.float().reshape(())
+    ap = wide(alpha_p).reshape(())
     xr = _rows(x)
-    dwpf = torch.zeros(C, C, device=x.device)
+    z0 = lambda *s: torch.zeros(*s, device=x.device, dtype=ap.dtype)
+    dwpf = z0(C, C)
     dwexp = []
-    dap = torch.zeros((), device=x.device)
-    dx = torch.zeros(xr.shape[0], C, device=x.device)
+    dap = z0(())
+    dx = z0(xr.shape[0], C)
     for s in range(16):
         dwpf += mm32(_rows(a[s]).t(), dys[s])
         dpre = mm32(dys[s], wpf.t())
         if round_dp:
-            dpre = dpre.to(dt).float()
+            dpre = wide(dpre.to(dt))
         zs = _rows(z[s])
         dz = torch.where(zs > 0, dpre, ap * dpre)
         dap = dap + (torch.clamp_max(zs, 0) * dpre).sum()
@@ -563,7 +564,7 @@ def _bilinear_bwd(x, zb, abv, dxb, wbf, w_b1, alpha_b) -> tuple:
     (rows): dwbf = abv^T dxb, dzb = prelu'(zb) * (dxb wbf^T), dwb1 = x^T
     round(dzb), dbb1 = sum dzb. Returns (dwbf, dalpha_b, dwb1, dbb1, the dx
     rows round(dzb) w_b1^T), float32."""
-    ab = alpha_b.float().reshape(())
+    ab = wide(alpha_b).reshape(())
     dwbf = mm32(_rows(abv).t(), dxb)
     dabm = mm32(dxb, wbf.t())
     zbr = _rows(zb)
@@ -604,8 +605,8 @@ def up4_conv_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf,
         ypix = _phases_to_pixel(y)
         dY = torch.nn.grad.conv2d_input(
             ypix.permute(0, 3, 1, 2).shape,
-            wconv.float().permute(3, 2, 0, 1),
-            phase_to_pixel(dob).float().permute(0, 3, 1, 2), padding=1)
+            wide(wconv).permute(3, 2, 0, 1),
+            wide(phase_to_pixel(dob)).permute(0, 3, 1, 2), padding=1)
         dY = dY.permute(0, 2, 3, 1).reshape(B, H, 4, W, 4, C)
         dys = [dY[:, :, s // 4, :, s % 4] for s in range(16)]
         dwpf, dw_exp, dap, dx = _shuffle_bwd(
@@ -643,7 +644,7 @@ def up4_bwd_reference(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf,
         dys = _pixel_phases(dout.to(dt))
         dwpf, dw_exp, dap, dx = _shuffle_bwd(
             x, z, a, [_rows(d) for d in dys], wexp_s, wpf, alpha_p, round_dp=True)
-        dyf = [d.float() for d in dys]
+        dyf = [wide(d) for d in dys]
         dyh = [_stencil_x4_adjoint(dyf[4 * i:4 * i + 4], 2) for i in range(4)]
         dxb = _rows(_stencil_x4_adjoint(dyh, 1).to(dt))
         dwbf, dab, dwb1, dbb1, dxl = _bilinear_bwd(x, zb, abv, dxb, wbf, w_b1,

@@ -821,14 +821,23 @@ def exact_fp32():
          torch.backends.cudnn.allow_tf32) = old
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in its own dtype where that is wider (float64):
+    the "at least float32" of the plain versions and the eager route, so
+    that bf16 and float32 compute as in float32 and float64 stays float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with float32 accumulation of the (possibly bf16) operands."""
-    return torch.matmul(a.float(), b.float())
+    """a @ b with float32 accumulation of the (possibly bf16) operands; in
+    float64 where either operand is float64."""
+    ct = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+    return torch.matmul(a.to(ct), b.to(ct))
 
 
 def _ln_stats(x: torch.Tensor, eps: float = 1e-5):
     """(xhat, inv) of a LayerNorm over the last axis, float32."""
-    xf = x.float()
+    xf = wide(x)
     xc = xf - xf.mean(-1, keepdim=True)
     inv = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
     return xc * inv, inv
@@ -837,7 +846,7 @@ def _ln_stats(x: torch.Tensor, eps: float = 1e-5):
 def ln32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
          eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis in float32 (float32 result)."""
-    return _ln_stats(x, eps)[0] * g.float() + b.float()
+    return _ln_stats(x, eps)[0] * wide(g) + wide(b)
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -851,13 +860,13 @@ def attn_core_reference(q, k, v, bias, mask, *, num_heads: int, scale: float):
     h = num_heads
     d = C // h
     dt = q.dtype
-    qs = (q.float() * scale).to(dt)
+    qs = (wide(q) * scale).to(dt)
     heads = lambda t: t.reshape(Bn, N, h, d).permute(0, 2, 1, 3)
-    s = mm32(heads(qs), heads(k).transpose(-1, -2)) + bias.float()[None]
+    s = mm32(heads(qs), heads(k).transpose(-1, -2)) + wide(bias)[None]
     if mask is not None:
         nW = mask.shape[0]
         s = (s.reshape(Bn // nW, nW, h, N, N)
-             + mask.float()[None, :, None]).reshape(Bn, h, N, N)
+             + wide(mask)[None, :, None]).reshape(Bn, h, N, N)
     e = torch.exp(s - s.amax(-1, keepdim=True))
     den = e.sum(-1, keepdim=True)
     ctx = mm32(e.to(dt), heads(v)) / den.clamp_min(1e-37)
@@ -870,7 +879,7 @@ def _window_ctx(xw, wqkv, bqkv, bias, mask, num_heads, scale):
     C = xw.shape[-1]
     qkv = mm32(xw, wqkv)
     if bqkv is not None:
-        qkv = qkv + bqkv.float()
+        qkv = qkv + wide(bqkv)
     qkv = qkv.to(dt)
     q, k, v = qkv[..., :C], qkv[..., C:2 * C], qkv[..., 2 * C:]
     return attn_core_reference(q, k, v, bias, mask, num_heads=num_heads,
@@ -887,21 +896,21 @@ def _mlp_branch32(y, ln, w1, b1, w2, b2):
     """fc2(round(gelu(fc1(round(LN(y)))))) + b2 in float32."""
     dt = y.dtype
     yn = ln32(y, *ln).to(dt)
-    h1 = gelu_erf(mm32(yn, w1) + b1.float()).to(dt)
-    return mm32(h1, w2) + b2.float()
+    h1 = gelu_erf(mm32(yn, w1) + wide(b1)).to(dt)
+    return mm32(h1, w2) + wide(b2)
 
 
 def _mlp_tail(y, ln, w1, b1, w2, b2, s2=None):
     """round(y + s2 * fc2(gelu(fc1(LN(y))))); s2 per image or None (1)."""
     m = _mlp_branch32(y, ln, w1, b1, w2, b2)
-    return (y.float() + (m if s2 is None else s2 * m)).to(y.dtype)
+    return (wide(y) + (m if s2 is None else s2 * m)).to(y.dtype)
 
 
 def _dp_scales(dp, B: int):
     """(B, 2) drop-path scales -> two (B, 1, 1, 1) float32 tensors (or None)."""
     if dp is None:
         return None, None
-    dp = dp.float().reshape(B, 2)
+    dp = wide(dp).reshape(B, 2)
     return dp[:, 0].reshape(B, 1, 1, 1), dp[:, 1].reshape(B, 1, 1, 1)
 
 
@@ -925,20 +934,20 @@ def _qkv_heads(uw, wqkv, bqkv, *, num_heads: int, N: int, scale: float) -> tuple
     T, C = uw.shape
     qkv = mm32(uw, wqkv)
     if bqkv is not None:
-        qkv = qkv + bqkv.float()
+        qkv = qkv + wide(bqkv)
     qkv = qkv.to(dt)
     q, k, v = (qkv[:, i * C:(i + 1) * C].reshape(T // N, N, num_heads, C // num_heads)
                .permute(0, 2, 1, 3) for i in range(3))
-    return (q.float() * scale).to(dt), k, v
+    return (wide(q) * scale).to(dt), k, v
 
 
 def _scores(qs, k, bias, mask):
     """float32 logits qs k^T + bias (+ the window's mask), (Bn, h, N, N)."""
     Bn, h, N, _ = qs.shape
-    s = mm32(qs, k.transpose(-1, -2)) + bias.float()[None]
+    s = mm32(qs, k.transpose(-1, -2)) + wide(bias)[None]
     if mask is not None:
         nW = mask.shape[0]
-        s = (s.reshape(Bn // nW, nW, h, N, N) + mask.float()[None, :, None]).reshape(
+        s = (s.reshape(Bn // nW, nW, h, N, N) + wide(mask)[None, :, None]).reshape(
             Bn, h, N, N)
     return s
 
@@ -966,7 +975,7 @@ def _attn_res_state(qs, k, v, bias, mask) -> tuple:
     Bn, h, N, d = qs.shape
     s = _scores(qs, k, bias, mask)
     eb = torch.exp(s - s.amax(-1, keepdim=True)).to(qs.dtype)
-    rden = 1.0 / eb.float().sum(-1).clamp_min(1e-37)
+    rden = 1.0 / wide(eb).sum(-1).clamp_min(1e-37)
     ctx_f = mm32(eb, v) * rden[..., None]
     return eb, rden, ctx_f.permute(0, 2, 1, 3).reshape(Bn * N, h * d)
 
@@ -1003,7 +1012,7 @@ def _wmsa_bwd(uw, dattn, rec, wqkv, wproj, *, scale: float) -> tuple:
     dv = mm32(P.to(uw.dtype).transpose(-1, -2), dctx)
     ds = P * (dP - (dP * P).sum(-1, keepdim=True))
     du, dwqkv, dbqkv, dbias = _qkv_bwd(uw, ds, qs, k, dv, wqkv, scale=scale)
-    return du, dwqkv, dbqkv, mm32(ctx.t(), dattn), dattn.float().sum(0), dbias
+    return du, dwqkv, dbqkv, mm32(ctx.t(), dattn), wide(dattn).sum(0), dbias
 
 
 def _wmsa_bwd_res(uw, dattn, qkv, eb, rden, ctx_f, wqkv, wproj, *, scale: float) -> tuple:
@@ -1020,12 +1029,12 @@ def _wmsa_bwd_res(uw, dattn, qkv, eb, rden, ctx_f, wqkv, wproj, *, scale: float)
     Bn, h, N, d = k.shape
     heads = lambda t: t.reshape(Bn, N, h, d).permute(0, 2, 1, 3)
     dn = heads(mm32(dattn, wproj.t())) * rden[..., None]
-    t = (dn * heads(ctx_f)).to(dt).float().sum(-1, keepdim=True)
+    t = wide((dn * heads(ctx_f)).to(dt)).sum(-1, keepdim=True)
     dnb = dn.to(dt)
-    ds = eb.float() * (mm32(dnb, v.transpose(-1, -2)) - t)
+    ds = wide(eb) * (mm32(dnb, v.transpose(-1, -2)) - t)
     dv = mm32(eb.transpose(-1, -2), dnb)
     du, dwqkv, dbqkv, dbias = _qkv_bwd(uw, ds, qs, k, dv, wqkv, scale=scale)
-    return (du, dwqkv, dbqkv, mm32(ctx_f.to(dt).t(), dattn), dattn.float().sum(0),
+    return (du, dwqkv, dbqkv, mm32(ctx_f.to(dt).t(), dattn), wide(dattn).sum(0),
             dbias)
 
 
@@ -1034,8 +1043,8 @@ def _mlp_recompute(rows, ln, w1, b1) -> tuple:
     inv) of its LN in float32, yn = round(LN(rows)), the float32 fc1
     pre-activation a and round(gelu(a))."""
     yhat, inv = _ln_stats(rows)
-    yn = (yhat * ln[0].float() + ln[1].float()).to(rows.dtype)
-    a = mm32(yn, w1) + b1.float()
+    yn = (yhat * wide(ln[0]) + wide(ln[1])).to(rows.dtype)
+    a = mm32(yn, w1) + wide(b1)
     return yhat, inv, yn, a, gelu_erf(a).to(rows.dtype)
 
 
@@ -1047,12 +1056,12 @@ def _mlp_bwd(dm, rec, ln_scale, w1, w2) -> tuple:
     db2)."""
     yhat, inv, yn, a, hgelu = rec
     dw2 = mm32(hgelu.t(), dm)
-    db2 = dm.float().sum(0)
+    db2 = wide(dm).sum(0)
     da = mm32(dm, w2.t()) * gelu_erf_grad(a)
     dab = da.to(dm.dtype)
     dw1 = mm32(yn.t(), dab)
     dyn = mm32(dab, w1.t())
-    return (_ln_bwd_dx(dyn * ln_scale.float(), yhat, inv), (dyn * yhat).sum(0),
+    return (_ln_bwd_dx(dyn * wide(ln_scale), yhat, inv), (dyn * yhat).sum(0),
             dyn.sum(0), dw1, da.sum(0), dw2, db2)
 
 
@@ -1071,8 +1080,8 @@ def fused_swin_block_reference(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1,
         xr = roll2d(x, -shift)
         ctx = _qkv_ctx(ln32(xr, *ln1).to(dt), wqkv, bqkv, bias, mask, ws,
                        num_heads, scale)
-        attn = window_reverse(mm32(ctx, wproj) + bproj.float(), ws, H, W)
-        y = (xr.float() + (attn if s1 is None else s1 * attn)).to(dt)
+        attn = window_reverse(mm32(ctx, wproj) + wide(bproj), ws, H, W)
+        y = (wide(xr) + (attn if s1 is None else s1 * attn)).to(dt)
         return roll2d(_mlp_tail(y, ln2, w1, b1, w2, b2, s2), shift)
 
 
@@ -1094,9 +1103,9 @@ def fused_swin_block_res_reference(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1
         uw = window_partition(ln32(xr, *ln1).to(dt), ws).reshape(-1, C)
         qs, k, v = _qkv_heads(uw, wqkv, bqkv, num_heads=num_heads, N=ws * ws, scale=scale)
         eb, rden, ctx_f = _attn_res_state(qs, k, v, bias, mask)
-        attn = window_reverse((mm32(ctx_f.to(dt), wproj) + bproj.float()).reshape(
+        attn = window_reverse((mm32(ctx_f.to(dt), wproj) + wide(bproj)).reshape(
             -1, ws * ws, C), ws, H, W)
-        y = (xr.float() + (attn if s1 is None else s1 * attn)).to(dt)
+        y = (wide(xr) + (attn if s1 is None else s1 * attn)).to(dt)
         return roll2d(_mlp_tail(y, ln2, w1, b1, w2, b2, s2), shift), eb, rden, ctx_f
 
 
@@ -1123,7 +1132,7 @@ def _block_bwd_plain(x, dout, ln1, wproj, bproj, ln2, w1, b1, w2, b2, drop_path_
         s1, s2 = _dp_scales(drop_path_scale, B)
         if s1 is None:
             s1 = s2 = torch.ones(B, 1, 1, 1, device=x.device)
-        f = lambda t: t.float()
+        f = lambda t: wide(t)
         win = lambda t: window_partition(t, ws).reshape(-1, t.shape[-1])
         unwin = lambda t: window_reverse(t.reshape(-1, ws * ws, t.shape[-1]), ws, H, W)
 
@@ -1133,11 +1142,11 @@ def _block_bwd_plain(x, dout, ln1, wproj, bproj, ln2, w1, b1, w2, b2, drop_path_
         uw = win((xhat1 * f(ln1[0]) + f(ln1[1])).to(dt))
         ctx, attn_bwd = attention(uw)
         attn = unwin(mm32(ctx, wproj) + f(bproj))
-        y = (xr.float() + s1 * attn).to(dt)
+        y = (wide(xr) + s1 * attn).to(dt)
         mlp = _mlp_recompute(y.reshape(-1, C), ln2, w1, b1)
 
         # MLP sublayer
-        dout32 = roll2d(dout.to(dt), -shift).float()
+        dout32 = wide(roll2d(dout.to(dt), -shift))
         dm = (s2 * dout32).to(dt).reshape(-1, C)
         dy2, dg2, db2, dw1, dbm1, dw2, dbm2 = _mlp_bwd(dm, mlp, ln2[0], w1, w2)
         dy = dout32 + dy2.reshape(B, H, W, C)
@@ -1210,13 +1219,13 @@ def ln_window_attention_bwd_reference(x, dout, ln_scale, ln_bias, wqkv, bqkv,
         B, H, W, C = x.shape
         win = lambda t: window_partition(t, ws).reshape(-1, C)
         xhat, inv = _ln_stats(x)
-        uw = win((xhat * ln_scale.float() + ln_bias.float()).to(dt))
+        uw = win((xhat * wide(ln_scale) + wide(ln_bias)).to(dt))
         rec = _wmsa_recompute(uw, wqkv, bqkv, bias, mask, num_heads=num_heads,
                               scale=scale)
         du, dwqkv, dbqkv, dwproj, dbproj, dbias = _wmsa_bwd(
             uw, win(dout.to(dt)), rec, wqkv, wproj, scale=scale)
         du = window_reverse(du.reshape(-1, ws * ws, C), ws, H, W)
-        dx = _ln_bwd_dx(du * ln_scale.float(), xhat, inv).to(dt)
+        dx = _ln_bwd_dx(du * wide(ln_scale), xhat, inv).to(dt)
         return (dx, (du * xhat).sum((0, 1, 2)), du.sum((0, 1, 2)), dwqkv,
                 dbqkv, dwproj, dbproj, dbias)
 
@@ -1229,7 +1238,7 @@ def wmsa_core_reference(xw, wqkv, bqkv, wproj, bproj, bias, mask, *,
     rounded to xw's dtype."""
     with exact_fp32():
         ctx = _window_ctx(xw, wqkv, bqkv, bias, mask, num_heads, scale)
-        return (mm32(ctx, wproj) + bproj.float()).to(xw.dtype)
+        return (mm32(ctx, wproj) + wide(bproj)).to(xw.dtype)
 
 
 def fused_window_attention_reference(x, wqkv, bqkv, wproj, bproj, bias, mask,

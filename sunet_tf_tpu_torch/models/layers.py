@@ -117,6 +117,26 @@ ROUTE_TRAIN_BIG_MAX_C = wa.TRAIN_BLOCK_MAX_C
 ROUTE_TRAIN_RESID = True
 
 
+class _LogitStats:
+    """Process-wide opt-in for the attention-logit extrema
+    (``obs.attention_logit_stats``; JAX's ``_LOGIT_STATS``): while
+    ``enabled``, each eager W-MSA folds the global max and min of its
+    logits after the rel-pos bias and before the SW mask into ``hi`` and
+    ``lo`` (device scalars)."""
+
+    enabled = False
+    hi: Optional[torch.Tensor] = None
+    lo: Optional[torch.Tensor] = None
+
+    def observe(self, logits: torch.Tensor) -> None:
+        hi, lo = logits.amax().detach(), logits.amin().detach()
+        self.hi = hi if self.hi is None else torch.maximum(self.hi, hi)
+        self.lo = lo if self.lo is None else torch.minimum(self.lo, lo)
+
+
+LOGIT_STATS = _LogitStats()
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ w.T + b in x's dtype (w in torch (out, in) layout)."""
@@ -124,9 +144,10 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    """float32 LayerNorm, result in x's dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                        norm.bias, norm.eps).to(x.dtype)
+    """LayerNorm in float32 (float64 for a float64 x), result in x's dtype."""
+    xw = wa.wide(x)
+    return F.layer_norm(xw, norm.normalized_shape, norm.weight.to(xw.dtype),
+                        norm.bias.to(xw.dtype), norm.eps).to(x.dtype)
 
 
 def kernel_weights(module: nn.Module, dtype, build):
@@ -254,13 +275,14 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def bias_matrix(self) -> torch.Tensor:
-        """(num_heads, N, N) float32 relative-position bias."""
+        """(num_heads, N, N) relative-position bias, float32 (float64 from a
+        float64 table)."""
         ws = self.window_size
         n = ws * ws
         dev = self.relative_position_bias_table.device
         idx = shape_constant(("rel_index", ws, dev), lambda: torch.as_tensor(
             relative_position_index(ws, ws).reshape(-1), dtype=torch.long, device=dev))
-        bias = self.relative_position_bias_table[idx].float()
+        bias = wa.wide(self.relative_position_bias_table[idx])
         return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
 
     def forward(self, xw: torch.Tensor,
@@ -274,6 +296,8 @@ class WindowAttention(nn.Module):
         q = qkv[0] * torch.tensor(self.scale, dtype=dt)
         k, v = qkv[1], qkv[2]
         attn = wa.mm32(q, k.transpose(-1, -2)) + self.bias_matrix()[None]
+        if LOGIT_STATS.enabled:
+            LOGIT_STATS.observe(attn)
         if mask is not None:
             nW = mask.shape[0]
             attn = (attn.reshape(Bn // nW, nW, h, N, N)
@@ -571,17 +595,18 @@ class DualUpsample(nn.Module):
                                    Conv1x1(in_ch, out_ch, bias=False)])
         self.conv = Conv1x1(2 * out_ch, out_ch, bias=False)
 
-    def folded(self) -> tuple:
-        """(wpf, wbf): each branch's second 1x1 times its mix half, (in, out)
-        float32."""
+    def folded(self, dtype=torch.float32) -> tuple:
+        """(wpf, wbf): each branch's second 1x1 times its mix half, (in, out),
+        folded in float32 (float64 for ``dtype`` float64)."""
         out_ch = self.conv.out_channels
-        mix = self.conv.kernel()
-        return (self.up_p[3].kernel() @ mix[:out_ch],
-                self.up_b[3].kernel() @ mix[out_ch:])
+        ct = torch.promote_types(dtype, torch.float32)
+        mix = self.conv.kernel().to(ct)
+        return (self.up_p[3].kernel().to(ct) @ mix[:out_ch],
+                self.up_b[3].kernel().to(ct) @ mix[out_ch:])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        wpf, wbf = self.folded()
+        wpf, wbf = self.folded(dt)
         xp = pixel_shuffle(self.up_p[1](self.up_p[0](x)), self.factor)
         xb = self.up_b[1](self.up_b[0](x))
         return (torch.matmul(xp, wpf.to(dt))

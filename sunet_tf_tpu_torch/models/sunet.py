@@ -172,22 +172,39 @@ class SUNet(nn.Module):
         self.norm_up = nn.LayerNorm(C, eps=1e-5)
         self.up = DualUpsample(C, 4)
         self.output = Conv3x3(C, cfg.out_chans, bias=False)
+        # False runs conv_first and the patch-embed conv one after the
+        # other instead of folded (tools/bisect_fp64.py reads both forms)
+        self.fold_stem = True
+        # a dict the forward fills with its probe points (probe_names)
+        self.taps: Optional[dict] = None
+
+    def _tap(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        if self.taps is not None:
+            self.taps[name] = t.detach()
+        return t
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         """conv_first (3x3, pad 1) and the patch-embed conv (k = s = p)
-        folded into one (p+2)x(p+2) stride-p pad-1 conv, then LN."""
+        folded into one (p+2)x(p+2) stride-p pad-1 conv, then LN; the fold in
+        float32 (float64 for a float64 x)."""
         p = self.cfg.patch_size
-        w1 = self.conv_first.weight.float()           # (C, in, 3, 3)
-        w2 = self.patch_embed.proj.weight.float()     # (C, C, p, p)
+        ct = torch.promote_types(x.dtype, torch.float32)
+        if not self.fold_stem:
+            pe = self.patch_embed.proj
+            y = F.conv2d(self.conv_first(x).permute(0, 3, 1, 2), pe.weight.to(x.dtype),
+                         pe.bias.to(x.dtype), stride=p).permute(0, 2, 3, 1)
+            return y if self.patch_embed.norm is None else layer_norm(y, self.patch_embed.norm)
+        w1 = self.conv_first.weight.to(ct)            # (C, in, 3, 3)
+        w2 = self.patch_embed.proj.weight.to(ct)      # (C, C, p, p)
         wc = w1.new_zeros(w2.shape[0], w1.shape[1], p + 2, p + 2)
         for a in range(3):
             for b in range(3):
                 wc[:, :, a:a + p, b:b + p] += torch.einsum(
                     "ocij,ca->oaij", w2, w1[:, :, a, b])
-        bc = (torch.einsum("c,ocij->o", self.conv_first.bias.float(), w2)
-              + self.patch_embed.proj.bias.float())
+        bc = (torch.einsum("c,ocij->o", self.conv_first.bias.to(ct), w2)
+              + self.patch_embed.proj.bias.to(ct))
         y = F.conv2d(x.permute(0, 3, 1, 2), wc.to(x.dtype), stride=p, padding=1)
-        y = (y.permute(0, 2, 3, 1).float() + bc).to(x.dtype)
+        y = (y.permute(0, 2, 3, 1).to(ct) + bc).to(x.dtype)
         if self.patch_embed.norm is not None:
             y = layer_norm(y, self.patch_embed.norm)
         return y
@@ -195,8 +212,9 @@ class SUNet(nn.Module):
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 stage_runner=None) -> torch.Tensor:
         """x: (B, H, W, in_chans) in [0, 1] -> (B, H, W, out_chans) float32
-        logits. With ``generator`` this is the training forward (JAX
-        ``key``): stochastic depth drawn from it, the blocks and the x4 head
+        logits (float64 from a float64 eager model). With ``generator`` this
+        is the training forward (JAX ``key``): stochastic depth drawn from
+        it, the blocks and the x4 head
         on their trainable routes; without it, inference. ``stage_runner``:
         the spatial tier's runner (``parallel.spatial.SpatialStageRunner``),
         which each Swin stage asks whether it takes the stage; the other
@@ -220,34 +238,40 @@ class SUNet(nn.Module):
         if x.shape[1] % gran or x.shape[2] % gran:
             raise ValueError(f"input {x.shape[1]}x{x.shape[2]} must be "
                              f"divisible by {gran}")
-        feats = self._stem(x)
+        tap = self._tap
+        feats = tap("stem", self._stem(x))
         if self.absolute_pos_embed is not None:
             feats = feats + self.absolute_pos_embed.to(feats.dtype).reshape(
                 1, feats.shape[1], feats.shape[2], -1)
         skips = []
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             skips.append(feats)
-            feats = layer(feats, generator, stage_runner)
-        feats = layer_norm(feats, self.norm)
-        feats = self.layers_up[0](feats)
+            feats = tap(f"enc{i}", layer(feats, generator, stage_runner))
+        feats = tap("norm", layer_norm(feats, self.norm))
+        feats = tap("up0", self.layers_up[0](feats))
         for j in range(1, n):
             feats = torch.cat([feats, skips[n - 1 - j]], dim=-1)
             lin = self.concat_back_dim[j]
-            feats = self.layers_up[j](linear(feats, lin.weight, lin.bias), generator,
-                                      stage_runner)
-        feats = layer_norm(feats, self.norm_up)
+            feats = tap(f"concat{j}", linear(feats, lin.weight, lin.bias))
+            feats = tap(f"up{j}", self.layers_up[j](feats, generator, stage_runner))
+        feats = tap("norm_up", layer_norm(feats, self.norm_up))
+        return tap("output", self._head(feats, generator))
+
+    def _head(self, feats: torch.Tensor, generator) -> torch.Tensor:
+        """The x4 head and the output conv: float32 logits (float64 from a
+        float64 eager model)."""
         if self.backend != "fused":
-            return self.output(self.up(feats)).float()
-        if conv_fused_head(cfg.out_chans):
+            return wa.wide(self.output(self.up(feats)))
+        if conv_fused_head(self.cfg.out_chans):
             wconv = self.output.weight.permute(2, 3, 1, 0)
             if generator is not None:
-                return self.up.conv_head_trainable(feats, wconv).float()
+                return wa.wide(self.up.conv_head_trainable(feats, wconv))
             return self.up.fused_conv_head(
                 feats, wconv.contiguous().to(feats.dtype)).float()
         # the split head, then the output conv as a plain convolution (JAX
         # runs it in XLA)
         head = self.up.head_trainable if generator is not None else self.up.fused_head
-        return self.output(head(feats)).float()
+        return wa.wide(self.output(head(feats)))
 
     def flops(self, resolution: Optional[tuple] = None) -> int:
         """Analytic forward FLOPs (multiply-accumulate counted as 2), the
@@ -424,6 +448,29 @@ def build_model(cfg: Config, *, device="cuda", backend: str = "fused",
     if device.type != "meta":
         torch_default_init_(model, torch.Generator().manual_seed(seed))
     return model.eval().requires_grad_(False)
+
+
+def probe_names(num_stages: int) -> tuple:
+    """The forward's probe points in pipeline order (``SUNet.taps``): the
+    stem, each encoder stage, the bottleneck norm, layers_up[0], each
+    decoder stage's concat Linear and the stage, norm_up, the output."""
+    n = num_stages
+    return ("stem", *(f"enc{i}" for i in range(n)), "norm", "up0",
+            *(p for j in range(1, n) for p in (f"concat{j}", f"up{j}")), "norm_up", "output")
+
+
+def route_copy(model: SUNet, *, dtype: torch.dtype, backend: str) -> SUNet:
+    """A copy of ``model`` with its weights, on its device, that computes in
+    ``dtype`` on ``backend``, in eval mode with frozen parameters. Its
+    parameters are float64 where ``dtype`` is (the float64 oracle: every
+    product of the eager route in float64), else float32."""
+    device = next(model.parameters()).device
+    with device:
+        copy = SUNet(model.cfg, dtype=dtype, backend=backend)
+    copy.load_state_dict(model.state_dict())
+    if dtype == torch.float64:
+        copy.double()
+    return copy.eval().requires_grad_(False)
 
 
 def param_count(model: nn.Module) -> int:

@@ -1,5 +1,7 @@
 """Scalar logging (CSV, console, optional TensorBoard) and ROC/PR/overlay
-plots (``sunet_tf_tpu/obs.py``'s MetricsLogger).
+plots (``sunet_tf_tpu/obs.py``'s MetricsLogger), the attention-logit
+extrema of a model (``attention_logit_stats``) and a profiler trace
+(``profile_trace``).
 
 The reference's sinks: tensorboardX scalars per split, per-epoch ROC/PR
 curve PNGs, cumulative overlay dashboards (high-is-good and low-is-good
@@ -162,3 +164,68 @@ class MetricsLogger:
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()
+
+
+def attention_logit_stats(model, x) -> dict:
+    """Global max and min of the attention logits over every W-MSA of
+    ``model`` for the input batch ``x`` (B, H, W, in_chans), taken after the
+    rel-pos bias and before the SW mask, as JAX's ``attention_logit_stats``
+    takes them: the eager route in float32 on ``model``'s weights
+    (``models.sunet.route_copy``), through ``layers.LOGIT_STATS``.
+
+    Purpose: to read on trained weights how far the logits reach: the
+    recipe's constant QK_SCALE=8 lets them grow (JAX's "shift" softmax is
+    exact only for logits in (-47, 80]; the port's row-max form keeps no
+    such band, and its rows turn near one-hot as the logits grow)."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels.window_attention import exact_fp32
+    from sunet_tf_tpu_torch.models import layers
+    from sunet_tf_tpu_torch.models.sunet import route_copy
+
+    eager = route_copy(model, dtype=torch.float32, backend="eager")
+    x = torch.as_tensor(x, device=next(eager.parameters()).device)
+    stats = layers.LOGIT_STATS
+    stats.enabled, stats.hi, stats.lo = True, None, None
+    try:
+        with torch.no_grad(), exact_fp32():
+            eager(x.float())
+        return {"logit_max": float(stats.hi), "logit_min": float(stats.lo)}
+    finally:
+        stats.enabled, stats.hi, stats.lo = False, None, None
+
+
+class profile_trace:
+    """Context manager around ``torch.profiler.profile`` (CPU, and CUDA
+    where a card is present) that writes a Chrome trace,
+    ``<log_dir>/trace.json``, on exit (JAX's ``profile_trace`` writes an
+    XProf trace). Usage:
+
+        with profile_trace(log_dir) as p:
+            step(...)  # traced region
+        p.prof.key_averages()
+    """
+
+    def __init__(self, log_dir: str):
+        self.log_dir = log_dir
+        self.prof = None
+
+    def __enter__(self):
+        import torch
+
+        os.makedirs(self.log_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        self.prof.export_chrome_trace(os.path.join(self.log_dir, "trace.json"))
+        return False

@@ -1,6 +1,6 @@
 """Losses (``sunet_tf_tpu/train/losses.py``, reference train.py:187-197).
 
-Charbonnier and MSE in float32, with an optional per-pixel weight under the
+Charbonnier and MSE in float32 (float64 for float64 operands), with an optional per-pixel weight under the
 reference's sum(l * w) / max(sum(w), 1e-8) normalisation; the per-sample
 variants reduce over each image's own pixels (the batch-1 eval protocol).
 """
@@ -11,25 +11,27 @@ from typing import Optional
 
 import torch
 
+from sunet_tf_tpu_torch.kernels.window_attention import wide
+
 
 def _reduce(l: torch.Tensor, weight: Optional[torch.Tensor], dims) -> torch.Tensor:
     if weight is None:
         return l.mean(dim=dims) if dims else l.mean()
-    w = weight.float()
+    w = wide(weight)
     if not dims:
         return (l * w).sum() / w.sum().clamp_min(1e-8)
     return (l * w).sum(dim=dims) / w.sum(dim=dims).clamp_min(1e-8)
 
 
 def charbonnier(pred, target, eps: float = 1e-3) -> torch.Tensor:
-    """The per-pixel Charbonnier loss, float32."""
-    diff = pred.float() - target.float()
+    """The per-pixel Charbonnier loss, float32 (float64 for float64 operands)."""
+    diff = wide(pred) - wide(target)
     return torch.sqrt(diff * diff + eps * eps)
 
 
 def squared_error(pred, target) -> torch.Tensor:
-    """The per-pixel squared error, float32."""
-    return (pred.float() - target.float()) ** 2
+    """The per-pixel squared error, float32 (float64 for float64 operands)."""
+    return (wide(pred) - wide(target)) ** 2
 
 
 def charbonnier_loss(pred, target, weight=None, eps: float = 1e-3) -> torch.Tensor:

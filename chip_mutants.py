@@ -31,9 +31,9 @@ settings:
   ones and no other setting, ``--sound`` only the kernel and floor
   settings; a mutant's file path is under ``kernels/csrc`` (``../`` for
   the wrappers' Python beside it); the Python mutants of
-  ``EXPORT_MUTANTS``, ``PARALLEL_MUTANTS`` and ``FLOAT64_MUTANTS`` run
-  chip_smoke's export, parallel, or parity and train phase in their copy,
-  which must fail;
+  ``EXPORT_MUTANTS``, ``PARALLEL_MUTANTS``, ``FLOAT64_MUTANTS`` and
+  ``DATA_MUTANTS`` run chip_smoke's export, parallel, parity and train, or
+  data phase in their copy, which must fail;
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -340,6 +340,26 @@ class SwinBlockTrainableRes(""",
 
 
 class SwinBlockTrainableRes("""),
+}
+
+# The data phase's mutants (Python, under sunet_tf_tpu_torch/), each run
+# through chip_smoke's data phase, which must fail: a checkpointed block
+# that draws its randomness inside the checkpoint, so the recompute in
+# backward draws other masks and drop-path scales (the generator state and
+# the gate catch it), and the attention dropout moved after the cast to
+# bf16 (the probabilities site's dtype check catches it).
+DATA_MUTANTS = {
+    "ckpt_redraws_in_recompute": (
+        "models/sunet.py",
+        """                    x = checkpoint(blk.train_forward, x, *blk.draws(x, generator),
+                                   use_reentrant=False)""",
+        """                    x = checkpoint(blk, x, generator, use_reentrant=False)"""),
+    "attn_dropout_after_bf16_cast": (
+        "models/layers.py",
+        """        attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop, generator)
+        out = wa.mm32(attn.to(dt), v).to(dt)""",
+        """        attn = torch.softmax(attn, dim=-1)
+        out = wa.mm32(dropout(attn.to(dt), self.attn_drop, generator), v).to(dt)"""),
 }
 
 EXPORT_MUTANTS = {
@@ -828,7 +848,8 @@ def main():
                       "mm32_float32_demotion": (FLOAT64_MUTANTS["mm32_float32_demotion"],
                                                 "parity"),
                       "res_c96_dwqkv_scaled": (FLOAT64_MUTANTS["res_c96_dwqkv_scaled"],
-                                               "train")}
+                                               "train"),
+                      **{k: (v, "data") for k, v in DATA_MUTANTS.items()}}
     if set(only) - set(MUTANTS) - set(python_mutants):
         raise SystemExit("chip_mutants: unknown mutants "
                          f"{sorted(set(only) - set(MUTANTS) - set(python_mutants))}")

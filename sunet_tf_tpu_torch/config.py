@@ -4,10 +4,11 @@ The on-disk format is the reference ``training.yaml`` (sections ``VERBOSE /
 SWINUNET / MODEL / OPTIM / TRAINING``), the same schema the JAX package
 reads (``sunet_tf_tpu/config.py``). Of the JAX package's ``TPU`` section
 the port reads ``COMPUTE_DTYPE``, the optimizer's moment storage dtypes
-(``OPT_MU_DTYPE``, ``OPT_NU_DTYPE``) and the mesh (``DATA_PARALLEL``,
+(``OPT_MU_DTYPE``, ``OPT_NU_DTYPE``), the mesh (``DATA_PARALLEL``,
 ``SPATIAL``: the data and spatial sizes of the ranks of a
-``torch.distributed`` group, ``parallel/``); its other keys (attention
-backend, donation, data workers) are read past and ignored here.
+``torch.distributed`` group, ``parallel/``) and ``DATA_WORKERS`` (the
+decode processes of ``data/workers.py``); its other keys (attention
+backend, donation) are read past and ignored here.
 """
 
 from __future__ import annotations
@@ -106,6 +107,9 @@ class Config:
     # spatial) and the spatial size (> 1 shards the Swin stages' rows).
     data_parallel: int = 0
     spatial: int = 1
+    # TPU.DATA_WORKERS: > 0 decodes the training (and evaluation) batches
+    # in that many spawned DataLoader workers (data/workers.py).
+    data_workers: int = 0
 
     def __post_init__(self):
         if self.compute_dtype not in COMPUTE_DTYPES:
@@ -189,6 +193,7 @@ def config_from_dict(raw: dict) -> Config:
         opt_nu_dtype=str(_get(tp, "OPT_NU_DTYPE", "bfloat16_sr")),
         data_parallel=int(_get(tp, "DATA_PARALLEL", 0)),
         spatial=int(_get(tp, "SPATIAL", 1)),
+        data_workers=int(_get(tp, "DATA_WORKERS", 0)),
     )
 
 
@@ -247,7 +252,8 @@ def config_to_dict(cfg: Config) -> dict:
                 "OPT_MU_DTYPE": cfg.opt_mu_dtype,
                 "OPT_NU_DTYPE": cfg.opt_nu_dtype,
                 "DATA_PARALLEL": cfg.data_parallel,
-                "SPATIAL": cfg.spatial},
+                "SPATIAL": cfg.spatial,
+                "DATA_WORKERS": cfg.data_workers},
     }
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import os
 import queue
+import re
 import threading
 from typing import Iterator, Optional
 
@@ -34,6 +35,20 @@ IMAGE_EXTS = (".jpeg", ".jpg", ".png", ".gif", ".bmp")
 
 def is_image_file(name: str) -> bool:
     return name.lower().endswith(IMAGE_EXTS)
+
+
+_NAT_SPLIT = re.compile(r"(\d+)")
+
+
+def natural_sorted(names):
+    """Natural sort (natsort-equivalent for filenames): numeric runs compare
+    as integers (reference utils/dir_utils.py:19-21 used natsort)."""
+
+    def key(s):
+        return tuple(int(t) if t.isdigit() else t.lower()
+                     for t in _NAT_SPLIT.split(str(s)))
+
+    return sorted(names, key=key)
 
 
 def list_image_pairs(root: str) -> list:
@@ -91,7 +106,7 @@ class PairDataset:
         import collections
 
         self.pairs = list_image_pairs(root)
-        self.root = root  # kept so callers can re-target the grain pipeline
+        self.root = root  # the Trainer hands it to data/workers.py
         self.ps = patch_size
         self.train = train
         self.rng = np.random.default_rng(seed)
@@ -138,6 +153,42 @@ class PairDataset:
         inp = reflect_pad_to(inp, ps)
         tar = reflect_pad_to(tar, ps)
         return center_crop_np(inp, ps), center_crop_np(tar, ps), name
+
+
+class InputDataset:
+    """Input-only dataset, the reference's DataLoaderTest
+    (dataset_RGB.py:132-151): the images listed directly in ``inp_dir``
+    (no input/-target/ layout), natural-sorted, yielded as (uint8 RGB
+    array, stem name) with no crop or resize; pair with
+    ``infer.tiled.padded_inference`` / ``tiled_inference`` for the
+    forward."""
+
+    def __init__(self, inp_dir: str):
+        self.files = [os.path.join(inp_dir, f)
+                      for f in natural_sorted(f for f in os.listdir(inp_dir)
+                                              if is_image_file(f))]
+
+    def __len__(self):
+        return len(self.files)
+
+    def get(self, i: int):
+        """-> (u8 (H, W, 3), name) (reference dataset_RGB.py:143-151)."""
+        img = load_image_u8(self.files[i])
+        return img, os.path.splitext(os.path.basename(self.files[i]))[0]
+
+    def iter_batches(self, batch: int) -> Iterator[dict]:
+        """Yield {'input': u8 (B,H,W,3), 'names': [...]} stacks, same-shape
+        images grouped in order of first appearance, so that a corpus of
+        one size runs as full batches."""
+        groups: dict = {}
+        for i in range(len(self)):
+            img, name = self.get(i)
+            groups.setdefault(img.shape, []).append((img, name))
+        for items in groups.values():
+            for s in range(0, len(items), batch):
+                chunk = items[s:s + batch]
+                yield {"input": np.stack([a for a, _ in chunk]),
+                       "names": [n for _, n in chunk]}
 
 
 def batch_iterator(ds: PairDataset, batch: int, shuffle: bool = True,

@@ -19,7 +19,6 @@ from __future__ import annotations
 import argparse
 import glob
 import os
-import re
 from collections import defaultdict
 
 import numpy as np
@@ -27,21 +26,12 @@ import torch
 from PIL import Image
 
 from sunet_tf_tpu_torch.config import Config, load_config
+from sunet_tf_tpu_torch.data.pipeline import natural_sorted
 from sunet_tf_tpu_torch.infer.tiled import padded_inference, required_granularity
 from sunet_tf_tpu_torch.models.sunet import build_model
 from sunet_tf_tpu_torch.weights import load_reference_checkpoint
 
-_NAT_SPLIT = re.compile(r"(\d+)")
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp")
-
-
-def natural_sorted(names):
-    """Sort with numeric runs compared as integers."""
-    def key(s):
-        return tuple(int(t) if t.isdigit() else t.lower()
-                     for t in _NAT_SPLIT.split(str(s)))
-
-    return sorted(names, key=key)
 
 
 def list_images(d: str) -> list:

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source compiles to an object in its own ``nvcc``
 process, all started together, and one more ``nvcc`` call links them into a
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at the first CUDA call (never at import: the CPU tests import every
-module), into ``kernels/_build/`` (git-ignored), and is cached by a hash of
+module), into ``BUILD_DIR`` (``kernels/_build/``, git-ignored, unless
+``utils/cache.py`` moves it), and is cached by a hash of
 the sources and flags. A build error raises with nvcc's output.
 
 Every C entry point takes raw device pointers and the CUDA stream as
@@ -27,7 +28,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# where the library builds and is cached (utils/cache.py can move it)
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -229,6 +232,11 @@ def _load(target: Path) -> ctypes.CDLL:
         fn.restype = (ctypes.c_size_t if name.endswith("_workspace")
                       else ctypes.c_int)
     return lib
+
+
+def loaded() -> bool:
+    """Whether this process has loaded a kernel library."""
+    return _Library.lib is not None
 
 
 def library_path() -> Path:

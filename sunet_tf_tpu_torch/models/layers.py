@@ -71,6 +71,20 @@ failing:
   ``SUNET_TRAIN_KERNEL_MAX_C=768``.
 
 Training never takes the chain route.
+
+Dropout (``SWINUNET.DROP_RATE`` after the GELU, after fc2 and after the
+projection; ``ATTN_DROP_RATE`` on the float32 attention probabilities, JAX
+``_dropout``) is active in training alone. A block with either rate above 0
+trains on the eager block on both routes, as JAX's ``_can_fuse`` routes it;
+its inference keeps every kernel route. One training forward of a block
+draws from the caller's generator, in this order: the drop-path scales of
+its two branches (nothing at rate 0), then, with a dropout rate above 0, one
+seed for a block-local generator (``block_seed``; JAX's ``fold_in(key,
+i)``) from which its four dropout sites draw their masks in call order
+(probabilities, projection, GELU, fc2). The block's training computation
+(``SwinBlock.train_forward``) is a pure function of its input and those
+draws, so that activation checkpointing can run it again in backward and
+draw the same masks.
 """
 
 from __future__ import annotations
@@ -195,6 +209,30 @@ def drop_path_scales(batch: int, rate: float,
     return (torch.bernoulli(p, generator=generator) / keep).t().contiguous().to(device)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """JAX ``_dropout``: where(keep, x / (1 - rate), 0) with keep ~
+    Bernoulli(1 - rate) per element, drawn from ``generator`` as float32
+    uniforms (so a bf16 and a float32 model draw the same mask); x itself
+    without a generator or at rate 0. The quotient is rounded once to x's
+    dtype (a division, not a product with 1 / (1 - rate)); the divisor
+    stays unrounded. JAX rounds its weakly typed scalar to x's dtype first,
+    which in bf16 divides by 0.8984375 for 0.9 (kept values 0.17% larger):
+    the port keeps bf16 and float32 computing one function, and equals JAX
+    in float32."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def block_seed(generator: torch.Generator) -> int:
+    """One seed for a block-local generator, drawn from ``generator`` (on
+    the card a read of one value, which waits for the device)."""
+    return int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                             device=generator.device).item())
+
+
 def drop_path(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Per-sample stochastic depth: x scaled by its image's (B,) scale."""
     return x * scale.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
@@ -245,16 +283,19 @@ class Conv3x3(nn.Conv2d):
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact-erf GELU -> fc2."""
+    """fc1 -> exact-erf GELU -> dropout -> fc2 -> dropout (``drop``, with a
+    generator)."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.drop = drop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return linear(F.gelu(linear(x, self.fc1.weight, self.fc1.bias)),
-                      self.fc2.weight, self.fc2.bias)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(F.gelu(linear(x, self.fc1.weight, self.fc1.bias)), self.drop, generator)
+        return dropout(linear(h, self.fc2.weight, self.fc2.bias), self.drop, generator)
 
 
 class WindowAttention(nn.Module):
@@ -262,8 +303,11 @@ class WindowAttention(nn.Module):
     float32; the additive 0/-100 SW mask per window."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int, *,
-                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.dim = dim
         self.window_size = window_size
         self.num_heads = num_heads
@@ -285,9 +329,11 @@ class WindowAttention(nn.Module):
         bias = wa.wide(self.relative_position_bias_table[idx])
         return bias.reshape(n, n, self.num_heads).permute(2, 0, 1)
 
-    def forward(self, xw: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """xw: (B*nW, N, C) windows; mask: (nW, N, N) or None."""
+    def forward(self, xw: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """xw: (B*nW, N, C) windows; mask: (nW, N, N) or None; dropout of
+        the float32 probabilities and of the projection from
+        ``generator``."""
         Bn, N, C = xw.shape
         h, d = self.num_heads, C // self.num_heads
         dt = xw.dtype
@@ -302,10 +348,11 @@ class WindowAttention(nn.Module):
             nW = mask.shape[0]
             attn = (attn.reshape(Bn // nW, nW, h, N, N)
                     + mask[None, :, None]).reshape(Bn, h, N, N)
-        attn = torch.softmax(attn, dim=-1)
+        attn = dropout(torch.softmax(attn, dim=-1), self.attn_drop, generator)
         out = wa.mm32(attn.to(dt), v).to(dt)
         out = out.permute(0, 2, 1, 3).reshape(Bn, N, C)
-        return linear(out, self.proj.weight, self.proj.bias)
+        return dropout(linear(out, self.proj.weight, self.proj.bias), self.proj_drop,
+                       generator)
 
 
 class SwinBlock(nn.Module):
@@ -316,6 +363,7 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, input_resolution: tuple, num_heads: int, *,
                  window_size: int, shift_size: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop: float = 0.0, attn_drop: float = 0.0,
                  drop_path_rate: float = 0.0, backend: str = "eager"):
         super().__init__()
         ws, ss = effective_window(input_resolution, window_size, shift_size)
@@ -327,9 +375,15 @@ class SwinBlock(nn.Module):
         self.backend = backend
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, ws, num_heads, qkv_bias=qkv_bias,
-                                    qk_scale=qk_scale)
+                                    qk_scale=qk_scale, attn_drop=attn_drop,
+                                    proj_drop=drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop)
+
+    def has_dropout(self) -> bool:
+        """Whether training draws dropout masks (JAX ``not _can_fuse``):
+        then it runs the eager block on every route."""
+        return self.attn.attn_drop > 0.0 or self.mlp.drop > 0.0
 
     def mask(self, H: int, W: int, device) -> Optional[torch.Tensor]:
         if self.shift_size == 0:
@@ -465,31 +519,48 @@ class SwinBlock(nn.Module):
                                     m.fc1.bias, t(m.fc2), m.fc2.bias)
         return x + drop_path(y, dp[:, 1])
 
-    def _eager(self, x: torch.Tensor, dp: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _eager(self, x: torch.Tensor, dp: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The plain block; ``generator``: the block-local generator of its
+        dropout masks."""
         B, H, W, C = x.shape
         ws, ss = self.window_size, self.shift_size
         h = roll2d(layer_norm(x, self.norm1), -ss)
-        h = self.attn(window_partition(h, ws), self.mask(H, W, x.device))
+        h = self.attn(window_partition(h, ws), self.mask(H, W, x.device), generator)
         h = roll2d(window_reverse(h, ws, H, W), ss)
         x = x + (h if dp is None else drop_path(h, dp[:, 0]))
-        h = self.mlp(layer_norm(x, self.norm2))
+        h = self.mlp(layer_norm(x, self.norm2), generator)
         return x + (h if dp is None else drop_path(h, dp[:, 1]))
+
+    def draws(self, x: torch.Tensor, generator: torch.Generator) -> tuple:
+        """The randomness of one training forward of this block, drawn from
+        ``generator`` in the documented order: (drop-path scales (B, 2),
+        the dropout seed or None)."""
+        dp = drop_path_scales(x.shape[0], self.drop_path_rate, generator, x.device)
+        return dp, (block_seed(generator) if self.has_dropout() else None)
+
+    def train_forward(self, x: torch.Tensor, dp: torch.Tensor,
+                      seed: Optional[int]) -> torch.Tensor:
+        """The training forward as a pure function of ``x`` and the draws
+        of :meth:`draws` (what activation checkpointing runs again)."""
+        if seed is not None:
+            return self._eager(x, dp, torch.Generator(device=x.device).manual_seed(seed))
+        if self.backend == "fused" and self.trains_on_block_kernels():
+            return self._train_block(x, dp)
+        if self.backend == "fused" and self.trains_on_split_kernels():
+            return self._train_split(x, dp)
+        return self._eager(x, dp)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Inference without ``generator``; training with it (stochastic
-        depth drawn from it)."""
+        depth and dropout drawn from it)."""
         B, H, W, C = x.shape
         ws = self.window_size
         if H % ws or W % ws:
             raise ValueError(f"resolution ({H},{W}) not divisible by window {ws}")
         if generator is not None:
-            dp = drop_path_scales(B, self.drop_path_rate, generator, x.device)
-            if self.backend == "fused" and self.trains_on_block_kernels():
-                return self._train_block(x, dp)
-            if self.backend == "fused" and self.trains_on_split_kernels():
-                return self._train_split(x, dp)
-            return self._eager(x, dp)
+            return self.train_forward(x, *self.draws(x, generator))
         if self.backend == "eager":
             return self._eager(x)
         if self.dim <= ROUTE_BLOCK_MAX_C and self.takes_block_kernel():

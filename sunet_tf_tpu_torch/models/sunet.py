@@ -9,6 +9,16 @@
 Kept as in the reference: no global residual; an unused top-level PReLU
 (so the default config counts 99,681,993 parameters); grayscale input
 repeated to 3 channels when in_chans == 3.
+
+Training (a generator passed to ``forward``) draws, in call order: the
+features dropout after the stem (``DROP_RATE``, JAX ``sunet.py``), then each
+block's draws (``SwinBlock.draws``) as the blocks run. ``USE_CHECKPOINTS``
+runs each block of a training forward under
+``torch.utils.checkpoint.checkpoint`` (JAX ``jax.checkpoint`` per block):
+the block's draws are made before it, so the recompute in backward draws
+nothing from the caller's generator and takes the same masks; the loss, the
+gradients and the generator's state after the step equal those without it.
+Under it inference takes no chain and no stage runner (JAX ``SwinStage``).
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sunet_tf_tpu_torch.config import Config, SwinUNetConfig
 from sunet_tf_tpu_torch.kernels import upsample as up_kernels
@@ -75,16 +86,18 @@ class SwinStage(nn.Module):
                  num_heads: int, *, window_size: int, mlp_ratio: float,
                  qkv_bias: bool, qk_scale: Optional[float],
                  drop_path_rates: list, resample: Optional[str] = None,
-                 backend: str = "eager"):
+                 backend: str = "eager", drop: float = 0.0, attn_drop: float = 0.0,
+                 use_checkpoint: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList([
             SwinBlock(dim, input_resolution, num_heads,
                       window_size=window_size,
                       shift_size=0 if i % 2 == 0 else window_size // 2,
                       mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-                      qk_scale=qk_scale, drop_path_rate=drop_path_rates[i],
-                      backend=backend)
+                      qk_scale=qk_scale, drop=drop, attn_drop=attn_drop,
+                      drop_path_rate=drop_path_rates[i], backend=backend)
             for i in range(depth)])
+        self.use_checkpoint = use_checkpoint
         self.resample = resample
         if resample == "down":
             self.downsample = PatchMerging(dim)
@@ -95,22 +108,29 @@ class SwinStage(nn.Module):
                 runner=None) -> torch.Tensor:
         """``runner``: the spatial tier's stage runner
         (``parallel.spatial.SpatialStageRunner``); where it ``applies``, the
-        blocks run through it, H sharded over its spatial group."""
+        blocks run through it, H sharded over its spatial group (never under
+        ``use_checkpoint``)."""
         blocks = list(self.blocks)
-        if runner is not None and runner.applies(blocks, tuple(x.shape), generator is not None):
+        if (runner is not None and not self.use_checkpoint
+                and runner.applies(blocks, tuple(x.shape), generator is not None)):
             return self._resample(runner(blocks, x, generator))
         i = 0
         while i < len(blocks):
+            blk = blocks[i]
             if generator is not None:   # training: one block at a time
-                x = blocks[i](x, generator)
+                if self.use_checkpoint:
+                    x = checkpoint(blk.train_forward, x, *blk.draws(x, generator),
+                                   use_reentrant=False)
+                else:
+                    x = blk(x, generator)
                 i += 1
                 continue
-            k = chain_fusable_len(blocks, i, x)
+            k = 0 if self.use_checkpoint else chain_fusable_len(blocks, i, x)
             if k >= 2:
                 x = run_fused_chain(blocks[i:i + k], x)
                 i += k
                 continue
-            x = blocks[i](x)
+            x = blk(x)
             i += 1
         return self._resample(x)
 
@@ -139,7 +159,8 @@ class SUNet(nn.Module):
         rates = lambda i: dpr[sum(depths[:i]):sum(depths[:i + 1])]
         common = dict(window_size=cfg.win_size, mlp_ratio=cfg.mlp_ratio,
                       qkv_bias=cfg.qkv_bias, qk_scale=cfg.qk_scale,
-                      backend=backend)
+                      backend=backend, drop=cfg.drop_rate,
+                      attn_drop=cfg.attn_drop_rate, use_checkpoint=cfg.use_checkpoint)
 
         self.prelu = PReLU()  # unused, kept for parameter parity
         self.conv_first = Conv3x3(cfg.in_chans, C, bias=True)
@@ -213,8 +234,8 @@ class SUNet(nn.Module):
                 stage_runner=None) -> torch.Tensor:
         """x: (B, H, W, in_chans) in [0, 1] -> (B, H, W, out_chans) float32
         logits (float64 from a float64 eager model). With ``generator`` this
-        is the training forward (JAX ``key``): stochastic depth drawn from
-        it, the blocks and the x4 head
+        is the training forward (JAX ``key``): stochastic depth and dropout
+        drawn from it, the blocks and the x4 head
         on their trainable routes; without it, inference. ``stage_runner``:
         the spatial tier's runner (``parallel.spatial.SpatialStageRunner``),
         which each Swin stage asks whether it takes the stage; the other
@@ -226,10 +247,6 @@ class SUNet(nn.Module):
                 "backend='fused' on CUDA runs bfloat16 kernels only; float32 "
                 "kernels are ROADMAP queue B 'fp32 kernels'. Use "
                 "backend='eager' for a float32 forward.")
-        if generator is not None and (cfg.drop_rate > 0 or cfg.attn_drop_rate > 0):
-            raise NotImplementedError(
-                "training with DROP_RATE or ATTN_DROP_RATE > 0 is not ported "
-                "(the reference recipe trains with both at 0)")
         if x.shape[-1] == 1 and cfg.in_chans == 3:
             x = x.repeat(1, 1, 1, 3)
         x = x.to(self.dtype)
@@ -243,6 +260,7 @@ class SUNet(nn.Module):
         if self.absolute_pos_embed is not None:
             feats = feats + self.absolute_pos_embed.to(feats.dtype).reshape(
                 1, feats.shape[1], feats.shape[2], -1)
+        feats = layers.dropout(feats, cfg.drop_rate, generator)
         skips = []
         for i, layer in enumerate(self.layers):
             skips.append(feats)
@@ -352,6 +370,12 @@ class SUNet(nn.Module):
         runs plain autograd and launches nothing. The x4 head launches its
         forward kernel and its backward's sequence: the conv-fused head's
         where ``conv_fused_head`` holds, else the split head's.
+        A block with a dropout rate above 0 (``SwinBlock.has_dropout``)
+        trains on eager autograd and launches nothing; under
+        ``use_checkpoint`` inference takes no chain (each block on its own)
+        and no stage runner, and in training each block's forward kernels
+        launch twice (the recompute in backward runs the block's forward
+        again), its backward's once.
         ``runner``: a spatial stage runner; each block of a stage it
         ``applies`` to launches the block kernel (``wa.block_launches``),
         in training also its recompute backward (``wa.block_bwd_launches``),
@@ -368,7 +392,7 @@ class SUNet(nn.Module):
             kept = []
             for stage, level in stages:
                 shape = (x_shape[0], H >> level, W >> level, stage.blocks[0].dim)
-                if not runner.applies(list(stage.blocks), shape, train):
+                if stage.use_checkpoint or not runner.applies(list(stage.blocks), shape, train):
                     kept.append((stage, level))
                     continue
                 for blk in stage.blocks:
@@ -378,18 +402,22 @@ class SUNet(nn.Module):
             stages = kept
         if train:
             for stage, _ in stages:
+                # the recompute in backward runs each forward once more
+                fwd = 2 if stage.use_checkpoint else 1
                 for blk in stage.blocks:
+                    if blk.has_dropout():
+                        continue
                     if blk.trains_on_block_kernels():
                         if blk.trains_on_residuals():
-                            counts["fused_swin_block_res"] += 1
+                            counts["fused_swin_block_res"] += fwd
                             counts["swin_block_bwd_res"] += wa.SWIN_BLOCK_BWD_RES_LAUNCHES
                         else:
-                            counts["fused_swin_block"] += wa.block_launches(blk.window_size)
+                            counts["fused_swin_block"] += fwd * wa.block_launches(blk.window_size)
                             counts["swin_block_bwd"] += wa.block_bwd_launches(blk.window_size)
                     elif blk.trains_on_split_kernels():
-                        counts["fused_ln_window_attention"] += wa.LN_WMSA_LAUNCHES
+                        counts["fused_ln_window_attention"] += fwd * wa.LN_WMSA_LAUNCHES
                         counts["ln_window_attention_bwd"] += wa.LN_WMSA_BWD_LAUNCHES
-                        counts["ln_mlp_branch"] += wa.LN_MLP_BRANCH_LAUNCHES
+                        counts["ln_mlp_branch"] += fwd * wa.LN_MLP_BRANCH_LAUNCHES
                         counts["ln_mlp_bwd"] += wa.LN_MLP_BWD_LAUNCHES
             if conv_fused_head(self.cfg.out_chans):
                 counts["fused_dual_upsample4_conv_phase"] += 1
@@ -404,7 +432,7 @@ class SUNet(nn.Module):
             blocks = list(stage.blocks)
             i = 0
             while i < len(blocks):
-                k = chain_fusable_len(blocks, i, probe)
+                k = 0 if stage.use_checkpoint else chain_fusable_len(blocks, i, probe)
                 if k >= 2:
                     counts["fused_swin_block_chain"] += sum(
                         wa.block_launches(b.window_size) for b in blocks[i:i + k])

@@ -7,7 +7,8 @@
 - ``psnr`` clamps to [0, 1] (reference utils/image_utils.py:6-10); ``ssim``
   uses the pytorch_msssim / MATLAB defaults (gaussian 11x11, sigma 1.5).
 - ``dihedral_batch`` applies the reference's 9-valued augmentation op
-  index; ``add_awgn`` draws its noise from an explicit generator.
+  index; ``add_awgn`` and ``random_crop_pair`` draw from an explicit
+  generator; ``center_crop`` rounds as torchvision's center_crop.
 """
 
 from __future__ import annotations
@@ -128,3 +129,22 @@ def add_awgn(generator: torch.Generator, clean: torch.Tensor,
     noise = torch.randn(clean.shape, generator=generator, device=clean.device,
                         dtype=clean.dtype)
     return clean + (sigma / 255.0) * noise
+
+
+def random_crop_pair(generator: torch.Generator, inp: torch.Tensor, tar: torch.Tensor,
+                     ps: int) -> tuple:
+    """Aligned random crop of an (H, W, C) pair to (ps, ps, C): the row,
+    then the column offset drawn from ``generator``."""
+    H, W = inp.shape[0], inp.shape[1]
+    r, c = (int(torch.randint(0, n - ps + 1, (1,), generator=generator,
+                              device=generator.device).item()) for n in (H, W))
+    return inp[r:r + ps, c:c + ps], tar[r:r + ps, c:c + ps]
+
+
+def center_crop(img: torch.Tensor, ps: int) -> torch.Tensor:
+    """Center crop of an (H, W, C) image to (ps, ps, C) (the reference's
+    val crop, dataset_RGB.py:120-122; torchvision's rounding)."""
+    H, W = img.shape[0], img.shape[1]
+    top = int(round((H - ps) / 2.0))
+    left = int(round((W - ps) / 2.0))
+    return img[top:top + ps, left:left + ps]

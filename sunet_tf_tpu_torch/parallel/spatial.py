@@ -255,9 +255,10 @@ class SpatialStageRunner:
     """Runs a Swin stage with H sharded over the mesh's spatial group, each
     block on the block kernel per shard (JAX ``PallasSpatialStageRunner``).
     ``SwinStage.forward(..., runner=)`` asks ``applies`` per stage and runs
-    the stage replicated where it refuses. ``dropout``: the model trains or
-    runs with dropout (JAX ``_can_fuse`` false: the runner refuses every
-    stage). ``partial_params``: the parameters of the stages run in training
+    the stage replicated where it refuses (and never asks under
+    ``USE_CHECKPOINTS``, where the Trainer builds no runner, as JAX's
+    stages skip it). ``dropout``: the model trains or runs with dropout
+    (JAX ``_can_fuse`` false: the runner refuses every stage). ``partial_params``: the parameters of the stages run in training
     since it was last cleared, whose gradients are partial per spatial rank
     (the training step clears it before the forward and sums their
     gradients over the spatial group after the backward)."""

@@ -15,9 +15,18 @@ divisor of ``OPTIM.BATCH`` up to world size / spatial. Every rank builds the
 same seeded model, iterates the same global batches (the same shuffle, the
 trailing batch padded to a multiple of the data size, pad rows masked by
 "valid") and the step keeps its rows; with ``TPU.SPATIAL > 1`` the Swin
-stages the spatial runner takes run per H shard on the block kernels. Rank
+stages the spatial runner takes run per H shard on the block kernels (no
+runner under ``SWINUNET.USE_CHECKPOINTS``, as JAX's stages skip it). Rank
 0 alone writes checkpoints, the CSV, TensorBoard and plots, and prints;
 resume reads on every rank.
+
+``TPU.DATA_WORKERS > 0`` decodes the batches in that many spawned
+DataLoader workers (``data/workers.py``): the training batches where the
+epoch drops its last partial batch (JAX ``_train_iterator``), and every
+evaluation pass with the mesh's padding (``_eval_iterator``); otherwise
+the in-process pipeline. ``SUNET_DEBUG_NANS=1`` (off by default) turns on
+autograd's anomaly detection and stops the forward at the first module
+whose output is not finite (:func:`maybe_enable_debug_nans`).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch.distributed as dist
 from sunet_tf_tpu_torch.ckpt import BestTracker, latest_path, restore_checkpoint, save_checkpoint
 from sunet_tf_tpu_torch.config import Config
 from sunet_tf_tpu_torch.data.pipeline import PairDataset, Prefetcher, batch_iterator
+from sunet_tf_tpu_torch.data.workers import worker_batch_iterator
 from sunet_tf_tpu_torch.models.sunet import build_model, resolve_device
 from sunet_tf_tpu_torch.obs import MetricsLogger
 from sunet_tf_tpu_torch.ops.metrics import (auprc_from_histograms, auroc_from_histograms,
@@ -44,11 +54,39 @@ from sunet_tf_tpu_torch.train.loop import build_steps, to_device
 from sunet_tf_tpu_torch.train.schedule import lr_for_step
 
 
+def maybe_enable_debug_nans(model: torch.nn.Module) -> bool:
+    """``SUNET_DEBUG_NANS=1`` (JAX ``maybe_enable_debug_nans``): turns on
+    ``torch.autograd.set_detect_anomaly`` (a backward that makes a NaN
+    raises at its op, with the forward's trace) and puts a forward hook on
+    every module of ``model`` that raises at the first module whose output
+    is not finite. Off by default: each hook reads its output on the host,
+    which waits for the device."""
+    if os.environ.get("SUNET_DEBUG_NANS", "0") in ("", "0"):
+        return False
+    torch.autograd.set_detect_anomaly(True)
+
+    def hook_for(name: str):
+        def hook(module, args, out):
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if torch.is_tensor(t) and t.is_floating_point() and not bool(
+                        torch.isfinite(t).all()):
+                    raise FloatingPointError(
+                        f"non-finite output of module {name or 'model'} "
+                        f"({type(module).__name__}, shape {tuple(t.shape)})")
+        return hook
+
+    for name, module in model.named_modules():
+        module.register_forward_hook(hook_for(name))
+    return True
+
+
 def assert_finite_loss(loss: float, epoch: int) -> None:
     """A non-finite training loss fails the run instead of writing a
     corrupt checkpoint."""
     if not np.isfinite(loss):
-        raise FloatingPointError(f"non-finite training loss ({loss}) at epoch {epoch}")
+        raise FloatingPointError(
+            f"non-finite training loss ({loss}) at epoch {epoch}; rerun with "
+            "SUNET_DEBUG_NANS=1 to stop at the first module whose output is not finite")
 
 
 def make_optimizer(cfg: Config, model, steps_per_epoch: int) -> AdamLP:
@@ -118,7 +156,8 @@ class Trainer:
         self.steps_per_epoch = tr.steps_per_epoch or max(1, n_train // cfg.optim.batch)
         self.optimizer = make_optimizer(cfg, self.model, self.steps_per_epoch)
         self.stage_runner = None
-        if mesh is not None and mesh.shape["spatial"] > 1 and backend == "fused":
+        if (mesh is not None and mesh.shape["spatial"] > 1 and backend == "fused"
+                and not sw.use_checkpoint):
             from sunet_tf_tpu_torch.parallel.spatial import SpatialStageRunner
 
             self.stage_runner = SpatialStageRunner(
@@ -134,6 +173,7 @@ class Trainer:
             self.logger = _Quiet()
             self.best.update = lambda *a, **k: False
         self.start_epoch = 1
+        maybe_enable_debug_nans(self.model)
         if tr.resume:
             self._resume()
 
@@ -152,13 +192,36 @@ class Trainer:
     def _batches(self, it):
         return Prefetcher(it, put=lambda b: to_device(b, self.device))
 
+    def _train_iterator(self, epoch: int):
+        """The epoch's training batches: the DataLoader workers under
+        ``TPU.DATA_WORKERS > 0`` where the epoch drops its last partial
+        batch (JAX ``_train_iterator``), else the in-process pipeline."""
+        cfg = self.cfg
+        seed = cfg.training.seed + epoch
+        drop_last = len(self.train_ds) > cfg.optim.batch
+        if cfg.data_workers > 0 and drop_last:
+            return worker_batch_iterator(
+                cfg.training.train_dir, cfg.training.train_ps, cfg.optim.batch, train=True,
+                shuffle=True, drop_last=True, seed=seed, workers=cfg.data_workers,
+                pin_memory=self.device.type == "cuda")
+        return batch_iterator(self.train_ds, cfg.optim.batch, shuffle=True,
+                              drop_last=drop_last, seed=seed, pad_to=self._data_size())
+
+    def _eval_iterator(self, ds: PairDataset, batch_size: int, pad_to: int):
+        """Evaluation batches, through the DataLoader workers under
+        ``TPU.DATA_WORKERS > 0`` (names and the valid-row padding kept)."""
+        if self.cfg.data_workers > 0:
+            return worker_batch_iterator(
+                ds.root, ds.ps, batch_size, train=False, shuffle=False, drop_last=False,
+                workers=self.cfg.data_workers, pad_to=pad_to,
+                pin_memory=self.device.type == "cuda")
+        return batch_iterator(ds, batch_size, shuffle=False, pad_to=pad_to)
+
     def train_epoch(self, epoch: int) -> dict:
         if self.train_ds is None:
             raise ValueError("no TRAIN_DIR configured")
         cfg = self.cfg
-        it = batch_iterator(self.train_ds, cfg.optim.batch, shuffle=True,
-                            drop_last=len(self.train_ds) > cfg.optim.batch,
-                            seed=cfg.training.seed + epoch, pad_to=self._data_size())
+        it = self._train_iterator(epoch)
         acc: dict = {}
         n = 0
         hists = self.fns.init_metrics()
@@ -191,8 +254,7 @@ class Trainer:
         batch_size = batch_size or max(d, min(self.cfg.optim.batch, len(ds)))
         hists = self.fns.init_metrics()
         sums: dict = {}
-        for batch, _names in self._batches(batch_iterator(ds, batch_size, shuffle=False,
-                                                          pad_to=d)):
+        for batch, _names in self._batches(self._eval_iterator(ds, batch_size, d)):
             s, hists = self.fns.eval_step(batch, hists)
             for k, v in s.items():
                 sums[k] = sums.get(k, 0.0) + float(v)

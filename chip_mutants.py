@@ -33,7 +33,8 @@ settings:
   the wrappers' Python beside it); the Python mutants of
   ``EXPORT_MUTANTS``, ``PARALLEL_MUTANTS``, ``FLOAT64_MUTANTS`` and
   ``DATA_MUTANTS`` run chip_smoke's export, parallel, parity and train, or
-  data phase in their copy, which must fail;
+  data phase in their copy, which must fail, and the CUDA mutants of
+  ``FP32_MUTANTS`` (the float32 forms) its fp32 phase;
 - ``step`` (alone with ``--step-only``): the calibration of chip_smoke's
   training gate. chip_smoke's batch-4 step of the default SUNet runs on the
   float32 eager route and twice on each bf16 variant below, which differ
@@ -360,6 +361,25 @@ DATA_MUTANTS = {
         out = wa.mm32(attn.to(dt), v).to(dt)""",
         """        attn = torch.softmax(attn, dim=-1)
         out = wa.mm32(dropout(attn.to(dt), self.attn_drop, generator), v).to(dt)"""),
+}
+
+# The float32 forms' mutants (CUDA, under kernels/csrc), each built in its
+# copy and run through chip_smoke's fp32 phase, which must fail: the shared
+# float32 product tile (csrc/f32_tile.cuh) rounding its A operand to TF32
+# (single pass: every float32 form's products ~1e-4 from float64, the
+# factor gate against the plain version catches it), and #1's float32 form
+# (csrc/f32_swin_block.cu) with fc2 over all but the last 64-column chunk of
+# the hidden map.
+FP32_MUTANTS = {
+    "f32_tf32_operand": (
+        "f32_tile.cuh",
+        "__device__ __forceinline__ float a_operand(float v) { return v; }",
+        "__device__ __forceinline__ float a_operand(float v) {\n"
+        "  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);\n}"),
+    "f32_hidden_chunk_dropped": (
+        "f32_swin_block.cu",
+        "j0 < a.hidden; j0 += kHidChunk) {   // every hidden column chunk",
+        "j0 < a.hidden - kHidChunk; j0 += kHidChunk) {   // every hidden column chunk"),
 }
 
 EXPORT_MUTANTS = {
@@ -850,9 +870,9 @@ def main():
                       "res_c96_dwqkv_scaled": (FLOAT64_MUTANTS["res_c96_dwqkv_scaled"],
                                                "train"),
                       **{k: (v, "data") for k, v in DATA_MUTANTS.items()}}
-    if set(only) - set(MUTANTS) - set(python_mutants):
-        raise SystemExit("chip_mutants: unknown mutants "
-                         f"{sorted(set(only) - set(MUTANTS) - set(python_mutants))}")
+    known = set(MUTANTS) | set(python_mutants) | set(FP32_MUTANTS)
+    if set(only) - known:
+        raise SystemExit(f"chip_mutants: unknown mutants {sorted(set(only) - known)}")
     with open(out, "w") as log, tempfile.TemporaryDirectory() as tmp:
         if not args.step_only:
             if not only:
@@ -874,6 +894,20 @@ def main():
                                          f"{src} once")
                     path.write_text(text.replace(old, new))
                 summary += run(copy, name, 4321, 1.0, log)
+            for name, (src, old, new) in FP32_MUTANTS.items():
+                if (only and name not in only) or args.sound:
+                    continue
+                # a kernel source changes: the copy builds its own library
+                copy = Path(tmp) / name
+                shutil.copytree(ROOT, copy, ignore=shutil.ignore_patterns(
+                    "_build", ".git", "__pycache__"))
+                path = copy / "sunet_tf_tpu_torch" / "kernels" / "csrc" / src
+                text = path.read_text()
+                if text.count(old) != 1:
+                    raise SystemExit(f"chip_mutants: {name}: the text to mutate is not in "
+                                     f"{src} once")
+                path.write_text(text.replace(old, new))
+                summary += run_export(copy, name, log, "fp32")
             for name, ((src, old, new), phase) in python_mutants.items():
                 if (only and name not in only) or args.sound:
                     continue

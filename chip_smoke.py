@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py [--phases kernels,train_kernels,slice,demo,tiled,export,parallel,
-                           train,parity,bands,entries,scaled,scaled_train,data]
+    python3 chip_smoke.py [--phases kernels,fp32,train_kernels,slice,demo,tiled,export,
+                           parallel,train,parity,bands,entries,scaled,scaled_train,data]
 
 1. Prints the card's name and power limit (nvidia-smi); fails without CUDA.
 2. Builds the hand-written CUDA kernels (one nvcc per source, in parallel,
@@ -42,6 +42,27 @@
    the plain version, and the backward from that state), and the split
    head's backward (#11, also on a (30,44) map of partial tiles and at C=256,
    its cap), dx and every weight grad held against the plain version.
+   The float32 route (phase ``fp32``, ROADMAP B2's serving half): each
+   float32 form of #1-#5 (csrc/f32_swin_block.cu, f32_block.cu, f32_up4.cu) at the
+   default model's shapes, batch 2 (#1 at C=96/192/384 shift 0 and 4 and
+   at ~1e4 logits, #2's K=2 chains, bit for bit against two block launches,
+   #3 at (8,8,768), ~1e4 logits and on a masked (16,16,768) map, #4 at
+   (8,8,768), #5 at (64,64,96) out 1 and 3 and on a (34,40,96) map), held
+   with its float32 plain version against the plain version in float64 on
+   float64 copies (rl2 and max |diff| within FP32_FACTOR of the plain
+   version's, rl2 <= FP32_RL2_MAX; at ~1e4 logits the factor alone) and
+   timed beside the bf16 kernel; then ``Config()`` in float32 on the eager
+   route at 128², batch 1, on the card and on the CPU against its float64
+   copy (forward, stem and one training step's gradients; the card within
+   FP32_FACTOR of the CPU, the forward within FP32_RL2_MAX; a control with
+   the TF32 guards taken out must fail); then the fused float32 ``Config()``
+   at 256² batch 4 (launches equal to ``expected_launches``, no plain
+   version, within the gates against eager float32 and float64, its
+   exported program bit for bit) and its times beside eager float32 and
+   fused bf16; a float32 training forward, 256-token windows and a spatial
+   stage runner must raise NotImplementedError naming their ROADMAP item
+   before any launch. Its cases and launches are filed under the wrapper's
+   name + ``[fp32]``.
 4. The inference slice: the default SUNet (99,681,993 parameters, seeded
    weights) at 256x256 batch 4 through backend="fused"; the kernels' launch
    counts must equal the router's prediction, and every launch plan it
@@ -205,6 +226,7 @@ lines. Needs one GPU; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import statistics
@@ -382,10 +404,25 @@ REPLACES = {
                                          "sunet_tf_tpu_torch/kernels/csrc/swin_block_bwd.cu"),
     "up4_conv_bwd[scaled]": ("sunet_tf_tpu/kernels/upsample.py:939",
                              "sunet_tf_tpu_torch/kernels/csrc/up4_conv_bwd.cu"),
+    # the float32 forms of the inference kernels (phase fp32; a float32
+    # model's fused forward on the card): #1 and #2 in csrc/f32_swin_block.cu,
+    # #3 and #4 in csrc/f32_block.cu, #5 in csrc/f32_up4.cu, the latter's
+    # products on csrc/f32_tile.cuh
+    "fused_swin_block[fp32]": (f"{WA}:1582",
+                               "sunet_tf_tpu_torch/kernels/csrc/f32_swin_block.cu"),
+    "fused_swin_block_chain[fp32]": (f"{WA}:1741",
+                                     "sunet_tf_tpu_torch/kernels/csrc/f32_swin_block.cu"),
+    "fused_ln_window_attention[fp32]": (f"{WA}:2742",
+                                        "sunet_tf_tpu_torch/kernels/csrc/f32_block.cu"),
+    "fused_ln_mlp[fp32]": (f"{WA}:1350", "sunet_tf_tpu_torch/kernels/csrc/f32_block.cu"),
+    "fused_dual_upsample4_conv_phase[fp32]": ("sunet_tf_tpu/kernels/upsample.py:589",
+                                              "sunet_tf_tpu_torch/kernels/csrc/f32_up4.cu"),
 }
 # The scaled phase files its cases and launches under a wrapper's name with
 # this suffix.
 SCALED = "[scaled]"
+# ... and the fp32 phase its float32 forms' cases and launches with this one.
+FP32 = "[fp32]"
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -1727,7 +1764,11 @@ def plans_taken(into: set):
     chunk, tokens per chunk), ("ln_mlp_branch", C, hidden, ks1, ks) (#13 takes
     #4's plan), ("fused_dual_upsample4", C, tiles per chunk) and
     ("wmsa_core", C, heads, ws, ksq, ks) (#15 takes #3's plan over one
-    image's windows)."""
+    image's windows); the float32 forms' ("fused_swin_block[fp32]", C,
+    hidden, heads, ws), ("fused_ln_window_attention[fp32]", C, heads, ws),
+    ("fused_ln_mlp[fp32]", C, hidden) and
+    ("fused_dual_upsample4_conv_phase[fp32]", C, out) (fixed tiles: a
+    shape's plan changes no bit)."""
     from sunet_tf_tpu_torch.kernels import upsample as up
     from sunet_tf_tpu_torch.kernels import window_attention as wa
 
@@ -1821,6 +1862,25 @@ def plans_taken(into: set):
         into.add(("fused_dual_upsample4_conv_phase", C, out, plan["T"]))
         return plan
 
+    f32_block, f32_wmsa, f32_mlp, f32_up4 = (wa.f32_block_plan, wa.f32_wmsa_plan,
+                                             wa.f32_mlp_plan, up.f32_up4_plan)
+
+    def block32(H, W, C, hidden, ws, heads):
+        into.add(("fused_swin_block" + FP32, C, hidden, heads, ws))
+        return f32_block(H, W, C, hidden, ws, heads)
+
+    def wmsa32(H, W, C, heads, ws):
+        into.add(("fused_ln_window_attention" + FP32, C, heads, ws))
+        return f32_wmsa(H, W, C, heads, ws)
+
+    def mlp32(M, C, hidden):
+        into.add(("fused_ln_mlp" + FP32, C, hidden))
+        return f32_mlp(M, C, hidden)
+
+    def head32(H, W, C, out):
+        into.add(("fused_dual_upsample4_conv_phase" + FP32, C, out))
+        return f32_up4(H, W, C, out)
+
     with patched([(wa, "block_plan", block), (wa, "block_seq_plan", seq),
                   (wa, "mlp_plan", mlp), (wa, "wmsa_plan", wmsa),
                   (up, "up4_plan", head), (wa, "_launch_block", launch),
@@ -1828,7 +1888,9 @@ def plans_taken(into: set):
                   (up, "up4_conv_bwd_plan", head_bwd), (up, "up4_bwd_plan", split_bwd),
                   (wa, "block_bwd_plan", block_bwd),
                   (wa, "ln_mlp_branch", branch), (up, "up4_split_plan", split),
-                  (wa, "wmsa_core", core)]):
+                  (wa, "wmsa_core", core), (wa, "f32_block_plan", block32),
+                  (wa, "f32_wmsa_plan", wmsa32), (wa, "f32_mlp_plan", mlp32),
+                  (up, "f32_up4_plan", head32)]):
         yield into
 
 
@@ -4417,7 +4479,450 @@ def data_phase() -> dict:
     return out
 
 
-PHASES = ("kernels", "train_kernels", "slice", "demo", "tiled", "export", "parallel", "train",
+# ---------------------------------------------------------------- float32
+# The float32 route (phase ``fp32``; ROADMAP B2's serving half): a float32
+# model on the card computes in float32, its kernels' float32 forms
+# (csrc/f32_block.cu, csrc/f32_up4.cu) included. Every reading is a distance
+# from float64: the relative L2 distance (rl2) and max |diff| of a float32
+# result from the same function in float64 on float64 copies of its inputs.
+# A float32 form must sit within FP32_FACTOR of its float32 plain version's
+# distance (the C2/C4 idiom: no farther from exact than the plain
+# version), and at most FP32_RL2_MAX away; single-pass TF32 rounds each
+# operand by up to 2^-11 (4.9e-4 of it) and reads ~1e-3 at the stem, float32
+# orders of magnitude below both. Cases whose logits reach ~1e4 (trained
+# QK_SCALE 8 magnitudes) amplify every float32 rounding of q and k through
+# the exponential; there only the factor applies.
+FP32_RL2_MAX = 1e-4
+FP32_FACTOR = 2.0
+# the side of the float32-exactness check's images (``Config()`` at 128²:
+# its last stage's 4 x 4 map takes windows of 4)
+FP32_EXACT_SIZE = 128
+# dense TF32 of one H100 SXM (NVIDIA data sheet); a float32-exact
+# tensor-core form splits each operand in two and sums three products
+# (3xTF32), so the float32 forms' bound takes a third of it
+PEAK_TF32_FLOPS = 494.7e12
+def f32_bound(flops: float, nbytes: float) -> dict:
+    """The least time of a float32 form: the larger of the operations over
+    the 3xTF32 rate (PEAK_TF32_FLOPS / 3) and the bytes over the HBM rate."""
+    t_ops = flops / (PEAK_TF32_FLOPS / 3) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def f32_block_cost(B: int, H: int, C: int, blocks: int = 1, heads: int = 8,
+                   masked: bool = False, ws: int = 8) -> dict:
+    """``blocks`` Swin blocks in float32 (#1, #2): block_cost's operations;
+    bytes: x in, out, the float32 weights, biases and rel-pos tables (and
+    the SW mask)."""
+    T, N, hid = B * H * H, ws * ws, 4 * C
+    flops = blocks * (2 * T * C * (4 * C + 2 * hid) + 4 * T * N * C)
+    weights = blocks * ((4 * C * C + 2 * C * hid) + 9 * C + hid + heads * N * N)
+    mask = (H // ws) ** 2 * N * N if masked else 0
+    return f32_bound(flops, (2 * T * C + weights + mask) * 4)
+
+
+def f32_wmsa_cost(B: int, H: int, C: int, heads: int = 8, masked: bool = False,
+                  ws: int = 8) -> dict:
+    """LN + W-MSA + projection in float32 (#3): wmsa_cost's operations;
+    bytes: x in, out, the float32 weights, LN and biases, rel-pos table."""
+    T, N = B * H * H, ws * ws
+    mask = (H // ws) ** 2 * N * N if masked else 0
+    return f32_bound(2 * T * C * 4 * C + 4 * T * N * C,
+                     (2 * T * C + 4 * C * C + 6 * C + heads * N * N + mask) * 4)
+
+
+def f32_mlp_cost(B: int, H: int, C: int) -> dict:
+    """LN + MLP + residual in float32 (#4): fc1 and fc2; bytes: y in, out,
+    the float32 weights, LN and biases."""
+    T, hid = B * H * H, 4 * C
+    return f32_bound(4 * T * C * hid, (2 * T * C + 2 * C * hid + 3 * C + hid) * 4)
+
+
+def f32_up4_cost(B: int, H: int, W: int, C: int, out: int) -> dict:
+    """The x4 head + 3x3 conv in float32 (#5): up4_cost's operations per
+    low-res pixel; bytes: x in, the phase map out, the float32 weights."""
+    M = B * H * W
+    return f32_bound(M * (68 * C * C + 288 * C * out),
+                     (M * C + M * 16 * out + 19 * C * C + 9 * C * out + C) * 4)
+
+
+def rl2_max(got, ref) -> tuple:
+    """(relative L2 distance, max |diff|) of ``got`` from ``ref``, float64."""
+    g, r = got.double(), ref.double()
+    return float((g - r).norm() / r.norm().clamp_min(1e-300)), float((g - r).abs().max())
+
+
+def fp32_distance(label: str, got, plain, f64, trained: bool = False) -> dict:
+    """Hold a float32 kernel's distance from float64 to its float32 plain
+    version's: rl2 and max |diff| within FP32_FACTOR of the plain
+    version's, and (unless ``trained``) rl2 <= FP32_RL2_MAX."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and bool(torch.isfinite(got).all()),
+          f"{label}: a {got.dtype} or non-finite kernel output")
+    k_rl2, k_max = rl2_max(got, f64)
+    p_rl2, p_max = rl2_max(plain, f64)
+    ok = (k_rl2 <= FP32_FACTOR * p_rl2 and k_max <= FP32_FACTOR * p_max
+          and (trained or k_rl2 <= FP32_RL2_MAX))
+    print(f"  {label}: from float64 rl2 {k_rl2:.3e} max|diff| {k_max:.3e}; plain float32 rl2 "
+          f"{p_rl2:.3e} max|diff| {p_max:.3e} (factor {FP32_FACTOR:g}"
+          + ("" if trained else f", rl2 <= {FP32_RL2_MAX:g}") + f") {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: the float32 form sits farther from float64 than its gates allow")
+    return {"rl2": k_rl2, "max": k_max, "plain_rl2": p_rl2, "plain_max": p_max}
+
+
+def f32_params(C: int, heads: int, N: int, gen, *, qkv_gain: float = 1.0) -> tuple:
+    """A block's 13 operands in float32 (``block_params``' draws, unrounded)."""
+    import torch
+
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    w = lambda i, o, g=1.0: n(i, o) * (g / i ** 0.5)
+    hid = 4 * C
+    return (1 + 0.1 * n(C), 0.1 * n(C), w(C, 3 * C, qkv_gain), 0.1 * n(3 * C), w(C, C),
+            0.1 * n(C), 1 + 0.1 * n(C), 0.1 * n(C), w(C, hid), 0.1 * n(hid), w(hid, C),
+            0.1 * n(C), n(heads, N, N))
+
+
+def bf16_copy(a):
+    """The bf16 kernels' arguments from a float32 case's: every tensor of
+    two or more dimensions (x, the weight matrices, the tables) in bf16,
+    vectors as they are."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.bfloat16) if a.dim() >= 2 else a
+    if isinstance(a, (tuple, list)):
+        return type(a)(bf16_copy(t) for t in a)
+    return a
+
+
+def max_logit(x, p, mask, *, ws: int, num_heads: int, scale: float, shift: int) -> float:
+    """Largest |logit| of a block's attention on x, float32."""
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.ops.window import roll2d, window_partition
+
+    with wa.exact_fp32():
+        xn = wa.ln32(roll2d(x, -shift), *p[0:2])
+        qkv = window_partition(xn, ws) @ p[2] + p[3]
+        Bn, N, C3 = qkv.shape
+        h = num_heads
+        C, d = C3 // 3, C3 // 3 // h
+        q = qkv[..., :C].reshape(Bn, N, h, d).transpose(1, 2) * scale
+        k = qkv[..., C:2 * C].reshape(Bn, N, h, d).transpose(1, 2)
+        s = q @ k.transpose(-1, -2) + p[12]
+        if mask is not None:
+            s = (s.reshape(-1, mask.shape[0], h, N, N) + mask[None, :, None]).reshape(
+                Bn, h, N, N)
+    return float(s.abs().max())
+
+
+def fp32_case(results: dict, name: str, case: str, kernel, plain, args: tuple, kw: dict,
+              cost: dict, trained: bool = False):
+    """One float32 form against its plain versions (float32 and float64),
+    then timed beside the bf16 kernel on bf16 copies of the arguments (the
+    median of 20 CUDA-event-timed calls each) and filed under name + FP32."""
+    import torch
+
+    with torch.inference_mode():
+        got, ref = kernel(*args, **kw), plain(*args, **kw)
+        f64 = plain(*float64_copy(args), **kw)
+        check(f64.dtype == torch.float64, f"{name}: the float64 plain version gave {f64.dtype}")
+        d = fp32_distance(f"{name}{FP32} {case}", got, ref, f64, trained)
+        bargs = bf16_copy(args)
+        ms = time_ms(lambda: kernel(*args, **kw))
+        plain_ms = time_ms(lambda: plain(*args, **kw))
+        bf16_ms = time_ms(lambda: kernel(*bargs, **kw))
+    print(f"    time {ms:.4f} ms float32 kernel, {bf16_ms:.4f} ms bf16 kernel, {plain_ms:.4f} ms "
+          f"float32 plain, bound {cost['bound_ms']:.4f} ms ({cost['bound_by']})")
+    file_case(results, name + FP32, {
+        "case": case, "max_abs_err": d["max"], "rl2": d["rl2"], "plain_rl2": d["plain_rl2"],
+        "plain_max_abs_err": d["plain_max"], "ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms,
+        "bound_ms": cost["bound_ms"], "bound_by": cost["bound_by"], "library_ms": None})
+
+
+def fp32_kernel_phase(results: dict):
+    """Each float32 form against its float32 plain version and float64, at
+    the default model's shapes, batch 2: #1 at C=96/192/384, shift 0 and 4,
+    and at ~1e4 logits; #2's K=2 chains at C=192 and 384; #3 at (8,8,768)
+    (and ~1e4 logits) and on a masked (16,16,768) map; #4 at (8,8,768); #5
+    at (64,64,96) out 1 and 3 and on a (34,40,96) map of partial tiles."""
+    import torch
+
+    from sunet_tf_tpu_torch.kernels import upsample as up
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.ops.window import shift_attn_mask
+
+    print("phase: fp32 kernels vs plain versions (float32 against float64, batch 2)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2020)
+    B, ws, heads, scale, N = 2, 8, 8, 8.0, 64
+    sw_mask = lambda H, shift: (torch.as_tensor(shift_attn_mask(H, H, ws, shift), device="cuda")
+                                if shift else None)
+    bkw = dict(ws=ws, num_heads=heads, scale=scale)
+    for H, C, shift, gain in ((64, 96, 0, 1.0), (64, 96, 4, 1.0), (32, 192, 0, 1.0),
+                              (32, 192, 4, 1.0), (16, 384, 0, 1.0), (16, 384, 4, 1.0),
+                              (32, 192, 4, 7.5)):
+        p = f32_params(C, heads, N, gen, qkv_gain=gain)
+        x = torch.randn(B, H, H, C, device="cuda", generator=gen)
+        mask = sw_mask(H, shift)
+        case = f"({H},{H},{C}) shift {shift}"
+        if gain != 1.0:
+            logit = max_logit(x, p, mask, shift=shift, **bkw)
+            case += f" qkv x{gain:g}, max |logit| {logit:.3e}"
+        fp32_case(results, "fused_swin_block", case, wa.fused_swin_block,
+                  wa.fused_swin_block_reference,
+                  (x, p[0:2], *p[2:6], p[6:8], *p[8:12], p[12], mask), dict(shift=shift, **bkw),
+                  f32_block_cost(B, H, C, masked=shift > 0), trained=gain != 1.0)
+
+    def two_plain(x, params, biases, mask, *, shifts, **kw):
+        for q, bias, s in zip(params, biases, shifts):
+            x = wa.fused_swin_block_reference(x, q[0:2], *q[2:6], q[6:8], *q[8:12], bias,
+                                              mask if s else None, shift=s, **kw)
+        return x
+
+    for H, C in ((32, 192), (16, 384)):
+        ps = [f32_params(C, heads, N, gen) for _ in range(2)]
+        x = torch.randn(B, H, H, C, device="cuda", generator=gen)
+        args = (x, [q[:12] for q in ps], [q[12] for q in ps], sw_mask(H, 4))
+        kw = dict(shifts=(0, 4), **bkw)
+        fp32_case(results, "fused_swin_block_chain", f"({H},{H},{C}) K=2",
+                  wa.fused_swin_block_chain, two_plain, args, kw,
+                  f32_block_cost(B, H, C, blocks=2, masked=True))
+        with torch.inference_mode():
+            first = wa.fused_swin_block(x, ps[0][0:2], *ps[0][2:6], ps[0][6:8], *ps[0][8:12],
+                                        ps[0][12], None, shift=0, **bkw)
+            second = wa.fused_swin_block(first, ps[1][0:2], *ps[1][2:6], ps[1][6:8],
+                                         *ps[1][8:12], ps[1][12], args[3], shift=4, **bkw)
+            check(torch.equal(wa.fused_swin_block_chain(*args, **kw), second),
+                  f"fp32 chain ({H},{H},{C}) differs from two block launches")
+        print("    fused_swin_block_chain[fp32] == two fused_swin_block[fp32] launches, bit for bit")
+
+    for H, shift, gain in ((8, 0, 1.0), (16, 4, 1.0), (8, 0, 7.5)):
+        C = 768
+        p = f32_params(C, heads, N, gen, qkv_gain=gain)
+        x = torch.randn(B, H, H, C, device="cuda", generator=gen)
+        mask = sw_mask(H, shift)
+        case = f"({H},{H},{C}) shift {shift}"
+        if gain != 1.0:
+            case += f" qkv x{gain:g}, max |logit| {max_logit(x, p, mask, shift=0, **bkw):.3e}"
+        fp32_case(results, "fused_ln_window_attention", case, wa.fused_ln_window_attention,
+                  wa.fused_ln_window_attention_reference, (x, *p[0:6], p[12], mask), bkw,
+                  f32_wmsa_cost(B, H, C, masked=shift > 0), trained=gain != 1.0)
+        if H == 8 and gain == 1.0:
+            fp32_case(results, "fused_ln_mlp", f"({H},{H},{C})", wa.fused_ln_mlp,
+                      wa.fused_ln_mlp_reference, (x, p[6:8], *p[8:12]), {},
+                      f32_mlp_cost(B, H, C))
+
+    n = lambda *s: torch.randn(*s, device="cuda", generator=gen)
+    for Hh, Wh, out_ch in ((64, 64, 1), (64, 64, 3), (34, 40, 1)):
+        C = 96
+        hp = (n(B, Hh, Wh, C), n(C, 16 * C) / C ** 0.5, torch.full((1,), 0.25, device="cuda"),
+              n(C, C) / C ** 0.5, 0.1 * n(C), torch.full((1,), 0.2, device="cuda"),
+              n(C, C) / C ** 0.5, n(C, C) / C ** 0.5, n(3, 3, C, out_ch) / (9 * C) ** 0.5)
+        fp32_case(results, "fused_dual_upsample4_conv_phase", f"({Hh},{Wh},{C}) out {out_ch}",
+                  up.fused_dual_upsample4_conv_phase, up.fused_dual_upsample4_conv_phase_reference,
+                  hp, {}, f32_up4_cost(B, Hh, Wh, C, out_ch))
+    print(f"  fp32 kernel checks wall s: {time.perf_counter() - t0:.1f}")
+
+
+def fp32_exact_check() -> dict:
+    """A float32 model computes in float32 on the card (no TF32): ``Config()``
+    at FP32_EXACT_SIZE², batch 1, float32 on the eager route against its
+    float64 copy (``route_copy``), on the card and on the CPU (which has no
+    TF32), the same weights and inputs: the forward's rl2 from float64 and
+    the stem's; one training step (``train.loop.step_precision``, the
+    train step's context, around the forward and backward; drop-path drawn
+    from one CPU generator on both devices) and each parameter's gradient
+    rl2 from the float64 step's, the worst taken. Each card reading within
+    FP32_FACTOR of the CPU's, the forward's at most FP32_RL2_MAX. A control
+    runs the card's float32 forward and step with the guards taken out and
+    TF32 on, as the model ran before them, and must fail a gate."""
+    import torch
+
+    from sunet_tf_tpu_torch.config import Config
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.models.sunet import build_model, route_copy
+    from sunet_tf_tpu_torch.train import loop
+
+    S = FP32_EXACT_SIZE
+    print(f"phase: fp32 exactness (Config() float32 eager at {S}x{S}, batch 1, "
+          "card and CPU against float64)")
+    base = Config(compute_dtype="float32")
+    cfg = base.replace(swinunet=dataclasses.replace(base.swinunet, img_size=S))
+    g = torch.Generator().manual_seed(41)
+    x, tar = torch.rand(1, S, S, 3, generator=g), torch.rand(1, S, S, 3, generator=g)
+
+    def readings(dev: str) -> dict:
+        m32 = build_model(cfg, device=dev, backend="eager", seed=0)
+        m64 = route_copy(m32, dtype=torch.float64, backend="eager")
+        xd, td = x.to(dev), tar.to(dev)
+        with torch.no_grad():
+            m32.taps, m64.taps = {}, {}
+            fwd, fwd_max = rl2_max(m32(xd), m64(xd.double()))
+            stem, stem_max = rl2_max(m32.taps["stem"], m64.taps["stem"])
+        for m in (m32, m64):
+            m.train().requires_grad_(True)
+            with loop.step_precision(m):
+                loss, _, _ = loop.loss_and_metrics(m, xd, td, torch.Generator().manual_seed(5),
+                                                   torch.ones(1, device=dev), "denoise")
+                loss.backward()
+        worst, name = 0.0, ""
+        for (k, p32), p64 in zip(m32.named_parameters(), m64.parameters()):
+            if p64.grad is not None and float(p64.grad.norm()) > 0:
+                r = rl2_max(p32.grad, p64.grad)[0]
+                if r > worst:
+                    worst, name = r, k
+        return {"forward_rl2": fwd, "forward_max": fwd_max, "stem_rl2": stem,
+                "stem_max": stem_max, "grad_rl2": worst, "grad_worst": name}
+
+    def tf32_on():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        return contextlib.nullcontext()
+
+    out = {"cuda": readings("cuda"), "cpu": readings("cpu")}
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        with patched([(wa, "exact_fp32", tf32_on), (loop, "exact_fp32", tf32_on)]):
+            out["cuda_tf32"] = readings("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    for dev in ("cuda", "cpu", "cuda_tf32"):
+        r = out[dev]
+        print(f"  {dev}: forward rl2 {r['forward_rl2']:.3e} (max|diff| {r['forward_max']:.3e}), "
+              f"stem rl2 {r['stem_rl2']:.3e} (max|diff| {r['stem_max']:.3e}), worst gradient "
+              f"rl2 {r['grad_rl2']:.3e} ({r['grad_worst']})")
+    cu, cpu, tf = out["cuda"], out["cpu"], out["cuda_tf32"]
+
+    def passes(r):
+        return (r["forward_rl2"] <= FP32_FACTOR * cpu["forward_rl2"]
+                and r["grad_rl2"] <= FP32_FACTOR * cpu["grad_rl2"]
+                and r["forward_rl2"] <= FP32_RL2_MAX)
+
+    ok = passes(cu)
+    print(f"  card within {FP32_FACTOR:g} x the CPU's readings, forward rl2 <= {FP32_RL2_MAX:g}: "
+          f"{'ok' if ok else 'FAIL'}; the TF32 control "
+          f"{'fails them, as it must' if not passes(tf) else 'PASSES them'}")
+    check(ok, "a float32 model does not compute in float32 on the card")
+    check(not passes(tf), "the exactness gates do not see TF32")
+    return out
+
+
+def fp32_forward(results: dict) -> dict:
+    """The fused float32 ``Config()`` at 256x256, batch 4: launches equal to
+    ``expected_launches`` (each wrapper called as in bf16, its float32
+    form's launches), no plain version run; against the eager float32 route,
+    both against the float64 eager copy: the fused rl2 within FP32_FACTOR of
+    eager float32's and at most FP32_RL2_MAX; the exported float32 program
+    (``infer.export``) equal to the live model bit for bit; times of the
+    fused float32, eager float32 and fused bf16 forwards."""
+    import torch
+
+    from sunet_tf_tpu_torch.config import Config
+    from sunet_tf_tpu_torch.infer.export import ServingModel, save_exported
+    from sunet_tf_tpu_torch.models.sunet import build_model, route_copy
+
+    print("phase: fp32 forward (Config() float32, 256x256, batch 4, fused vs eager vs float64)")
+    cfg = Config(compute_dtype="float32")
+    fused = build_model(cfg, device="cuda", backend="fused", seed=0)
+    eager = route_copy(fused, dtype=torch.float32, backend="eager")
+    f64 = route_copy(fused, dtype=torch.float64, backend="eager")
+    x = torch.rand(4, 256, 256, 3, device="cuda", generator=torch.Generator(device="cuda").manual_seed(7))
+    want = fused.expected_launches(tuple(x.shape))
+    with torch.inference_mode():
+        y, launches = run_counted(lambda: fused(x), want, "fused_dual_upsample4")
+        ye, y64 = eager(x), f64(x.double())
+    check(tuple(y.shape) == (4, 256, 256, 1) and y.dtype == torch.float32,
+          f"fused float32 output {y.dtype} {tuple(y.shape)}")
+    f_rl2, f_max = rl2_max(y, y64)
+    e_rl2, e_max = rl2_max(ye, y64)
+    ok = f_rl2 <= FP32_FACTOR * e_rl2 and f_rl2 <= FP32_RL2_MAX
+    print(f"  from float64: fused rl2 {f_rl2:.3e} max|diff| {f_max:.3e}; eager float32 rl2 "
+          f"{e_rl2:.3e} max|diff| {e_max:.3e} (factor {FP32_FACTOR:g}, rl2 <= {FP32_RL2_MAX:g}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the fused float32 forward sits farther from float64 than its gates allow")
+    for k, v in launches.items():
+        if v:
+            results.setdefault(k + FP32, {"max_abs_err": 0.0, "cases": []})["launches"] = v
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        save_exported(tmp, fused, 256, batches=(4,))
+        sm = ServingModel(tmp)
+        got, _ = run_counted(lambda: sm(fused, x), want, "fused_dual_upsample4")
+        exported = bit_equal("exported float32 program vs the live model", got, y)
+    refusals = fp32_refusals(fused, x)
+    bf16 = build_model(Config(), device="cuda", backend="fused", seed=0)
+    with torch.inference_mode():
+        ms = {"fused_fp32": time_ms(lambda: fused(x), iters=10),
+              "eager_fp32": time_ms(lambda: eager(x), iters=10),
+              "fused_bf16": time_ms(lambda: bf16(x), iters=10)}
+    print(f"  forward ms (batch 4), device: fused float32 {ms['fused_fp32']:.3f}, eager float32 "
+          f"{ms['eager_fp32']:.3f}, fused bf16 {ms['fused_bf16']:.3f}")
+    del fused, eager, f64, bf16
+    torch.cuda.empty_cache()
+    return {"fused_rl2": f_rl2, "fused_max": f_max, "eager_rl2": e_rl2, "eager_max": e_max,
+            "launches": launches, "exported_max_abs_diff": exported, "ms": ms,
+            "refusals": refusals}
+
+
+def fp32_refusals(fused, x) -> list:
+    """What the float32 route does not take raises NotImplementedError on the
+    card, naming its ROADMAP item, before any kernel launches (every count
+    stays 0): the float32 fused model's training forward, a float32 fused
+    model with 256-token windows (``tiny_config()`` at WIN 16), and the
+    float32 fused model given a spatial stage runner."""
+    import torch
+
+    from sunet_tf_tpu_torch.config import tiny_config
+    from sunet_tf_tpu_torch.kernels import _build
+    from sunet_tf_tpu_torch.kernels import window_attention as wa
+    from sunet_tf_tpu_torch.models.sunet import TRAIN_WRAPPERS, build_model
+
+    tiny = tiny_config().replace(compute_dtype="float32")
+    big = build_model(tiny.replace(swinunet=dataclasses.replace(tiny.swinunet, win_size=16)),
+                      device="cuda", backend="fused", seed=0)
+    cases = [("training forward", wa.F32_TRAIN_ITEM,
+              lambda: fused(x, generator=torch.Generator(device="cuda").manual_seed(3))),
+             ("256-token windows", wa.F32_SEQ_ITEM,
+              lambda: big(torch.rand(1, 64, 64, 3, device="cuda"))),
+             ("spatial stage runner", wa.F32_SPATIAL_ITEM,
+              lambda: fused(x, stage_runner=object()))]
+    out = []
+    for what, item, fn in cases:
+        torch.cuda.synchronize()
+        _build.reset_counts()
+        try:
+            fn()
+            why = None
+        except NotImplementedError as e:
+            why = str(e)
+        torch.cuda.synchronize()
+        launched = sum(_build.counter(k).cuda + _build.counter(k).cpu for k in TRAIN_WRAPPERS)
+        ok = why is not None and item in why and launched == 0
+        print(f"  float32 {what}: {'refused, ' + repr(item) if why else 'NOT refused'}, "
+              f"{launched} launches {'ok' if ok else 'FAIL'}")
+        check(ok, f"float32 {what}: not refused with {item!r} before any launch")
+        out.append({"what": what, "item": item})
+    return out
+
+
+def fp32_phase(results: dict) -> dict:
+    """The float32 route's exactness check and main path (the kernel forms'
+    checks run with the other kernel phases, ``fp32_kernel_phase``)."""
+    t0 = time.perf_counter()
+    exact = fp32_exact_check()
+    t1 = time.perf_counter()
+    forward = fp32_forward(results)
+    t2 = time.perf_counter()
+    print(f"  fp32 phase wall s: exactness {t1 - t0:.1f}, forward and export {t2 - t1:.1f}")
+    return {"exact": exact, "forward": forward, "wall_s": {"exact": t1 - t0,
+                                                           "forward": t2 - t1}}
+
+
+PHASES = ("kernels", "fp32", "train_kernels", "slice", "demo", "tiled", "export", "parallel",
+          "train",
           "parity", "bands", "entries", "scaled", "scaled_train",
           "data")
 
@@ -4466,6 +4971,8 @@ def main():
     with plans_taken(HELD_PLANS):
         if "kernels" in phases:
             kernel_phases(results)
+        if "fp32" in phases:
+            fp32_kernel_phase(results)
         if "train_kernels" in phases:
             train_kernel_phases(results)
         if "scaled" in phases:
@@ -4474,6 +4981,8 @@ def main():
             scaled_train_kernel_phase(results)
         if "parallel" in phases:
             b5_kernel_phase(results)
+    if "fp32" in phases:
+        stats["fp32"] = fp32_phase(results)
     if "slice" in phases:
         stats["slice"] = slice_phase(results)
     if "demo" in phases:

@@ -26,12 +26,15 @@ Design, as the JAX package's:
   (``infer.tiled._tiled_core``); ``TiledServingModel`` places an image on
   its canvas and crops back.
 - The artifact records the device it was traced for (``cuda`` or
-  ``cpu``); loading it for another device raises. An artifact is read by
+  ``cpu``); loading it for another device raises. It records the model's
+  compute dtype too: a float32 program runs with TF32 off (``exact_fp32``),
+  as the live float32 model's forward does. An artifact is read by
   the torch version that wrote it; no other is promised.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -43,6 +46,7 @@ import torch.nn as nn
 
 from sunet_tf_tpu_torch.infer.tiled import _tiled_core, canvas_shape
 from sunet_tf_tpu_torch.kernels import ops  # noqa: F401  (the sunet:: ops a program calls)
+from sunet_tf_tpu_torch.kernels.window_attention import exact_fp32
 
 META_NAME = "meta.json"
 TILED_META_NAME = "tiled_meta.json"
@@ -145,7 +149,9 @@ def export_forward(model: nn.Module, batch: int, resolution: int,
 
 def _base_meta(model: nn.Module, in_chans: int) -> dict:
     named = list(model.named_parameters())
+    dtype = str(getattr(model, "dtype", torch.bfloat16)).removeprefix("torch.")
     return {"format": FORMAT, "torch": torch.__version__, "device": _device_of(model).type,
+            "compute_dtype": dtype,
             "in_chans": int(in_chans), "out_chans": int(model.cfg.out_chans),
             "num_param_leaves": len(named), "param_names": [n for n, _ in named],
             "param_shapes": [list(p.shape) for _, p in named], "bytes": {},
@@ -258,7 +264,9 @@ class _Artifact:
             raise ValueError(f"program {key} takes a float32 {self._inputs[key]} tensor on "
                              f"{self.device.type!r}, got {x.dtype} {tuple(x.shape)} on "
                              f"{x.device}")
-        with torch.inference_mode():
+        exact = (exact_fp32() if self.meta.get("compute_dtype", "bfloat16") != "bfloat16"
+                 else contextlib.nullcontext())
+        with torch.inference_mode(), exact:
             return self._programs[key](leaves, x)
 
     def leaves(self, params) -> list:

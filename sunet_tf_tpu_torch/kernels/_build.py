@@ -133,6 +133,25 @@ SIGNATURES = {
     "sunet_wmsa_core": [_P] * 9 + [_I] * 5 + [_F, _I, _I, _P, _P],
     # x, out, n, op, T, stream
     "sunet_alu_chain": [_P, _P, ctypes.c_longlong, _I, _I, _P],
+    # the float32 forms (csrc/f32_swin_block.cu, f32_block.cu, f32_up4.cu):
+    # x, out, ln1 g/b, wqkv, bqkv, wproj, bproj, ln2 g/b, w1, b1, w2, b2,
+    # bias, mask, B, H, W, C, hidden, ws, heads, shift, scale, stream
+    "sunet_f32_block": [_P] * 16 + [_I] * 8 + [_F, _P],
+    # x, out, ln g/b, wqkv, bqkv, wproj, bproj, bias, mask, workspace, B, H,
+    # W, C, ws, heads, scale, int* launches, stream
+    "sunet_f32_ln_wmsa": [_P] * 11 + [_I] * 6 + [_F, _P, _P],
+    # M, C -> workspace bytes
+    "sunet_f32_ln_wmsa_workspace": [_I] * 2,
+    # y, out, ln g/b, w1, b1, w2, b2, workspace, M, C, hidden, int*
+    # launches, stream
+    "sunet_f32_ln_mlp": [_P] * 9 + [_I] * 3 + [_P, _P],
+    # M, hidden -> workspace bytes
+    "sunet_f32_ln_mlp_workspace": [_I] * 2,
+    # x, out, w_exp (C, 16C) in subpixel-major columns, wb1, bb1, wpf, wbf,
+    # wconv, alphas, workspace, B, H, W, C, out_ch, stream
+    "sunet_f32_up4_conv": [_P] * 10 + [_I] * 5 + [_P],
+    # B, H, W, C -> workspace bytes
+    "sunet_f32_up4_conv_workspace": [_I] * 4,
 }
 
 

@@ -10,7 +10,9 @@ Counterparts of ``sunet_tf_tpu/kernels/upsample.py``:
   exists in device memory. CUDA: ``csrc/up4_conv.cu``. The model's head
   where 16 * out_chans <= 128. C not a multiple of 16 (the scaled config's
   180) runs over C rounded up to 16, the weights zero-padded
-  (:func:`up4_conv_operands`).
+  (:func:`up4_conv_operands`). A float32 x takes its float32 form,
+  ``csrc/f32_up4.cu``: one cooperative launch (:func:`f32_up4_plan`), the
+  4x map written to and read from device memory.
 - :func:`fused_dual_upsample4` (JAX ``fused_dual_upsample4``): the split
   head, (B, 4H, 4W, C) in x's dtype; the model's output conv follows it as
   a plain convolution. CUDA: ``csrc/up4.cu`` (two launches). The model's
@@ -45,11 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from sunet_tf_tpu_torch.kernels import _build
-from sunet_tf_tpu_torch.kernels.window_attention import (BF16, BWD_FILL_CTAS, PLAN_BATCH,
-                                                         SMEM_MAX, _a_bytes, _bwd_tok_smem,
-                                                         _cdiv, _check_w, _check_x,
-                                                         _chunk_rows, _pad128, _up,
-                                                         _wg_tiles, exact_fp32, mm32, wide)
+from sunet_tf_tpu_torch.kernels.window_attention import (BF16, BWD_FILL_CTAS, F32_GEMM_SMEM,
+                                                         PLAN_BATCH, SMEM_MAX, _a_bytes,
+                                                         _bwd_tok_smem, _cdiv, _check_w,
+                                                         _check_x, _chunk_rows, _f32_ctas,
+                                                         _gate, _pad128, _up, _wg_tiles,
+                                                         exact_fp32, mm32, wide)
 
 # Half-pixel x4 phase weights: output row 4h+p samples input at
 # h + (2p-3)/8 -> taps (h-1, h) for p = 0, 1 and (h, h+1) for p = 2, 3.
@@ -69,6 +72,13 @@ UP4_CONV_KERNEL_MAX_C = 192
 UP4_TILE = (6, 8)
 _UP4_RING = (3, 12288)   # csrc/up4_conv.cu kRingS, kRingSlot
 _UP4_HEADER = 2048       # csrc/up4_conv.cu kHeader
+# The float32 form of the conv-fused head (csrc/f32_up4.cu), one cooperative
+# launch: the four products on csrc/f32_tile.cuh's tiles (zb, xb, z, the 4x
+# map with the stencil in the epilogue), then the 3x3 conv over 16 x 16
+# output tiles, their input staged 16 channels at a time (kConvTile,
+# kConvCc), a grid-wide barrier between the phases.
+_UP4_F32_CONV_TILE = 16
+_UP4_F32_CONV_SMEM = ((_UP4_F32_CONV_TILE + 2) ** 2 * (16 + 1) + 9 * 16 * UP4_KERNEL_MAX_OUT) * 4
 # Kernel launches one up4_conv_bwd call makes (csrc/up4_conv_bwd.cu): prep,
 # phase, pixel, the weight gradients, the sums; the wide form (C above
 # UP4_KERNEL_MAX_C) splits the phase launch in two (phase by box, the fold).
@@ -243,6 +253,22 @@ def up4_plan(C: int, out: int) -> dict:
     if not T:
         raise ValueError(f"up4_plan: C={C}, out={out}: one tile does not fit {SMEM_MAX} bytes")
     return {"T": T, "smem": up4_smem(Cp, out, T), "Cp": Cp}
+
+
+@functools.lru_cache(maxsize=None)
+def f32_up4_plan(H: int, W: int, C: int, out: int) -> dict:
+    """Launch plan of #5's float32 form (csrc/f32_up4.cu, one cooperative
+    launch) for (H, W, C) images: each phase's shared-memory bytes and tiles
+    at PLAN_BATCH images. Raises ValueError outside the design (C a
+    multiple of 16, 1 <= out <= UP4_KERNEL_MAX_OUT)."""
+    if H <= 0 or W <= 0 or C <= 0 or C % 16 or not 1 <= out <= UP4_KERNEL_MAX_OUT:
+        raise ValueError(f"f32_up4_plan: H={H}, W={W}, C={C}, out={out}: the float32 form "
+                         f"takes C a multiple of 16 and 1 <= out <= {UP4_KERNEL_MAX_OUT}")
+    M, t = H * W, _UP4_F32_CONV_TILE
+    return {"smem_gemm": F32_GEMM_SMEM, "smem_conv": _UP4_F32_CONV_SMEM,
+            "tiles": {"zb": _f32_ctas(M, C), "xb": _f32_ctas(M, C), "z": _f32_ctas(M, 16 * C),
+                      "map": _f32_ctas(16 * M, C),
+                      "conv": PLAN_BATCH * _cdiv(4 * H, t) * _cdiv(4 * W, t)}}
 
 
 # The x4 head's backward kernels (#9, csrc/up4_conv_bwd.cu; #11,
@@ -700,6 +726,10 @@ def _conv_phase_impl(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv) ->
     _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, max_c=UP4_CONV_KERNEL_MAX_C, c_align=4)
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
+    if x.dtype == torch.float32:
+        out = _conv_phase_f32(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv)
+        count.cuda += 1
+        return out
     plan = up4_plan(C, out_ch)
     wexp_s, w_b1, bb1, wpf, wbf = up4_conv_operands(w_exp, w_b1, b_b1, wpf, wbf, plan["Cp"])
     alphas, _ = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
@@ -713,12 +743,43 @@ def _conv_phase_impl(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv) ->
     return out
 
 
+def f32_up4_wexp(w_exp: torch.Tensor) -> torch.Tensor:
+    """w_exp (C, 16C), column c * 16 + s feeding subpixel s's channel c, as
+    #5's float32 form takes it: column s * C + c (subpixel-major), so that
+    the expand product's rows are (pixel, subpixel) rows of C values."""
+    C = w_exp.shape[0]
+    return w_exp.reshape(C, C, 16).transpose(1, 2).reshape(C, 16 * C).contiguous()
+
+
+def _conv_phase_f32(x, w_exp, alpha_p, w_b1, b_b1, alpha_b, wpf, wbf, wconv) -> torch.Tensor:
+    """#5's float32 form (csrc/f32_up4.cu), one launch, w_exp in
+    subpixel-major columns (:func:`f32_up4_wexp`, a copy per call)."""
+    name = "fused_dual_upsample4_conv_phase"
+    B, H, W, C = x.shape
+    out_ch = wconv.shape[-1]
+    f32_up4_plan(H, W, C, out_ch)   # raises on a shape outside the design
+    wexp = f32_up4_wexp(w_exp)
+    alphas, bb1 = _alphas_bias(alpha_p, b_b1, alpha_b, x.device)
+    lib = _build.library()
+    work = torch.empty(lib.sunet_f32_up4_conv_workspace(B, H, W, C), device=x.device,
+                       dtype=torch.uint8)
+    out = torch.empty((B, H, W, 16 * out_ch), device=x.device, dtype=x.dtype)
+    err = lib.sunet_f32_up4_conv(
+        _build.ptr(x), _build.ptr(out), _build.ptr(wexp), _build.ptr(w_b1), _build.ptr(bb1),
+        _build.ptr(wpf), _build.ptr(wbf), _build.ptr(wconv), _build.ptr(alphas),
+        _build.ptr(work), B, H, W, C, out_ch, _build.stream())
+    _build.check(name, err)
+    return out
+
+
 def _check_up4(name, x, w_exp, w_b1, wpf, wbf, wconv, *, max_c=UP4_KERNEL_MAX_C,
                c_align: int = 16):
     """The conv-fused head's kernels take C a multiple of ``c_align`` (16;
-    the forward 4, padded to 16 inside) with C rounded up to 16 at most
-    max_c, and 1 <= out <= UP4_KERNEL_MAX_OUT, any H and W."""
+    the forward 4, padded to 16 inside; 16 in float32) with C rounded up to
+    16 at most max_c, and 1 <= out <= UP4_KERNEL_MAX_OUT, any H and W."""
     _check_x(name, x)
+    if x.dtype == torch.float32:
+        c_align = 16
     B, H, W, C = x.shape
     out_ch = wconv.shape[-1]
     if C % c_align or _up(C, 16) > max_c or not 1 <= out_ch <= UP4_KERNEL_MAX_OUT:
@@ -818,6 +879,7 @@ class DualUpsample4ConvTrainable(torch.autograd.Function):
         p = (cast(w_exp), alpha_p.detach(), cast(w_b1), b_b1.detach(),
              alpha_b.detach(), cast(wpf), cast(wbf), cast(wconv))
         ctx.save_for_backward(x, *p)
+        _gate("fused_dual_upsample4_conv_phase", x, train=True)
         return _conv_phase_impl(x, *p)
 
     @staticmethod

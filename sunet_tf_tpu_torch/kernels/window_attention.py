@@ -74,6 +74,10 @@ the JAX kernels' tanh form.
 Dispatch: a tensor on the CPU goes to the plain version; a CUDA tensor
 launches the kernel or raises. There is no fallback between the two. Each
 wrapper's count goes up by one per kernel launch (``_build.LaunchCount``).
+A float32 CUDA tensor takes the inference wrappers' float32 forms
+(csrc/f32_swin_block.cu, csrc/f32_block.cu; every value float32, FFMA
+products); :func:`dtype_why` says which dtype each kernel takes, and names
+the ROADMAP item of each call it refuses.
 """
 
 from __future__ import annotations
@@ -436,9 +440,175 @@ def block_seq_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> 
 
 def block_launches(ws: int) -> int:
     """Kernel launches of one :func:`fused_swin_block` call with window
-    ``ws``: the cluster form's one, or the sequence form's
-    SWIN_BLOCK_SEQ_LAUNCHES above 64 tokens."""
+    ``ws``: the cluster form's one (or the float32 form's, also one), or
+    the sequence form's SWIN_BLOCK_SEQ_LAUNCHES above 64 tokens."""
     return 1 if ws * ws <= _TILE else SWIN_BLOCK_SEQ_LAUNCHES
+
+
+# ---------------------------------------------------------------- float32 forms
+# of #1/#2 (csrc/f32_swin_block.cu: one launch, a CTA per window), #3 and #4
+# (csrc/f32_block.cu) and #5 (csrc/f32_up4.cu, kernels/upsample.py): FFMA
+# products, #3-#5 as sequences of launches of csrc/f32_tile.cuh's token-row
+# product (64 x 64 output tiles, no K split) with, for #3, a float32
+# attention kernel per (window, head). Each launches as many kernels a call
+# as its bf16 form (#3: LN + qkv, attention, proj; #4: the LN statistics,
+# fc1 + GELU on LN(y), fc2 + y; #5: one cooperative launch over its five
+# phases), so one router prediction holds for both dtypes. A plan is a
+# function of one image's shape: every output element is one thread's sum
+# in one order, so an image gets the same bits at any batch.
+F32_TILE = (64, 64)          # f32_tile.cuh kBM, kBN
+# the widths #1's float32 kernel is built for (a template on C / 32:
+# f32_swin_block.cu's switch), and its hidden chunk
+F32_BLOCK_WIDTHS = (32, 64, 96, 128, 192, 256, 384)
+_F32_HID_CHUNK = 64
+# the product tile's static shared memory (f32_tile.cuh gemm_kernel): A and
+# W stages of 16 x (64 + 4) floats, the rows' offsets and LN statistics
+F32_GEMM_SMEM = 2 * 16 * (64 + 4) * 4 + 64 * 8 + 2 * 64 * 4
+# the wrappers whose CUDA kernels have a float32 form (the inference forms of
+# #1-#5); every other wrapper's kernel takes bfloat16 alone
+F32_WRAPPERS = ("fused_swin_block", "fused_swin_block_chain", "fused_ln_window_attention",
+                "fused_ln_mlp", "fused_dual_upsample4_conv_phase")
+# ROADMAP B2's open items, named where a float32 call is refused
+F32_TRAIN_ITEM = ("ROADMAP B2, 'float32 training forms' (#6/#7, #1's train form + #8, #9, "
+                  "#12/#13/#14, #11)")
+F32_SEQ_ITEM = ("ROADMAP B2, 'the sequence form and #3/#4 at scaled_config()'s widths and "
+                "256-token windows in float32'")
+F32_SPLIT_HEAD_ITEM = "ROADMAP B2, '#10 (the split x4 head) in float32'"
+F32_WMSA_CORE_ITEM = "ROADMAP B2, '#15 (the standalone W-MSA) in float32'"
+F32_SPATIAL_ITEM = "ROADMAP B2, 'the spatial runner in float32'"
+F32_DYNMASK_ITEM = F32_SPATIAL_ITEM + " (the B5 dynmask form)"
+F16_ITEM = "ROADMAP B2, 'TPU.COMPUTE_DTYPE: float16'"
+# where a wrapper outside F32_WRAPPERS is refused float32
+_F32_ITEMS = {"fused_dual_upsample4": F32_SPLIT_HEAD_ITEM, "wmsa_core": F32_WMSA_CORE_ITEM,
+              "swin_block_trainable_dynmask": F32_DYNMASK_ITEM}
+
+
+def dtype_why(name: str, dtype: torch.dtype, *, tokens: int = 0,
+              train: bool = False) -> Optional[str]:
+    """Why wrapper ``name``'s CUDA kernel does not take tensors of ``dtype``
+    (None when it does), naming the ROADMAP item that would: bfloat16
+    everywhere; float32 in the inference forms of #1-#5 (F32_WRAPPERS) at
+    windows of ``tokens`` <= 64 without drop-path scales or a training
+    caller (``train``); float16 and float64 nowhere (float64 runs on the
+    eager route and the plain versions)."""
+    if dtype == BF16:
+        return None
+    eager = "; use backend='eager'"
+    if dtype == torch.float32:
+        if name not in F32_WRAPPERS:
+            item = _F32_ITEMS.get(name, F32_TRAIN_ITEM)
+            return f"{name}: the CUDA kernel takes bfloat16, got float32 ({item}){eager}"
+        if train:
+            return (f"{name}: the float32 form is an inference form; training in float32 is "
+                    f"{F32_TRAIN_ITEM}{eager}")
+        if tokens > _TILE:
+            return (f"{name}: the float32 form takes windows up to {_TILE} tokens, got "
+                    f"{tokens} ({F32_SEQ_ITEM}){eager}")
+        return None
+    if dtype == torch.float16:
+        return f"{name}: no CUDA kernel takes float16 ({F16_ITEM}){eager}"
+    return (f"{name}: no CUDA kernel takes {dtype} (float64 runs on the eager route and the "
+            f"plain versions){eager}")
+
+
+def _gate(name: str, x: torch.Tensor, *, tokens: int = 0, train: bool = False):
+    """Raise :func:`dtype_why`'s NotImplementedError where ``name``'s CUDA
+    kernel does not take x's dtype; a CPU tensor runs the plain version in
+    any dtype."""
+    if x.device.type == "cuda":
+        why = dtype_why(name, x.dtype, tokens=tokens, train=train)
+        if why:
+            raise NotImplementedError(why)
+
+
+def f32_attn_smem(N: int, d: int) -> int:
+    """Dynamic shared memory of the float32 attention kernel
+    (``f32::attn_smem``): q * scale and k transposed, v, the N x (N + 1)
+    scores and the row sums, float32."""
+    return (3 * d * N + N * (N + 1) + N) * 4
+
+
+def _f32_ctas(M: int, cols: int) -> int:
+    """CTAs of one f32_tile.cuh product over PLAN_BATCH images of M rows."""
+    return _cdiv(PLAN_BATCH * M, F32_TILE[0]) * _cdiv(cols, F32_TILE[1])
+
+
+def _f32_window_why(H: int, W: int, C: int, ws: int, heads: int) -> Optional[str]:
+    N = ws * ws
+    if N <= 0 or N % 16 or N > _TILE:
+        return f"window of {N} tokens (the float32 forms take N % 16 == 0, N <= {_TILE})"
+    if H % ws or W % ws:
+        return f"({H},{W}) not divisible by window {ws}"
+    if C % 16 or heads <= 0 or C % heads:
+        return "C must be a multiple of 16 and of heads"
+    if f32_attn_smem(N, C // heads) > SMEM_MAX:
+        return (f"head dim {C // heads}: the attention's {f32_attn_smem(N, C // heads)} bytes "
+                f"exceed {SMEM_MAX}")
+    return None
+
+
+def f32_block_smem(C: int, Gc: int) -> int:
+    """Dynamic shared memory of #1's float32 kernel (``block_carve`` in
+    csrc/f32_swin_block.cu): a 16-row weight stage of max(C, 64) + 4
+    floats, the window's 64 rows of C + 4, the 64 x 65 scores, their row
+    sums and the LN statistics, and the head group's q/k/v (or a hidden
+    chunk) as 64 rows of max(3 Gc, 64) + 1."""
+    ldw, ldx, ldt = max(C, _F32_HID_CHUNK) + 4, C + 4, max(3 * Gc, _F32_HID_CHUNK) + 1
+    return (16 * ldw + _TILE * ldx + _TILE * (_TILE + 1) + 3 * _TILE + _TILE * ldt) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def f32_block_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
+    """Launch plan of #1's float32 form (csrc/f32_swin_block.cu, one launch,
+    a CTA per window) for (H, W, C) images: Gc, the channels of a head
+    group whose q, k and v it makes at a time (lcm(head dim, 32)), its
+    shared-memory bytes and CTAs per image. Raises ValueError on a shape
+    outside the design."""
+    why = _f32_window_why(H, W, C, ws, heads)
+    if why is None and C not in F32_BLOCK_WIDTHS:
+        why = f"C not among the widths the kernel is built for, {F32_BLOCK_WIDTHS}"
+    if why is None and (hidden <= 0 or hidden % _F32_HID_CHUNK):
+        why = f"hidden must be a multiple of {_F32_HID_CHUNK}"
+    Gc = 0
+    if why is None:
+        d = C // heads
+        Gc = d // math.gcd(d, 32) * 32
+        if C % Gc:
+            why = f"head groups of lcm({d}, 32) = {Gc} channels do not divide C"
+        elif f32_block_smem(C, Gc) > SMEM_MAX:
+            why = f"{f32_block_smem(C, Gc)} bytes of shared memory exceed {SMEM_MAX}"
+    if why:
+        raise ValueError(f"f32_block_plan: H={H}, W={W}, C={C}, hidden={hidden}, ws={ws}, "
+                         f"heads={heads}: {why}")
+    return {"Gc": Gc, "smem": f32_block_smem(C, Gc), "ctas_per_image": (H // ws) * (W // ws)}
+
+
+@functools.lru_cache(maxsize=None)
+def f32_wmsa_plan(H: int, W: int, C: int, heads: int, ws: int) -> dict:
+    """Launch plan of #3's float32 form (csrc/f32_block.cu, LN_WMSA_LAUNCHES
+    launches): shared-memory bytes and CTAs at PLAN_BATCH images. Raises
+    ValueError on a shape outside the design."""
+    why = _f32_window_why(H, W, C, ws, heads)
+    if why:
+        raise ValueError(f"f32_wmsa_plan: H={H}, W={W}, C={C}, heads={heads}, ws={ws}: {why}")
+    M, N = H * W, ws * ws
+    return {"smem_gemm": F32_GEMM_SMEM,
+            "smem_attn": f32_attn_smem(N, C // heads),
+            "ctas": {"qkv": _f32_ctas(M, 3 * C), "attn": PLAN_BATCH * (M // N) * heads,
+                     "proj": _f32_ctas(M, C)}}
+
+
+@functools.lru_cache(maxsize=None)
+def f32_mlp_plan(M: int, C: int, hidden: int) -> dict:
+    """Launch plan of #4's float32 form (csrc/f32_block.cu, LN_MLP_LAUNCHES) for
+    images of M token rows. Raises ValueError on a shape outside the
+    design."""
+    if M <= 0 or C <= 0 or C % 16 or hidden <= 0 or hidden % 16:
+        raise ValueError(f"f32_mlp_plan: M={M}, C={C}, hidden={hidden}: the float32 form "
+                         "takes M > 0 and multiples of 16")
+    return {"smem_gemm": F32_GEMM_SMEM,
+            "ctas": {"stats": _cdiv(PLAN_BATCH * M, 8), "fc1": _f32_ctas(M, hidden),
+                     "fc2": _f32_ctas(M, C)}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1305,13 +1475,13 @@ def _workspace(lib_fn, dev, *dims) -> torch.Tensor:
 
 
 def _check_x(name: str, x: torch.Tensor):
+    """x a contiguous NHWC CUDA tensor of a dtype that ``name``'s kernel
+    takes (:func:`dtype_why`; a caller whose window or training use
+    matters gates first with :func:`_gate`)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {x.device}; the kernel takes CUDA "
                          "tensors and the plain version CPU tensors")
-    if x.dtype != BF16:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel takes bfloat16, got {x.dtype} (float32 "
-            "kernels are ROADMAP queue B, 'fp32 kernels'; use backend='eager')")
+    _gate(name, x)
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous NHWC tensor, got "
                          f"shape {tuple(x.shape)}")
@@ -1319,8 +1489,8 @@ def _check_x(name: str, x: torch.Tensor):
 
 def _check_w(name: str, x: torch.Tensor, **ws):
     for wname, (w, shape) in ws.items():
-        if w.device != x.device or w.dtype != BF16 or not w.is_contiguous():
-            raise ValueError(f"{name}: {wname} must be a contiguous bfloat16 "
+        if w.device != x.device or w.dtype != x.dtype or not w.is_contiguous():
+            raise ValueError(f"{name}: {wname} must be a contiguous {x.dtype} "
                              f"tensor on {x.device}")
         if tuple(w.shape) != tuple(shape):
             raise ValueError(f"{name}: {wname} has shape {tuple(w.shape)}, "
@@ -1444,6 +1614,7 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
     train form, up to C = TRAIN_BLOCK_MAX_C; without it the inference cap
     BLOCK_KERNEL_MAX_C holds (JAX ``SUNET_INFER_KERNEL_MAX_C``)."""
     name = "fused_swin_block"
+    _gate(name, x, tokens=ws * ws, train=dp is not None)
     _check_x(name, x)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
@@ -1478,6 +1649,42 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
         plan["ksp"], plan["ks1"], plan["ks2"], _build.byref(launches), _build.stream())
     _build.check(name, err)
     return out, launches.value
+
+
+def _launch_block_f32(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask, *,
+                      ws: int, num_heads: int, scale: float, shift: int) -> tuple:
+    """#1's float32 form (csrc/f32_swin_block.cu), one launch."""
+    name = "fused_swin_block"
+    _gate(name, x, tokens=ws * ws)
+    _check_x(name, x)
+    B, H, W, C = x.shape
+    hidden = w1.shape[1]
+    if C > BLOCK_KERNEL_MAX_C:
+        raise ValueError(f"{name}: C={C} above the block-kernel cap {BLOCK_KERNEL_MAX_C}; "
+                         "route through fused_ln_window_attention + fused_ln_mlp")
+    wqkv, wproj, w2 = (_unpadded(wqkv, 3 * C).contiguous(), _unpadded(wproj, C).contiguous(),
+                       _unpadded(w2, C).contiguous())
+    _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)), w1=(w1, (C, hidden)),
+             w2=(w2, (hidden, C)))
+    _check_window(name, H, W, C, ws, num_heads, bias, mask)
+    if not 0 <= shift < ws:
+        raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
+    f32_block_plan(H, W, C, hidden, ws, num_heads)   # raises on a shape outside the design
+    dev = x.device
+    f = lambda t: _f32(t, dev)
+    if bqkv is None:
+        bqkv = torch.zeros(3 * C, device=dev)
+    _check_vec(name, ln1_scale=(ln1[0], C), ln1_bias=(ln1[1], C), bqkv=(bqkv, 3 * C),
+               bproj=(bproj, C), ln2_scale=(ln2[0], C), ln2_bias=(ln2[1], C), b1=(b1, hidden),
+               b2=(b2, C))
+    out = torch.empty_like(x)
+    args = [f(ln1[0]), f(ln1[1]), wqkv, f(bqkv), wproj, f(bproj), f(ln2[0]), f(ln2[1]), w1,
+            f(b1), w2, f(b2), f(bias), f(mask)]
+    err = _build.library().sunet_f32_block(
+        _build.ptr(x), _build.ptr(out), *[_build.ptr(a) for a in args], B, H, W, C, hidden, ws,
+        num_heads, shift, float(scale), _build.stream())
+    _build.check(name, err)
+    return out
 
 
 # ---------------------------------------------------------------- wrappers
@@ -1521,10 +1728,11 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
 def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask,
                    dp=None, *, ws: int, num_heads: int, scale: float, shift: int,
                    plan_hw: Optional[tuple] = None):
-    """One block by the form its window and device take, its launches added
-    to wrapper ``name``'s count: the plain version on a CPU tensor (the
-    weights unpadded), else the cluster kernel or the sequence form, on the
-    plan of ``plan_hw`` (default x's (H, W))."""
+    """One block by the form its window, dtype and device take, its launches
+    added to wrapper ``name``'s count: the plain version on a CPU tensor
+    (the weights unpadded), else the cluster kernel or the sequence form, on
+    the plan of ``plan_hw`` (default x's (H, W)), or in float32 the float32
+    form (an inference form: a call with ``dp`` is a training call)."""
     count = _build.counter(name)
     kw = dict(ws=ws, num_heads=num_heads, scale=scale, shift=shift)
     if x.device.type == "cpu":
@@ -1533,6 +1741,12 @@ def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, 
         return fused_swin_block_reference(
             x, ln1, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj, ln2, w1, b1,
             _unpadded(w2, C), b2, bias, mask, dp, **kw)
+    _gate(name, x, tokens=ws * ws, train=dp is not None)
+    if x.dtype == torch.float32:
+        out = _launch_block_f32(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
+                                mask, **kw)
+        count.cuda += 1
+        return out
     if ws * ws > _TILE:
         out, n = _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
                                    mask, dp, plan_hw=plan_hw, **kw)
@@ -1722,6 +1936,7 @@ class SwinBlockTrainable(torch.autograd.Function):
              b1.detach(), cast(w2), b2.detach(), bias.detach())
         ctx.save_for_backward(x, dp, mask, *p)
         ctx.static = (ws, num_heads, scale, shift)
+        _gate("fused_swin_block", x, tokens=ws * ws, train=True)
         return _counted_block(
             "fused_swin_block", x, p[0:2], p[2], p[3], p[4], p[5], p[6:8], p[8], p[9], p[10],
             p[11], p[12], mask, dp, ws=ws, num_heads=num_heads, scale=scale, shift=shift,
@@ -1752,6 +1967,7 @@ def swin_block_trainable_dynmask(x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_
     backward: :func:`swin_block_bwd` (its big-window form above 64), both
     reading the mask at shift 0. ``plan_hw``: the whole map's (H, W), whose
     launch plan the shard's forward takes."""
+    _gate("swin_block_trainable_dynmask", x, tokens=ws * ws, train=True)
     if mask is not None:
         mask = mask.detach().contiguous()
     return SwinBlockTrainable.apply(x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_s, ln2_b, w1,
@@ -1946,16 +2162,35 @@ def _ln_window_attention_impl(x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, bi
         return fused_ln_window_attention_reference(
             x, ln_scale, ln_bias, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj,
             bias, mask, ws=ws, num_heads=num_heads, scale=scale)
+    _gate(name, x, tokens=ws * ws)
     _check_x(name, x)
     B, H, W, C = x.shape
+    if x.dtype == torch.float32:
+        wqkv, wproj = _unpadded(wqkv, 3 * C).contiguous(), _unpadded(wproj, C).contiguous()
     _check_w(name, x, wqkv=(wqkv, (C, 3 * C)), wproj=(wproj, (C, C)))
     _check_window(name, H, W, C, ws, num_heads, bias, mask)
-    plan = wmsa_plan(H, W, C, num_heads, ws)
     dev = x.device
     f = lambda t: _f32(t, dev)
     if bqkv is None:
         bqkv = torch.zeros(3 * C, device=dev)
     lib = _build.library()
+    if x.dtype == torch.float32:
+        f32_wmsa_plan(H, W, C, num_heads, ws)   # raises on a shape outside the design
+        _check_vec(name, ln_scale=(ln_scale, C), ln_bias=(ln_bias, C), bqkv=(bqkv, 3 * C),
+                   bproj=(bproj, C))
+        work = _workspace(lib.sunet_f32_ln_wmsa_workspace, dev, B * H * W, C)
+        out = torch.empty_like(x)
+        launches = _build.c_int(0)
+        err = lib.sunet_f32_ln_wmsa(
+            _build.ptr(x), _build.ptr(out),
+            *[_build.ptr(a) for a in (f(ln_scale), f(ln_bias), wqkv, f(bqkv), wproj, f(bproj),
+                                       f(bias), f(mask))],
+            _build.ptr(work), B, H, W, C, ws, num_heads, float(scale),
+            _build.byref(launches), _build.stream())
+        _build.check(name, err)
+        count.cuda += launches.value
+        return out
+    plan = wmsa_plan(H, W, C, num_heads, ws)
     work = _workspace(lib.sunet_ln_wmsa_workspace, dev, B * H * W, C)
     out = torch.empty_like(x)
     args = [f(ln_scale), f(ln_bias), wqkv, f(bqkv), wproj, f(bproj), f(bias), f(mask)]
@@ -1976,6 +2211,7 @@ def _check_windows(name, xw, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
     if xw.device.type != "cuda":
         raise ValueError(f"{name}: tensor on {xw.device}; the kernel takes CUDA "
                          "tensors and the plain version CPU tensors")
+    _gate(name, xw)
     if xw.dtype != BF16 or xw.dim() != 3 or not xw.is_contiguous():
         raise ValueError(f"{name}: xw must be a contiguous (T, N, C) bfloat16 "
                          f"tensor, got {xw.dtype} {tuple(xw.shape)}")
@@ -2070,10 +2306,22 @@ def _ln_mlp_impl(y, ln, w1, b1, w2, b2) -> torch.Tensor:
     _check_w(name, y, w1=(w1, (C, hidden)), w2=(w2, (hidden, C)))
     _check_vec(name, ln_scale=(ln[0], C), ln_bias=(ln[1], C), b1=(b1, hidden), b2=(b2, C))
     M = B * H * W
-    plan = mlp_plan(H * W, C, hidden)   # raises on a width outside the design
     dev = y.device
     f = lambda t: _f32(t, dev)
     lib = _build.library()
+    if y.dtype == torch.float32:
+        f32_mlp_plan(H * W, C, hidden)   # raises on a width outside the design
+        work = _workspace(lib.sunet_f32_ln_mlp_workspace, dev, M, hidden)
+        out = torch.empty_like(y)
+        launches = _build.c_int(0)
+        err = lib.sunet_f32_ln_mlp(
+            _build.ptr(y), _build.ptr(out),
+            *[_build.ptr(a) for a in (f(ln[0]), f(ln[1]), w1, f(b1), w2, f(b2))],
+            _build.ptr(work), M, C, hidden, _build.byref(launches), _build.stream())
+        _build.check(name, err)
+        count.cuda += launches.value
+        return out
+    plan = mlp_plan(H * W, C, hidden)   # raises on a width outside the design
     work = _workspace(lib.sunet_ln_mlp_workspace, dev, M, C, hidden)
     out = torch.empty_like(y)
     args = [f(ln[0]), f(ln[1]), w1, f(b1), w2, f(b2)]
@@ -2240,6 +2488,7 @@ class LnWindowAttentionTrainable(torch.autograd.Function):
              None if bqkv is None else bqkv.detach(), cast(wproj), bias.detach())
         ctx.save_for_backward(x, mask, *p)
         ctx.static = (ws, num_heads, scale)
+        _gate("fused_ln_window_attention", x, tokens=ws * ws, train=True)
         return _ln_window_attention_impl(x, *p[:5], bproj.detach(), p[5], mask,
                                          ws=ws, num_heads=num_heads, scale=scale)
 

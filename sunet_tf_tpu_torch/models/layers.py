@@ -13,7 +13,8 @@ float32.
 Two routes per block, chosen by ``backend``:
 
 - ``"eager"``: plain PyTorch with the JAX XLA path's semantics. It is the
-  oracle for every kernel and the explicit float32 route.
+  oracle for every kernel, and runs in float32 (or float64) what the
+  fused route's float32 forms do not take (``SUNet.fused_why``).
 - ``"fused"``: the JAX Pallas path's routing (``SwinBlock.__call__``,
   ``chain_fusable_len``): whole-block kernel at C <= ``ROUTE_BLOCK_MAX_C``,
   W->SW pair chains at C >= ``ROUTE_PAIR_MIN_C``, and the split LN+W-MSA /
@@ -405,8 +406,9 @@ class SwinBlock(nn.Module):
                 pad = wa.wcols(t.shape[1]) - t.shape[1]
                 if pad:
                     t = F.pad(t, (0, pad))
-                # one copy: the cast writes the (in, out) layout
-                return t.to(dtype, memory_format=torch.contiguous_format)
+                # one copy: the cast writes the (in, out) layout (in float32,
+                # where there is no cast, the copy is contiguous())
+                return t.to(dtype, memory_format=torch.contiguous_format).contiguous()
             f = _f32
             bqkv = (f(a.qkv.bias) if a.qkv.bias is not None
                     else torch.zeros(3 * self.dim, device=a.qkv.weight.device))
@@ -688,7 +690,7 @@ class DualUpsample(nn.Module):
         alpha_p, w_b1, b_b1, alpha_b, wpf, wbf."""
         def build():
             wpf, wbf = self.folded()
-            w = lambda t: _frozen(t).to(dt, memory_format=torch.contiguous_format)
+            w = lambda t: _frozen(t).to(dt, memory_format=torch.contiguous_format).contiguous()
             return (w(self.up_p[0].kernel()), _frozen(self.up_p[1].weight),
                     w(self.up_b[0].kernel()), _frozen(self.up_b[0].bias),
                     _frozen(self.up_b[1].weight), w(wpf), w(wbf))

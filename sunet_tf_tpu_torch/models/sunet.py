@@ -23,6 +23,7 @@ Under it inference takes no chain and no stage runner (JAX ``SwinStage``).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -230,6 +231,32 @@ class SUNet(nn.Module):
             y = layer_norm(y, self.patch_embed.norm)
         return y
 
+    def fused_why(self, train: bool = False) -> Optional[str]:
+        """Why the fused route on the card does not run this model (None
+        when it does): bfloat16 runs everywhere; float32 runs the float32
+        inference forms of #1-#5 (ROADMAP B2, serving half), so a training
+        forward, a window above 64 tokens or the split x4 head (#10) is
+        refused with its ROADMAP item; no other dtype has kernels."""
+        if self.backend != "fused" or self.dtype == torch.bfloat16:
+            return None
+        eager = " Use backend='eager' for a float32 model there."
+        if self.dtype != torch.float32:
+            return (f"backend='fused' on CUDA runs bfloat16 and float32 kernels, not "
+                    f"{self.dtype}.{eager}")
+        if train:
+            return (f"backend='fused' in float32 runs inference kernels only: training in "
+                    f"float32 is {wa.F32_TRAIN_ITEM}.{eager}")
+        blocks = [b for st in list(self.layers) + list(self.layers_up[1:]) for b in st.blocks]
+        big = max(b.window_size ** 2 for b in blocks)
+        if big > 64:
+            return (f"backend='fused' in float32 takes windows up to 64 tokens, this model has "
+                    f"{big} ({wa.F32_SEQ_ITEM}).{eager}")
+        if not conv_fused_head(self.cfg.out_chans):
+            return (f"backend='fused' in float32 runs the conv-fused x4 head; OUT_CHANS="
+                    f"{self.cfg.out_chans} takes the split head ({wa.F32_SPLIT_HEAD_ITEM})."
+                    f"{eager}")
+        return None
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 stage_runner=None) -> torch.Tensor:
         """x: (B, H, W, in_chans) in [0, 1] -> (B, H, W, out_chans) float32
@@ -239,14 +266,28 @@ class SUNet(nn.Module):
         on their trainable routes; without it, inference. ``stage_runner``:
         the spatial tier's runner (``parallel.spatial.SpatialStageRunner``),
         which each Swin stage asks whether it takes the stage; the other
-        layers run replicated on every rank of its spatial group."""
+        layers run replicated on every rank of its spatial group.
+
+        A float32 (or float64) model computes in float32 on the card: its
+        forward runs with TF32 off in cuBLAS and cuDNN (``wa.exact_fp32``,
+        JAX's ``default_matmul_precision("highest")``), the caller's flags
+        restored after; a bf16 model leaves them as it finds them. Autograd
+        runs a backward after this returns: the training step holds the
+        flags over it (``train/loop.py``)."""
+        if x.device.type == "cuda":
+            why = self.fused_why(train=generator is not None)
+            if (why is None and stage_runner is not None and self.backend == "fused"
+                    and self.dtype != torch.bfloat16):
+                why = (f"the spatial stage runner runs bfloat16 kernels, not {self.dtype} "
+                       f"({wa.F32_SPATIAL_ITEM}); run without it, or on backend='eager'")
+            if why:
+                raise NotImplementedError(why)
+        exact = wa.exact_fp32() if self.dtype != torch.bfloat16 else contextlib.nullcontext()
+        with exact:
+            return self._forward(x, generator, stage_runner)
+
+    def _forward(self, x: torch.Tensor, generator, stage_runner) -> torch.Tensor:
         cfg = self.cfg
-        if (self.backend == "fused" and x.device.type == "cuda"
-                and self.dtype != torch.bfloat16):
-            raise NotImplementedError(
-                "backend='fused' on CUDA runs bfloat16 kernels only; float32 "
-                "kernels are ROADMAP queue B 'fp32 kernels'. Use "
-                "backend='eager' for a float32 forward.")
         if x.shape[-1] == 1 and cfg.in_chans == 3:
             x = x.repeat(1, 1, 1, 3)
         x = x.to(self.dtype)
@@ -379,7 +420,11 @@ class SUNet(nn.Module):
         ``runner``: a spatial stage runner; each block of a stage it
         ``applies`` to launches the block kernel (``wa.block_launches``),
         in training also its recompute backward (``wa.block_bwd_launches``),
-        at shift 0 with a mask slice (no chain, no residual route)."""
+        at shift 0 with a mask slice (no chain, no residual route).
+        A float32 model's inference gives the same counts: each wrapper is
+        called as often as in bf16 (the routes do not depend on the dtype,
+        as in JAX) and each float32 form launches as many kernels as its
+        bf16 form."""
         counts = dict.fromkeys(TRAIN_WRAPPERS if train else INFER_WRAPPERS, 0)
         if self.backend != "fused":
             return counts

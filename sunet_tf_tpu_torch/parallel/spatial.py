@@ -297,6 +297,10 @@ class SpatialStageRunner:
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         mesh = self.mesh
         B, H, W, C = x.shape
+        if x.device.type == "cuda" and x.dtype != torch.bfloat16:
+            raise NotImplementedError(f"the spatial stage runner runs bfloat16 kernels, got "
+                                      f"{x.dtype} ({wa.F32_SPATIAL_ITEM}); run the model "
+                                      "without it, or on backend='eager'")
         _check_geometry(mesh, blocks, H)
         xl = rows_of(x, mesh)
         for blk in blocks:

@@ -36,11 +36,13 @@ scalars, evaluation sums and histograms are the global ones.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
 
+from sunet_tf_tpu_torch.kernels.window_attention import exact_fp32
 from sunet_tf_tpu_torch.ops.image import (add_awgn, dihedral_batch, psnr,
                                           psnr_per_sample, rgb_to_gray,
                                           ssim_per_sample)
@@ -207,6 +209,19 @@ def reduce_gradients(params: list, mesh, partial: list = ()) -> None:
     _flat_all_reduce(mesh, mesh.data_group, [p.grad for p in params if p.grad is not None])
 
 
+def step_precision(model):
+    """The context a training step of ``model`` runs in: a float32 (or
+    float64) model's step, its backward included, with TF32 off in cuBLAS
+    and cuDNN (``exact_fp32``; the forward sets it for itself, but autograd
+    runs the backward after the forward has returned), the caller's flags
+    restored after it, also on error; a bf16 model's as the caller has it.
+    The flags are process-wide: a bf16 caller in another thread of the
+    process sees TF32 off while such a step runs."""
+    if getattr(model, "dtype", torch.bfloat16) != torch.bfloat16:
+        return exact_fp32()
+    return contextlib.nullcontext()
+
+
 def build_steps(model, optimizer, task: str = "denoise", sigma: float = 50.0,
                 seed: int = 0, augment: bool = True, mesh=None,
                 stage_runner=None) -> TrainStepFns:
@@ -227,6 +242,10 @@ def build_steps(model, optimizer, task: str = "denoise", sigma: float = 50.0,
         return torch.ones(n, device=device) if v is None else v.float()
 
     def train_step(batch, step: int, hists):
+        with step_precision(model):
+            return _train_step(batch, step, hists)
+
+    def _train_step(batch, step: int, hists):
         g_data, g_model = step_generators(seed, step, device)
         inp, tar = prepare(batch, task, sigma, g_data, augment)
         v = valid_of(batch, inp.shape[0])

@@ -2,6 +2,7 @@
 """Calibrate chip_smoke's limits for the backward kernels on one NVIDIA GPU.
 
     python3 chip_mutants.py [--out PATH] [--step-only] [--mutants NAME,...] [--sound]
+                            [--dx-draws N [--dx-kernel NAME]]
 
 Runs chip_smoke's backward checks (``compare_grads`` on the block backward
 at (64,64,96), (32,32,192), (16,16,384), shift 0 and 4, batch 2, on the
@@ -13,7 +14,9 @@ big-window block backward, #9's wide form), and on the C=768
 training sublayers
 of ``chip_smoke.sublayer_cases``: the LN+W-MSA backward at (8,8,768) and
 (16,16,768) shift 4, the LN+MLP branch there too and its backward at
-(8,8,768); and
+(8,8,768); on the C=768 stage's training forms
+(``chip_smoke.c768_train_cases``: #1's train form on the sequence form at
+64-token windows and #8 at head dims 96 and 192); and
 on the residual route's block backward at (64,64,96) and (32,32,192),
 shift 0 and 4, from the residual forward's stored state, and on that
 forward's output and stored state, ``check_res_state``) with failures
@@ -43,9 +46,13 @@ settings:
   and with every kernel replaced by its plain version (the same rounding
   points, no kernel); the residual route with every kernel by its plain
   version and the drop-path product in float32, and either of those with
-  its C=768 stage on eager autograd; the residual route with only #6, or
-  only #7, by its plain version; its C=768 stage on eager autograd or on
-  its plain versions; and chip_smoke's NOISE_ROUTES: the eager route, the
+  its C=768 stage on eager autograd (both training caps at 384; each
+  variant's line names the route its C=768 stage took, and a variant so
+  labelled that does not train it on eager autograd is a failing SUMMARY);
+  the residual route with only #6, or only #7, by its plain version; its
+  C=768 stage on eager autograd, on the sublayer kernels (the route it took
+  before the block kernels) or on their plain versions; and chip_smoke's
+  NOISE_ROUTES: the eager route, the
   eager route with JAX's residual attention (``chip_smoke.res_attention``)
   in the residual route's blocks, each also with the float32 product. It
   reads, per run, every one-value gradient's relative error (the largest
@@ -287,6 +294,17 @@ MUTANTS = {
                          "      a.dsum[st] = 0.f;\n      a.dsum[st + 8] = 0.f;"),
     "big_bwd_max_off": ("block_bwd_big.cuh", "    a.rmax[st] = m0;\n    a.rmax[st + 8] = m1;",
                         "    a.rmax[st] = m0 + 1.f;\n    a.rmax[st + 8] = m1 + 1.f;"),
+    # the C=768 stage's training forms (chip_smoke.c768_train_cases): the
+    # 64-token attention (wmsa_attn.cuh's attn_kernel, the sequence form's
+    # at 64 tokens and #3's) with the scores of head columns 64-95 left out
+    # (head dim 96: the C=768 stage's third 32-column group)
+    "attn64_head_cols_64_95_dropped": (
+        "wmsa_attn.cuh",
+        "      for (int k0 = 0; k0 < dcp; k0 += 16) {\n"
+        "        const bf16* qa = qs + (i0 + g) * kQkLd + k0 + t2;",
+        "      for (int k0 = 0; k0 < dcp; k0 += 16) {\n"
+        "        if (c0 + k0 >= 64 && c0 + k0 < 96) continue;\n"
+        "        const bf16* qa = qs + (i0 + g) * kQkLd + k0 + t2;"),
     "up4_wide_pad_leak": ("../upsample.py",
                           "    square = lambda w: F.pad(w, (0, pad, 0, pad)).contiguous()",
                           "    square = lambda w: F.pad(w, (0, pad, 0, pad), value=0.05).contiguous()"),
@@ -571,47 +589,102 @@ for c in cs.scaled_train_cases(tgen):
     else:
         cs.compare_grads(f"{c['name']} {c['case']} {tag}", tuple(g.cuda() for g in got), ref,
                          c["grads"])
+# the C=768 stage's training forms (chip_smoke.c768_train_cases, drawn from
+# this setting's seed): #1's train form at 64 tokens and #8 at head dim 96
+for c in cs.c768_train_cases(torch.Generator(device="cuda").manual_seed(seed + 2)):
+    ref = c["plain"](*c["args"], **c["kw"])
+    got = (c["plain"](*cpu(c["args"]), **c["kw"]) if mode == "floor"
+           else c["fn"](*c["args"], **c["kw"]))
+    label = f"{c['name']} {c['case']} {tag}"
+    if c["grads"] is None:
+        cs.compare(label, got.cuda(), ref, c["tie"], mean_tol=c["mean_tol"])
+    else:
+        got = tuple(g.cuda() for g in got)
+        cs.f64_grads_reading(label, got, ref, c["plain"], c["args"], c["kw"], c["grads"])
+        if not c["f64"]:
+            cs.compare_grads(label, got, ref, c["grads"])
 print(f"SUMMARY {tag}: {len(fails)} failing checks", flush=True)
 for f in fails:
     print(f"  failing: {f}", flush=True)
 '''
 
 
-# Run inside a checkout: the LN+W-MSA backward's (#12) dx over many draws of
-# inputs (chip_smoke.sublayer_cases, fresh generator per seed, qkv gain 1
-# and 0.25), kernel and plain version on the CPU each against the plain
-# version on the card: mean |diff| over max(1, mean|ref|), the quantity of
-# its dx mean limit.
+# Run inside a checkout: a backward's dx over many draws of inputs (fresh
+# generator per seed), kernel and plain version on the CPU each against the
+# plain version on the card: mean |diff| over max(1, mean|ref|), the quantity
+# of its dx mean limit. argv[2]: the LN+W-MSA backward (#12,
+# chip_smoke.sublayer_cases, qkv gain 1 and 0.25), or the block backward at
+# head dim 96 and 192 (chip_smoke.WIDE_HEAD, chip_smoke.c768_train_cases:
+# its own gains), whose every weight grad is read too (mean |diff| over
+# mean |ref|, the quantity of its grad limit) and whose every output is
+# also read against float64 (chip_smoke.f64_grads_reading: the kernel's
+# distance to the exact backward over the plain version's; its ~1e4-logit
+# case by that reading alone).
 DX_DRAWS = r'''
 import sys
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 
+kernel = sys.argv[2]
 cpu = lambda t: (None if t is None else tuple(cpu(u) for u in t) if isinstance(t, tuple)
                  else t.cpu())
-worst = {"kernel": (0.0, ""), "floor": (0.0, "")}
-for seed in range(1, int(sys.argv[1]) + 1):
+ratio_fails = []
+cs.check = lambda cond, msg: cond or ratio_fails.append(msg)
+
+
+def draws(seed):
+    if kernel == cs.WIDE_HEAD:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for c in cs.c768_train_cases(gen):
+            if c["name"] == kernel:
+                yield c["case"], c["fn"], c["plain"], c["args"], c["kw"], c
+        return
     for gain in (1.0, 0.25):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        for name, case, kernel, plain, args, kw, _, _ in cs.sublayer_cases(gen, gain=gain):
-            if name != "ln_window_attention_bwd":
+        for name, case, fn, plain, args, kw, _, _ in cs.sublayer_cases(gen, gain=gain):
+            if name == kernel:
+                yield f"gain {gain:g} {case}", fn, plain, args, kw, None
+
+
+worst = {"kernel": (0.0, ""), "floor": (0.0, "")}
+worst_grad = {"kernel": (0.0, ""), "floor": (0.0, "")}
+for seed in range(1, int(sys.argv[1]) + 1):
+    for case, kernel_fn, plain, args, kw, c in draws(seed):
+        tag = f"seed {seed} {case}"
+        ref = plain(*args, **kw)
+        outs = {"kernel": kernel_fn(*args, **kw),
+                "floor": tuple(t.cuda() for t in plain(*cpu(args), **kw))}
+        if c is not None:
+            for mode, got in outs.items():
+                cs.f64_grads_reading(f"F64 {mode} {tag}", got, ref, plain, args, kw, c["grads"])
+            if c["f64"]:   # ~1e4 logits: held by the float64 reading alone
                 continue
-            ref = plain(*args, **kw)[0].float()
-            scale = max(1.0, float(ref.abs().mean()))
-            for mode, got in (("kernel", kernel(*args, **kw)[0]),
-                              ("floor", plain(*cpu(args), **kw)[0])):
-                d = (got.cuda().float() - ref).abs()
-                rel = float(d.mean()) / scale
-                tag = f"seed {seed} gain {gain:g} {case}"
-                worst[mode] = max(worst[mode], (rel, tag))
-                print(f"DRAW {mode} {tag}: dx mean|diff| / max(1, mean|ref|) {rel:.4e}, "
-                      f"max|diff| {float(d.max()):.3e}, mean|ref| {float(ref.abs().mean()):.3e}",
-                      flush=True)
+        scale = max(1.0, float(ref[0].float().abs().mean()))
+        for mode, got in outs.items():
+            d = (got[0].float() - ref[0].float()).abs()
+            rel = float(d.mean()) / scale
+            worst[mode] = max(worst[mode], (rel, tag))
+            line = (f"DRAW {mode} {tag}: dx mean|diff| / max(1, mean|ref|) {rel:.4e}, "
+                    f"max|diff| {float(d.max()):.3e}, mean|ref| {float(ref[0].float().abs().mean()):.3e}")
+            if c is not None:
+                rels = {lab: float((g - r).abs().mean()) / max(float(r.abs().mean()), 1e-30)
+                        for lab, g, r in zip(c["grads"], got[1:], ref[1:])}
+                lab = max(rels, key=rels.get)
+                worst_grad[mode] = max(worst_grad[mode], (rels[lab], f"{lab} {tag}"))
+                line += f"; largest grad reading {lab} {rels[lab]:.4e}"
+            print(line, flush=True)
 for mode, (rel, tag) in worst.items():
-    print(f"SUMMARY [ln_window_attention_bwd dx draws] largest {mode} reading {rel:.4e} "
-          f"({tag}); chip_smoke's limit {cs.dx_mean_tol('ln_window_attention_bwd'):g}",
-          flush=True)
+    print(f"SUMMARY [{kernel} dx draws] largest {mode} reading {rel:.4e} ({tag}); "
+          f"chip_smoke's limit {cs.dx_mean_tol(kernel):g}", flush=True)
+if kernel == cs.WIDE_HEAD:
+    for mode, (rel, tag) in worst_grad.items():
+        print(f"SUMMARY [{kernel} dx draws] largest {mode} weight-grad reading {rel:.4e} ({tag}); "
+              f"chip_smoke's limit {cs.grad_mean_tol(kernel):g}", flush=True)
+print(f"SUMMARY [{kernel} dx draws] float64 readings beyond C4_RATIO: {len(ratio_fails)}",
+      flush=True)
+for f in ratio_fails:
+    print(f"  {f}", flush=True)
 '''
 
 
@@ -726,7 +799,11 @@ def step_noise(log, dists_out: Path) -> list:
     sublayers = ("fused_ln_window_attention", "ln_window_attention_bwd", "ln_mlp_branch",
                  "ln_mlp_bwd")
     plain = cs.plain_kernel_patches()
-    c768_eager = (layers, "ROUTE_TRAIN_SPLIT_MAX_C", layers.ROUTE_TRAIN_BLOCK_MAX_C)
+    # the C=768 stage off every kernel: both training caps below it
+    c768_eager = [(layers, "ROUTE_TRAIN_SPLIT_MAX_C", cs.OLD_TRAIN_BLOCK_CAP),
+                  (layers, "ROUTE_TRAIN_BLOCK_MAX_C", cs.OLD_TRAIN_BLOCK_CAP)]
+    # ... and on the sublayer kernels, the route it took before
+    c768_split = [(layers, "ROUTE_TRAIN_BLOCK_MAX_C", cs.OLD_TRAIN_BLOCK_CAP)]
     variants = (
         ("fused", "fused", []),
         ("fused, every kernel by its plain version", "fused", plain),
@@ -737,22 +814,37 @@ def step_noise(log, dists_out: Path) -> list:
         ("fused, every kernel by its plain version, drop-path product in float32", "fused",
          [*plain, (layers, "drop_path", dp32)]),
         ("fused, every kernel by its plain version, C=768 on eager autograd", "fused",
-         [*plain, c768_eager]),
+         [*plain, *c768_eager]),
         ("fused, every kernel by its plain version, C=768 on eager autograd, drop-path "
-         "product in float32", "fused", [*plain, c768_eager, (layers, "drop_path", dp32)]),
+         "product in float32", "fused", [*plain, *c768_eager, (layers, "drop_path", dp32)]),
         ("fused, ROUTE_TRAIN_RESID off, every kernel by its plain version", "fused",
          [(layers, "ROUTE_TRAIN_RESID", False), *plain]),
         ("fused, ROUTE_TRAIN_RESID off", "fused", [(layers, "ROUTE_TRAIN_RESID", False)]),
-        ("fused, C=768 on eager autograd", "fused", [c768_eager]),
-        ("fused, C=768 sublayers by their plain versions", "fused",
-         [(wa, n, getattr(wa, n + "_reference")) for n in sublayers]),
+        ("fused, C=768 on eager autograd", "fused", c768_eager),
+        ("fused, C=768 on the sublayer kernels", "fused", c768_split),
+        ("fused, C=768 on the sublayer kernels by their plain versions", "fused",
+         [*c768_split, *((wa, n, getattr(wa, n + "_reference")) for n in sublayers)]),
         ("fused, drop-path product in float32", "fused", [(layers, "drop_path", dp32)]),
         ("fused, ROUTE_TRAIN_RESID off, drop-path product in float32", "fused",
          [(layers, "ROUTE_TRAIN_RESID", False), (layers, "drop_path", dp32)]),
         *((label, "eager", cs.route_patches(be)) for be, label in NOISE_LABELS.items()))
+    def c768_route(be: str) -> str:
+        """How the step trains the C=768 stage under the current patches."""
+        b = models[be].layers[3].blocks[0]
+        if be != "fused":
+            return "eager (the eager model)"
+        return ("block kernels" if b.trains_on_block_kernels() else "sublayer kernels"
+                if b.trains_on_split_kernels() else "eager autograd")
+
     worst = (0.0, "", "")
+    routes = []
     for label, be, patches in variants:
         runs = []
+        with cs.patched(patches):
+            route = c768_route(be)
+        say(f"[step] {label}: the C=768 stage trains on {route}")
+        if "C=768 on eager autograd" in label and route != "eager autograd":
+            routes.append(f"SUMMARY [step] FAILED: {label} trains the C=768 stage on {route}")
         for run in (1, 2):
             with cs.patched(patches):
                 loss, g, act = step(be)
@@ -770,9 +862,10 @@ def step_noise(log, dists_out: Path) -> list:
             kept[label] = runs[0]
     dists_out.write_text(json.dumps({f"{label}|{run}": d for label, run, d in dists}))
     covered = worst[0] <= cs.ONE_VALUE_NOISE
-    summary = [f"SUMMARY [step]: largest one-value relative error {worst[0]:.4e} ({worst[1]}, "
-               f"{worst[2]}); chip_smoke.ONE_VALUE_NOISE {cs.ONE_VALUE_NOISE} "
-               + ("covers it" if covered else "DOES NOT cover it")]
+    summary = routes + [
+        f"SUMMARY [step]: largest one-value relative error {worst[0]:.4e} ({worst[1]}, "
+        f"{worst[2]}); chip_smoke.ONE_VALUE_NOISE {cs.ONE_VALUE_NOISE} "
+        + ("covers it" if covered else "DOES NOT cover it")]
     # chip_smoke's noise reference: per tensor, the farthest first run of
     # its NOISE_ROUTES (the kernel-free variants)
     first = {label: d for label, run, d in dists if run == 1}
@@ -841,7 +934,10 @@ def main():
     ap.add_argument("--sound", action="store_true",
                     help="run only the kernel and floor settings (no mutant, no step)")
     ap.add_argument("--dx-draws", type=int, default=0, metavar="N",
-                    help="run only the LN+W-MSA backward's dx over N seeds of inputs")
+                    help="run only a backward's dx over N seeds of inputs")
+    ap.add_argument("--dx-kernel", default="ln_window_attention_bwd",
+                    help="the backward of --dx-draws: ln_window_attention_bwd (#12) or "
+                         "swin_block_bwd[wide_head] (#8 above head dim 64)")
     args = ap.parse_args()
     import torch
 
@@ -853,8 +949,8 @@ def main():
     out.parent.mkdir(parents=True, exist_ok=True)
     summary = []
     if args.dx_draws:
-        proc = subprocess.run([sys.executable, "-c", DX_DRAWS, str(args.dx_draws)], cwd=ROOT,
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", DX_DRAWS, str(args.dx_draws),
+                               args.dx_kernel], cwd=ROOT, capture_output=True, text=True)
         out.write_text(proc.stdout + proc.stderr)
         if proc.returncode != 0:
             raise SystemExit(f"chip_mutants: dx draws exited {proc.returncode}:\n"

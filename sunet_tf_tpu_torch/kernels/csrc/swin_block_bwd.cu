@@ -24,15 +24,19 @@
 // partials, and one launch that sums every partial in a fixed order.
 // Device time on the H100 (700 W), batch 2: 0.26 ms at (64,64,96), 0.19 ms
 // at (32,32,192) and (16,16,384); 35 launches took 0.64 / 0.47 / 0.55 ms
-// (PERF.md). Windows above 64 tokens take the big entry below
-// (block_bwd_big.cuh's attention).
+// (PERF.md). Up to 64 tokens a window the head dim is any even one whose
+// attention operands fit shared memory (up to 192 at 64 tokens: the
+// default model's C=768 stage at 96, C=384 with 2 heads at 192), the
+// attention on the same kernel as ln_wmsa_bwd.cu's; the residual route
+// (swin_block_bwd_res.cu) keeps 64. Windows above 64 tokens take the big
+// entry below (block_bwd_big.cuh's attention).
 #include "swin_block_bwd.cuh"
 
 using namespace sunet;
 
 extern "C" size_t sunet_swin_block_bwd_workspace(int B, int H, int W, int C, int hidden, int ws,
                                                  int heads) {
-  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0) return 0;
+  if (!bwd_takes(H, W, C, hidden, ws, heads, false) || B <= 0) return 0;
   return carve_bwd(nullptr, B, H, W, C, hidden, ws, heads, false).bytes;
 }
 
@@ -44,7 +48,7 @@ extern "C" int sunet_swin_block_bwd(
     void* dwproj, void* dbproj, void* dg2, void* db2, void* dw1, void* dbm1, void* dw2,
     void* dbm2, void* dbias, void* work, int B, int H, int W, int C, int hidden, int ws,
     int heads, int shift, float scale, int* launches, void* stream) {
-  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0 || dp == nullptr)
+  if (!bwd_takes(H, W, C, hidden, ws, heads, false) || B <= 0 || dp == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdArgs a{(const bf16*)x,     (const bf16*)dout,  (const float*)g1,   (const float*)be1,
             (const bf16*)wqkv,  (const float*)bqkv, (const bf16*)wproj, (const float*)bproj,

@@ -80,12 +80,18 @@ struct BwdArgs {
 
 // Whether the kernels take the shape: windows of N = ws^2 <= 64 tokens, N
 // a multiple of 16; C a multiple of 16 up to 768 (a cluster of at most 6
-// CTAs owns a row); head dim even and at most 64; hidden a multiple of 16.
-inline bool bwd_takes(int H, int W, int C, int hidden, int ws, int heads) {
+// CTAs owns a row); head dim even; hidden a multiple of 16. The head dim:
+// on the residual route (res) at most 64 (its per-pair t sums hold 32
+// column pairs); in the recompute form whatever the attention's operands
+// fit in shared memory (attn_layout: 192 at N = 64), as ln_wmsa_bwd.cu's.
+inline bool bwd_takes(int H, int W, int C, int hidden, int ws, int heads, bool res) {
   const int N = ws * ws;
-  return ws > 0 && N <= 64 && N % 16 == 0 && C % 16 == 0 && C <= 768 && heads > 0 &&
-         C % heads == 0 && C / heads <= 64 && (C / heads) % 2 == 0 && hidden % 16 == 0 &&
-         hidden > 0 && H % ws == 0 && W % ws == 0;
+  if (!(ws > 0 && N <= 64 && N % 16 == 0 && C % 16 == 0 && C <= 768 && heads > 0 &&
+        C % heads == 0 && (C / heads) % 2 == 0 && hidden % 16 == 0 && hidden > 0 &&
+        H % ws == 0 && W % ws == 0))
+    return false;
+  const int d = C / heads;
+  return res ? d <= 64 : bb::attn_layout(N, (d + 15) & ~15).bytes <= kMaxSmem;
 }
 
 // The big-window form: N a multiple of 64 above 64 up to bb::kBigMaxTok; C

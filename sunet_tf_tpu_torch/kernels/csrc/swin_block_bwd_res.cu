@@ -36,7 +36,7 @@ using namespace sunet;
 
 extern "C" size_t sunet_swin_block_bwd_res_workspace(int B, int H, int W, int C, int hidden,
                                                      int ws, int heads) {
-  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0) return 0;
+  if (!bwd_takes(H, W, C, hidden, ws, heads, true) || B <= 0) return 0;
   return carve_bwd(nullptr, B, H, W, C, hidden, ws, heads, true).bytes;
 }
 
@@ -48,7 +48,7 @@ extern "C" int sunet_swin_block_bwd_res(
     void* dwqkv, void* dbqkv, void* dwproj, void* dbproj, void* dg2, void* db2, void* dw1,
     void* dbm1, void* dw2, void* dbm2, void* dbias, void* work, int B, int H, int W, int C,
     int hidden, int ws, int heads, int shift, float scale, int* launches, void* stream) {
-  if (!bwd_takes(H, W, C, hidden, ws, heads) || B <= 0 || dp == nullptr || eb == nullptr ||
+  if (!bwd_takes(H, W, C, hidden, ws, heads, true) || B <= 0 || dp == nullptr || eb == nullptr ||
       rden == nullptr || ctxf == nullptr)
     return (int)cudaErrorInvalidValue;
   BwdArgs a{(const bf16*)x,     (const bf16*)dout,  (const float*)g1,   (const float*)be1,

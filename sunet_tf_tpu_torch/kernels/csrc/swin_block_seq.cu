@@ -1,5 +1,8 @@
 // The whole Swin block for windows above 64 tokens (WIN 16: 256, the scaled
-// config's C=180 and C=360 stages): five launches.
+// config's C=180 and C=360 stages), and the train form of the blocks up to
+// 64 tokens a window that swin_cluster.cu does not take (C above 384, a head
+// dim above 64, no cluster size: the default model's C=768 stage, head dim
+// 96): five launches.
 //
 // Replaces sunet_tf_tpu/kernels/window_attention.py::fused_swin_block (and
 // fused_swin_block_chain, which launches it per block) where the window
@@ -30,11 +33,17 @@
 // 5. fc2: out = round(y + (h @ w2 + b2)), stored at the unrolled rows
 //    (kRollOut).
 // The train form (dp, the (B, 2) per-image drop-path scales, not null:
-// kernels/window_attention.py::SwinBlockTrainable above 64 tokens) scales
+// kernels/window_attention.py::SwinBlockTrainable above 64 tokens, and at
+// 64 tokens where the cluster kernel refuses the block) scales
 // the attention branch in 3 and the MLP branch in 5 by the row's image's
 // scale, at swin_cluster.cu's train-form rounding points: y = round(x + s1
 // (ctx @ wproj + bproj)), out = round(y + s2 (h @ w2 + b2)) (gemm_tile.cuh's
-// kModeDrop; the inference launches keep kModeGeneral alone).
+// kModeDrop; the inference launches keep kModeGeneral alone). Up to 64
+// tokens a window (train form alone; JAX's inference cap there is 384,
+// which the cluster kernel covers) the attention is wmsa_attn.cuh's
+// 64-token kernel, #3's, at any head dim (96-column chunks): the other four
+// launches do not depend on the window, and the SW roll stays row
+// addressing of the whole map, the mask indexed by the rolled map's window.
 // C=180 is not a whole number of k16 steps or 16-byte row units: the
 // products run over Kp = 192 (A's pad columns zeros, W's pad rows TMA's
 // zero fill), activation rows load in 8-byte chunks, and wqkv, wproj and w2
@@ -76,7 +85,7 @@ extern "C" size_t sunet_swin_block_seq_workspace(int M, int C, int hidden) {
 // with their columns padded to multiples of 8, w1 (C, hidden); Kp: the
 // products' depth over C (a multiple of 16, C <= Kp < C + 64); ksq, ksp,
 // ks1, ks2: the K splits of qkv, proj, fc1 and fc2 (from the launch plan);
-// dp (B, 2) float32 or NULL (inference).
+// dp (B, 2) float32 or NULL (inference, windows above 64 tokens alone).
 extern "C" int sunet_swin_block_seq(const void* x, void* out, const void* g1, const void* be1,
                                     const void* wqkv, const void* bqkv, const void* wproj,
                                     const void* bproj, const void* g2, const void* be2,
@@ -87,7 +96,8 @@ extern "C" int sunet_swin_block_seq(const void* x, void* out, const void* g1, co
                                     int ks1, int ks2, int* launches, void* stream) {
   const int N = ws * ws, M = B * H * W;
   if (B < 1 || C % 4 || C > (C % 8 ? 128 : 256) * kLnChunks || heads < 1 || C % heads ||
-      hidden % 16 || H % ws || W % ws || N <= wmsa::kTok || !wmsa::attn_takes(N, C / heads) ||
+      hidden % 16 || H % ws || W % ws || (N <= wmsa::kTok && !dp) ||
+      !wmsa::attn_takes(N, C / heads) ||
       shift < 0 || shift >= ws || Kp % 16 || Kp < C || Kp >= C + 64)
     return (int)cudaErrorInvalidValue;
   if (!split_ok(Kp, ksq) || !split_ok(Kp, ksp) || !split_ok(Kp, ks1) || !split_ok(hidden, ks2))

@@ -28,12 +28,14 @@ Counterparts of ``sunet_tf_tpu/kernels/window_attention.py``:
   two launches (per-head ctx, then the projection). CUDA:
   ``csrc/window_attention.cu``. No model route calls it, as in JAX.
 - :func:`swin_block_bwd` (JAX ``_block_bwd_impl``): the whole block's
-  backward, recompute form. CUDA: ``csrc/swin_block_bwd.cu``; windows above
-  64 tokens take its big-window form (``csrc/block_bwd_big.cuh``'s
-  attention, over rows of C rounded up to 16, :func:`block_bwd_width`).
-  :class:`SwinBlockTrainable` pairs it with :func:`fused_swin_block`'s
-  train form (per-image drop-path scales; above 64 tokens the sequence
-  form's, up to C = TRAIN_BLOCK_MAX_C) for autograd.
+  backward, recompute form, at any even head dim whose attention operands
+  fit shared memory (up to 192 at 64 tokens). CUDA:
+  ``csrc/swin_block_bwd.cu``; windows above 64 tokens take its big-window
+  form (``csrc/block_bwd_big.cuh``'s attention, over rows of C rounded up
+  to 16, :func:`block_bwd_width`). :class:`SwinBlockTrainable` pairs it
+  with :func:`fused_swin_block`'s train form (per-image drop-path scales,
+  up to C = TRAIN_BLOCK_MAX_C: the cluster kernel where it takes the
+  block, else the sequence form, also at 64 tokens a window) for autograd.
 - The residual route, JAX's default training block where the attention
   takes the blockdiag layout (:func:`bwd_residuals_enabled`):
   :func:`fused_swin_block_res` (JAX ``fused_swin_block_res``, CUDA
@@ -98,10 +100,11 @@ BF16 = torch.bfloat16
 # (csrc/swin_cluster.cu kMaxBoxes). Wider blocks take the split LN+W-MSA /
 # LN+MLP kernels.
 BLOCK_KERNEL_MAX_C = 384
-# Widest C of the block kernels' training forms above 64 tokens a window
-# (the sequence form with drop-path scales, csrc/swin_block_seq.cu, and the
-# big-window block backward): JAX's train cap (``_kernel_max_c(train=True)``,
-# SUNET_TRAIN_KERNEL_MAX_C=768); the scaled config's C=720 is its widest use.
+# Widest C of the block kernels' training forms (the sequence form with
+# drop-path scales, csrc/swin_block_seq.cu, at any window the cluster kernel
+# does not take, and the block backward): JAX's train cap
+# (``_kernel_max_c(train=True)``, SUNET_TRAIN_KERNEL_MAX_C=768); the default
+# model's C=768 stage and the scaled config's C=720 are its widest uses.
 TRAIN_BLOCK_MAX_C = 768
 # Kernel launches one call of each training wrapper makes (the forward
 # recompute, the backward products and the token reductions of
@@ -238,11 +241,29 @@ def _cluster_sizes(C: int, hidden: int, heads: int) -> tuple:
 
 def block_kernel_takes(C: int, hidden: int, heads: int) -> bool:
     """Whether the whole-block kernel has a cluster size for a block of
-    width C, MLP width ``hidden`` and ``heads`` heads. The router sends a
-    block within its cap that the kernel does not take (a head dim above
-    64, or no cluster size that divides the heads) to the split LN+W-MSA /
-    LN+MLP kernels, as it sends the wider ones."""
+    width C, MLP width ``hidden`` and ``heads`` heads. The inference router
+    sends a block within its cap that the kernel does not take (a head dim
+    above 64, or no cluster size that divides the heads) to the split
+    LN+W-MSA / LN+MLP kernels, as it sends the wider ones; a training call
+    takes the sequence form there (:func:`seq_form`)."""
     return bool(_cluster_sizes(C, hidden, heads))
+
+
+def cluster_takes(C: int, hidden: int, heads: int, ws: int) -> bool:
+    """Whether :func:`fused_swin_block` runs the block on the cluster kernel
+    (csrc/swin_cluster.cu): windows up to 64 tokens, C <= BLOCK_KERNEL_MAX_C
+    and a cluster size (:func:`block_kernel_takes`)."""
+    return ws * ws <= _TILE and C <= BLOCK_KERNEL_MAX_C and block_kernel_takes(C, hidden, heads)
+
+
+def seq_form(C: int, hidden: int, heads: int, ws: int, train: bool) -> bool:
+    """Whether a :func:`fused_swin_block` call takes the sequence form
+    (csrc/swin_block_seq.cu): above 64 tokens a window always; up to 64 a
+    training call (drop-path scales given) of a block the cluster kernel
+    does not take (:func:`cluster_takes`: C above 384, a head dim above
+    64, no cluster size), JAX's train route up to its cap of 768. An
+    inference call there is refused, as JAX's inference cap is 384."""
+    return ws * ws > _TILE or (train and not cluster_takes(C, hidden, heads, ws))
 
 
 @functools.lru_cache(maxsize=None)
@@ -336,12 +357,19 @@ def mlp_plan(M: int, C: int, hidden: int) -> dict:
 # attention launch of csrc/wmsa_attn.cuh's second form (a CTA of four warps
 # per 64 query rows of a (window, head), two passes over the keys) takes N
 # a multiple of 64 up to BIG_WINDOW_MAX_TOKENS and a head dim up to
-# BIG_WINDOW_MAX_HEAD_DIM (kTokBig, kDcBig).
+# BIG_WINDOW_MAX_HEAD_DIM (kTokBig, kDcBig); so does the block backward's
+# big-window form (csrc/block_bwd_big.cuh kBigMaxTok, kBigMaxD).
 BIG_WINDOW_MAX_TOKENS = 256
 BIG_WINDOW_MAX_HEAD_DIM = 64
 # fused_swin_block on such windows (csrc/swin_block_seq.cu): LN1 + qkv, the
 # attention, proj + the residual, LN2 + fc1, fc2 + the residual.
 SWIN_BLOCK_SEQ_LAUNCHES = 5
+# Finer counts of two wrappers' launches by form (added where the launches
+# are, beside the wrapper's own count): the sequence form's train form at
+# windows up to 64 tokens (fused_swin_block's), and the recompute block
+# backward at a head dim above BWD_RES_MAX_HEAD_DIM (swin_block_bwd's).
+SEQ64_FORM = "fused_swin_block[train64]"
+BWD_WIDE_HEAD_FORM = "swin_block_bwd[wide_head]"
 
 
 def window_why(N: int, d: int) -> Optional[str]:
@@ -386,12 +414,14 @@ def wcols(n: int) -> int:
     return _up(n, 8)
 
 
-def _seq_why(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> Optional[str]:
+def _seq_why(H: int, W: int, C: int, hidden: int, ws: int, heads: int,
+             train: bool = False) -> Optional[str]:
     N = ws * ws
     if H % ws or W % ws:
         return f"({H},{W}) not divisible by window {ws}"
-    if N <= _TILE:
-        return f"window of {N} tokens: the cluster form (block_plan) takes N <= {_TILE}"
+    if N <= _TILE and not train:
+        return (f"window of {N} tokens: the cluster form (block_plan) takes N <= {_TILE}; the "
+                "sequence form takes it in training alone")
     if C % 4 or heads <= 0 or C % heads or hidden % 16:
         return ("C must be a multiple of 4 (8-byte row chunks) and of heads, hidden of 16")
     why = window_why(N, C // heads)
@@ -402,35 +432,39 @@ def _seq_why(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> Option
                           ("fc2", hidden, C)):
         if not _k_splits(H * W, K, cols):
             return f"no K split of {name}'s {K}-deep product fits {SMEM_MAX} bytes"
-    if attn_big_smem(N, C // heads) > SMEM_MAX:
+    if N > _TILE and attn_big_smem(N, C // heads) > SMEM_MAX:
         return f"the attention's shared memory at {N} tokens exceeds {SMEM_MAX} bytes"
     return None
 
 
-def block_seq_takes(C: int, hidden: int, heads: int, ws: int) -> bool:
+def block_seq_takes(C: int, hidden: int, heads: int, ws: int, train: bool = False) -> bool:
     """Whether the sequence form of the block kernel takes blocks of width
     C, MLP width ``hidden``, ``heads`` heads and window ``ws`` (on a map of
-    one window; the router's question)."""
-    return _seq_why(ws, ws, C, hidden, ws, heads) is None
+    one window; the router's question); ``train``: a training call, which
+    it also takes at windows up to 64 tokens."""
+    return _seq_why(ws, ws, C, hidden, ws, heads, train) is None
 
 
 @functools.lru_cache(maxsize=None)
-def block_seq_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> dict:
+def block_seq_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int,
+                   train: bool = False) -> dict:
     """Launch plan of :func:`fused_swin_block`'s sequence form
     (csrc/swin_block_seq.cu) for (H, W, C) images with windows above 64
-    tokens: the depth Kp of the C-deep products (:func:`kpad`), the K
-    splits of qkv (ksq), proj (ksp), fc1 (ks1) and fc2 (ks2), each by
-    :func:`_fill` over :func:`_k_splits` of one image's rows, the
-    attention's shared memory and the CTAs of each launch at PLAN_BATCH
-    images. A function of one image's shape, never the batch. Raises
-    ValueError on a shape outside the design."""
-    why = _seq_why(H, W, C, hidden, ws, heads)
+    tokens, or with ``train`` (its train form) at any window: the depth Kp
+    of the C-deep products (:func:`kpad`), the K splits of qkv (ksq), proj
+    (ksp), fc1 (ks1) and fc2 (ks2), each by :func:`_fill` over
+    :func:`_k_splits` of one image's rows, the attention's dynamic shared
+    memory (0 up to 64 tokens: wmsa_attn.cuh's attn_kernel, static) and
+    the CTAs of each launch at PLAN_BATCH images. A function of one image's
+    shape, never the batch. Raises ValueError on a shape outside the
+    design."""
+    why = _seq_why(H, W, C, hidden, ws, heads, train)
     if why:
         raise ValueError(f"block_seq_plan: H={H}, W={W}, C={C}, hidden={hidden}, ws={ws}, "
                          f"heads={heads}: {why}")
     M, Kp, N = H * W, kpad(C), ws * ws
-    plan = {"Kp": Kp, "attn_smem": attn_big_smem(N, C // heads),
-            "ctas_attn": PLAN_BATCH * (M // N) * heads * (N // _TILE)}
+    plan = {"Kp": Kp, "attn_smem": attn_big_smem(N, C // heads) if N > _TILE else 0,
+            "ctas_attn": PLAN_BATCH * (M // N) * heads * max(1, N // _TILE)}
     for split, product, K, cols in (("ksq", "qkv", Kp, 3 * C), ("ksp", "proj", Kp, C),
                                     ("ks1", "fc1", Kp, hidden), ("ks2", "fc2", hidden, C)):
         plan[split], plan["smem_" + product], plan["ctas_" + product] = _fill(
@@ -438,11 +472,19 @@ def block_seq_plan(H: int, W: int, C: int, hidden: int, ws: int, heads: int) -> 
     return plan
 
 
-def block_launches(ws: int) -> int:
+def block_launches(ws: int, seq: bool = False) -> int:
     """Kernel launches of one :func:`fused_swin_block` call with window
     ``ws``: the cluster form's one (or the float32 form's, also one), or
-    the sequence form's SWIN_BLOCK_SEQ_LAUNCHES above 64 tokens."""
-    return 1 if ws * ws <= _TILE else SWIN_BLOCK_SEQ_LAUNCHES
+    the sequence form's SWIN_BLOCK_SEQ_LAUNCHES above 64 tokens or where
+    ``seq`` (:func:`seq_form`) says the call takes it."""
+    return SWIN_BLOCK_SEQ_LAUNCHES if seq or ws * ws > _TILE else 1
+
+
+def train_block_launches(C: int, hidden: int, heads: int, ws: int) -> int:
+    """Kernel launches of one training call of :func:`fused_swin_block`
+    (drop-path scales given) for the block: :func:`block_launches` of the
+    form :func:`seq_form` picks."""
+    return block_launches(ws, seq_form(C, hidden, heads, ws, True))
 
 
 # ---------------------------------------------------------------- float32 forms
@@ -648,11 +690,12 @@ _BWD_COLS = 128            # kCols: output columns of a token-GEMM CTA
 BWD_FILL_CTAS = 264        # kFillCtas: CTAs the weight-gradient launch aims at (2 per SM)
 BWD_ATTN_FILL_CTAS = 528   # kAttnFillCtas: CTAs the attention backward aims at (4 per SM)
 BWD_MAX_C = 768            # a cluster of at most 6 CTAs owns a row
-# The block backward's head dim (#7, #8): the residual route's per-pair t
-# sums hold 32 column pairs. The LN+W-MSA backward (#12) runs the recompute
-# form's attention, whose head dim shared memory alone bounds
-# (ln_wmsa_bwd_why).
-BWD_MAX_HEAD_DIM = 64
+# The block backward's head dim. The residual route (#7): its per-pair t
+# sums hold 32 column pairs. The recompute form (#8) and the LN+W-MSA
+# backward (#12) run attn_tc_kernel's recompute modes, whose head dim shared
+# memory alone bounds (_attn_bwd_why: an even head dim up to 192 at 64
+# tokens). The big-window form: BIG_WINDOW_MAX_HEAD_DIM.
+BWD_RES_MAX_HEAD_DIM = 64
 
 
 def _bwd_tok_smem(K: int, a_in_smem: bool) -> int:
@@ -688,7 +731,22 @@ def _wg_tiles(M: int, N: int) -> int:
     return _cdiv(M, _TILE) * _cdiv(N, _BWD_COLS)
 
 
-def _bwd_width_why(C: int, hidden: int, heads: int, align: int = 16) -> Optional[str]:
+def _attn_bwd_why(d: int, N: int) -> Optional[str]:
+    """Why the recompute attention of the backward kernels (attn_tc_kernel)
+    does not take head dim d at N tokens: an odd head dim, or operands
+    beyond shared memory."""
+    if d % 2:
+        return f"head dim {d} is odd (the attention loads column pairs)"
+    smem = _attn_smem(N, d)[1]
+    if smem > SMEM_MAX:
+        return (f"head dim {d} needs {smem} bytes of the attention's shared memory at "
+                f"{N} tokens, above {SMEM_MAX}")
+    return None
+
+
+def _bwd_width_why(C: int, hidden: int, heads: int, N: int, *, res: bool = False,
+                   big: bool = False) -> Optional[str]:
+    align = 4 if big else 16
     if C % align or hidden % 16 or hidden <= 0:
         if align == 16:
             return f"C={C} and hidden={hidden} must be multiples of 16"
@@ -697,11 +755,17 @@ def _bwd_width_why(C: int, hidden: int, heads: int, align: int = 16) -> Optional
         return f"C={C} above {BWD_MAX_C} (a cluster of at most 6 CTAs owns a row)"
     if heads <= 0 or C % heads:
         return f"C={C} not divisible by {heads} heads"
-    if C // heads > BWD_MAX_HEAD_DIM:
-        return f"head dim {C // heads} above {BWD_MAX_HEAD_DIM}"
-    if (C // heads) % 2:
-        return f"head dim {C // heads} is odd (the attention loads column pairs)"
-    return None
+    d = C // heads
+    if big:
+        if d > BIG_WINDOW_MAX_HEAD_DIM:
+            return f"head dim {d} above {BIG_WINDOW_MAX_HEAD_DIM}"
+        if d % 2:
+            return f"head dim {d} is odd (the attention loads column pairs)"
+        return None
+    if res and d > BWD_RES_MAX_HEAD_DIM:
+        return (f"head dim {d} above {BWD_RES_MAX_HEAD_DIM} (the residual route's per-pair "
+                "sums)")
+    return _attn_bwd_why(d, N)
 
 
 def block_bwd_width(C: int, ws: int) -> int:
@@ -711,37 +775,42 @@ def block_bwd_width(C: int, ws: int) -> int:
     return C if ws * ws <= _TILE else _up(C, 16)
 
 
-def block_bwd_why(C: int, hidden: int, heads: int, ws: int) -> Optional[str]:
+def block_bwd_why(C: int, hidden: int, heads: int, ws: int, res: bool = False) -> Optional[str]:
     """Why the block backward's kernels do not take a block of width C, MLP
-    width ``hidden``, ``heads`` heads and window ``ws`` (None when they do).
+    width ``hidden``, ``heads`` heads and window ``ws`` (None when they do);
+    ``res``: the residual route's (#7), else the recompute form's (#8).
     Up to 64 tokens the window's rule is every window kernel's
-    (``_check_window``) and C a multiple of 16; above, the big-window form
-    (csrc/block_bwd_big.cuh): N a multiple of 64 up to BIG_WINDOW_MAX_TOKENS,
-    C a multiple of 4 up to BWD_MAX_C (run over :func:`block_bwd_width`),
-    an even head dim up to BWD_MAX_HEAD_DIM whose launches fit SMEM_MAX."""
+    (``_check_window``), C a multiple of 16 up to BWD_MAX_C and an even head
+    dim whose attention operands fit SMEM_MAX (up to 192 at 64 tokens), at
+    most BWD_RES_MAX_HEAD_DIM on the residual route; above, the big-window
+    form (csrc/block_bwd_big.cuh): N a multiple of 64 up to
+    BIG_WINDOW_MAX_TOKENS, C a multiple of 4 up to BWD_MAX_C (run over
+    :func:`block_bwd_width`), an even head dim up to
+    BIG_WINDOW_MAX_HEAD_DIM whose launches fit SMEM_MAX."""
     N = ws * ws
     if N <= _TILE:
         if N % 16 or N == 0:
             return f"window {ws} gives {N} tokens; the kernel takes 16, 32, 48 or 64"
-        return _bwd_width_why(C, hidden, heads)
+        return _bwd_width_why(C, hidden, heads, N, res=res)
     if N % _TILE or N > BIG_WINDOW_MAX_TOKENS:
         return (f"window {ws} gives {N} tokens; above {_TILE} the kernel takes multiples of "
                 f"{_TILE} up to {BIG_WINDOW_MAX_TOKENS}")
-    why = _bwd_width_why(C, hidden, heads, align=4)
+    why = _bwd_width_why(C, hidden, heads, N, big=True)
     if why is None and max(_big_attn_smem(N, C // heads)) > SMEM_MAX:
         why = f"the big-window attention's shared memory at {N} tokens exceeds {SMEM_MAX} bytes"
     return why
 
 
-def block_bwd_takes(C: int, hidden: int, heads: int, ws: Optional[int] = None) -> bool:
+def block_bwd_takes(C: int, hidden: int, heads: int, ws: int = 8, res: bool = False) -> bool:
     """Whether the block backward's kernels take a block of width C, MLP
-    width ``hidden`` and ``heads`` heads (the router's question: up to 64
-    tokens the window's rule is every window kernel's, the split kernels'
-    too); with ``ws`` above 64 tokens, whether the big-window form takes
-    it (:func:`block_bwd_why`)."""
-    if ws is not None and ws * ws > _TILE:
-        return block_bwd_why(C, hidden, heads, ws) is None
-    return _bwd_width_why(C, hidden, heads) is None
+    width ``hidden``, ``heads`` heads and window ``ws`` (the router's
+    question; ``res``: the residual route's kernels). Up to 64 tokens the
+    window's rule is every window kernel's, the split kernels' too; above,
+    whether the big-window form takes it (:func:`block_bwd_why`)."""
+    N = ws * ws
+    if N <= _TILE:
+        return _bwd_width_why(C, hidden, heads, N, res=res) is None
+    return block_bwd_why(C, hidden, heads, ws) is None
 
 
 def block_bwd_launches(ws: int) -> int:
@@ -854,14 +923,7 @@ def _ln_wmsa_bwd_width_why(C: int, heads: int, N: int) -> Optional[str]:
         return f"C={C} above {BWD_MAX_C} (a cluster of at most 6 CTAs owns a row)"
     if heads <= 0 or C % heads:
         return f"C={C} not divisible by {heads} heads"
-    d = C // heads
-    if d % 2:
-        return f"head dim {d} is odd (the attention loads column pairs)"
-    smem = _attn_smem(N, d)[1]
-    if smem > SMEM_MAX:
-        return (f"head dim {d} needs {smem} bytes of the attention's shared memory at "
-                f"{N} tokens, above {SMEM_MAX}")
-    return None
+    return _attn_bwd_why(C // heads, N)
 
 
 def ln_wmsa_bwd_why(C: int, heads: int, ws: int) -> Optional[str]:
@@ -1545,13 +1607,15 @@ def _check_window(name: str, H, W, C, ws, num_heads, bias, mask, *,
 
 
 def _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
-                 shift, dp, *, no_bias: bool = False):
+                 shift, dp, *, no_bias: bool = False, cap: Optional[int] = BLOCK_KERNEL_MAX_C):
+    """``cap``: the widest C the kernel takes (None: the caller's design
+    check says)."""
     _check_x(name, x)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
-    if C > BLOCK_KERNEL_MAX_C:
+    if cap is not None and C > cap:
         raise ValueError(f"{name}: C={C} above the block-kernel cap "
-                         f"{BLOCK_KERNEL_MAX_C}; route through "
+                         f"{cap}; route through "
                          "fused_ln_window_attention + fused_ln_mlp")
     if hidden % 16:
         raise ValueError(f"{name}: hidden {hidden} not a multiple of 16")
@@ -1566,7 +1630,9 @@ def _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
 
 
 def _check_bwd_design(name: str, C: int, hidden: int, heads: int, ws: int):
-    why = block_bwd_why(C, hidden, heads, ws)
+    """The block backward's design limits of wrapper ``name``'s route: the
+    residual route's for swin_block_bwd_res, else the recompute form's."""
+    why = block_bwd_why(C, hidden, heads, ws, res=name == "swin_block_bwd_res")
     if why:
         raise ValueError(f"{name}: {why}")
 
@@ -1611,8 +1677,10 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
                       shift: int, plan_hw: Optional[tuple] = None) -> tuple:
     """The block kernel's sequence form (csrc/swin_block_seq.cu) for
     windows above 64 tokens: (out, kernel launches). ``dp`` (B, 2): its
-    train form, up to C = TRAIN_BLOCK_MAX_C; without it the inference cap
-    BLOCK_KERNEL_MAX_C holds (JAX ``SUNET_INFER_KERNEL_MAX_C``)."""
+    train form, up to C = TRAIN_BLOCK_MAX_C and also at windows up to 64
+    tokens (the blocks the cluster kernel does not take); without it the
+    inference cap BLOCK_KERNEL_MAX_C holds (JAX
+    ``SUNET_INFER_KERNEL_MAX_C``) and windows above 64 tokens."""
     name = "fused_swin_block"
     _gate(name, x, tokens=ws * ws, train=dp is not None)
     _check_x(name, x)
@@ -1629,7 +1697,7 @@ def _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bia
     _check_window(name, H, W, C, ws, num_heads, bias, mask, c_align=4)
     if not 0 <= shift < ws:
         raise ValueError(f"{name}: shift {shift} outside [0, {ws})")
-    plan = block_seq_plan(*(plan_hw or (H, W)), C, hidden, ws, num_heads)
+    plan = block_seq_plan(*(plan_hw or (H, W)), C, hidden, ws, num_heads, train=dp is not None)
     dev = x.device
     f = lambda t: _f32(t, dev)
     if bqkv is None:
@@ -1701,12 +1769,16 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
     optional (B, 2) float32 per-image scales of the attention and MLP
     branches (stochastic depth); None means ones.
 
-    The form follows from the window: up to 64 tokens the cluster kernel
-    (csrc/swin_cluster.cu, one launch, :func:`block_plan`); above, the
-    sequence form (csrc/swin_block_seq.cu, SWIN_BLOCK_SEQ_LAUNCHES launches
-    on gemm_tile.cuh and the big-window attention, :func:`block_seq_plan`),
-    whose train form (``drop_path_scale`` given) takes C up to
-    TRAIN_BLOCK_MAX_C, its inference form up to BLOCK_KERNEL_MAX_C. The
+    The form follows from the window and the call (:func:`seq_form`): up
+    to 64 tokens the cluster kernel (csrc/swin_cluster.cu, one launch,
+    :func:`block_plan`); above, the sequence form (csrc/swin_block_seq.cu,
+    SWIN_BLOCK_SEQ_LAUNCHES launches on gemm_tile.cuh and wmsa_attn.cuh's
+    attention, :func:`block_seq_plan`), whose train form
+    (``drop_path_scale`` given) takes C up to TRAIN_BLOCK_MAX_C, its
+    inference form up to BLOCK_KERNEL_MAX_C. The train form also takes the
+    blocks up to 64 tokens that the cluster kernel refuses (C above 384, a
+    head dim above 64, no cluster size), with the 64-token attention; an
+    inference call of such a block raises. The
     weight matrices may come with their columns padded as the kernels store
     them (:func:`wcols`). ``plan_hw``: the (H, W) of the map whose launch
     plan the call takes, x's by default; a spatial shard of a larger map
@@ -1728,16 +1800,22 @@ def fused_swin_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2,
 def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask,
                    dp=None, *, ws: int, num_heads: int, scale: float, shift: int,
                    plan_hw: Optional[tuple] = None):
-    """One block by the form its window, dtype and device take, its launches
-    added to wrapper ``name``'s count: the plain version on a CPU tensor
-    (the weights unpadded), else the cluster kernel or the sequence form, on
-    the plan of ``plan_hw`` (default x's (H, W)), or in float32 the float32
-    form (an inference form: a call with ``dp`` is a training call)."""
+    """One block by the form its window, training use, dtype and device
+    take, its launches added to wrapper ``name``'s count: the plain version
+    on a CPU tensor (the weights unpadded), else the cluster kernel or the
+    sequence form (:func:`seq_form`; its train form at 64 tokens a window
+    also counted under SEQ64_FORM), on the plan of ``plan_hw`` (default
+    x's (H, W)), or in float32 the float32 form (an inference form: a call
+    with ``dp`` is a training call)."""
     count = _build.counter(name)
     kw = dict(ws=ws, num_heads=num_heads, scale=scale, shift=shift)
+    C = x.shape[-1]
+    seq = seq_form(C, w1.shape[1], num_heads, ws, dp is not None)
+    form = _build.counter(SEQ64_FORM) if seq and ws * ws <= _TILE else None
     if x.device.type == "cpu":
-        count.cpu += block_launches(ws)
-        C = x.shape[-1]
+        count.cpu += block_launches(ws, seq)
+        if form:
+            form.cpu += block_launches(ws, seq)
         return fused_swin_block_reference(
             x, ln1, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj, ln2, w1, b1,
             _unpadded(w2, C), b2, bias, mask, dp, **kw)
@@ -1747,10 +1825,12 @@ def _counted_block(name, x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, 
                                 mask, **kw)
         count.cuda += 1
         return out
-    if ws * ws > _TILE:
+    if seq:
         out, n = _launch_block_seq(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias,
                                    mask, dp, plan_hw=plan_hw, **kw)
         count.cuda += n
+        if form:
+            form.cuda += n
         return out
     out = _launch_block(x, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2, b2, bias, mask, dp,
                         plan_hw=plan_hw, **kw)
@@ -1766,16 +1846,23 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
     Returns (dx, then float32 grads of ln1 g/b, wqkv, bqkv, wproj, bproj,
     ln2 g/b, w1, b1, w2, b2, bias). CUDA: ``csrc/swin_block_bwd.cu``, the
     SWIN_BLOCK_BWD_LAUNCHES launches of ``csrc/swin_block_bwd.cuh``
-    (:func:`block_bwd_plan`), each counted; above 64 tokens a window its
+    (:func:`block_bwd_plan`), each counted (at a head dim above
+    BWD_RES_MAX_HEAD_DIM also under BWD_WIDE_HEAD_FORM), up to 64 tokens a
+    window at C up to BWD_MAX_C and an even head dim whose attention fits
+    shared memory (:func:`block_bwd_why`); above 64 tokens a window its
     big-window form's SWIN_BLOCK_BWD_BIG_LAUNCHES over C rounded up to 16
     (the operands zero-padded and the grads cut back here,
     :func:`pad_block_operands`), C a multiple of 4 up to BWD_MAX_C. The
     weight matrices may come with their columns padded (:func:`wcols`)."""
     name = "swin_block_bwd"
     count = _build.counter(name)
+    C = x.shape[-1]
+    wide = (_build.counter(BWD_WIDE_HEAD_FORM) if ws * ws <= _TILE and num_heads > 0
+            and C // num_heads > BWD_RES_MAX_HEAD_DIM else None)
     if x.device.type == "cpu":
         count.cpu += block_bwd_launches(ws)
-        C = x.shape[-1]
+        if wide:
+            wide.cpu += block_bwd_launches(ws)
         return swin_block_bwd_reference(
             x, dout, ln1, _unpadded(wqkv, 3 * C), bqkv, _unpadded(wproj, C), bproj, ln2, w1,
             b1, _unpadded(w2, C), b2, bias, mask, drop_path_scale, ws=ws,
@@ -1787,7 +1874,7 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
         count.cuda += n
         return g
     _check_block(name, x, wqkv, wproj, w1, w2, bias, mask, ws, num_heads,
-                 shift, drop_path_scale)
+                 shift, drop_path_scale, cap=None)
     B, H, W, C = x.shape
     hidden = w1.shape[1]
     _check_bwd_design(name, C, hidden, num_heads, ws)
@@ -1814,6 +1901,8 @@ def swin_block_bwd(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
         _build.byref(launches), _build.stream())
     _build.check(name, err)
     count.cuda += launches.value
+    if wide:
+        wide.cuda += launches.value
     return (dx, *grads)
 
 
@@ -1918,7 +2007,8 @@ def _swin_block_bwd_big(x, dout, ln1, wqkv, bqkv, wproj, bproj, ln2, w1, b1, w2,
 
 class SwinBlockTrainable(torch.autograd.Function):
     """Differentiable whole Swin block (JAX ``swin_block_trainable``):
-    forward = the block kernel with per-image drop-path scales ``dp``,
+    forward = the block kernel's train form with per-image drop-path scales
+    ``dp`` (the cluster kernel, or the sequence form, :func:`seq_form`),
     backward = :func:`swin_block_bwd`. Weights come in float32, (in, out)
     layout, and are cast to x's dtype for the kernels; their grads come back
     in float32. ``dp``, ``mask`` and the static arguments get no gradient.
@@ -1963,7 +2053,8 @@ def swin_block_trainable_dynmask(x, ln1_s, ln1_b, wqkv, bqkv, wproj, bproj, ln2_
     rolls its shard outside the kernel (W locally, H by one exchange) and
     passes its (nW_local, N, N) slice of the global rolled-space mask, which
     takes no gradient (None at a block without shift). Forward: the block
-    kernel's train form (its sequence form above 64 tokens a window);
+    kernel's train form (its sequence form above 64 tokens a window and at
+    a block the cluster kernel refuses);
     backward: :func:`swin_block_bwd` (its big-window form above 64), both
     reading the mask at shift 0. ``plan_hw``: the whole map's (H, W), whose
     launch plan the shard's forward takes."""

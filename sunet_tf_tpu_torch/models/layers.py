@@ -37,39 +37,45 @@ width, a routing rule of the configuration and never a reaction to a kernel
 failing:
 
 - windows above 64 tokens (WIN 16: the scaled config's C=180, 360 and 720
-  stages, 48 of its 56 blocks), C <= ``ROUTE_TRAIN_BIG_MAX_C`` (768, JAX's
-  train cap ``_kernel_max_c(train=True)``) whose shape the sequence form
+  stages, 48 of its 56 blocks), C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (768,
+  JAX's train cap ``_kernel_max_c(train=True)``) whose shape the sequence form
   (``wa.block_seq_takes``) and the big-window block backward
   (``wa.block_bwd_takes`` with the window: N a multiple of 64 up to 256, C
   a multiple of 4, an even head dim up to 64) take: ``SwinBlockTrainable``,
   the sequence form's train form (drop-path scales in its residual
   epilogues) and ``swin_block_bwd``'s big-window form, the recompute route,
   as JAX there (``bwd_residuals_enabled`` is false at N = 256);
-- up to 64 tokens, C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (384) whose shape both
-  the block kernel (``wa.block_kernel_takes``: a launch plan; its residual
-  form runs on the same cluster kernel) and the block backward's kernels
-  (``wa.block_bwd_takes``: an even head dim up to 64) take trains on them:
-  where the attention takes JAX's blockdiag layout
-  (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8 heads) and
-  ``ROUTE_TRAIN_RESID`` is set, ``SwinBlockTrainableRes``, the residual
-  route, JAX's default there (``swin_block_trainable_res``): the block
-  kernel's residual form stores the softmax state and
-  ``swin_block_bwd_res`` differentiates it without recomputing it; else
-  ``SwinBlockTrainable``, the block kernel forward and ``swin_block_bwd``
-  backward, which recomputes the attention (JAX ``swin_block_trainable``,
-  and every block of this width under ``SUNET_BWD_RESID=0``);
+- up to 64 tokens, C <= ``ROUTE_TRAIN_BLOCK_MAX_C`` (768, the same cap:
+  JAX trains every such block on its block kernel) whose shape the block
+  backward's kernels take (``wa.block_bwd_takes``: an even head dim whose
+  attention fits their shared memory, up to 192 at 64 tokens) and the
+  block kernel's train form takes: the cluster kernel where it has a plan
+  (``wa.cluster_takes``: C <= 384, a head dim up to 64, a cluster size),
+  else the sequence form at 64 tokens (``wa.block_seq_takes(train=True)``:
+  the default model's C=768 stage, head dim 96, and C=384 with 2 heads,
+  head dim 192). Where the attention takes JAX's blockdiag layout
+  (``wa.bwd_residuals_enabled``: C=96 and 192 at WIN 8, 8 heads),
+  ``ROUTE_TRAIN_RESID`` is set and the residual forms take the block (the
+  cluster kernel's residual form and ``swin_block_bwd_res``: a head dim up
+  to 64), ``SwinBlockTrainableRes``, the residual route, JAX's default
+  there (``swin_block_trainable_res``): the block kernel's residual form
+  stores the softmax state and ``swin_block_bwd_res`` differentiates it
+  without recomputing it; else ``SwinBlockTrainable``, the block kernel's
+  train form and ``swin_block_bwd`` backward, which recomputes the
+  attention (JAX ``swin_block_trainable``, and every block of this width
+  under ``SUNET_BWD_RESID=0``). A blockdiag block at a head dim above 64
+  (C=192 with 2 heads) takes the recompute route where JAX takes its
+  residual one: the same function with other bf16 rounding points;
 - the others up to ``ROUTE_TRAIN_SPLIT_MAX_C`` (768) whose attention the
-  LN+W-MSA backward takes (``wa.ln_wmsa_bwd_takes``: an even head dim whose
-  operands fit its shared memory, up to 192 at 64 tokens; windows up to 64
-  tokens): the two
-  sublayers, ``LnWindowAttentionTrainable`` and ``LnMlpTrainable``, with
-  the residuals and drop-path in autograd (JAX's sublayer route,
-  ``ln_window_attention_trainable`` + ``ln_mlp_trainable``, taken under
-  ``SUNET_TRAIN_BLOCK_KERNEL=0``; JAX's default trains C=768 on the
-  whole-block kernel, which here takes C <= 384, ``BLOCK_KERNEL_MAX_C``);
-- the rest (the scaled config's C=1440 bottleneck, a head dim the LN+W-MSA
-  backward refuses): autograd of the eager block, as JAX above
-  ``SUNET_TRAIN_KERNEL_MAX_C=768``.
+  LN+W-MSA backward takes (``wa.ln_wmsa_bwd_takes``; windows up to 64
+  tokens): the two sublayers, ``LnWindowAttentionTrainable`` and
+  ``LnMlpTrainable``, with the residuals and drop-path in autograd (JAX's
+  sublayer route, ``ln_window_attention_trainable`` + ``ln_mlp_trainable``,
+  taken under ``SUNET_TRAIN_BLOCK_KERNEL=0``, and here wherever
+  ``ROUTE_TRAIN_BLOCK_MAX_C`` is set below a block's width);
+- the rest (the scaled config's C=1440 bottleneck, a head dim whose
+  attention neither backward's shared memory holds): autograd of the eager
+  block, as JAX above ``SUNET_TRAIN_KERNEL_MAX_C=768``.
 
 Training never takes the chain route.
 
@@ -116,16 +122,15 @@ ROUTE_PAIR_MIN_C = 192
 ROUTE_BLOCK_MAX_C = wa.BLOCK_KERNEL_MAX_C
 # Longest run of blocks fused into one chain (W->SW pairs).
 ROUTE_CHAIN_MAX = 2
-# Widest block trained through the block kernels; wider ones up to
-# ROUTE_TRAIN_SPLIT_MAX_C train through the two sublayer kernels (JAX
-# SUNET_TRAIN_KERNEL_MAX_C=768), wider still through autograd of the eager
-# block.
-ROUTE_TRAIN_BLOCK_MAX_C = 384
+# Widest block trained through the block kernels, at any window (JAX
+# SUNET_TRAIN_KERNEL_MAX_C=768: the cluster kernel, or the sequence form's
+# train form where the cluster kernel refuses the block or the window is
+# above 64 tokens); the blocks the block kernels refuse, and any wider than
+# this cap up to ROUTE_TRAIN_SPLIT_MAX_C with windows up to 64 tokens,
+# train through the two sublayer kernels, the rest through autograd of the
+# eager block.
+ROUTE_TRAIN_BLOCK_MAX_C = wa.TRAIN_BLOCK_MAX_C
 ROUTE_TRAIN_SPLIT_MAX_C = wa.SPLIT_TRAIN_MAX_C
-# Widest block trained through the block kernels above 64 tokens a window
-# (the sequence form's train form and the big-window backward): JAX's
-# train cap, SUNET_TRAIN_KERNEL_MAX_C=768.
-ROUTE_TRAIN_BIG_MAX_C = wa.TRAIN_BLOCK_MAX_C
 # Train the blockdiag-layout blocks within ROUTE_TRAIN_BLOCK_MAX_C on the
 # residual route (JAX's default); False is JAX's SUNET_BWD_RESID=0, the
 # recompute backward for every such block.
@@ -453,19 +458,16 @@ class SwinBlock(nn.Module):
 
     def trains_on_block_kernels(self) -> bool:
         """Whether training takes the block kernels (the residual route or
-        the recompute one) rather than the sublayer kernels: up to 64 tokens
-        a window both routes' forwards run on the cluster block kernel, so
-        both need its plan, and C <= ROUTE_TRAIN_BLOCK_MAX_C; above, the
-        sequence form's plan and the big-window backward, C <=
-        ROUTE_TRAIN_BIG_MAX_C."""
-        hidden, heads, ws = self.mlp.fc1.out_features, self.attn.num_heads, self.window_size
-        if ws * ws > 64:
-            return (self.dim <= ROUTE_TRAIN_BIG_MAX_C
-                    and wa.block_bwd_takes(self.dim, hidden, heads, ws)
-                    and self.takes_block_kernel())
-        return (self.dim <= ROUTE_TRAIN_BLOCK_MAX_C
-                and wa.block_bwd_takes(self.dim, hidden, heads)
-                and self.takes_block_kernel())
+        the recompute one) rather than the sublayer kernels: C <=
+        ROUTE_TRAIN_BLOCK_MAX_C, the block backward's kernels take the
+        block (``wa.block_bwd_takes``) and its forward runs on the cluster
+        kernel (``wa.cluster_takes``) or on the sequence form's train form
+        (above 64 tokens, or where the cluster kernel refuses the block)."""
+        C, hidden, heads, ws = self.dim, self.mlp.fc1.out_features, self.attn.num_heads, \
+            self.window_size
+        return (C <= ROUTE_TRAIN_BLOCK_MAX_C and wa.block_bwd_takes(C, hidden, heads, ws)
+                and (wa.cluster_takes(C, hidden, heads, ws)
+                     or wa.block_seq_takes(C, hidden, heads, ws, train=True)))
 
     def trains_on_split_kernels(self) -> bool:
         """Whether training takes the two sublayer kernels (when it does not
@@ -477,14 +479,19 @@ class SwinBlock(nn.Module):
     def trains_on_residuals(self) -> bool:
         """Whether training takes the residual route (when the block trains
         through the block kernels): JAX's rule up to 64 tokens a window,
-        where the residual forms take it; above, the recompute route (at
-        the scaled config's widths JAX's rule says so too; at a width where
-        it would pick the blockdiag layout at 256 tokens, the shrunk test
-        config's C=60 and 120, the two routes differ in bf16 rounding points
-        alone)."""
-        N = self.window_size ** 2
-        return ROUTE_TRAIN_RESID and N <= 64 and wa.bwd_residuals_enabled(
-            self.dim, self.attn.num_heads, N)
+        where the residual forms take the block (the cluster kernel's
+        residual form, and ``swin_block_bwd_res`` at a head dim up to 64;
+        JAX's rule is false at the default model's C=384 and C=768);
+        above, the recompute route (at the scaled config's widths JAX's
+        rule says so too; at a width where it would pick the blockdiag
+        layout at 256 tokens, the shrunk test config's C=60 and 120, the two
+        routes differ in bf16 rounding points alone)."""
+        C, hidden, heads, ws = self.dim, self.mlp.fc1.out_features, self.attn.num_heads, \
+            self.window_size
+        return (ROUTE_TRAIN_RESID and ws * ws <= 64
+                and wa.bwd_residuals_enabled(C, heads, ws * ws)
+                and wa.cluster_takes(C, hidden, heads, ws)
+                and wa.block_bwd_takes(C, hidden, heads, ws, res=True))
 
     def _train_block(self, x: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
         """Training through the block kernels (JAX ``_trainable_block``), on

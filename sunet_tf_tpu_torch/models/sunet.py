@@ -61,6 +61,14 @@ TRAIN_WRAPPERS = INFER_WRAPPERS + ("fused_swin_block_res", "swin_block_bwd",
                                   "up4_bwd")
 
 
+def _train_launches(blk) -> int:
+    """Launches of one training forward of ``blk`` on the block kernel's
+    train form: the cluster kernel's one, or the sequence form's
+    (``wa.train_block_launches``)."""
+    return wa.train_block_launches(blk.dim, blk.mlp.fc1.out_features, blk.attn.num_heads,
+                                   blk.window_size)
+
+
 def conv_fused_head(out_chans: int) -> bool:
     """Whether the fused route runs the x4 head fused with the output conv
     (phase space, 16 * out_chans output lanes) or, for wider outputs, the
@@ -397,11 +405,14 @@ class SUNet(nn.Module):
         one launch where it is the conv-fused head, else the split head's
         two (``up_kernels.UP4_SPLIT_LAUNCHES``).
         ``train=True``: one training step, forward and backward, by the
-        three-width training rule: a block that trains on the block kernels
-        (``trains_on_block_kernels``: up to ROUTE_TRAIN_BLOCK_MAX_C, or
-        ROUTE_TRAIN_BIG_MAX_C above 64 tokens a window) launches the block
-        kernel (``wa.block_launches``) and its backward's fixed sequence
-        (``wa.block_bwd_launches``: 11, or 12 above 64 tokens),
+        training rule: a block that trains on the block kernels
+        (``trains_on_block_kernels``: up to ROUTE_TRAIN_BLOCK_MAX_C, 768)
+        launches
+        the block kernel's train form (``wa.train_block_launches``: the
+        cluster kernel's one launch, or the sequence form's 5 above 64 tokens
+        and where the cluster kernel refuses the block, the C=768 stage) and
+        its backward's fixed sequence (``wa.block_bwd_launches``: 11, or 12
+        above 64 tokens),
         on the residual route where ``trains_on_residuals`` holds (JAX
         ``swin_block_trainable_res``), else on the recompute one (JAX
         ``swin_block_trainable``); another that trains on the sublayer
@@ -418,8 +429,9 @@ class SUNet(nn.Module):
         launch twice (the recompute in backward runs the block's forward
         again), its backward's once.
         ``runner``: a spatial stage runner; each block of a stage it
-        ``applies`` to launches the block kernel (``wa.block_launches``),
-        in training also its recompute backward (``wa.block_bwd_launches``),
+        ``applies`` to launches the block kernel (``wa.block_launches``; in
+        training its train form, ``wa.train_block_launches``), in training
+        also its recompute backward (``wa.block_bwd_launches``),
         at shift 0 with a mask slice (no chain, no residual route).
         A float32 model's inference gives the same counts: each wrapper is
         called as often as in bf16 (the routes do not depend on the dtype,
@@ -441,7 +453,8 @@ class SUNet(nn.Module):
                     kept.append((stage, level))
                     continue
                 for blk in stage.blocks:
-                    counts["fused_swin_block"] += wa.block_launches(blk.window_size)
+                    counts["fused_swin_block"] += (_train_launches(blk) if train
+                                                   else wa.block_launches(blk.window_size))
                     if train:
                         counts["swin_block_bwd"] += wa.block_bwd_launches(blk.window_size)
             stages = kept
@@ -457,7 +470,7 @@ class SUNet(nn.Module):
                             counts["fused_swin_block_res"] += fwd
                             counts["swin_block_bwd_res"] += wa.SWIN_BLOCK_BWD_RES_LAUNCHES
                         else:
-                            counts["fused_swin_block"] += fwd * wa.block_launches(blk.window_size)
+                            counts["fused_swin_block"] += fwd * _train_launches(blk)
                             counts["swin_block_bwd"] += wa.block_bwd_launches(blk.window_size)
                     elif blk.trains_on_split_kernels():
                         counts["fused_ln_window_attention"] += fwd * wa.LN_WMSA_LAUNCHES

@@ -276,8 +276,9 @@ class SpatialStageRunner:
         at most the local rows, no dropout; and the port's block-kernel
         route for each block: C within the router's cap for the window
         (inference ``ROUTE_BLOCK_MAX_C``; training
-        ``trains_on_block_kernels``: 384 up to 64 tokens a window, 768 above,
-        JAX's train cap) and a kernel plan for its shape."""
+        ``trains_on_block_kernels``: 768, JAX's train cap, the C=768 stage
+        on the sequence form's train form) and a kernel plan for its
+        shape."""
         B, H, W, C = shape
         if self.dropout:
             return False

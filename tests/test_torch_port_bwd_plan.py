@@ -10,7 +10,8 @@ emulation of the kernels' decomposition held against the plain versions.
 - The weight-gradient launch's table covers each (product, output tile,
   token chunk) exactly once, and the chunks cover the tokens.
 - ``expected_launches`` of the default model, on the residual route and
-  with ``ROUTE_TRAIN_RESID`` off, is the per-call constants times the calls.
+  with ``ROUTE_TRAIN_RESID`` off, is the per-call constants times the calls
+  (its C=768 stage on #1's sequence form and #8).
 - The emulation: the token-row products, LN backwards whose row sums come
   from 128-column ranks summed in rank order, the attention per (window,
   head) with the head dim zero-padded to 16, its rel-pos bias and qkv bias
@@ -118,30 +119,48 @@ def test_wgrad_table_covers_each_entry_once(H, C, hidden, ws, heads, B):
     assert (covered == 1).all()
 
 
-@pytest.mark.parametrize("C,hidden,heads,ws,match", [
-    (384, 1536, 2, 8, "head dim 192 above 64"),
-    (96, 384, 1, 8, "head dim 96 above 64"),
-    (104, 416, 8, 8, "multiples of 16"),
-    (96, 384, 8, 2, "window 2 gives 4 tokens"),
-    (96, 384, 5, 8, "not divisible by 5 heads"),
-    (48, 192, 16, 8, "head dim 3 is odd"),
-    (832, 3328, 16, 8, "above 768"),
+@pytest.mark.parametrize("C,hidden,heads,ws,match,res_only", [
+    # head dims above 64: the residual route (#7) alone refuses them, #8
+    # takes them where its attention fits shared memory (up to 192 at 64
+    # tokens)
+    (384, 1536, 2, 8, "head dim 192 above 64", True),
+    (96, 384, 1, 8, "head dim 96 above 64", True),
+    (416, 1664, 2, 8, "head dim 208 needs 239552 bytes", False),
+    (104, 416, 8, 8, "multiples of 16", False),
+    (96, 384, 8, 2, "window 2 gives 4 tokens", False),
+    (96, 384, 5, 8, "not divisible by 5 heads", False),
+    (48, 192, 16, 8, "head dim 3 is odd", False),
+    (832, 3328, 16, 8, "above 768", False),
 ])
-def test_block_bwd_plan_refuses_shapes_outside_the_design(C, hidden, heads, ws, match):
-    why = wa.block_bwd_why(C, hidden, heads, ws)
+def test_block_bwd_plan_refuses_shapes_outside_the_design(C, hidden, heads, ws, match,
+                                                          res_only):
+    """A shape outside a route's design: its reason from ``block_bwd_why``
+    (``res``: the residual route's), the plan refused where the recompute
+    form refuses it too, and each wrapper's own check by its route."""
+    why_res, why = (wa.block_bwd_why(C, hidden, heads, ws, res=res) for res in (True, False))
+    assert why_res is not None   # the residual route refuses every case
+    with pytest.raises(ValueError, match=re.escape(f"swin_block_bwd_res: {why_res}")):
+        wa._check_bwd_design("swin_block_bwd_res", C, hidden, heads, ws)
+    if res_only:
+        assert match in why_res and why is None
+        wa._check_bwd_design("swin_block_bwd", C, hidden, heads, ws)
+        assert max(wa.block_bwd_plan(8 * ws, 8 * ws, C, hidden, ws, heads)["smem"].values()) \
+            <= wa.SMEM_MAX
+        return
     assert why is not None and match in why
     with pytest.raises(ValueError, match=match):
         wa.block_bwd_plan(8 * ws, 8 * ws, C, hidden, ws, heads)
-    for name in ("swin_block_bwd", "swin_block_bwd_res"):   # the wrappers' own check
-        with pytest.raises(ValueError, match=re.escape(f"{name}: {why}")):
-            wa._check_bwd_design(name, C, hidden, heads, ws)
+    with pytest.raises(ValueError, match=re.escape(f"swin_block_bwd: {why}")):
+        wa._check_bwd_design("swin_block_bwd", C, hidden, heads, ws)
 
 
 @pytest.mark.parametrize("heads", [(8, 8, 8, 8), (2, 2, 2, 1), (8, 8, 2, 8)])
 def test_router_never_sends_a_refused_shape_to_the_block_backward(heads):
     """Every block the training router sends to the block backward (either
-    route) has a width the kernels take; a head dim above 64 (C=128 with one
-    head, C=384 with two) goes to the split sublayer kernels."""
+    route) has a width the route's kernels take: a head dim above 64 (C=128
+    with one head, C=384 with two) on the recompute route alone, whose
+    attention takes up to 192 at 64 tokens; a wider one (C=768 with one
+    head) goes to no block kernel."""
     for cfg in (Config(), tiny_config()):
         if cfg.swinunet.emb_dim == 16 and max(heads) == 8:
             continue
@@ -154,6 +173,8 @@ def test_router_never_sends_a_refused_shape_to_the_block_backward(heads):
                 takes = wa.block_bwd_takes(blk.dim, hidden, blk.attn.num_heads)
                 if blk.trains_on_block_kernels():
                     assert takes, (blk.dim, blk.attn.num_heads)
+                    if blk.trains_on_residuals():
+                        assert wa.block_bwd_takes(blk.dim, hidden, blk.attn.num_heads, res=True)
                     if (blk.window_size ** 2) % 16 == 0:
                         wa.block_bwd_plan(8 * blk.window_size, 8 * blk.window_size, blk.dim,
                                           hidden, blk.window_size, blk.attn.num_heads)
@@ -168,15 +189,19 @@ def test_expected_launches_are_the_per_call_constants(resid, monkeypatch):
     model = build_model(Config(), device="meta", backend="fused", seed=0)
     got = model.expected_launches((4, 256, 256, 3), train=True)
     # depths 8/8/8/8, encoder and decoder: C=96 and 192 are 16 blocks each,
-    # C=384 16 (the C=768 bottleneck trains on the sublayer kernels)
+    # C=384 16, the C=768 bottleneck 8, on the block kernels too: the
+    # sequence form's train form (5 launches a block) and the recompute
+    # backward (11)
+    seq = 8 * wa.SWIN_BLOCK_SEQ_LAUNCHES
+    assert got["ln_window_attention_bwd"] == got["ln_mlp_bwd"] == 0
     if resid:
         assert got["swin_block_bwd_res"] == 32 * wa.SWIN_BLOCK_BWD_RES_LAUNCHES == 320
-        assert got["swin_block_bwd"] == 16 * wa.SWIN_BLOCK_BWD_LAUNCHES == 176
-        assert got["fused_swin_block_res"] == 32 and got["fused_swin_block"] == 16
+        assert got["swin_block_bwd"] == 24 * wa.SWIN_BLOCK_BWD_LAUNCHES == 264
+        assert got["fused_swin_block_res"] == 32 and got["fused_swin_block"] == 16 + seq == 56
     else:
         assert got["swin_block_bwd_res"] == 0 and got["fused_swin_block_res"] == 0
-        assert got["swin_block_bwd"] == 48 * wa.SWIN_BLOCK_BWD_LAUNCHES == 528
-        assert got["fused_swin_block"] == 48
+        assert got["swin_block_bwd"] == 56 * wa.SWIN_BLOCK_BWD_LAUNCHES == 616
+        assert got["fused_swin_block"] == 48 + seq == 88
 
 
 # ---------------------------------------------------------------- the emulation

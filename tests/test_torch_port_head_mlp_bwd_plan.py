@@ -38,6 +38,7 @@ from sunet_tf_tpu_torch.config import Config
 from sunet_tf_tpu_torch.kernels import _build
 from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.models import layers
 from sunet_tf_tpu_torch.models.sunet import build_model
 
 UP4_NAMES = ("dx", "dw_exp", "dalpha_p", "dw_b1", "db_b1", "dalpha_b", "dwpf", "dwbf",
@@ -71,22 +72,29 @@ def _assert_limits(names, got, want, dtype):
 # ---------------------------------------------------------------- launch counts
 
 
-def test_launch_constants_and_the_default_step():
+def test_launch_constants_and_the_default_step(monkeypatch):
     assert up.UP4_CONV_BWD_LAUNCHES == 5 and wa.LN_MLP_BWD_LAUNCHES == 5
     model = build_model(Config(), device="meta", backend="fused", seed=0)
     got = model.expected_launches((4, 256, 256, 3), train=True)
     assert got["up4_conv_bwd"] == up.UP4_CONV_BWD_LAUNCHES and got["up4_bwd"] == 0
-    # the C=768 bottleneck: 8 blocks on the sublayer kernels
+    # the C=768 bottleneck trains on the block kernels by default; on the
+    # sublayer kernels with the training cap at 384: 8 blocks
+    assert got["ln_mlp_bwd"] == got["ln_mlp_branch"] == 0
+    monkeypatch.setattr(layers, "ROUTE_TRAIN_BLOCK_MAX_C", 384)
+    got = model.expected_launches((4, 256, 256, 3), train=True)
     assert got["ln_mlp_bwd"] == 8 * wa.LN_MLP_BWD_LAUNCHES == 40
     assert got["ln_mlp_branch"] == 8 * wa.LN_MLP_BRANCH_LAUNCHES
 
 
-def test_launch_counts_of_the_16_band_model():
+def test_launch_counts_of_the_16_band_model(monkeypatch):
     cfg = Config()
     cfg = cfg.replace(swinunet=dataclasses.replace(cfg.swinunet, in_chans=16, out_chans=16))
     model = build_model(cfg, device="meta", backend="fused", seed=0)
     got = model.expected_launches((4, 256, 256, 16), train=True)
     assert got["up4_conv_bwd"] == 0 and got["up4_bwd"] == up.UP4_BWD_LAUNCHES
+    assert got["ln_mlp_bwd"] == 0
+    monkeypatch.setattr(layers, "ROUTE_TRAIN_BLOCK_MAX_C", 384)
+    got = model.expected_launches((4, 256, 256, 16), train=True)
     assert got["ln_mlp_bwd"] == 8 * wa.LN_MLP_BWD_LAUNCHES
 
 

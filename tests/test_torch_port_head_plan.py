@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from sunet_tf_tpu_torch.config import Config
 from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.models import layers
 from sunet_tf_tpu_torch.models.sunet import build_model
 
 TH, TW = up.UP4_TILE
@@ -175,10 +176,12 @@ def test_wmsa_plan_refuses_shapes_outside_the_design(args, match):
         wa.wmsa_plan(*args)
 
 
-def test_expected_launches_of_the_default_model():
+def test_expected_launches_of_the_default_model(monkeypatch):
     """Config() at 256x256, batch 4: the C=768 stage's 8 LN+W-MSA calls
-    launch LN_WMSA_LAUNCHES kernels each, in inference and in training; the
-    x4 head one."""
+    launch LN_WMSA_LAUNCHES kernels each in inference, and in training on
+    the sublayer route (the training cap at 384; by default the stage
+    trains on the block kernels, and no LN+W-MSA call is made); the x4 head
+    one."""
     model = build_model(Config(), device="meta", backend="fused")
     infer = model.expected_launches((4, 256, 256, 3))
     assert wa.LN_WMSA_LAUNCHES == 3
@@ -186,8 +189,11 @@ def test_expected_launches_of_the_default_model():
                      "fused_ln_window_attention": 24, "fused_ln_mlp": 24,
                      "fused_dual_upsample4_conv_phase": 1, "fused_dual_upsample4": 0}
     train = model.expected_launches((4, 256, 256, 3), train=True)
-    assert train["fused_ln_window_attention"] == 8 * wa.LN_WMSA_LAUNCHES
+    assert train["fused_ln_window_attention"] == 0
     assert train["fused_dual_upsample4_conv_phase"] == 1
+    monkeypatch.setattr(layers, "ROUTE_TRAIN_BLOCK_MAX_C", 384)
+    train = model.expected_launches((4, 256, 256, 3), train=True)
+    assert train["fused_ln_window_attention"] == 8 * wa.LN_WMSA_LAUNCHES
     bands = dataclasses.replace(Config().swinunet, in_chans=16, out_chans=16)
     split = build_model(Config().replace(swinunet=bands), device="meta", backend="fused")
     assert split.expected_launches((4, 256, 256, 16))["fused_ln_window_attention"] == 24

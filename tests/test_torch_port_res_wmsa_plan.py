@@ -116,7 +116,9 @@ GRID = [(C, hidden, heads, ws) for C in (32, 96, 128, 160, 192, 384)
 @pytest.mark.parametrize("ws", [4, 8])
 def test_residual_route_needs_the_block_plan(ws):
     """Every block that trains on the residual route has a block-kernel
-    plan; one that trains on the block kernels has both kernels' plans."""
+    plan and the residual backward's head dim; one that trains on the
+    block kernels has both kernels' plans: the cluster kernel's or the
+    sequence form's train plan, and the recompute backward's."""
     seen = 0
     for C, hidden, heads, w in GRID:
         if w != ws:
@@ -125,9 +127,14 @@ def test_residual_route_needs_the_block_plan(ws):
             blk = layers.SwinBlock(C, (8 * ws, 8 * ws), heads, window_size=ws, shift_size=0,
                                    mlp_ratio=hidden / C, backend="fused")
         if blk.trains_on_block_kernels():
-            assert wa.block_kernel_takes(C, hidden, heads), (C, hidden, heads)
-            assert wa.block_bwd_takes(C, hidden, heads), (C, hidden, heads)
-            seen += blk.trains_on_residuals()
+            if not wa.block_kernel_takes(C, hidden, heads):
+                wa.block_seq_plan(8 * ws, 8 * ws, C, hidden, ws, heads, train=True)
+            assert wa.block_bwd_takes(C, hidden, heads, ws), (C, hidden, heads)
+            wa.block_bwd_plan(8 * ws, 8 * ws, C, hidden, ws, heads)
+            if blk.trains_on_residuals():
+                assert wa.block_kernel_takes(C, hidden, heads), (C, hidden, heads)
+                assert wa.block_bwd_takes(C, hidden, heads, ws, res=True), (C, hidden, heads)
+                seen += 1
         elif blk.trains_on_split_kernels():
             wa.ln_wmsa_bwd_plan(8 * ws, 8 * ws, C, ws, heads)
     assert seen > 0
@@ -137,10 +144,12 @@ def test_default_step_routes_and_launch_counts():
     assert wa.LN_WMSA_BWD_LAUNCHES == 7
     model = build_model(Config(), device="meta", backend="fused", seed=0)
     got = model.expected_launches((4, 256, 256, 3), train=True)
-    assert got["fused_swin_block_res"] == 32 and got["fused_swin_block"] == 16
-    # the C=768 bottleneck: 8 blocks on the sublayer kernels, 7 launches each
-    assert got["ln_window_attention_bwd"] == 8 * wa.LN_WMSA_BWD_LAUNCHES == 56
-    assert got["fused_ln_window_attention"] == 8 * wa.LN_WMSA_LAUNCHES
+    # the C=768 bottleneck: 8 blocks on the sequence form's train form, 5
+    # launches each, beside the 16 C=384 blocks on the cluster kernel; none
+    # on the sublayer kernels
+    assert got["fused_swin_block_res"] == 32
+    assert got["fused_swin_block"] == 16 + 8 * wa.SWIN_BLOCK_SEQ_LAUNCHES == 56
+    assert got["ln_window_attention_bwd"] == got["fused_ln_window_attention"] == 0
 
 
 def _workspace_count(B, H, C, ws, heads, chunk, wpc):
@@ -197,21 +206,25 @@ def _with_heads(cfg, heads):
 
 
 def test_router_trains_a_refused_head_dim_on_the_eager_block():
-    """The bottleneck with 2 heads (head dim 384) is beyond the LN+W-MSA
-    backward's shared memory: it trains on the eager block and launches
-    nothing; C=384 with 2 heads (head dim 192), which the block kernels
-    refuse, stays on the sublayer kernels."""
+    """The bottleneck with 2 heads (head dim 384) is beyond the backward
+    kernels' shared memory (the block backward's and the LN+W-MSA
+    backward's alike): it trains on the eager block and launches nothing;
+    C=384 with 2 heads (head dim 192), which the cluster kernel refuses,
+    trains on the block kernels (the sequence form's train form and the
+    recompute backward)."""
     model = build_model(_with_heads(Config(), (8, 8, 2, 2)), device="meta", backend="fused",
                         seed=0)
     stage3 = model.layers[3].blocks[0]
     assert stage3.dim == 768 and stage3.attn.num_heads == 2
     assert not stage3.trains_on_block_kernels() and not stage3.trains_on_split_kernels()
     stage2 = model.layers[2].blocks[0]
-    assert not stage2.trains_on_block_kernels() and stage2.trains_on_split_kernels()
+    assert stage2.trains_on_block_kernels() and not stage2.trains_on_residuals()
     got = model.expected_launches((4, 256, 256, 3), train=True)
-    # C=384 (8 + 8 blocks) on the sublayer kernels; C=768 (8) on eager autograd
-    assert got["ln_window_attention_bwd"] == 16 * wa.LN_WMSA_BWD_LAUNCHES
-    assert got["fused_swin_block"] == 0 and got["fused_swin_block_res"] == 32
+    # C=384 (8 + 8 blocks) on the sequence form; C=768 (8) on eager autograd
+    assert got["ln_window_attention_bwd"] == 0
+    assert got["fused_swin_block"] == 16 * wa.SWIN_BLOCK_SEQ_LAUNCHES
+    assert got["swin_block_bwd"] == 16 * wa.SWIN_BLOCK_BWD_LAUNCHES
+    assert got["fused_swin_block_res"] == 32
 
 
 def test_router_keeps_every_tiny_block_on_kernels():

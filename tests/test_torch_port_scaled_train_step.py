@@ -5,9 +5,10 @@ the JAX package's, through ``test_torch_port_train_step.check_step``
 
 The port runs its fused route on the CPU (the kernels' plain versions): the
 8 blocks at 256-token windows (C=60 and 120) on #1's train form and #8's
-big-window backward, the C=240 and C=480 blocks on the sublayer kernels
-(C=240's 8 heads give the cluster block kernel no plan), the head on #5 +
-#9 at C=60. JAX runs ``value_and_grad`` of the same loss on its XLA
+big-window backward, the C=240 and C=480 blocks (64 and 16 tokens a
+window; C=240's 8 heads give the cluster block kernel no plan, C=480 is
+above its cap) on #1's train form on the sequence form and #8, as JAX's
+block kernel takes every block up to C=768; the head on #5 + #9 at C=60. JAX runs ``value_and_grad`` of the same loss on its XLA
 attention backend (``attention_backend="xla"``): its Pallas training
 kernels in interpret mode take minutes for this step on one CPU core;
 ``test_torch_port_scaled_train.py`` holds the block and head kernels' plain
@@ -23,4 +24,4 @@ from sunet_tf_tpu_torch import config as tconfig
 
 def test_scaled_training_step_matches_jax(monkeypatch):
     configs = (jconfig.scaled_config(**SHRUNK), tconfig.scaled_config(**SHRUNK))
-    check_step(None, monkeypatch, configs=configs, routes=(8, 6), jax_backend="xla")
+    check_step(None, monkeypatch, configs=configs, routes=(14, 0), jax_backend="xla")

@@ -33,6 +33,7 @@ from sunet_tf_tpu_torch.config import Config
 from sunet_tf_tpu_torch.kernels import _build
 from sunet_tf_tpu_torch.kernels import upsample as up
 from sunet_tf_tpu_torch.kernels import window_attention as wa
+from sunet_tf_tpu_torch.models import layers
 from sunet_tf_tpu_torch.models.sunet import build_model
 
 UP4_NAMES = ("dx", "dw_exp", "dalpha_p", "dw_b1", "db_b1", "dalpha_b", "dwpf", "dwbf")
@@ -64,11 +65,17 @@ def _assert_limits(names, got, want, dtype):
 # ---------------------------------------------------------------- launch counts
 
 
-def test_launch_constants_and_both_steps():
+def test_launch_constants_and_both_steps(monkeypatch):
     assert up.UP4_BWD_LAUNCHES == 5 and wa.LN_MLP_BRANCH_LAUNCHES == 2
     got = build_model(Config(), device="meta", backend="fused", seed=0).expected_launches(
         (4, 256, 256, 3), train=True)
-    # the C=768 bottleneck: 8 blocks, 2 launches each
+    # the C=768 bottleneck trains on the block kernels by default; on the
+    # sublayer kernels with the training cap at 384: 8 blocks, 2 launches
+    # each
+    assert got["ln_mlp_branch"] == 0 and got["up4_bwd"] == 0
+    monkeypatch.setattr(layers, "ROUTE_TRAIN_BLOCK_MAX_C", 384)
+    got = build_model(Config(), device="meta", backend="fused", seed=0).expected_launches(
+        (4, 256, 256, 3), train=True)
     assert got["ln_mlp_branch"] == 16 and got["up4_bwd"] == 0
     cfg = Config()
     cfg = cfg.replace(swinunet=dataclasses.replace(cfg.swinunet, in_chans=16, out_chans=16))
